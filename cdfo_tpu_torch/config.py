@@ -1,9 +1,11 @@
 """Model configuration of the PyTorch port (mirrors ``cdfo_tpu.config``).
 
-The port runs one slice of the JAX package: CVSR_V8 with the noise-free
-EGLA mask and every ``fused_*`` execution strategy off, in float32 or
-bfloat16. A setting outside that slice raises ``NotImplementedError``
-naming the work that would add it, so nothing silently ignores a field.
+The port runs these slices of the JAX package: CVSR_V8 with the
+noise-free EGLA mask, in float32 or bfloat16, with ``fused_trunk`` off or
+on (on: the trunk, the upsample head and the alignment tail run as
+hand-written kernels on a GPU). Every other ``fused_*`` strategy is off. A
+setting outside those slices raises ``NotImplementedError`` naming the
+work that would add it, so nothing silently ignores a field.
 """
 from __future__ import annotations
 
@@ -12,8 +14,6 @@ import dataclasses
 import torch
 
 _LATER = {
-    "fused_trunk": "the fused trunk kernels (ROADMAP Queue 2: fused_block2, "
-                   "fused_groupconv, fused_head, fused_tail)",
     "scan_trunk": "the scan trunk (ROADMAP Queue 1.8, model zoo)",
     "trunk_int8": "the int8 trunk kernel (ROADMAP Queue 2: fused_block2_q)",
     "fused_embed": "the fused GCPI kernels (ROADMAP Queue 2: fused_mdta)",

@@ -9,12 +9,17 @@ same ``fusion_out`` conv used for the warp fusion, then CALayer and two
 residual blocks. The MSA's parameters live flat on the module
 (``conv_du``, ``temperature``, ``project_out``), as in the reference
 ``state_dict``.
+
+With ``center`` given (the ``fused_trunk`` path), the tail after the
+CALayer gate is one ``ops/fused_tail.resblock_pair`` call, which applies the
+gate and adds ``center[b // nbr]`` itself (JAX ``_fast_tail``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..ops.fused_tail import resblock_pair
 from ..ops.warp import flow_warp
 from .attention import _channel_attention
 from .layers import CALayer, Conv2d, ResidualBlockNoBN
@@ -22,8 +27,10 @@ from .layers import CALayer, Conv2d, ResidualBlockNoBN
 
 class DualAttAlignment(nn.Module):
     """forward(x=center feat, extra_feat=neighbour feat, pred_feat, flow,
-    warped_feat=None); flow (B, H, W, 2) pixel-unit (dx, dy). Streaming
-    callers pass ``warped_feat`` precomputed from the ring."""
+    warped_feat=None, center=None); flow (B, H, W, 2) pixel-unit (dx, dy).
+    Streaming callers pass ``warped_feat`` precomputed from the ring, and on
+    the fused path ``center`` (B // nbr, H, W, C), the distinct centre
+    frames that ``x`` repeats."""
 
     def __init__(self, dim: int = 64, num_heads: int = 4,
                  dtype: torch.dtype = torch.float32):
@@ -52,12 +59,22 @@ class DualAttAlignment(nn.Module):
         return self.project_out(_channel_attention(
             q_in, k_in, v_sum, self.temperature, self.num_heads))
 
-    def forward(self, x, extra_feat, pred_feat, flow, warped_feat=None):
+    def forward(self, x, extra_feat, pred_feat, flow, warped_feat=None,
+                center=None):
         if warped_feat is None:
             warped_feat = flow_warp(extra_feat, flow)
         fused = torch.relu(self.fusion_out(
             torch.cat([warped_feat, pred_feat], dim=-1)))
         out = self._gate_msa(x, fused, (warped_feat, pred_feat))
         out = torch.relu(self.fusion_out(torch.cat([out, x], dim=-1)))
+        if center is not None:
+            gate = self.CALayer.conv_du(out.mean(dim=(1, 2), keepdim=True))
+            rb1, rb2 = self.ResidualBlock, self.ResidualBlock1
+            return resblock_pair(
+                out.contiguous(), center.contiguous(),
+                gate.reshape(gate.shape[0], -1).contiguous(),
+                rb1.conv1.weight, rb1.conv1.bias, rb1.conv2.weight,
+                rb1.conv2.bias, rb2.conv1.weight, rb2.conv1.bias,
+                rb2.conv2.weight, rb2.conv2.bias)
         out = self.ResidualBlock1(self.ResidualBlock(self.CALayer(out)))
         return out + x

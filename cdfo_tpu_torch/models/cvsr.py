@@ -13,6 +13,11 @@ Inputs (channels-last):
 ``forward`` returns (sr (B, 4H, 4W, 1) float32, l1_fea (B, N, H, W, nf)).
 The streaming engine calls ``compensate_frames`` once per new frame and
 ``align_reconstruct`` for k centre frames at a time.
+
+``cfg.fused_trunk`` selects the fused path: the trunk is ``SCNetFast``, the
+head one ``ops/fused_head`` call, and in ``align_reconstruct`` the
+alignment tail one ``ops/fused_tail`` call, as in the JAX package (whose
+``__call__`` keeps the plain alignment tail, as ``forward`` does here).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops.fused_head import fused_head
 from ..ops.resize import interpolate_bilinear, pixel_shuffle
 from ..ops.warp import flow_warp_ring
 from .alignment import DualAttAlignment
@@ -29,6 +35,7 @@ from .attention import EGLA
 from .layers import Conv2d, init_weights, lrelu
 from .prior_encoder import PartitionTransformerSA2
 from .trunk import SCNetS
+from .trunk_fast import SCNetFast
 
 
 class CVSRV8(nn.Module):
@@ -51,7 +58,8 @@ class CVSRV8(nn.Module):
         # tsa_fusion is a 1x1 conv over the frame-major (N*nf) channel
         # concat; it is applied as a frame contraction (see _tsa)
         self.tsa_fusion = Conv2d(cfg.nframes * nf, nf, 1, dtype=dt)
-        self.recon_trunk = SCNetS(nf, cfg.scn_groups, dtype=dt)
+        trunk = SCNetFast if cfg.fused_trunk else SCNetS
+        self.recon_trunk = trunk(nf, cfg.scn_groups, dtype=dt)
         self.upconv1 = Conv2d(nf, nf * 4, 1, dtype=dt)
         self.upconv2 = Conv2d(nf, nf * 4, 1, dtype=dt)
         self.conv_last = Conv2d(nf, 1, 3, 1, 1, dtype=dt)
@@ -100,6 +108,11 @@ class CVSRV8(nn.Module):
         """Two (1x1 conv + PixelShuffle(2)) stages, conv_last, plus the
         bilinear x``scale`` upsample of the centre LR frame."""
         dt = self.cfg.compute_dtype
+        if self.cfg.fused_trunk:
+            return fused_head(out.contiguous(), center_lr.to(dt).contiguous(),
+                              self.upconv1.weight, self.upconv1.bias,
+                              self.upconv2.weight, self.upconv2.bias,
+                              self.conv_last.weight, self.conv_last.bias)
         out = lrelu(pixel_shuffle(self.upconv1(out), 2))
         out = lrelu(pixel_shuffle(self.upconv2(out), 2))
         out = self.conv_last(out)
@@ -141,8 +154,9 @@ class CVSRV8(nn.Module):
         warped = flow_warp_ring(ring_fi.to(dt), nbr_idx.reshape(k * nm1), mv)
         center_rep = center_l1[:, None].expand(k, nm1, h, w, cfg.nf) \
             .reshape(k * nm1, h, w, cfg.nf)
-        aligned = self.MV_deform_align(center_rep, None, ufs_p, mv,
-                                       warped_feat=warped)
+        aligned = self.MV_deform_align(
+            center_rep, None, ufs_p, mv, warped_feat=warped,
+            center=center_l1 if cfg.fused_trunk else None)
         aligned = aligned.reshape(k, nm1, h, w, cfg.nf)
         return self._reconstruct(aligned, center_l1, center_lr)
 

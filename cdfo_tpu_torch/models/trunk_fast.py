@@ -1,0 +1,72 @@
+"""The CSSR trunk on the fused kernels (counterpart of
+``cdfo_tpu/models/trunk_fast.py``): ``SCNetFast`` / ``_GroupFast`` /
+``_BlockFast`` compute what ``SCNetS`` / ``SCGroupS`` / ``BlockS`` compute,
+with each ``Block_`` one ``ops/fused_block2.scale_block`` call and each
+group tail one ``ops/fused_groupconv.grouptail`` call. The outer ``x + r``
+skip stays plain.
+
+Their ``state_dict`` keys are ``SCNetS``'s (``body.i.body.j.body.0.weight``
+and so on): ``_BlockFast`` is a ``BlockS`` with another ``forward``, so
+``from_flax`` loads the JAX fused and unfused trees (which are identical)
+into either trunk, and one generator seed gives both trunks the same
+weights.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.fused_block2 import pack_weights, scale_block
+from ..ops.fused_groupconv import grouptail
+from .layers import Conv2d
+from .trunk import BlockS
+
+
+class _BlockFast(BlockS):
+    """``BlockS`` through the fused Block_ kernel. The kernel's weight
+    layouts (with the down2-folded conv2) are packed once and kept until a
+    parameter changes (new storage or an in-place update)."""
+
+    def _params(self):
+        return (self.body[0].weight, self.body[0].bias, self.body[2].weight,
+                self.body[2].bias, self.down[0].weight, self.down[0].bias,
+                self.up[0].weight, self.up[0].bias)
+
+    def _packed(self, x, params):
+        if x.device.type != "cuda":
+            return None
+        key = (x.dtype,) + tuple((p.data_ptr(), p._version) for p in params)
+        if getattr(self, "_pack_key", None) != key:
+            self._pack = pack_weights(*params, x.dtype)
+            self._pack_key = key
+        return self._pack
+
+    def forward(self, x):
+        params = self._params()
+        return scale_block(x, *params, packed=self._packed(x, params))
+
+
+class _GroupFast(nn.Module):
+    def __init__(self, nf: int = 64, back_rbs: int = 3,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.body = nn.Sequential(
+            *[_BlockFast(nf, dtype=dtype) for _ in range(back_rbs)])
+        self.conv = Conv2d(nf, nf, 3, 1, 1, dtype=dtype)
+
+    def forward(self, x):
+        return grouptail(self.body(x), x, self.conv.weight, self.conv.bias)
+
+
+class SCNetFast(nn.Module):
+    """``SCNetS`` on the fused kernels; NHWC in and out."""
+
+    def __init__(self, nf: int = 64, num_groups: int = 7,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.body = nn.Sequential(
+            *[_GroupFast(nf, dtype=dtype) for _ in range(num_groups)])
+
+    def forward(self, x):
+        x = x.contiguous()
+        return x + self.body(x)

@@ -3,9 +3,14 @@
 Each ``cdfo_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled at first use with ``nvcc`` into a shared library under the
 checkout's ``build/cuda/`` (listed in ``.gitignore``), then loaded with
-``ctypes``. The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused
-across processes. There is no fallback: without ``nvcc`` the build raises.
+``ctypes``. The library's file name carries a hash of every source under
+``csrc/`` (each ``.cu`` and the ``.cuh`` headers they share) and of the
+flags, so an edited source or header is rebuilt and an unchanged tree is
+reused across processes. There is no fallback: without ``nvcc`` the build
+raises.
+
+:func:`build` compiles several libraries at once, one ``nvcc`` process
+each, all started together.
 """
 from __future__ import annotations
 
@@ -16,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
@@ -24,6 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# the dtype codes the kernels' C interfaces take (is_bf16)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def find_nvcc() -> str:
@@ -46,31 +55,133 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """``build/cuda/<name>-<hash>.so``; the hash covers the name, every
+    ``*.cu`` and ``*.cuh`` under ``csrc/`` (sorted by name) and the flags."""
+    h = hashlib.sha256(f"{name}\0{' '.join(NVCC_FLAGS)}\0".encode())
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(f"{src.name}\0".encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> None:
+    """Compile the libraries of ``names`` that are missing, one ``nvcc``
+    process per source, all running at once. The compiler's output,
+    including ``-Xptxas -v`` register, spill and shared-memory counts, is
+    kept beside each library as ``.log``."""
+    todo = {n: library_path(n) for n in dict.fromkeys(names)}
+    todo = {n: p for n, p in todo.items() if not p.exists()}
+    if not todo:
+        return
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        todo[name].with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{name}.cu:\n{log}")
+        else:
+            os.replace(tmp, todo[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, then load it
-    (once per process). The compiler's output, including ``-Xptxas -v``
-    register and shared-memory counts, is kept beside the library as
-    ``.log``."""
+    (once per process)."""
     if name in _LIBS:
         return _LIBS[name]
-    out = library_path(name)
-    if not out.exists():
-        nvcc = find_nvcc()
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            capture_output=True, text=True)
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    build(name)
+    lib = ctypes.CDLL(str(library_path(name)))
     _LIBS[name] = lib
     return lib
+
+
+def kernel_function(name: str, symbol: str, argtypes):
+    """(C function ``symbol`` of library ``name`` returning a cudaError_t,
+    the library's ``cdfo_cuda_error_string``)."""
+    lib = load_library(name)
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.cdfo_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cdfo_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.cdfo_cuda_error_string
+
+
+# -- what every kernel wrapper does before and around a launch ---------------
+
+def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A torch conv weight (N out, K in, kh, kw) in the layout
+    ``csrc/conv3x3_tile.cuh`` reads (its ``Weights``): float32 [tap][N][K];
+    bfloat16 the mma B-fragment order [tap][K/16][N/8][g][t][half][pair],
+    where lane 4g + t of a warp loads the 4 values n = 8nt + g,
+    k = 16kt + 8half + 2t + pair as one 8-byte word."""
+    n, k, kh, kw = w.shape
+    t = w.permute(2, 3, 0, 1).reshape(kh * kw, n, k).to(dtype)
+    if dtype == torch.bfloat16:
+        t = t.reshape(kh * kw, n // 8, 8, k // 16, 2, 4, 2) \
+            .permute(0, 3, 1, 2, 5, 4, 6)
+    return t.contiguous()
+
+
+def forbid_grad(what: str, *tensors: torch.Tensor) -> None:
+    """The kernels are inference-only: raise when autograd would record."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} is inference-only: its backward is not ported (ROADMAP "
+            "Queue 1.7, the recompute backwards of cdfo_tpu/ops/fused_vjp.py);"
+            " call it under torch.no_grad() or torch.inference_mode()")
+
+
+def on_card(t: torch.Tensor, what: str) -> bool:
+    """True: launch the kernel (CUDA tensor). False: CPU tensor, plain
+    version. Any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise NotImplementedError(f"{what} has no path for {t.device}")
+
+
+def check_operands(what: str, *tensors: torch.Tensor,
+                   channels: int | None = None) -> None:
+    """All of one CUDA device and one dtype (float32 or bfloat16), each
+    contiguous and non-empty; with ``channels``, the first tensor's last
+    dimension must be it."""
+    first = tensors[0]
+    if first.dtype not in DTYPE_CODES:
+        raise TypeError(f"{what} takes float32 or bfloat16, got {first.dtype}")
+    for t in tensors:
+        if t.device != first.device:
+            raise ValueError(f"{what}: operands on {first.device} and "
+                             f"{t.device}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"{what}: operands of one dtype, got "
+                            f"{first.dtype} and {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} needs contiguous operands")
+        if t.numel() == 0:
+            raise ValueError(f"{what} got an empty tensor")
+    if channels is not None and first.shape[-1] != channels:
+        raise ValueError(f"{what} takes NHWC tensors of {channels} channels, "
+                         f"got shape {tuple(first.shape)}")
+
+
+def launch(kernel, what: str, device: torch.device, *args) -> None:
+    """Calls ``kernel = (fn, error_string)`` with ``args`` and the current
+    stream of ``device``; raises if the launch was refused."""
+    fn, err_str = kernel
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({err_str(err).decode()})")

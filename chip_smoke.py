@@ -7,19 +7,28 @@ Phases, each of which raises on failure (there is no CPU mode: without a
 CUDA device the script exits non-zero before printing any result):
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
-2. build of the hand-written CUDA kernel from ``cdfo_tpu_torch/csrc``;
-3. the kernel against its plain PyTorch version on the card, at the main
-   path's row and column shapes and at ragged shapes, in float32 and
-   bfloat16, with kernel and plain times (CUDA events, median of 15);
-4. a small CVSR_V8 (2 trunk groups, 16x24 frames) through the streaming
-   engine on the card (float32, kernel on, TF32 off) against the same
+2. build of every hand-written CUDA kernel from ``cdfo_tpu_torch/csrc``, one
+   ``nvcc`` per source, all at once, with each library's ``ptxas``
+   register and spill lines;
+3. each kernel against its plain PyTorch version on the card, in float32
+   and bfloat16, with kernel and plain times (CUDA events, median of 15) at
+   the main path's shapes: the attention kernel at its row and column
+   shapes and at ragged ones; the four fused-trunk kernels (``Block_``,
+   group tail, head, alignment tail) at the 272x480, k=4 shapes and at a
+   ragged even shape; an odd extent must be refused;
+4. two small CVSR_V8 (2 trunk groups, 16x24 frames) through the streaming
+   engine on the card (float32, kernels on, TF32 off) against the same
    weights through the same engine on the CPU (plain versions): uint8
-   frames within 1 LSB;
+   frames within 1 LSB, once with ``fused_trunk`` off and once on;
 5. the full-width slice: CVSR_V8 at its default widths (nf=64, 7 trunk
    groups), bfloat16, seeded random weights, ``BatchedStreamingEngine(k=4)``
-   on a 12-frame 272x480 synthetic sequence in timed mode; checks the
-   (12, 1080, 1920) uint8 output and that every ``compensate_frames`` call
-   launched the attention kernel twice (row and column stage).
+   on a 12-frame 272x480 synthetic sequence in timed mode, with
+   ``fused_trunk`` off and then on (the same weights); checks the
+   (12, 1080, 1920) uint8 output, that every ``compensate_frames`` call
+   launched the attention kernel twice (row and column stage), that every
+   ``align_reconstruct`` call of the fused run launched 21 ``Block_``, 7
+   group-tail, 1 head and 1 tail kernels, and that the fused frames are
+   within 40 dB PSNR of the unfused ones.
 
 The line before the last is a JSON object with one entry per kernel
 wrapper; the last line is ``{"ok": true, "device": {...}}``.
@@ -39,13 +48,43 @@ from cdfo_tpu_torch.infer import BatchedStreamingEngine, synthetic_sequence
 from cdfo_tpu_torch.models import CVSRV8
 from cdfo_tpu_torch.ops import cuda_build
 from cdfo_tpu_torch.ops import fused_attention as fa
+from cdfo_tpu_torch.ops import fused_block2 as fb
+from cdfo_tpu_torch.ops import fused_groupconv as fg
+from cdfo_tpu_torch.ops import fused_head as fh
+from cdfo_tpu_torch.ops import fused_tail as ft
 
 # max |kernel - plain| allowed, relative to max |plain|: float32 differs
-# only in summation order; bfloat16 rounds p and the output to 8 mantissa
-# bits (one output ulp is 2^-8 of the largest value), so 4 ulps
+# only in summation order; bfloat16 rounds intermediates and the output to
+# 8 mantissa bits (one output ulp is 2^-8 of the largest value), at other
+# points than eager PyTorch, so 4 ulps
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 SOURCE = "cdfo_tpu_torch/csrc/fused_attention.cu"
 REPLACES = "cdfo_tpu/ops/fused_attention.py:43"
+LIBRARIES = ("fused_attention", "fused_block2", "fused_groupconv",
+             "fused_head", "fused_tail")
+# the fused-trunk kernels: JSON name, wrapper, plain version, source, the
+# TPU kernel it replaces
+TRUNK_KERNELS = {
+    "block": ("fused_block2.scale_block", fb.scale_block,
+              fb.scale_block_plain, "cdfo_tpu_torch/csrc/fused_block2.cu",
+              "cdfo_tpu/ops/fused_block2.py:375"),
+    "group": ("fused_groupconv.grouptail", fg.grouptail, fg.grouptail_plain,
+              "cdfo_tpu_torch/csrc/fused_groupconv.cu",
+              "cdfo_tpu/ops/fused_groupconv.py:107"),
+    "head": ("fused_head.fused_head", fh.fused_head, fh.fused_head_plain,
+             "cdfo_tpu_torch/csrc/fused_head.cu",
+             "cdfo_tpu/ops/fused_head.py:207"),
+    "tail": ("fused_tail.resblock_pair", ft.resblock_pair,
+             ft.resblock_pair_plain, "cdfo_tpu_torch/csrc/fused_tail.cu",
+             "cdfo_tpu/ops/fused_tail.py:193"),
+}
+# per align_reconstruct call at 7 trunk groups
+TRUNK_LAUNCHES = {"block": 21, "group": 7, "head": 1, "tail": 1}
+# NHWC shapes: the main path's at 272x480, k=4 (the tail's batch is 6k
+# neighbour images, 3 neighbours per image in the ragged case), then ragged
+# ones (not multiples of any tile)
+TRUNK_MAIN = (4, 272, 480, 64)
+TRUNK_SHAPES = (TRUNK_MAIN, (2, 18, 34, 64))
 # (wrapper, shape): the main path's row and column shapes at 272x480, k=4,
 # then ragged ones (N not a multiple of the 64-row tile)
 KERNEL_CASES = [
@@ -88,6 +127,86 @@ def median_ms(fn, reps: int = 15) -> float:
 def reset_launches():
     fa.token_self_attention.launches = 0
     fa.column_self_attention.launches = 0
+    for _, wrapper, *_ in TRUNK_KERNELS.values():
+        wrapper.launches = 0
+
+
+def trunk_args(kind, shape, dtype, g):
+    """Inputs of one fused-trunk kernel at NHWC ``shape``, drawn from
+    ``g``; the tail gets 6 neighbours per image at the main shape, else 3."""
+    def rnd(*s, scale=1.0):
+        return (torch.randn(*s, generator=g, device="cuda") * scale).to(dtype)
+
+    def rand(*s):
+        return torch.rand(*s, generator=g, device="cuda").to(dtype)
+
+    c = shape[-1]
+    if kind == "block":
+        return (rnd(*shape), rnd(4 * c, c, 3, 3, scale=0.03),
+                rnd(4 * c, scale=0.1), rnd(c, 4 * c, 3, 3, scale=0.02),
+                rnd(c, scale=0.1), rnd(c, c, 1, 1, scale=0.1),
+                rnd(c, scale=0.1), rnd(c, c, 1, 1, scale=0.1),
+                rnd(c, scale=0.1))
+    if kind == "group":
+        return (rnd(*shape), rnd(*shape), rnd(c, c, 3, 3, scale=0.05),
+                rnd(c, scale=0.1))
+    if kind == "head":
+        return (rnd(*shape), rand(*shape[:3], 1),
+                rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
+                rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
+                rnd(1, c, 3, 3, scale=0.1), rnd(1, scale=0.1))
+    nbr = 6 if shape == TRUNK_MAIN else 3
+    ws = []
+    for _ in range(4):
+        ws += [rnd(c, c, 3, 3, scale=0.05), rnd(c, scale=0.1)]
+    return (rnd(nbr * shape[0], *shape[1:]), rnd(*shape),
+            rand(nbr * shape[0], c), *ws)
+
+
+@torch.no_grad()
+def check_trunk_kernels(card: str) -> dict:
+    """Phase 3, fused-trunk part; returns the JSON fields of each kernel,
+    measured at the main path's shape in bfloat16 (the full slice's dtype).
+    TF32 is off, so the float32 plain side is full float32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(1)
+    fields = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in TRUNK_SHAPES:
+            for kind, (name, kernel, plain, _, _) in TRUNK_KERNELS.items():
+                args = trunk_args(kind, shape, dtype, g)
+                out = kernel(*args)
+                ref = plain(*args)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                line = (f"kernel {name} {shape} {str(dtype)[6:]}: max_abs_err "
+                        f"{err:.3e} (max |plain| {scale:.3f}, rel "
+                        f"{err / scale:.3e}, tolerance rel "
+                        f"{TOLERANCE[dtype]:.1e})")
+                if shape == TRUNK_MAIN:
+                    ms = median_ms(lambda: kernel(*args))
+                    plain_ms = median_ms(lambda: plain(*args))
+                    line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                             f"[{card}]")
+                    if dtype == torch.bfloat16:
+                        fields[kind] = {"max_abs_err": err, "ms": ms,
+                                        "plain_ms": plain_ms}
+                print(line, flush=True)
+                if not err <= TOLERANCE[dtype] * scale:
+                    raise AssertionError(f"kernel disagrees with plain: "
+                                         f"{line}")
+                del args, out, ref
+            torch.cuda.empty_cache()
+    odd = trunk_args("block", (1, 16, 23, 64), torch.bfloat16, g)
+    try:
+        fb.scale_block(*odd)
+    except ValueError as e:
+        print(f"odd extent refused: {e}", flush=True)
+    else:
+        raise AssertionError("fused_block2 took an odd extent")
+    return fields
 
 
 def check_kernels(card: str) -> dict:
@@ -127,11 +246,12 @@ def check_kernels(card: str) -> dict:
     return fields
 
 
-def check_small_slice():
-    """Phase 4: card (kernel) vs CPU (plain versions), one set of weights."""
+def check_small_slice(fused: bool):
+    """Phase 4: card (kernels) vs CPU (plain versions), one set of
+    weights."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = ModelConfig(scn_groups=2)
+    cfg = ModelConfig(scn_groups=2, fused_trunk=fused)
     data = synthetic_sequence(t=9, h=16, w=24, seed=3)
     frames = {}
     for dev in ("cpu", "cuda"):
@@ -140,44 +260,59 @@ def check_small_slice():
         frames[dev], _ = BatchedStreamingEngine(model, k=4).run_sequence(data)
     diff = np.abs(frames["cuda"].astype(np.int32)
                   - frames["cpu"].astype(np.int32))
-    print(f"small slice (nf=64, 2 groups, 9x16x24, k=4, fp32): card vs CPU "
-          f"max diff {diff.max()} LSB over {diff.size} pixels", flush=True)
+    print(f"small slice (nf=64, 2 groups, 9x16x24, k=4, fp32, fused_trunk="
+          f"{fused}): card vs CPU max diff {diff.max()} LSB over {diff.size} "
+          f"pixels", flush=True)
     if diff.max() > 1 or frames["cuda"].std() == 0:
         raise AssertionError("small-slice card output disagrees with CPU")
 
 
-def run_full_slice(card: str) -> dict:
-    """Phase 5; returns the launches per wrapper in the timed run."""
+def run_full_slice(card: str, fused: bool):
+    """Phase 5 for one setting of ``fused_trunk``; returns (frames, the
+    launches per wrapper in the timed run)."""
     t, k = 12, 4
-    cfg = ModelConfig(compute_dtype=torch.bfloat16)
+    cfg = ModelConfig(compute_dtype=torch.bfloat16, fused_trunk=fused)
     model = CVSRV8(cfg, generator=torch.Generator().manual_seed(0),
                    device="cuda")
     data = synthetic_sequence(t=t, h=272, w=480, seed=0)
     eng = BatchedStreamingEngine(model, k=k)
     t0 = time.perf_counter()
     eng.run_sequence(data)   # warm-up: cuDNN/cuBLAS plans, allocator
-    print(f"full slice warm-up run {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"full slice fused_trunk={fused}: warm-up run "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     frames, fps = eng.run_sequence(data, collect_timing=True)
     launches = {"token": fa.token_self_attention.launches,
                 "column": fa.column_self_attention.launches}
+    launches.update({kind: wrapper.launches
+                     for kind, (_, wrapper, *_) in TRUNK_KERNELS.items()})
     peak = torch.cuda.max_memory_allocated() / 2**30
-    calls = 1 + len(range(0, t, k))   # bootstrap + one per step
+    steps = len(range(0, t, k))
+    calls = 1 + steps   # compensate_frames: bootstrap + one per step
     print(f"full slice (CVSR_V8 nf=64, 7 groups, bf16, 272x480 -> 1080x1920, "
-          f"k={k}, {t} frames): {fps:.3f} fps by the reference protocol, "
-          f"peak memory {peak:.2f} GiB [{card}]", flush=True)
-    print(f"compensate_frames calls {calls}, kernel launches {launches}",
+          f"k={k}, {t} frames, fused_trunk={fused}): {fps:.3f} fps by the "
+          f"reference protocol, peak memory {peak:.2f} GiB [{card}]",
           flush=True)
+    print(f"compensate_frames calls {calls}, align_reconstruct calls {steps}, "
+          f"kernel launches {launches}", flush=True)
     if frames.shape != (t, 1080, 1920) or frames.dtype != np.uint8:
         raise AssertionError(f"frames {frames.shape} {frames.dtype}")
     if frames.std() == 0:
         raise AssertionError("full-slice output is constant")
-    if launches != {"token": calls, "column": calls}:
-        raise AssertionError(f"expected 2 launches per compensate_frames "
-                             f"call ({calls} calls), got {launches}")
-    return launches
+    want = {"token": calls, "column": calls}
+    want.update({kind: n * steps if fused else 0
+                 for kind, n in TRUNK_LAUNCHES.items()})
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    del model, eng
+    torch.cuda.empty_cache()
+    return frames, launches
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
 
 
 def main():
@@ -191,24 +326,44 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
-    fa.build()
-    print(f"built {SOURCE} in {time.perf_counter() - t0:.1f} s "
-          f"({cuda_build.library_path('fused_attention').name})", flush=True)
-    log = cuda_build.library_path("fused_attention").with_suffix(".log")
-    for line in log.read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.replace('ptxas info    :', 'ptxas:').strip()}",
-                  flush=True)
+    try:
+        cuda_build.build(*LIBRARIES)
+    finally:
+        for name in LIBRARIES:
+            log = cuda_build.library_path(name).with_suffix(".log")
+            if not log.exists():
+                continue
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line or "rror" in line:
+                    line = line.replace("ptxas info    :", "ptxas:").strip()
+                    print(f"  {name}: {line}", flush=True)
+    print(f"built {len(LIBRARIES)} libraries in parallel in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     fields = check_kernels(card)
-    check_small_slice()
-    launches = run_full_slice(card)
+    fields.update(check_trunk_kernels(card))
+    check_small_slice(fused=False)
+    check_small_slice(fused=True)
+    plain_frames, _ = run_full_slice(card, fused=False)
+    frames, launches = run_full_slice(card, fused=True)
+    quality = psnr(frames, plain_frames)
+    print(f"full slice: fused vs unfused uint8 frames PSNR {quality:.2f} dB "
+          f"(max diff {np.abs(frames.astype(np.int32) - plain_frames).max()} "
+          f"LSB)", flush=True)
+    if not quality >= 40.0:
+        raise AssertionError(f"fused frames are {quality:.2f} dB from the "
+                             "unfused ones (limit 40 dB)")
 
-    print(json.dumps({"kernels": [
+    kernels = [
         {"name": f"fused_attention.{kind}_self_attention", "route": "cuda",
          "source": SOURCE, "replaces": REPLACES,
          "launches": launches[kind], **fields[kind]}
-        for kind in ("token", "column")]}))
+        for kind in ("token", "column")]
+    kernels += [
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[kind], **fields[kind]}
+        for kind, (name, _, _, source, replaces) in TRUNK_KERNELS.items()]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,258 @@
+"""The fused-trunk CUDA kernels' own code, run on the CPU.
+
+A CUDA kernel has no interpret mode, so this test compiles each
+``cdfo_tpu_torch/csrc/fused_*.cu`` (Block_, group tail, head, alignment
+tail) with the host C++ compiler against a small emulation of the CUDA
+subset they use (``_SHIM`` below): blocks run one after another with 256
+threads each, ``__syncthreads`` is a barrier, and ``mma.sync`` /
+``ldmatrix`` exchange their fragments through per-warp memory. The
+wrappers then take their kernel route on CPU tensors and are held against
+their plain versions at small ragged shapes, in float32 and bfloat16, with
+``chip_smoke.py``'s tolerances. It checks the kernels' indexing, borders,
+tiling and fragment layouts; speed and the real compiler are the card's
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+import concurrent.futures
+import ctypes
+import shutil
+import subprocess
+
+import pytest
+import torch
+
+from cdfo_tpu_torch.ops import cuda_build as cb
+from cdfo_tpu_torch.ops import fused_block2 as fb
+from cdfo_tpu_torch.ops import fused_groupconv as fg
+from cdfo_tpu_torch.ops import fused_head as fh
+from cdfo_tpu_torch.ops import fused_tail as ft
+
+TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+# kind: (module, wrapper, plain version, library)
+KERNELS = {
+    "block": (fb, fb.scale_block, fb.scale_block_plain, "fused_block2"),
+    "group": (fg, fg.grouptail, fg.grouptail_plain, "fused_groupconv"),
+    "head": (fh, fh.fused_head, fh.fused_head_plain, "fused_head"),
+    "tail": (ft, ft.resblock_pair, ft.resblock_pair_plain, "fused_tail"),
+}
+
+_SHIM = r"""
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cstdint>
+#include <cstring>
+#include <math.h>
+#include <thread>
+#include <vector>
+using std::max;
+using std::min;
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __constant__
+#define __shared__
+#define CDFO_HOST_MMA 1
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct emu_uint3 { unsigned x, y, z; };
+inline thread_local emu_uint3 threadIdx;
+inline emu_uint3 blockIdx;
+inline dim3 blockDim(256);
+struct alignas(8) float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+template <class T> T __ldg(const T* p) { return *p; }
+inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
+struct __nv_bfloat16 { uint16_t v; };
+struct __nv_bfloat162 { __nv_bfloat16 x, y; };
+inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
+  uint32_t u; memcpy(&u, &f, 4);
+  u += 0x7FFFu + ((u >> 16) & 1u);
+  return {uint16_t(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) { return __uint_as_float(uint32_t(b.v) << 16); }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.v; }
+inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
+  return {__float2bfloat16(a), __float2bfloat16(b)};
+}
+inline float2 __bfloat1622float2(__nv_bfloat162 v) {
+  return {__bfloat162float(v.x), __bfloat162float(v.y)};
+}
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef void* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+// the card's 227 KB per block: a kernel asking for more fails, as on the card
+template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) {
+  return bytes <= 232448 ? 0 : 1;
+}
+inline cudaError_t cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated launch refused"; }
+inline std::barrier<>* emu_block_bar;
+inline std::barrier<>* emu_warp_bar[8];
+inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
+inline void cp_async_commit() {}
+inline void cp_async_wait() {}
+struct EmuWarp { uint32_t a[32][4]; uint32_t b[32][2]; const void* rows[32]; };
+inline EmuWarp emu_warp[8];
+inline float emu_half(uint32_t v, int hi) { return __uint_as_float((hi ? v >> 16 : v & 0xffffu) << 16); }
+// mma.sync.m16n8k16 row.col bf16 -> f32: lane 4g + t holds A rows g, g + 8
+// (k 2t, 2t+1 and 2t+8, 2t+9), B column g (same k) and C rows g, g + 8,
+// columns 2t, 2t+1
+inline void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                     uint32_t b0, uint32_t b1) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  EmuWarp& X = emu_warp[w];
+  X.a[l][0] = a0; X.a[l][1] = a1; X.a[l][2] = a2; X.a[l][3] = a3;
+  X.b[l][0] = b0; X.b[l][1] = b1;
+  emu_warp_bar[w]->arrive_and_wait();
+  const int g = l >> 2, t = l & 3;
+  auto A = [&](int r, int k) {
+    return emu_half(X.a[(r % 8) * 4 + (k % 8) / 2][(r >= 8) + 2 * (k >= 8)], k & 1);
+  };
+  auto B = [&](int k, int n) { return emu_half(X.b[n * 4 + (k % 8) / 2][k >= 8], k & 1); };
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < 16; ++k) {
+    d[0] += A(g, k) * B(k, 2 * t);
+    d[1] += A(g, k) * B(k, 2 * t + 1);
+    d[2] += A(g + 8, k) * B(k, 2 * t);
+    d[3] += A(g + 8, k) * B(k, 2 * t + 1);
+  }
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
+  emu_warp_bar[w]->arrive_and_wait();
+}
+// ldmatrix.x4: lane l gets row l/4, columns 2(l%4), 2(l%4)+1 of matrix j
+// in r[j]; lanes 8j .. 8j+7 give matrix j's row addresses
+inline void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* row) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_warp[w].rows[l] = row;
+  emu_warp_bar[w]->arrive_and_wait();
+  for (int j = 0; j < 4; ++j) {
+    memcpy(&r[j], static_cast<const __nv_bfloat16*>(emu_warp[w].rows[j * 8 + l / 4]) + 2 * (l % 4), 4);
+  }
+  emu_warp_bar[w]->arrive_and_wait();
+}
+template <class F> void emu_launch(dim3 grid, F&& body) {
+  for (unsigned z = 0; z < grid.z; ++z)
+    for (unsigned y = 0; y < grid.y; ++y)
+      for (unsigned x = 0; x < grid.x; ++x) {
+        blockIdx = {x, y, z};
+        std::barrier<> bar(256);
+        emu_block_bar = &bar;
+        for (int i = 0; i < 8; ++i) emu_warp_bar[i] = new std::barrier<>(32);
+        std::vector<std::thread> threads;
+        for (unsigned i = 0; i < 256; ++i) threads.emplace_back([&, i] { threadIdx = {i, 0, 0}; body(); });
+        for (auto& t : threads) t.join();
+        for (int i = 0; i < 8; ++i) delete emu_warp_bar[i];
+      }
+}
+#define CDFO_LAUNCH(kernel, grid, smem, stream, ...) emu_launch((grid), [&] { kernel(__VA_ARGS__); })
+namespace { alignas(16) uint4 cdfo_smem[232448 / 16]; }
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """{kind: ctypes library} of the kernels built for the host."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to emulate the "
+                    "kernels")
+    d = tmp_path_factory.mktemp("emulated_kernels")
+    (d / "shim.h").write_text(_SHIM)
+    (d / "inc").mkdir()
+    for header in ("cuda_bf16.h", "cuda_runtime.h"):
+        (d / "inc" / header).write_text("")
+
+    def compile_one(name):
+        out = d / f"{name}.so"
+        proc = subprocess.run(
+            [cxx, "-std=c++20", "-O1", "-fno-strict-aliasing", "-shared",
+             "-fPIC", "-pthread", "-include", str(d / "shim.h"), "-x", "c++",
+             str(cb.CSRC / f"{name}.cu"), "-I", str(cb.CSRC), "-I",
+             str(d / "inc"), "-o", str(out)],
+            capture_output=True, text=True)
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        return out
+
+    names = [k[3] for k in KERNELS.values()]
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        paths = list(pool.map(compile_one, names))
+    return {kind: ctypes.CDLL(str(p)) for kind, p in zip(KERNELS, paths)}
+
+
+def _case(kind, dtype):
+    """The kernel's arguments at small ragged shapes that span several
+    tiles (C = 64, as the kernels take)."""
+    g = torch.Generator().manual_seed(5)
+
+    def rnd(*s, scale=1.0):
+        return (torch.randn(*s, generator=g) * scale).to(dtype)
+
+    def rand(*s):
+        return torch.rand(*s, generator=g).to(dtype)
+
+    c = 64
+    if kind == "block":
+        return (rnd(1, 10, 12, c), rnd(4 * c, c, 3, 3, scale=0.03),
+                rnd(4 * c, scale=0.1), rnd(c, 4 * c, 3, 3, scale=0.02),
+                rnd(c, scale=0.1), rnd(c, c, 1, 1, scale=0.1),
+                rnd(c, scale=0.1), rnd(c, c, 1, 1, scale=0.1),
+                rnd(c, scale=0.1))
+    if kind == "group":
+        return (rnd(1, 9, 35, c), rnd(1, 9, 35, c),
+                rnd(c, c, 3, 3, scale=0.05), rnd(c, scale=0.1))
+    if kind == "head":
+        return (rnd(2, 9, 5, c), rand(2, 9, 5, 1),
+                rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
+                rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
+                rnd(1, c, 3, 3, scale=0.1), rnd(1, scale=0.1))
+    ws = []
+    for _ in range(4):
+        ws += [rnd(c, c, 3, 3, scale=0.05), rnd(c, scale=0.1)]
+    return (rnd(2, 6, 18, c), rnd(1, 6, 18, c), rand(2, c), *ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", list(KERNELS))
+def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
+    module, wrapper, plain, _ = KERNELS[kind]
+    lib = emulated[kind]
+
+    def kernel_function(name, symbol, argtypes):
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.cdfo_cuda_error_string.restype = ctypes.c_char_p
+        return fn, lib.cdfo_cuda_error_string
+
+    def launch(kernel, what, device, *args):
+        fn, err_str = kernel
+        err = fn(*args, None)
+        assert err == 0, f"{what}: {err_str(err)}"
+
+    # the wrapper's kernel route on CPU tensors, through the emulated library
+    monkeypatch.setattr(cb, "kernel_function", kernel_function)
+    monkeypatch.setattr(cb, "launch", launch)
+    monkeypatch.setattr(cb, "on_card", lambda t, what: True)
+    module._kernel.cache_clear()
+    try:
+        args = _case(kind, dtype)
+        before = wrapper.launches
+        with torch.no_grad():
+            out = wrapper(*args)
+            ref = plain(*args)
+    finally:
+        module._kernel.cache_clear()
+    assert wrapper.launches == before + 1
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= TOLERANCE[dtype] * ref.float().abs().max().item(), err
