@@ -1,11 +1,13 @@
 """Model configuration of the PyTorch port (mirrors ``cdfo_tpu.config``).
 
 The port runs these slices of the JAX package: CVSR_V8 with the
-noise-free EGLA mask, in float32 or bfloat16, with ``fused_trunk`` off or
-on (on: the trunk, the upsample head and the alignment tail run as
-hand-written kernels on a GPU). Every other ``fused_*`` strategy is off. A
-setting outside those slices raises ``NotImplementedError`` naming the
-work that would add it, so nothing silently ignores a field.
+noise-free EGLA mask, in float32 or bfloat16, with ``fused_trunk`` (the
+trunk, the upsample head and the alignment tail as hand-written kernels on
+a GPU), ``fused_embed`` (the GCPI rounds' MDTA) and ``fused_align`` (the
+dual MSA; it needs ``fused_trunk``, as the JAX model reaches it only there)
+each off or on. ``fused_egla`` and the other strategies are off. A setting
+outside those slices raises naming the work that would add it, so nothing
+silently ignores a field.
 """
 from __future__ import annotations
 
@@ -16,8 +18,6 @@ import torch
 _LATER = {
     "scan_trunk": "the scan trunk (ROADMAP Queue 1.8, model zoo)",
     "trunk_int8": "the int8 trunk kernel (ROADMAP Queue 2: fused_block2_q)",
-    "fused_embed": "the fused GCPI kernels (ROADMAP Queue 2: fused_mdta)",
-    "fused_align": "the fused alignment kernels (ROADMAP Queue 2: fused_align)",
     "fused_egla": "the fused EGLA kernels (ROADMAP Queue 2: fused_egla)",
     "block_warp": "the block-gather warp kernel (ROADMAP Queue 2: warp_block)",
 }
@@ -75,6 +75,11 @@ class ModelConfig:
         for f, work in _LATER.items():
             if getattr(self, f):
                 raise NotImplementedError(f"{f}=True: waits for {work}")
+        if self.fused_align and not self.fused_trunk:
+            raise ValueError(
+                "fused_align=True needs fused_trunk=True: the fused dual MSA "
+                "feeds the fused alignment tail (cdfo_tpu reaches it only "
+                "under fused_trunk and would ignore the flag otherwise)")
         if self.compute_dtype not in _DTYPES:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype}: the port runs "

@@ -13,12 +13,16 @@ residual blocks. The MSA's parameters live flat on the module
 With ``center`` given (the ``fused_trunk`` path), the tail after the
 CALayer gate is one ``ops/fused_tail.resblock_pair`` call, which applies the
 gate and adds ``center[b // nbr]`` itself (JAX ``_fast_tail``).
+``fused_msa`` (the ``fused_align`` path) runs the whole dual MSA as the two
+passes of ``ops/fused_align`` and then that tail (JAX ``_fused_msa``).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..ops.fused_align import msa_stage1, msa_stage2
+from ..ops.fused_mdta import attention_matrix
 from ..ops.fused_tail import resblock_pair
 from ..ops.warp import flow_warp
 from .attention import _channel_attention
@@ -59,6 +63,40 @@ class DualAttAlignment(nn.Module):
         return self.project_out(_channel_attention(
             q_in, k_in, v_sum, self.temperature, self.num_heads))
 
+    def _tail(self, out, center, gate):
+        """RB2(RB1(gate * out)) + center[b // nbr], one kernel call."""
+        rb1, rb2 = self.ResidualBlock, self.ResidualBlock1
+        return resblock_pair(
+            out.contiguous(), center.contiguous(), gate.contiguous(),
+            rb1.conv1.weight, rb1.conv1.bias, rb1.conv2.weight,
+            rb1.conv2.bias, rb2.conv1.weight, rb2.conv1.bias,
+            rb2.conv2.weight, rb2.conv2.bias)
+
+    def fused_msa(self, warped, pred, center):
+        """The aligned features of ``forward`` with ``center`` given, by the
+        fused dual MSA: warped, pred (B, H, W, C) neighbour features,
+        center (B // nbr, H, W, C) the distinct centre frames, never
+        broadcast. The gates fold into the attention matrix: A (g_w w + g_p
+        p) = (A diag(g_w)) w + (A diag(g_p)) p."""
+        dt = warped.dtype
+        npix = float(warped.shape[1] * warped.shape[2])
+        w_fuse = self.fusion_out[0].weight
+        warped, pred, center = (t.contiguous() for t in (warped, pred,
+                                                           center))
+        stats, gaps = msa_stage1(warped, pred, center, w_fuse)
+        amat = attention_matrix(stats, self.temperature,
+                                self.num_heads).to(dt)
+
+        def gate(conv_du, sums):   # on the (B, C) mean, in the compute dtype
+            return conv_du((sums / npix).to(dt)[:, None, None, :]).flatten(1)
+
+        gw, gp = gate(self.conv_du, gaps[:, 0]), gate(self.conv_du, gaps[:, 1])
+        awt = (amat * gw[:, None, :]).transpose(1, 2).contiguous()
+        apt = (amat * gp[:, None, :]).transpose(1, 2).contiguous()
+        fo, gap2 = msa_stage2(warped, pred, center, awt, apt,
+                              self.project_out.weight, w_fuse)
+        return self._tail(fo, center, gate(self.CALayer.conv_du, gap2))
+
     def forward(self, x, extra_feat, pred_feat, flow, warped_feat=None,
                 center=None):
         if warped_feat is None:
@@ -69,12 +107,6 @@ class DualAttAlignment(nn.Module):
         out = torch.relu(self.fusion_out(torch.cat([out, x], dim=-1)))
         if center is not None:
             gate = self.CALayer.conv_du(out.mean(dim=(1, 2), keepdim=True))
-            rb1, rb2 = self.ResidualBlock, self.ResidualBlock1
-            return resblock_pair(
-                out.contiguous(), center.contiguous(),
-                gate.reshape(gate.shape[0], -1).contiguous(),
-                rb1.conv1.weight, rb1.conv1.bias, rb1.conv2.weight,
-                rb1.conv2.bias, rb2.conv1.weight, rb2.conv1.bias,
-                rb2.conv2.weight, rb2.conv2.bias)
+            return self._tail(out, center, gate.reshape(gate.shape[0], -1))
         out = self.ResidualBlock1(self.ResidualBlock(self.CALayer(out)))
         return out + x

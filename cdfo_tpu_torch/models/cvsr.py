@@ -18,6 +18,12 @@ The streaming engine calls ``compensate_frames`` once per new frame and
 head one ``ops/fused_head`` call, and in ``align_reconstruct`` the
 alignment tail one ``ops/fused_tail`` call, as in the JAX package (whose
 ``__call__`` keeps the plain alignment tail, as ``forward`` does here).
+``cfg.fused_embed`` runs the GCPI rounds as ``PartitionTransformerSA2Fast``
+(in ``embed``, so in ``forward`` too); ``cfg.fused_align`` runs
+``align_reconstruct``'s dual MSA as ``DualAttAlignment.fused_msa``, which
+reads the k centre frames without broadcasting them.
+
+The model is built on the card unless the caller asks for another device.
 """
 from __future__ import annotations
 
@@ -33,25 +39,35 @@ from ..ops.warp import flow_warp_ring
 from .alignment import DualAttAlignment
 from .attention import EGLA
 from .layers import Conv2d, init_weights, lrelu
-from .prior_encoder import PartitionTransformerSA2
+from .prior_encoder import (PartitionTransformerSA2,
+                            PartitionTransformerSA2Fast)
 from .trunk import SCNetS
 from .trunk_fast import SCNetFast
 
 
 class CVSRV8(nn.Module):
-    """CVSR_V8 built on ``device`` with weights drawn from ``generator``
-    (a CPU ``torch.Generator``; load trained or converted weights with
+    """CVSR_V8 built on ``device`` (the card by default; ``"cpu"`` runs
+    every kernel's plain version) with weights drawn from ``generator`` (a
+    CPU ``torch.Generator``; load trained or converted weights with
     ``load_state_dict``)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         super().__init__()
+        if torch.device(device).type == "cuda" and \
+                not torch.cuda.is_available():
+            raise RuntimeError(
+                "CVSRV8 runs on the card by default and no CUDA device is "
+                "available; pass device='cpu' to run the plain versions of "
+                "the kernels on the CPU")
         self.cfg = cfg
         nf, dt = cfg.nf, cfg.compute_dtype
         self.conv_first = Conv2d(1, nf, 3, 1, 1, dtype=dt)
         self.conv_second = Conv2d(1, nf, 3, 1, 1, dtype=dt)
+        gcpi = (PartitionTransformerSA2Fast if cfg.fused_embed
+                else PartitionTransformerSA2)
         self.transformer_feature_extraction = nn.ModuleDict({
-            "path1": PartitionTransformerSA2(nf, cfg.mdta_heads, dtype=dt)})
+            "path1": gcpi(nf, cfg.mdta_heads, dtype=dt)})
         self.conv_expand_fea_r = Conv2d(2 * nf, nf, 3, 1, 1, dtype=dt)
         self.conv_expand_ufs = Conv2d(1, nf, 3, 1, 1, dtype=dt)
         self.conv_expand_rms = Conv2d(1, nf, 3, 1, 1, dtype=dt)
@@ -152,6 +168,10 @@ class CVSRV8(nn.Module):
         ufs_p = nbr_ufs_p.to(dt).reshape(k * nm1, h, w, cfg.nf)
         mv = nbr_mv.to(dt).reshape(k * nm1, h, w, 2)
         warped = flow_warp_ring(ring_fi.to(dt), nbr_idx.reshape(k * nm1), mv)
+        if cfg.fused_align:
+            aligned = self.MV_deform_align.fused_msa(warped, ufs_p, center_l1)
+            aligned = aligned.reshape(k, nm1, h, w, cfg.nf)
+            return self._reconstruct(aligned, center_l1, center_lr)
         center_rep = center_l1[:, None].expand(k, nm1, h, w, cfg.nf) \
             .reshape(k * nm1, h, w, cfg.nf)
         aligned = self.MV_deform_align(

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.fused_mdta import attention_matrix, mdta_stage1, mdta_stage2
 from .attention import MDTA
 from .layers import Conv2d, ConvTranspose2d, SpatialAttention
 from .norms import ChannelLayerNorm
@@ -60,4 +61,26 @@ class PartitionTransformerSA2(nn.Module):
             x2 = self.side_to_feaoneUDSA(x2) + (x1 if r == 0 else x2)
             x1 = x1 + self.attn(self.norm1(x1))
             x1 = x1 + self.conv(self.norm2(x1)) + x2
+        return x1
+
+
+class PartitionTransformerSA2Fast(PartitionTransformerSA2):
+    """``PartitionTransformerSA2`` with each round's MDTA and conv as the
+    two passes of ``ops/fused_mdta`` (``mdta_stage1``, the per-head
+    ``attention_matrix``, ``mdta_stage2``), as JAX's
+    ``PartitionTransformerSA2Fast``. Same parameters and ``state_dict``
+    keys; the 16-channel side U-Net stays eager."""
+
+    def forward(self, x1, x2):
+        attn = self.attn
+        n1, n2 = self.norm1.body, self.norm2.body
+        x1, x2n = x1.contiguous(), x2
+        for r in range(3):
+            x2n = self.side_to_feaoneUDSA(x2n) + (x1 if r == 0 else x2n)
+            v, stats = mdta_stage1(x1, n1["weight"], n1["bias"],
+                                   attn.qkv.weight, attn.qkv_dwconv.weight)
+            amat = attention_matrix(stats, attn.temperature, attn.num_heads)
+            x1 = mdta_stage2(x1, v, x2n.contiguous(), amat.to(x1.dtype),
+                             attn.project_out.weight, n2["weight"],
+                             n2["bias"], self.conv.weight, self.conv.bias)
         return x1

@@ -25,7 +25,8 @@ from .trunk import BlockS
 class _BlockFast(BlockS):
     """``BlockS`` through the fused Block_ kernel. The kernel's weight
     layouts (with the down2-folded conv2) are packed once and kept until a
-    parameter changes (new storage or an in-place update)."""
+    parameter changes (new storage or an in-place update); parameters made
+    under ``torch.inference_mode`` are packed at every call."""
 
     def _params(self):
         return (self.body[0].weight, self.body[0].bias, self.body[2].weight,
@@ -35,6 +36,10 @@ class _BlockFast(BlockS):
     def _packed(self, x, params):
         if x.device.type != "cuda":
             return None
+        if any(p.is_inference() for p in params):
+            # parameters made under inference_mode keep no version counter,
+            # so nothing tells a cached pack from a stale one
+            return pack_weights(*params, x.dtype)
         key = (x.dtype,) + tuple((p.data_ptr(), p._version) for p in params)
         if getattr(self, "_pack_key", None) != key:
             self._pack = pack_weights(*params, x.dtype)

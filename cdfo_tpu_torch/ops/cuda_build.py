@@ -132,6 +132,13 @@ def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.contiguous()
 
 
+def matrix_weights(mats: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Per-image (N out, K in) matrices (B, N, K) as ``kernel_weights``
+    lays out a 1x1 conv, one image per tap: a kernel reads image b's
+    matrix as tap b of one ``Weights``."""
+    return kernel_weights(mats.permute(1, 2, 0).unsqueeze(-1), dtype)
+
+
 def forbid_grad(what: str, *tensors: torch.Tensor) -> None:
     """The kernels are inference-only: raise when autograd would record."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
@@ -173,6 +180,33 @@ def check_operands(what: str, *tensors: torch.Tensor,
     if channels is not None and first.shape[-1] != channels:
         raise ValueError(f"{what} takes NHWC tensors of {channels} channels, "
                          f"got shape {tuple(first.shape)}")
+
+
+def check_float32(what: str, device: torch.device,
+                  *tensors: torch.Tensor) -> None:
+    """The float32 side operands (norm parameters, taps) of a kernel whose
+    data operands are of another dtype: float32, contiguous, on
+    ``device``."""
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} takes its norm parameters and taps in "
+                            f"float32, got {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"{what}: operands on {device} and {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} needs contiguous operands")
+
+
+# two resident blocks on each of the H100's 132 SMs
+TARGET_BLOCKS = 264
+
+
+def parts_per_image(tiles: int, images: int) -> int:
+    """Blocks per image of a kernel that reduces over each image's tiles:
+    each block walks every ``parts``-th tile and writes one partial sum, and
+    a second launch adds the partials in a fixed order (the same result on
+    every run). Aims at ``TARGET_BLOCKS`` blocks in all."""
+    return max(1, min(tiles, -(-TARGET_BLOCKS // images)))
 
 
 def launch(kernel, what: str, device: torch.device, *args) -> None:

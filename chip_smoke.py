@@ -13,28 +13,48 @@ CUDA device the script exits non-zero before printing any result):
 3. each kernel against its plain PyTorch version on the card, in float32
    and bfloat16, with kernel and plain times (CUDA events, median of 15) at
    the main path's shapes: the attention kernel at its row and column
-   shapes and at ragged ones; the four fused-trunk kernels (``Block_``,
-   group tail, head, alignment tail) at the 272x480, k=4 shapes and at a
-   ragged even shape; an odd extent must be refused;
-4. two small CVSR_V8 (2 trunk groups, 16x24 frames) through the streaming
+   shapes and at ragged ones (and ``scaled_dot_product_attention``, the one
+   PyTorch call that computes the same function, as its library time); the
+   four fused-trunk kernels (``Block_``, group tail, head, alignment tail)
+   at the 272x480, k=4 shapes and at a ragged even shape (an odd extent
+   must be refused); the two MDTA passes at (4, 272, 480, 64) and (2, 18,
+   34, 64), the two dual-MSA passes at 24 neighbours of 4 centres of
+   272x480 and at 3 neighbours of 2 centres of 18x34. Each kernel's bound
+   is computed from its inputs: the larger of its bytes (inputs read once,
+   outputs written once) over 3.35 TB/s and its operations over the peak
+   of its type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32);
+4. three small CVSR_V8 (2 trunk groups, 16x24 frames) through the streaming
    engine on the card (float32, kernels on, TF32 off) against the same
    weights through the same engine on the CPU (plain versions): uint8
-   frames within 1 LSB, once with ``fused_trunk`` off and once on;
+   frames within 1 LSB, with no fused flag, with ``fused_trunk``, and with
+   ``fused_trunk``, ``fused_embed`` and ``fused_align``;
 5. the full-width slice: CVSR_V8 at its default widths (nf=64, 7 trunk
    groups), bfloat16, seeded random weights, ``BatchedStreamingEngine(k=4)``
-   on a 12-frame 272x480 synthetic sequence in timed mode, with
-   ``fused_trunk`` off and then on (the same weights); checks the
-   (12, 1080, 1920) uint8 output, that every ``compensate_frames`` call
-   launched the attention kernel twice (row and column stage), that every
-   ``align_reconstruct`` call of the fused run launched 21 ``Block_``, 7
-   group-tail, 1 head and 1 tail kernels, and that the fused frames are
-   within 40 dB PSNR of the unfused ones.
+   on a 12-frame 272x480 synthetic sequence in timed mode, unfused, with
+   ``fused_trunk``, and with all three flags (the main path; the same
+   weights each time); checks the (12, 1080, 1920) uint8 output, that every
+   ``compensate_frames`` call launched the attention kernel twice (row and
+   column stage) and, with ``fused_embed``, 3 of each MDTA pass, that every
+   ``align_reconstruct`` call of a fused run launched 21 ``Block_``, 7
+   group-tail, 1 head and 1 tail kernels and, with ``fused_align``, 1 of
+   each dual-MSA pass, and that the fused frames are within 40 dB PSNR of
+   the unfused ones; then times each stage of one engine step alone
+   (``compensate_frames``, ``embed``, ``align_reconstruct``, the ring warp,
+   ``DualAttAlignment``, tsa, trunk, head).
 
 The line before the last is a JSON object with one entry per kernel
-wrapper; the last line is ``{"ok": true, "device": {...}}``.
+wrapper (launches from the main-path run); the last line is ``{"ok": true,
+"device": {...}}``.
+
+    python3 chip_smoke.py --profile
+
+builds the kernels and instead profiles one timed 12-frame run of the main
+path (``torch.profiler``): device time by kernel, in order, and the
+device's busy share of the run's wall time.
 """
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -42,16 +62,21 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from cdfo_tpu_torch import ModelConfig
 from cdfo_tpu_torch.infer import BatchedStreamingEngine, synthetic_sequence
 from cdfo_tpu_torch.models import CVSRV8
+from cdfo_tpu_torch.models.layers import lrelu
 from cdfo_tpu_torch.ops import cuda_build
+from cdfo_tpu_torch.ops import fused_align as fal
 from cdfo_tpu_torch.ops import fused_attention as fa
 from cdfo_tpu_torch.ops import fused_block2 as fb
 from cdfo_tpu_torch.ops import fused_groupconv as fg
 from cdfo_tpu_torch.ops import fused_head as fh
+from cdfo_tpu_torch.ops import fused_mdta as fm
 from cdfo_tpu_torch.ops import fused_tail as ft
+from cdfo_tpu_torch.ops.warp import flow_warp_ring
 
 # max |kernel - plain| allowed, relative to max |plain|: float32 differs
 # only in summation order; bfloat16 rounds intermediates and the output to
@@ -61,7 +86,7 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 SOURCE = "cdfo_tpu_torch/csrc/fused_attention.cu"
 REPLACES = "cdfo_tpu/ops/fused_attention.py:43"
 LIBRARIES = ("fused_attention", "fused_block2", "fused_groupconv",
-             "fused_head", "fused_tail")
+             "fused_head", "fused_tail", "fused_mdta", "fused_align")
 # the fused-trunk kernels: JSON name, wrapper, plain version, source, the
 # TPU kernel it replaces
 TRUNK_KERNELS = {
@@ -98,7 +123,83 @@ WRAPPERS = {
     "token": (fa.token_self_attention, fa.token_attention_plain),
     "column": (fa.column_self_attention, fa.column_attention_plain),
 }
+# the fused embed and alignment kernels: JSON name, wrapper, plain version,
+# source, the TPU kernel it replaces
+ALIGN_EMBED_KERNELS = {
+    "mdta1": ("fused_mdta.mdta_stage1", fm.mdta_stage1, fm.mdta_stage1_plain,
+              "cdfo_tpu_torch/csrc/fused_mdta.cu",
+              "cdfo_tpu/ops/fused_mdta.py:157"),
+    "mdta2": ("fused_mdta.mdta_stage2", fm.mdta_stage2, fm.mdta_stage2_plain,
+              "cdfo_tpu_torch/csrc/fused_mdta.cu",
+              "cdfo_tpu/ops/fused_mdta.py:344"),
+    "msa1": ("fused_align.msa_stage1", fal.msa_stage1, fal.msa_stage1_plain,
+             "cdfo_tpu_torch/csrc/fused_align.cu",
+             "cdfo_tpu/ops/fused_align.py:107"),
+    "msa2": ("fused_align.msa_stage2", fal.msa_stage2, fal.msa_stage2_plain,
+             "cdfo_tpu_torch/csrc/fused_align.cu",
+             "cdfo_tpu/ops/fused_align.py:191"),
+}
+# per compensate_frames call (fused_embed) and per align_reconstruct call
+# (fused_align)
+EMBED_LAUNCHES = {"mdta1": 3, "mdta2": 3}
+ALIGN_LAUNCHES = {"msa1": 1, "msa2": 1}
+# (images or centres, H, W), neighbours per centre: the main path's at
+# 272x480, k=4, then ragged ones
+ALIGN_EMBED_SHAPES = (((4, 272, 480), 6), ((2, 18, 34), 3))
 
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core
+# and fp32 CUDA-core FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def flops(kind, args) -> float:
+    """The multiply-adds (x2) the function needs on these inputs; the
+    Block_ counts the down2-folded conv2 (a stride-2 4x4 conv from the 2x
+    mid-channels), the least work for the same result."""
+    x = args[0]
+    c = x.shape[-1]
+    if kind == "token":
+        t, n, _ = x.shape
+        return 4.0 * t * n * n * c
+    if kind == "column":
+        b, h, w, _ = x.shape
+        return 4.0 * b * w * h * h * c
+    p = float(x[..., 0].numel())   # pixels of the first operand
+    per_pixel = {
+        # body at 1x and 0.25x (2 * 2*9*4C^2 each), up path at 4x conv1
+        # (2*9*4C^2) + folded conv2 (2*16*4C^2) at 1x, the two 1x1s
+        "block": 144 * c * c * 1.25 + 288 * c * c + 128 * c * c + 4 * c * c,
+        "group": 18 * c * c,
+        "head": 40 * c * c + 288 * c,
+        "tail": 72 * c * c,
+        "mdta1": 12 * c * c + 54 * c,
+        "mdta2": 22 * c * c,
+        "msa1": 10 * c * c,
+        "msa2": 10 * c * c,
+    }[kind]
+    return per_pixel * p
+
+
+def bound(kind, args, outs, dtype) -> tuple[float, str]:
+    """(least ms the card could take, "bytes" or "operations")."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs)
+                 if isinstance(t, torch.Tensor))
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = flops(kind, args) / PEAK_FLOPS[dtype]
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def worst_error(out, ref) -> tuple[float, float]:
+    """(max |kernel - plain|, max |plain|) of the output (of a tensor or a
+    tuple of them) whose error is largest against its own scale."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    pairs = [((o.float() - r.float()).abs().max().item(),
+              r.float().abs().max().item()) for o, r in zip(outs, refs)]
+    return max(pairs, key=lambda e: e[0] / max(e[1], 1e-30))
 
 def card_line() -> str:
     out = subprocess.run(
@@ -127,7 +228,8 @@ def median_ms(fn, reps: int = 15) -> float:
 def reset_launches():
     fa.token_self_attention.launches = 0
     fa.column_self_attention.launches = 0
-    for _, wrapper, *_ in TRUNK_KERNELS.values():
+    for _, wrapper, *_ in (*TRUNK_KERNELS.values(),
+                           *ALIGN_EMBED_KERNELS.values()):
         wrapper.launches = 0
 
 
@@ -163,50 +265,128 @@ def trunk_args(kind, shape, dtype, g):
             rand(nbr * shape[0], c), *ws)
 
 
+def align_embed_args(kind, dtype, g, shape, nbr, device="cuda"):
+    """Inputs of one MDTA or dual-MSA pass, drawn from ``g`` on ``device``
+    (the tests draw them here too): ``shape`` (M, H, W) the MDTA images, or
+    the centres of ``nbr`` neighbours each; the norm parameters are float32
+    and the attention matrices softmax rows (the MSA's scaled by gates)."""
+    def rnd(*s, scale=1.0):
+        return (torch.randn(*s, generator=g, device=device) * scale).to(dtype)
+
+    def f32(*s, scale=1.0, shift=0.0):
+        return torch.randn(*s, generator=g, device=device) * scale + shift
+
+    def attn(b, gated):
+        a = torch.softmax(f32(b, 64, 64) * 2.0, dim=-1)
+        if gated:
+            a = a * torch.rand(b, 1, 64, generator=g, device=device)
+        return a.to(dtype)
+
+    c = 64
+    m, h, w = shape
+    if kind == "mdta1":
+        return (rnd(m, h, w, c), f32(c, scale=0.1, shift=1.0),
+                f32(c, scale=0.1), rnd(3 * c, c, 1, 1, scale=0.12),
+                rnd(3 * c, 1, 3, 3, scale=0.3))
+    if kind == "mdta2":
+        return (rnd(m, h, w, c), rnd(m, h, w, c), rnd(m, h, w, c),
+                attn(m, False), rnd(c, c, 1, 1, scale=0.12),
+                f32(c, scale=0.1, shift=1.0), f32(c, scale=0.1),
+                rnd(c, c, 3, 3, scale=0.04), rnd(c, scale=0.1))
+    b = m * nbr
+    nb = (rnd(b, h, w, c), rnd(b, h, w, c), rnd(m, h, w, c))
+    wf = rnd(c, 2 * c, 1, 1, scale=0.09)
+    if kind == "msa1":
+        return (*nb, wf)
+    return (*nb, attn(b, True).transpose(1, 2).contiguous(),
+            attn(b, True).transpose(1, 2).contiguous(),
+            rnd(c, c, 1, 1, scale=0.12), wf)
+
+
 @torch.no_grad()
-def check_trunk_kernels(card: str) -> dict:
-    """Phase 3, fused-trunk part; returns the JSON fields of each kernel,
-    measured at the main path's shape in bfloat16 (the full slice's dtype).
-    TF32 is off, so the float32 plain side is full float32."""
+def check_kernel_table(card: str, table: dict, cases, seed: int) -> dict:
+    """Phase 3 for the kernels of ``table`` ({kind: (JSON name, wrapper,
+    plain version, source, replaces)}): each against its plain version in
+    float32 and bfloat16 on every case ``(label, main, args_of)``, where
+    ``args_of(kind, dtype, g)`` draws the inputs; at the main case also
+    kernel, plain and bound times. Returns the JSON fields of each kernel,
+    measured at the main case in bfloat16 (the full slice's dtype). TF32 is
+    off, so the float32 plain side is full float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    g = torch.Generator(device="cuda").manual_seed(1)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     fields = {}
     for dtype in (torch.float32, torch.bfloat16):
-        for shape in TRUNK_SHAPES:
-            for kind, (name, kernel, plain, _, _) in TRUNK_KERNELS.items():
-                args = trunk_args(kind, shape, dtype, g)
+        for label, main, args_of in cases:
+            for kind, (name, kernel, plain, _, _) in table.items():
+                args = args_of(kind, dtype, g)
                 out = kernel(*args)
                 ref = plain(*args)
                 torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                scale = ref.float().abs().max().item()
-                line = (f"kernel {name} {shape} {str(dtype)[6:]}: max_abs_err "
+                err, scale = worst_error(out, ref)
+                line = (f"kernel {name} {label} {str(dtype)[6:]}: max_abs_err "
                         f"{err:.3e} (max |plain| {scale:.3f}, rel "
                         f"{err / scale:.3e}, tolerance rel "
                         f"{TOLERANCE[dtype]:.1e})")
-                if shape == TRUNK_MAIN:
+                if main:
                     ms = median_ms(lambda: kernel(*args))
                     plain_ms = median_ms(lambda: plain(*args))
-                    line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-                             f"[{card}]")
+                    bound_ms, bound_by = bound(kind, args, out, dtype)
+                    line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                             f"bound {bound_ms:.3f} ms ({bound_by}) [{card}]")
                     if dtype == torch.bfloat16:
                         fields[kind] = {"max_abs_err": err, "ms": ms,
-                                        "plain_ms": plain_ms}
+                                        "plain_ms": plain_ms,
+                                        "bound_ms": bound_ms,
+                                        "bound_by": bound_by,
+                                        "library_ms": None}
                 print(line, flush=True)
                 if not err <= TOLERANCE[dtype] * scale:
                     raise AssertionError(f"kernel disagrees with plain: "
                                          f"{line}")
                 del args, out, ref
             torch.cuda.empty_cache()
+    return fields
+
+
+def check_trunk_kernels(card: str) -> dict:
+    """Phase 3, fused-trunk part: ``check_kernel_table`` at the trunk
+    shapes, then an odd extent the ``Block_`` must refuse."""
+    fields = check_kernel_table(card, TRUNK_KERNELS, [
+        (shape, shape == TRUNK_MAIN,
+         lambda kind, dtype, g, shape=shape: trunk_args(kind, shape, dtype, g))
+        for shape in TRUNK_SHAPES], seed=1)
+    g = torch.Generator(device="cuda").manual_seed(1)
     odd = trunk_args("block", (1, 16, 23, 64), torch.bfloat16, g)
     try:
-        fb.scale_block(*odd)
+        with torch.no_grad():
+            fb.scale_block(*odd)
     except ValueError as e:
         print(f"odd extent refused: {e}", flush=True)
     else:
         raise AssertionError("fused_block2 took an odd extent")
     return fields
+
+
+def check_align_embed_kernels(card: str) -> dict:
+    """Phase 3, fused embed and alignment part: ``check_kernel_table`` at
+    the MDTA images, or centres with their neighbours, of
+    ``ALIGN_EMBED_SHAPES``."""
+    return check_kernel_table(card, ALIGN_EMBED_KERNELS, [
+        (f"{shape} (MSA: {nbr} neighbours per centre)",
+         (shape, nbr) == ALIGN_EMBED_SHAPES[0],
+         lambda kind, dtype, g, shape=shape, nbr=nbr: align_embed_args(
+             kind, dtype, g, shape, nbr))
+        for shape, nbr in ALIGN_EMBED_SHAPES], seed=2)
+
+
+def sdpa(kind, q, v):
+    """The one PyTorch call computing the attention kernel's function
+    (softmax(q q^T) v, no scale), timed as its library yardstick; the port
+    never calls it. The column form attends along H of each (b, w)."""
+    if kind == "column":
+        q, v = q.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    return F.scaled_dot_product_attention(q, q, v, scale=1.0)
 
 
 def check_kernels(card: str) -> dict:
@@ -235,10 +415,17 @@ def check_kernels(card: str) -> dict:
             if main:
                 ms = median_ms(lambda: kernel(q, v))
                 plain_ms = median_ms(lambda: plain(q, v))
-                line += f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]"
+                library_ms = median_ms(lambda: sdpa(kind, q, v))
+                bound_ms, bound_by = bound(kind, (q, v), out, dtype)
+                line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                         f"scaled_dot_product_attention {library_ms:.3f} ms, "
+                         f"bound {bound_ms:.3f} ms ({bound_by}) [{card}]")
                 if dtype == torch.float32:
                     fields[kind] = {"max_abs_err": err, "ms": ms,
-                                    "plain_ms": plain_ms}
+                                    "plain_ms": plain_ms,
+                                    "bound_ms": bound_ms,
+                                    "bound_by": bound_by,
+                                    "library_ms": library_ms}
             print(line, flush=True)
             if not err <= tol:
                 raise AssertionError(f"kernel disagrees with plain: {line}")
@@ -246,12 +433,12 @@ def check_kernels(card: str) -> dict:
     return fields
 
 
-def check_small_slice(fused: bool):
+def check_small_slice(**flags):
     """Phase 4: card (kernels) vs CPU (plain versions), one set of
     weights."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = ModelConfig(scn_groups=2, fused_trunk=fused)
+    cfg = ModelConfig(scn_groups=2, **flags)
     data = synthetic_sequence(t=9, h=16, w=24, seed=3)
     frames = {}
     for dev in ("cpu", "cuda"):
@@ -260,40 +447,39 @@ def check_small_slice(fused: bool):
         frames[dev], _ = BatchedStreamingEngine(model, k=4).run_sequence(data)
     diff = np.abs(frames["cuda"].astype(np.int32)
                   - frames["cpu"].astype(np.int32))
-    print(f"small slice (nf=64, 2 groups, 9x16x24, k=4, fp32, fused_trunk="
-          f"{fused}): card vs CPU max diff {diff.max()} LSB over {diff.size} "
-          f"pixels", flush=True)
+    print(f"small slice (nf=64, 2 groups, 9x16x24, k=4, fp32, {flags}): "
+          f"card vs CPU max diff {diff.max()} LSB over {diff.size} pixels",
+          flush=True)
     if diff.max() > 1 or frames["cuda"].std() == 0:
         raise AssertionError("small-slice card output disagrees with CPU")
 
 
-def run_full_slice(card: str, fused: bool):
-    """Phase 5 for one setting of ``fused_trunk``; returns (frames, the
+def run_full_slice(card: str, **flags):
+    """Phase 5 for one setting of the fused flags; returns (frames, the
     launches per wrapper in the timed run)."""
     t, k = 12, 4
-    cfg = ModelConfig(compute_dtype=torch.bfloat16, fused_trunk=fused)
+    cfg = ModelConfig(compute_dtype=torch.bfloat16, **flags)
     model = CVSRV8(cfg, generator=torch.Generator().manual_seed(0),
                    device="cuda")
     data = synthetic_sequence(t=t, h=272, w=480, seed=0)
     eng = BatchedStreamingEngine(model, k=k)
     t0 = time.perf_counter()
     eng.run_sequence(data)   # warm-up: cuDNN/cuBLAS plans, allocator
-    print(f"full slice fused_trunk={fused}: warm-up run "
+    print(f"full slice {flags}: warm-up run "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     frames, fps = eng.run_sequence(data, collect_timing=True)
     launches = {"token": fa.token_self_attention.launches,
                 "column": fa.column_self_attention.launches}
-    launches.update({kind: wrapper.launches
-                     for kind, (_, wrapper, *_) in TRUNK_KERNELS.items()})
+    launches.update({kind: wrapper.launches for kind, (_, wrapper, *_) in
+                     {**TRUNK_KERNELS, **ALIGN_EMBED_KERNELS}.items()})
     peak = torch.cuda.max_memory_allocated() / 2**30
     steps = len(range(0, t, k))
     calls = 1 + steps   # compensate_frames: bootstrap + one per step
     print(f"full slice (CVSR_V8 nf=64, 7 groups, bf16, 272x480 -> 1080x1920, "
-          f"k={k}, {t} frames, fused_trunk={fused}): {fps:.3f} fps by the "
-          f"reference protocol, peak memory {peak:.2f} GiB [{card}]",
-          flush=True)
+          f"k={k}, {t} frames, {flags}): {fps:.3f} fps by the reference "
+          f"protocol, peak memory {peak:.2f} GiB [{card}]", flush=True)
     print(f"compensate_frames calls {calls}, align_reconstruct calls {steps}, "
           f"kernel launches {launches}", flush=True)
     if frames.shape != (t, 1080, 1920) or frames.dtype != np.uint8:
@@ -301,13 +487,124 @@ def run_full_slice(card: str, fused: bool):
     if frames.std() == 0:
         raise AssertionError("full-slice output is constant")
     want = {"token": calls, "column": calls}
+    fused = flags.get("fused_trunk", False)
     want.update({kind: n * steps if fused else 0
                  for kind, n in TRUNK_LAUNCHES.items()})
+    want.update({kind: n * calls if flags.get("fused_embed") else 0
+                 for kind, n in EMBED_LAUNCHES.items()})
+    want.update({kind: n * steps if flags.get("fused_align") else 0
+                 for kind, n in ALIGN_LAUNCHES.items()})
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
+    times = stage_times(eng, data)
+    print(f"stage ms, one k={k} step {flags}: "
+          + ", ".join(f"{n} {v:.3f}" for n, v in times.items())
+          + f" [{card}]", flush=True)
     del model, eng
     torch.cuda.empty_cache()
     return frames, launches
+
+
+@torch.inference_mode()
+def stage_times(eng, data, reps: int = 10) -> dict:
+    """ms per stage (CUDA events, median of ``reps``) of the first staged
+    engine step, each stage called alone through the model's own methods
+    on that step's inputs."""
+    model, k, half, t = eng.model, eng.k, eng.n // 2, data.num_frames
+    cfg, dt, nf = model.cfg, model.cfg.compute_dtype, model.cfg.nf
+    boot = range(-k - half, half)
+    rings = eng._boot(eng._put(eng._frame_inputs(
+        data, [min(max(f, 0), t - 1) for f in boot])), torch.tensor(
+            [(p + eng._S) % eng._L for p in boot], device=eng.device))
+    (lrs, pms, rms, ufs, mvs, center_lr, idx, cidx), _ = eng._stage(data, 0)
+    ring_l1, ring_fi, ring_uf = rings
+    center = ring_l1[cidx]
+    nm1, (h, w) = idx.shape[1], lrs.shape[1:3]
+    ufs_p = ring_uf[idx].reshape(k * nm1, h, w, nf)
+    mv = mvs.to(dt).reshape(k * nm1, h, w, 2)
+    warped = flow_warp_ring(ring_fi, idx.reshape(-1), mv)
+    align = model.MV_deform_align
+
+    def dual():
+        if cfg.fused_align:
+            return align.fused_msa(warped, ufs_p, center)
+        rep = center[:, None].expand(k, nm1, h, w, nf).reshape(-1, h, w, nf)
+        return align(rep, None, ufs_p, mv, warped_feat=warped,
+                     center=center if cfg.fused_trunk else None)
+
+    aligned = dual().reshape(k, nm1, h, w, nf)
+    trunk_in = lrelu(model._tsa(aligned, center))
+    trunk_out = model.recon_trunk(trunk_in)
+    stages = {
+        "compensate_frames": lambda: model.compensate_frames(lrs, pms, rms,
+                                                             ufs),
+        "embed": lambda: model.embed(lrs.to(dt), pms.to(dt)),
+        "align_reconstruct": lambda: model.align_reconstruct(
+            center, center_lr, ring_fi, ring_uf[idx], mvs, idx),
+        "flow_warp_ring": lambda: flow_warp_ring(ring_fi, idx.reshape(-1),
+                                                 mv),
+        "DualAttAlignment": dual,
+        "tsa": lambda: model._tsa(aligned, center),
+        "trunk": lambda: model.recon_trunk(trunk_in),
+        "head": lambda: model.head_from_trunk(trunk_out, center_lr),
+    }
+    return {name: median_ms(fn, reps) for name, fn in stages.items()}
+
+
+def profile_main_path(card: str, top: int = 15):
+    """``--profile``: the engine's timed region (bootstrap and every step of
+    a 12-frame 272x480 sequence, inputs staged before it) of the main path
+    under ``torch.profiler``; prints the kernels by summed device time and
+    the union of kernel intervals over the host wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    t, k = 12, 4
+    cfg = ModelConfig(compute_dtype=torch.bfloat16, fused_trunk=True,
+                      fused_embed=True, fused_align=True)
+    model = CVSRV8(cfg, generator=torch.Generator().manual_seed(0))
+    data = synthetic_sequence(t=t, h=272, w=480, seed=0)
+    eng = BatchedStreamingEngine(model, k=k)
+    eng.run_sequence(data)   # warm-up
+    half = eng.n // 2
+    boot = range(-k - half, half)
+    binp = eng._put(eng._frame_inputs(
+        data, [min(max(f, 0), t - 1) for f in boot]))
+    bslots = torch.tensor([(p + eng._S) % eng._L for p in boot],
+                          device=eng.device)
+    staged = [eng._stage(data, j) for j in range(0, t, k)]
+    torch.cuda.synchronize()
+    with torch.inference_mode(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rings = eng._boot(binp, bslots)
+        for st in staged:
+            eng._step(rings, *st)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+            by_name[e.name][1] += 1
+    busy, end = 0.0, None
+    for a, b in spans:   # union of the kernel intervals, in us
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    print(f"profiled main path ({t} frames, k={k}, bf16, 272x480, "
+          f"{len(spans)} device events): host wall {wall_ms:.3f} ms, device "
+          f"busy {busy / 1e3:.3f} ms ({100 * busy / 1e3 / wall_ms:.1f}%, idle "
+          f"{100 - 100 * busy / 1e3 / wall_ms:.1f}%) [{card}]", flush=True)
+    total = sum(v[0] for v in by_name.values())
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :top]:
+        print(f"  {ms:9.3f} ms {100 * ms / total:5.1f}% {n:5d}x  "
+              f"{name[:110]}", flush=True)
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -339,21 +636,30 @@ def main():
                     print(f"  {name}: {line}", flush=True)
     print(f"built {len(LIBRARIES)} libraries in parallel in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if sys.argv[1:] == ["--profile"]:
+        profile_main_path(card)
+        return
 
     fields = check_kernels(card)
     fields.update(check_trunk_kernels(card))
-    check_small_slice(fused=False)
-    check_small_slice(fused=True)
-    plain_frames, _ = run_full_slice(card, fused=False)
-    frames, launches = run_full_slice(card, fused=True)
-    quality = psnr(frames, plain_frames)
-    print(f"full slice: fused vs unfused uint8 frames PSNR {quality:.2f} dB "
-          f"(max diff {np.abs(frames.astype(np.int32) - plain_frames).max()} "
-          f"LSB)", flush=True)
-    if not quality >= 40.0:
-        raise AssertionError(f"fused frames are {quality:.2f} dB from the "
-                             "unfused ones (limit 40 dB)")
+    fields.update(check_align_embed_kernels(card))
+    all_flags = dict(fused_trunk=True, fused_embed=True, fused_align=True)
+    check_small_slice()
+    check_small_slice(fused_trunk=True)
+    check_small_slice(**all_flags)
+    plain_frames, _ = run_full_slice(card)
+    for flags in (dict(fused_trunk=True), all_flags):
+        frames, launches = run_full_slice(card, **flags)
+        quality = psnr(frames, plain_frames)
+        print(f"full slice {flags}: fused vs unfused uint8 frames PSNR "
+              f"{quality:.2f} dB (max diff "
+              f"{np.abs(frames.astype(np.int32) - plain_frames).max()} LSB)",
+              flush=True)
+        if not quality >= 40.0:
+            raise AssertionError(f"fused frames are {quality:.2f} dB from "
+                                 "the unfused ones (limit 40 dB)")
 
+    # launches: the main path's run (all three flags)
     kernels = [
         {"name": f"fused_attention.{kind}_self_attention", "route": "cuda",
          "source": SOURCE, "replaces": REPLACES,
@@ -362,7 +668,8 @@ def main():
     kernels += [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[kind], **fields[kind]}
-        for kind, (name, _, _, source, replaces) in TRUNK_KERNELS.items()]
+        for kind, (name, _, _, source, replaces) in
+        {**TRUNK_KERNELS, **ALIGN_EMBED_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

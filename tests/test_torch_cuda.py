@@ -1,5 +1,5 @@
-"""The hand-written CUDA attention kernel against its plain PyTorch version,
-on the card. A CUDA kernel has no interpret mode, so these tests skip where
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card. A CUDA kernel has no interpret mode, so these tests skip where
 no CUDA device exists. On a GPU machine (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -120,6 +120,27 @@ def test_trunk_kernel_matches_plain(cuda, kind, shape, dtype):
 
 
 @pytest.mark.cuda
+def test_fused_trunk_built_under_inference_mode(cuda):
+    """Parameters made under inference_mode keep no version counter; the
+    fused Block_ then packs its weights at every call instead of caching."""
+    from cdfo_tpu_torch.models.layers import init_weights
+    from cdfo_tpu_torch.models.trunk import SCNetS
+    from cdfo_tpu_torch.models.trunk_fast import SCNetFast
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        ref = init_weights(SCNetS(64, 1), torch.Generator().manual_seed(0))
+        fast = SCNetFast(64, 1)
+        fast.load_state_dict(ref.state_dict())
+        ref.to(cuda)
+        fast.to(cuda)
+        x = torch.randn(1, 8, 12, 64, device=cuda)
+        out, want = fast(x), ref(x)
+    torch.cuda.synchronize()
+    err = (out - want).abs().max().item()
+    assert err <= TOLERANCE[torch.float32] * want.abs().max().item()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["block", "group", "head", "tail"])
 def test_trunk_kernel_rejects_what_it_does_not_take(cuda, kind):
     kernel, _, args = _trunk_case(kind, (1, 8, 8, 64), torch.float32, cuda)
@@ -136,3 +157,67 @@ def test_trunk_kernel_rejects_what_it_does_not_take(cuda, kind):
             odd = _trunk_case(kind, (1, 8, 7, 64), torch.float32, cuda)[2]
             with pytest.raises(ValueError, match="even"):
                 kernel(*odd)
+
+
+# -- the fused embed and alignment kernels (MDTA and dual-MSA passes) ---------
+
+from cdfo_tpu_torch.ops import fused_align as fal  # noqa: E402
+from cdfo_tpu_torch.ops import fused_mdta as fm  # noqa: E402
+from chip_smoke import align_embed_args  # noqa: E402
+from test_torch_kernel_emulation import assert_outputs_close  # noqa: E402
+
+ALIGN_EMBED = {
+    "mdta1": (fm.mdta_stage1, fm.mdta_stage1_plain),
+    "mdta2": (fm.mdta_stage2, fm.mdta_stage2_plain),
+    "msa1": (fal.msa_stage1, fal.msa_stage1_plain),
+    "msa2": (fal.msa_stage2, fal.msa_stage2_plain),
+}
+# the position of the MDTA passes' LayerNorm weight among their arguments
+NORM_ARG = {"mdta1": 1, "mdta2": 5}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,nbr", [((2, 18, 34), 3), ((1, 16, 24), 6),
+                                       ((1, 7, 5), 2)])
+@pytest.mark.parametrize("kind", list(ALIGN_EMBED))
+def test_align_embed_kernel_matches_plain(cuda, kind, shape, nbr, dtype):
+    """``shape``: the MDTA images, or the centres of ``nbr`` neighbours
+    each; the last is smaller than one tile."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel, plain = ALIGN_EMBED[kind]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    args = align_embed_args(kind, dtype, g, shape, nbr, device=cuda)
+    before = kernel.launches
+    with torch.no_grad():
+        out = kernel(*args)
+        ref = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert_outputs_close(out, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(ALIGN_EMBED))
+def test_align_embed_kernel_rejects_what_it_does_not_take(cuda, kind):
+    kernel, _ = ALIGN_EMBED[kind]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x, *rest = align_embed_args(kind, torch.float32, g, (1, 8, 8), 2,
+                                device=cuda)
+    before = kernel.launches
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="64 channels"):
+            kernel(x[..., :32].contiguous(), *rest)
+        with pytest.raises(TypeError):
+            kernel(x.bfloat16(), *rest)
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel(x.transpose(1, 2).contiguous().transpose(1, 2), *rest)
+        if kind in NORM_ARG:   # a float32 norm parameter in another dtype
+            bad = [x, *rest]
+            bad[NORM_ARG[kind]] = bad[NORM_ARG[kind]].bfloat16()
+            with pytest.raises(TypeError, match="float32"):
+                kernel(*bad)
+    with pytest.raises(NotImplementedError, match="Queue 1.7"):
+        kernel(x.clone().requires_grad_(), *rest)
+    assert kernel.launches == before

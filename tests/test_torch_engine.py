@@ -30,7 +30,7 @@ def setup():
     # (the kernel's path) carries signal
     params["params"]["RDAB"]["conv_du_re2_0"]["conv"]["bias"][3] += 10.0
     tmodel = CVSRV8(ModelConfig(nf=NF, scn_groups=2),
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0), device="cpu")
     tmodel.load_state_dict(from_flax(params))
     return jmodel, params, tmodel
 

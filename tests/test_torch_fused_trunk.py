@@ -277,7 +277,7 @@ def setup():
     params = jax.tree.map(np.array, params)
     params["params"]["RDAB"]["conv_du_re2_0"]["conv"]["bias"][3] += 10.0
     tmodel = CVSRV8(ModelConfig(nf=NF, scn_groups=2, fused_trunk=True),
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0), device="cpu")
     tmodel.load_state_dict(from_flax(params))
     return trees, jmodel, params, tmodel
 
@@ -288,7 +288,8 @@ def test_weight_trees_match(setup):
     sd = from_flax(params)
     for fused in (False, True):
         model = CVSRV8(ModelConfig(nf=NF, scn_groups=2, fused_trunk=fused),
-                       generator=torch.Generator().manual_seed(1))
+                       generator=torch.Generator().manual_seed(1),
+                       device="cpu")
         model.load_state_dict(sd, strict=True)
         assert set(model.state_dict()) == set(sd)
 

@@ -1,11 +1,13 @@
-"""The fused-trunk CUDA kernels' own code, run on the CPU.
+"""The convolution-tile CUDA kernels' own code, run on the CPU.
 
 A CUDA kernel has no interpret mode, so this test compiles each
-``cdfo_tpu_torch/csrc/fused_*.cu`` (Block_, group tail, head, alignment
-tail) with the host C++ compiler against a small emulation of the CUDA
-subset they use (``_SHIM`` below): blocks run one after another with 256
-threads each, ``__syncthreads`` is a barrier, and ``mma.sync`` /
-``ldmatrix`` exchange their fragments through per-warp memory. The
+``cdfo_tpu_torch/csrc/fused_*.cu`` built on ``conv3x3_tile.cuh`` (Block_,
+group tail, head, alignment tail, the two MDTA passes, the two dual-MSA
+passes with their reduction launch) with the host C++ compiler against a
+small emulation of the CUDA subset they use (``_SHIM`` below): blocks run
+one after another with 256 threads each, ``__syncthreads`` is a barrier,
+and ``mma.sync`` / ``ldmatrix`` (plain and transposed) exchange their
+fragments through per-warp memory. The
 wrappers then take their kernel route on CPU tensors and are held against
 their plain versions at small ragged shapes, in float32 and bfloat16, with
 ``chip_smoke.py``'s tolerances. It checks the kernels' indexing, borders,
@@ -21,10 +23,13 @@ import pytest
 import torch
 
 from cdfo_tpu_torch.ops import cuda_build as cb
+from cdfo_tpu_torch.ops import fused_align as fal
 from cdfo_tpu_torch.ops import fused_block2 as fb
 from cdfo_tpu_torch.ops import fused_groupconv as fg
 from cdfo_tpu_torch.ops import fused_head as fh
+from cdfo_tpu_torch.ops import fused_mdta as fm
 from cdfo_tpu_torch.ops import fused_tail as ft
+from chip_smoke import align_embed_args
 
 TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 # kind: (module, wrapper, plain version, library)
@@ -33,6 +38,10 @@ KERNELS = {
     "group": (fg, fg.grouptail, fg.grouptail_plain, "fused_groupconv"),
     "head": (fh, fh.fused_head, fh.fused_head_plain, "fused_head"),
     "tail": (ft, ft.resblock_pair, ft.resblock_pair_plain, "fused_tail"),
+    "mdta1": (fm, fm.mdta_stage1, fm.mdta_stage1_plain, "fused_mdta"),
+    "mdta2": (fm, fm.mdta_stage2, fm.mdta_stage2_plain, "fused_mdta"),
+    "msa1": (fal, fal.msa_stage1, fal.msa_stage1_plain, "fused_align"),
+    "msa2": (fal, fal.msa_stage2, fal.msa_stage2_plain, "fused_align"),
 }
 
 _SHIM = r"""
@@ -140,6 +149,19 @@ inline void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* row) {
   }
   emu_warp_bar[w]->arrive_and_wait();
 }
+// ldmatrix.x4.trans: lane l gets elements (2(l%4), l/4) and (2(l%4)+1,
+// l/4) of matrix j in r[j], the first in the low half
+inline void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* row) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_warp[w].rows[l] = row;
+  emu_warp_bar[w]->arrive_and_wait();
+  for (int j = 0; j < 4; ++j) {
+    const auto* r0 = static_cast<const __nv_bfloat16*>(emu_warp[w].rows[j * 8 + 2 * (l % 4)]);
+    const auto* r1 = static_cast<const __nv_bfloat16*>(emu_warp[w].rows[j * 8 + 2 * (l % 4) + 1]);
+    r[j] = uint32_t(r0[l / 4].v) | (uint32_t(r1[l / 4].v) << 16);
+  }
+  emu_warp_bar[w]->arrive_and_wait();
+}
 template <class F> void emu_launch(dim3 grid, F&& body) {
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
@@ -183,10 +205,11 @@ def emulated(tmp_path_factory):
         assert proc.returncode == 0, proc.stderr[-4000:]
         return out
 
-    names = [k[3] for k in KERNELS.values()]
+    names = sorted({k[3] for k in KERNELS.values()})
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        paths = list(pool.map(compile_one, names))
-    return {kind: ctypes.CDLL(str(p)) for kind, p in zip(KERNELS, paths)}
+        paths = dict(zip(names, pool.map(compile_one, names)))
+    return {kind: ctypes.CDLL(str(paths[k[3]]))
+            for kind, k in KERNELS.items()}
 
 
 def _case(kind, dtype):
@@ -215,10 +238,28 @@ def _case(kind, dtype):
                 rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
                 rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
                 rnd(1, c, 3, 3, scale=0.1), rnd(1, scale=0.1))
-    ws = []
-    for _ in range(4):
-        ws += [rnd(c, c, 3, 3, scale=0.05), rnd(c, scale=0.1)]
-    return (rnd(2, 6, 18, c), rnd(1, 6, 18, c), rand(2, c), *ws)
+    if kind == "tail":
+        ws = []
+        for _ in range(4):
+            ws += [rnd(c, c, 3, 3, scale=0.05), rnd(c, scale=0.1)]
+        return (rnd(2, 6, 18, c), rnd(1, 6, 18, c), rand(2, c), *ws)
+    # 2 x 2 MDTA tiles of 8 x 16 with ragged edges; MSA tiles of 128
+    # pixels ending inside a row
+    return align_embed_args(kind, dtype, g, (2, 10, 19), 3, device="cpu")
+
+
+def assert_outputs_close(out, ref, dtype):
+    """Each output of a wrapper (a tensor or a tuple of them) within
+    ``TOLERANCE[dtype]`` of the plain version's largest magnitude (the
+    float32 statistics of a bfloat16 run too: they sum rounded values)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    assert len(outs) == len(refs)
+    for o, r in zip(outs, refs):
+        assert o.dtype == r.dtype and o.shape == r.shape, (o.shape, r.shape)
+        err = (o.float() - r.float()).abs().max().item()
+        assert err <= TOLERANCE[dtype] * r.float().abs().max().item(), (
+            err, r.shape)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -253,6 +294,4 @@ def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
     finally:
         module._kernel.cache_clear()
     assert wrapper.launches == before + 1
-    assert out.dtype == ref.dtype and out.shape == ref.shape
-    err = (out.float() - ref.float()).abs().max().item()
-    assert err <= TOLERANCE[dtype] * ref.float().abs().max().item(), err
+    assert_outputs_close(out, ref, dtype)

@@ -68,7 +68,7 @@ def models():
     params = jax.tree.map(np.array, params)
     excite_egla(params["params"]["RDAB"])
     tmodel = CVSRV8(ModelConfig(nf=NF, scn_groups=2),
-                    generator=torch.Generator().manual_seed(0))
+                    generator=torch.Generator().manual_seed(0), device="cpu")
     load(tmodel, params)
     return jmodel, params, tmodel
 
