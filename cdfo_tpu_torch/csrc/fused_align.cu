@@ -251,24 +251,44 @@ cudaError_t launch2(const void* w, const void* pr, const void* center, const voi
                        nullptr, batch, stream);
 }
 
-bool bad_shape(int batch, int h, int wd, int nbr, int parts) {
+bool bad_shape(int batch, int h, int wd, int nbr) {
   return batch <= 0 || h <= 0 || wd <= 0 || nbr <= 0 || batch % nbr != 0 ||
-         batch / nbr > 65535 || parts <= 0 || parts > 65535 ||
-         static_cast<long long>(h) * wd > (1LL << 31) / C;
+         batch / nbr > 65535 || static_cast<long long>(h) * wd > (1LL << 31) / C;
+}
+
+// floats of one block's partial sums in stage 1 and stage 2
+constexpr int S1_PART = 3 * GRAM + 2 * C, S2_PART = C;
+
+int workspace(int batch, int h, int wd, int nbr, int per_part) {
+  if (bad_shape(batch, h, wd, nbr)) return -1;
+  return workspace_floats((h * wd + NP - 1) / NP, batch / nbr, batch, per_part);
 }
 
 }  // namespace
 
+// The float32 scratch cdfo_msa_stage1 and cdfo_msa_stage2 need for `batch`
+// neighbour images of h x wd, nbr per centre, on the current device, in
+// floats; -1 if there is none.
+extern "C" int cdfo_msa_stage1_workspace(int batch, int h, int wd, int nbr) {
+  return workspace(batch, h, wd, nbr, S1_PART);
+}
+
+extern "C" int cdfo_msa_stage2_workspace(int batch, int h, int wd, int nbr) {
+  return workspace(batch, h, wd, nbr, S2_PART);
+}
+
 // w (warped), pr (pred): (batch, h, wd, 64) NHWC; center: (batch / nbr, h,
 // wd, 64); wf: the fusion_out 1x1 (64 out, 128 in) in
 // ops/cuda_build.py::kernel_weights' layout; all of one dtype (is_bf16: 1
-// bfloat16, 0 float32). ws: [batch][parts][3*64*64 + 128] float32 scratch;
+// bfloat16, 0 float32). ws: ws_floats of float32 scratch, as
+// cdfo_msa_stage1_workspace sizes it ([batch][parts][3*64*64 + 128]);
 // stats: [batch][3][64][64] and gaps: [batch][2][64] float32 out. Two
 // launches (partials, reduction). Returns a cudaError_t.
 extern "C" int cdfo_msa_stage1(const void* w, const void* pr, const void* center, const void* wf,
-                               void* ws, void* stats, void* gaps, int is_bf16, int batch, int h,
-                               int wd, int nbr, int parts, void* stream) {
-  if (bad_shape(batch, h, wd, nbr, parts)) return cudaErrorInvalidValue;
+                               void* ws, int ws_floats, void* stats, void* gaps, int is_bf16,
+                               int batch, int h, int wd, int nbr, void* stream) {
+  const int parts = parts_of(ws_floats, batch, S1_PART);
+  if (bad_shape(batch, h, wd, nbr) || parts <= 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch1<bf16>(w, pr, center, wf, ws, stats, gaps, batch, h * wd, nbr, parts, s)
                  : launch1<float>(w, pr, center, wf, ws, stats, gaps, batch, h * wd, nbr, parts,
@@ -277,14 +297,15 @@ extern "C" int cdfo_msa_stage1(const void* w, const void* pr, const void* center
 
 // As stage 1, plus wa: [batch] per-image (64 out, 128 in) matrices [awt;
 // apt]^T in kernel_weights' layout, one image per tap; wproj: the 1x1
-// projection in that layout; fo: (batch, h, wd, 64) out; ws: [batch][parts]
-// [64] float32 scratch; gap: [batch][64] float32 out. Returns a
-// cudaError_t.
+// projection in that layout; fo: (batch, h, wd, 64) out; ws: ws_floats of
+// float32 scratch, as cdfo_msa_stage2_workspace sizes it ([batch][parts]
+// [64]); gap: [batch][64] float32 out. Returns a cudaError_t.
 extern "C" int cdfo_msa_stage2(const void* w, const void* pr, const void* center, const void* wa,
-                               const void* wproj, const void* wf, void* fo, void* ws, void* gap,
-                               int is_bf16, int batch, int h, int wd, int nbr, int parts,
-                               void* stream) {
-  if (bad_shape(batch, h, wd, nbr, parts)) return cudaErrorInvalidValue;
+                               const void* wproj, const void* wf, void* fo, void* ws,
+                               int ws_floats, void* gap, int is_bf16, int batch, int h, int wd,
+                               int nbr, void* stream) {
+  const int parts = parts_of(ws_floats, batch, S2_PART);
+  if (bad_shape(batch, h, wd, nbr) || parts <= 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch2<bf16>(w, pr, center, wa, wproj, wf, fo, ws, gap, batch, h * wd, nbr,
                                  parts, s)

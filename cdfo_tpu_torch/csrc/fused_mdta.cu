@@ -226,6 +226,8 @@ mdta2_kernel(const T* __restrict__ x, const T* __restrict__ v, const T* __restri
   });
 }
 
+int tiles_of(int h, int wd) { return ((h + TH - 1) / TH) * ((wd + TW - 1) / TW); }
+
 template <typename T>
 cudaError_t launch1(const void* x, const void* lnw, const void* lnb, const void* wqkv,
                     const void* taps, void* v, void* ws, void* stats, int batch, int h, int wd,
@@ -260,16 +262,25 @@ cudaError_t launch2(const void* x, const void* v, const void* x2, const void* am
 
 }  // namespace
 
+// The float32 scratch cdfo_mdta_stage1 needs for `batch` images of h x wd
+// on the current device, in floats; -1 if there is none.
+extern "C" int cdfo_mdta_stage1_workspace(int batch, int h, int wd) {
+  if (batch <= 0 || h <= 0 || wd <= 0) return -1;
+  return workspace_floats(tiles_of(h, wd), batch, batch, 3 * GRAM);
+}
+
 // x, v: (batch, h, wd, 64) NHWC of one dtype (is_bf16: 1 bfloat16, 0
 // float32); lnw, lnb: [64] float32; wqkv: the qkv 1x1 (192 out, 64 in) in
 // ops/cuda_build.py::kernel_weights' layout; taps: [192][9] float32
-// (3*dy + dx); ws: [batch][parts][3][64][64] float32 scratch; stats:
+// (3*dy + dx); ws: ws_floats of float32 scratch, as
+// cdfo_mdta_stage1_workspace sizes it ([batch][parts][3][64][64]); stats:
 // [batch][3][64][64] float32 out. Two launches (partials, reduction).
 // Returns a cudaError_t.
 extern "C" int cdfo_mdta_stage1(const void* x, const void* lnw, const void* lnb, const void* wqkv,
-                                const void* taps, void* v, void* ws, void* stats, int is_bf16,
-                                int batch, int h, int wd, int parts, void* stream) {
-  if (batch <= 0 || batch > 65535 || h <= 0 || wd <= 0 || parts <= 0 || parts > 65535) {
+                                const void* taps, void* v, void* ws, int ws_floats, void* stats,
+                                int is_bf16, int batch, int h, int wd, void* stream) {
+  const int parts = parts_of(ws_floats, batch, 3 * GRAM);
+  if (batch <= 0 || batch > 65535 || h <= 0 || wd <= 0 || parts <= 0) {
     return cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);

@@ -17,7 +17,9 @@
 //
 // Partial sums go to a workspace and a second launch (`reduce_parts`) adds
 // them in a fixed order, so a result is the same on every run (no
-// atomics).
+// atomics). The library sizes the workspace for the device
+// (`workspace_floats`) and each launch takes its block count from the
+// workspace it is given (`parts_of`).
 
 #pragma once
 
@@ -144,6 +146,33 @@ inline cudaError_t launch_reduce(const float* ws, int parts, int n, int n_a, flo
   const dim3 grid((n + THREADS - 1) / THREADS, images);
   CDFO_LAUNCH(reduce_parts, grid, 0, stream, ws, parts, n, n_a, out_a, out_b);
   return cudaGetLastError();
+}
+
+// The floats of the workspace in which the blocks of a kernel leave their
+// partial sums: `per_part` floats for each of `parts` blocks of each of
+// `sums` images, where each of `groups` groups of images (a grid row) gets
+// enough blocks for two resident on every SM of the current device, at
+// most one per each of its `tiles` tiles. The kernel reads `parts` back
+// from the size (parts_of), so the caller never computes it. -1 if the
+// device cannot be asked or the size does not fit an int.
+inline int workspace_floats(int tiles, int groups, int sums, int per_part) {
+  int dev = 0, sms = 0;
+  if (tiles <= 0 || groups <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      sms <= 0) {
+    return -1;
+  }
+  const int want = (2 * sms + groups - 1) / groups;
+  const long long n = static_cast<long long>(want < tiles ? want : tiles) * sums * per_part;
+  return n > 0x7fffffff ? -1 : static_cast<int>(n);
+}
+
+// The blocks per image that a workspace of `floats` floats holds (0 if it is
+// not a whole number of them, or more than a grid row takes).
+inline int parts_of(int floats, int sums, int per_part) {
+  const long long one = static_cast<long long>(sums) * per_part;
+  if (floats <= 0 || floats % one != 0 || floats / one > 65535) return 0;
+  return static_cast<int>(floats / one);
 }
 
 }  // namespace cdfo

@@ -117,18 +117,38 @@ class BatchedStreamingEngine:
         # (clamp(0, 1) * 255, then a cast to uint8)
         return (sr[..., 0].clamp(0.0, 1.0) * 255.0).to(torch.uint8)
 
-    @torch.inference_mode()
-    def run_sequence(self, data: SequenceData, collect_timing: bool = False):
-        """Returns (sr uint8 (T, sH, sW), fps or None). With
-        ``collect_timing`` the timer covers the bootstrap and every step and
-        divides the full frame count."""
-        k, n, t = self.k, self.n, data.num_frames
-        half = n // 2
+    def _stage_boot(self, data: SequenceData):
+        """Host prep + device upload of the bootstrap's inputs and ring
+        slots."""
+        k, half, t = self.k, self.n // 2, data.num_frames
         boot_pos = range(-k - half, half)
         binp = self._put(self._frame_inputs(
             data, [min(max(f, 0), t - 1) for f in boot_pos]))
         bslots = torch.tensor([(p + self._S) % self._L for p in boot_pos],
                               device=self.device)
+        return binp, bslots
+
+    def stage_sequence(self, data: SequenceData):
+        """Every input of ``data`` on the device, as the timed run stages
+        it before its timer: (the bootstrap's, [each step's])."""
+        return (self._stage_boot(data),
+                [self._stage(data, j) for j in range(0, data.num_frames,
+                                                     self.k)])
+
+    def run_staged(self, boot, steps):
+        """The device work of a staged sequence (``stage_sequence``): the
+        bootstrap, then every step. Returns (the rings, [uint8 SR
+        (k, sH, sW) of each step]); with no steps, the rings as the first
+        step finds them."""
+        rings = self._boot(*boot)
+        return rings, [self._step(rings, *st) for st in steps]
+
+    @torch.inference_mode()
+    def run_sequence(self, data: SequenceData, collect_timing: bool = False):
+        """Returns (sr uint8 (T, sH, sW), fps or None). With
+        ``collect_timing`` the timer covers the bootstrap and every step and
+        divides the full frame count."""
+        k, t = self.k, data.num_frames
         starts = list(range(0, t, k))
         out_frames = [None] * t
 
@@ -139,18 +159,17 @@ class BatchedStreamingEngine:
                     out_frames[c] = crop_sr_output(sr_np[b])
 
         if collect_timing:
-            all_staged = [self._stage(data, j) for j in starts]
+            boot, steps = self.stage_sequence(data)
             self._sync()
             t0 = time.perf_counter()
-            rings = self._boot(binp, bslots)
-            srs = [self._step(rings, *st) for st in all_staged]
+            _, srs = self.run_staged(boot, steps)
             self._sync()
             total = time.perf_counter() - t0
             for j, sr8 in zip(starts, srs):
                 collect(j, sr8)
             return np.stack(out_frames), t / total
 
-        rings = self._boot(binp, bslots)
+        rings = self._boot(*self._stage_boot(data))
         for j in starts:
             collect(j, self._step(rings, *self._stage(data, j)))
         return np.stack(out_frames), None

@@ -160,25 +160,42 @@ class CVSRV8(nn.Module):
         centre excluded. Returns SR (k, sH, sW, 1) float32. The neighbour
         warp gathers straight from the ring.
         """
-        cfg = self.cfg
-        dt = cfg.compute_dtype
+        center_l1 = center_l1.to(self.cfg.compute_dtype)
+        aligned = self.align_neighbours(
+            center_l1, *self.warp_neighbours(ring_fi, nbr_ufs_p, nbr_mv,
+                                             nbr_idx))
+        return self._reconstruct(aligned, center_l1, center_lr)
+
+    def warp_neighbours(self, ring_fi, nbr_ufs_p, nbr_mv, nbr_idx):
+        """``align_reconstruct``'s neighbour warp, with the neighbours
+        folded into the batch: (warped (k*(N-1), H, W, nf), ufs prior
+        (k*(N-1), H, W, nf), flows (k*(N-1), H, W, 2)), in the compute
+        dtype."""
+        dt, nf = self.cfg.compute_dtype, self.cfg.nf
         k, nm1 = nbr_idx.shape
-        _, h, w, _ = center_l1.shape
-        center_l1 = center_l1.to(dt)
-        ufs_p = nbr_ufs_p.to(dt).reshape(k * nm1, h, w, cfg.nf)
+        _, h, w, _ = ring_fi.shape
+        ufs_p = nbr_ufs_p.to(dt).reshape(k * nm1, h, w, nf)
         mv = nbr_mv.to(dt).reshape(k * nm1, h, w, 2)
         warped = flow_warp_ring(ring_fi.to(dt), nbr_idx.reshape(k * nm1), mv)
+        return warped, ufs_p, mv
+
+    def align_neighbours(self, center_l1, warped, ufs_p, mv):
+        """``align_reconstruct``'s dual attention of the k centres
+        (k, H, W, nf) in the compute dtype against their warped
+        neighbours (``warp_neighbours``): (k, N-1, H, W, nf). With
+        ``fused_align`` the centres are read without broadcasting them."""
+        cfg = self.cfg
+        k, h, w, nf = center_l1.shape
+        nm1 = warped.shape[0] // k
         if cfg.fused_align:
             aligned = self.MV_deform_align.fused_msa(warped, ufs_p, center_l1)
-            aligned = aligned.reshape(k, nm1, h, w, cfg.nf)
-            return self._reconstruct(aligned, center_l1, center_lr)
-        center_rep = center_l1[:, None].expand(k, nm1, h, w, cfg.nf) \
-            .reshape(k * nm1, h, w, cfg.nf)
-        aligned = self.MV_deform_align(
-            center_rep, None, ufs_p, mv, warped_feat=warped,
-            center=center_l1 if cfg.fused_trunk else None)
-        aligned = aligned.reshape(k, nm1, h, w, cfg.nf)
-        return self._reconstruct(aligned, center_l1, center_lr)
+        else:
+            center_rep = center_l1[:, None].expand(k, nm1, h, w, nf) \
+                .reshape(k * nm1, h, w, nf)
+            aligned = self.MV_deform_align(
+                center_rep, None, ufs_p, mv, warped_feat=warped,
+                center=center_l1 if cfg.fused_trunk else None)
+        return aligned.reshape(k, nm1, h, w, nf)
 
     def forward(self, lrs, mvs0, mvs1, pms, rms, ufs,
                 pre_l1: Optional[torch.Tensor] = None):

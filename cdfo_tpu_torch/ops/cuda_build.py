@@ -197,16 +197,18 @@ def check_float32(what: str, device: torch.device,
             raise ValueError(f"{what} needs contiguous operands")
 
 
-# two resident blocks on each of the H100's 132 SMs
-TARGET_BLOCKS = 264
-
-
-def parts_per_image(tiles: int, images: int) -> int:
-    """Blocks per image of a kernel that reduces over each image's tiles:
-    each block walks every ``parts``-th tile and writes one partial sum, and
-    a second launch adds the partials in a fixed order (the same result on
-    every run). Aims at ``TARGET_BLOCKS`` blocks in all."""
-    return max(1, min(tiles, -(-TARGET_BLOCKS // images)))
+def workspace(query, what: str, device: torch.device,
+              *sizes: int) -> torch.Tensor:
+    """The float32 scratch in which a kernel that reduces over each image
+    leaves one partial sum per block (a second launch adds them in a fixed
+    order, the same result on every run). ``query`` is the library's
+    ``*_workspace`` function, which sizes it for ``sizes`` and the current
+    device's SM count; the kernel reads its block count from the size."""
+    fn, _ = query
+    n = fn(*sizes)
+    if n <= 0:
+        raise RuntimeError(f"{what}: no workspace for sizes {sizes}")
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def launch(kernel, what: str, device: torch.device, *args) -> None:

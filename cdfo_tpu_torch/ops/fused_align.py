@@ -39,8 +39,6 @@ from . import cuda_build as cb
 CHANNELS = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# pixels of a block's tile (csrc/fused_align.cu: NP)
-_TILE_PIXELS = 128
 
 
 def _neighbours(t, center):
@@ -87,8 +85,10 @@ def msa_stage2_plain(warped, pred, center, awt, apt, w_proj, w_fuse):
 
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol):
-    argtypes = {"cdfo_msa_stage1": [_P] * 7 + [_I] * 6 + [_P],
-                "cdfo_msa_stage2": [_P] * 9 + [_I] * 6 + [_P]}[symbol]
+    argtypes = {"cdfo_msa_stage1_workspace": [_I] * 4,
+                "cdfo_msa_stage2_workspace": [_I] * 4,
+                "cdfo_msa_stage1": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P],
+                "cdfo_msa_stage2": [_P] * 8 + [_I, _P] + [_I] * 5 + [_P]}[symbol]
     return cb.kernel_function("fused_align", symbol, argtypes)
 
 
@@ -121,16 +121,15 @@ def msa_stage1(warped, pred, center, w_fuse):
         return msa_stage1_plain(warped, pred, center, w_fuse)
     b, h, wd, nbr = _check(what, warped, pred, center, (), (), w_fuse)
     c = CHANNELS
-    parts = cb.parts_per_image(-(-h * wd // _TILE_PIXELS), b // nbr)
     stats = warped.new_empty((b, 3, c, c), dtype=torch.float32)
     gaps = warped.new_empty((b, 2, c), dtype=torch.float32)
-    ws = warped.new_empty((b, parts, 3 * c * c + 2 * c), dtype=torch.float32)
+    ws = cb.workspace(_kernel("cdfo_msa_stage1_workspace"), what,
+                      warped.device, b, h, wd, nbr)
     fk = cb.kernel_weights(w_fuse, warped.dtype)
     cb.launch(_kernel("cdfo_msa_stage1"), what, warped.device,
               warped.data_ptr(), pred.data_ptr(), center.data_ptr(),
-              fk.data_ptr(), ws.data_ptr(), stats.data_ptr(),
-              gaps.data_ptr(), cb.DTYPE_CODES[warped.dtype], b, h, wd, nbr,
-              parts)
+              fk.data_ptr(), ws.data_ptr(), ws.numel(), stats.data_ptr(),
+              gaps.data_ptr(), cb.DTYPE_CODES[warped.dtype], b, h, wd, nbr)
     msa_stage1.launches += 1
     return stats, gaps
 
@@ -145,10 +144,10 @@ def msa_stage2(warped, pred, center, awt, apt, w_proj, w_fuse):
     b, h, wd, nbr = _check(what, warped, pred, center, (awt, apt),
                            (w_proj,), w_fuse)
     c = CHANNELS
-    parts = cb.parts_per_image(-(-h * wd // _TILE_PIXELS), b // nbr)
     fo = torch.empty_like(warped)
     gap = warped.new_empty((b, c), dtype=torch.float32)
-    ws = warped.new_empty((b, parts, c), dtype=torch.float32)
+    ws = cb.workspace(_kernel("cdfo_msa_stage2_workspace"), what,
+                      warped.device, b, h, wd, nbr)
     # image b's o = [w, p] [awt; apt] as one (C out, 2C in) matrix
     ak = cb.matrix_weights(torch.cat([awt, apt], dim=1).transpose(1, 2),
                            warped.dtype)
@@ -157,8 +156,8 @@ def msa_stage2(warped, pred, center, awt, apt, w_proj, w_fuse):
     cb.launch(_kernel("cdfo_msa_stage2"), what, warped.device,
               warped.data_ptr(), pred.data_ptr(), center.data_ptr(),
               ak.data_ptr(), pk.data_ptr(), fk.data_ptr(), fo.data_ptr(),
-              ws.data_ptr(), gap.data_ptr(), cb.DTYPE_CODES[warped.dtype], b,
-              h, wd, nbr, parts)
+              ws.data_ptr(), ws.numel(), gap.data_ptr(),
+              cb.DTYPE_CODES[warped.dtype], b, h, wd, nbr)
     msa_stage2.launches += 1
     return fo, gap
 

@@ -39,8 +39,6 @@ from . import cuda_build as cb
 CHANNELS = 64
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# output tile of a stage-1 block (csrc/fused_mdta.cu: TH x TW)
-_TILE = (8, 16)
 
 
 def _ln(xf, w, b):
@@ -104,7 +102,8 @@ def mdta_stage2_plain(x, v, x2, amat, w_proj, ln_w, ln_b, w_conv, b_conv):
 
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol):
-    argtypes = {"cdfo_mdta_stage1": [_P] * 8 + [_I] * 5 + [_P],
+    argtypes = {"cdfo_mdta_stage1_workspace": [_I] * 3,
+                "cdfo_mdta_stage1": [_P] * 7 + [_I, _P] + [_I] * 4 + [_P],
                 "cdfo_mdta_stage2": [_P] * 10 + [_I] * 4 + [_P]}[symbol]
     return cb.kernel_function("fused_mdta", symbol, argtypes)
 
@@ -130,17 +129,16 @@ def mdta_stage1(x, ln_w, ln_b, w_qkv, w_dw):
                          "w_qkv": (w_qkv, (3 * c, c, 1, 1)),
                          "w_dw": (w_dw, (3 * c, 1, 3, 3))})
     m, h, wd, _ = x.shape
-    tiles = -(-h // _TILE[0]) * -(-wd // _TILE[1])
-    parts = cb.parts_per_image(tiles, m)
     v = torch.empty_like(x)
     stats = x.new_empty((m, 3, c, c), dtype=torch.float32)
-    ws = x.new_empty((m, parts, 3, c, c), dtype=torch.float32)
+    ws = cb.workspace(_kernel("cdfo_mdta_stage1_workspace"), what, x.device,
+                      m, h, wd)
     wk = cb.kernel_weights(w_qkv, x.dtype)
     taps = w_dw.float().reshape(3 * c, 9).contiguous()
     cb.launch(_kernel("cdfo_mdta_stage1"), what, x.device, x.data_ptr(),
               ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(),
-              taps.data_ptr(), v.data_ptr(), ws.data_ptr(),
-              stats.data_ptr(), cb.DTYPE_CODES[x.dtype], m, h, wd, parts)
+              taps.data_ptr(), v.data_ptr(), ws.data_ptr(), ws.numel(),
+              stats.data_ptr(), cb.DTYPE_CODES[x.dtype], m, h, wd)
     mdta_stage1.launches += 1
     return v, stats
 

@@ -1,0 +1,138 @@
+"""Seeded inputs for the kernel wrappers, and the rule by which a kernel's
+output is held against its plain version's. ``chip_smoke.py`` and the
+port's tests draw their cases and limits here.
+
+A kernel agrees with its plain version when, on every output and on every
+slice of it whose entries share one scale, max |kernel - plain| is at most
+``TOLERANCE[dtype]`` times max |plain| over that slice. A slice is the
+whole output unless ``SCALE_DIMS`` splits it: the statistics of the MDTA
+and dual-MSA passes are held per image and per gram (a q^T q diagonal is
+~100x the q^T k entries that set the attention), their GAP sums per image
+and per input, their feature maps per image.
+"""
+from __future__ import annotations
+
+import torch
+
+# relative to max |plain| of the slice: float32 differs only in summation
+# order; bfloat16 rounds intermediates and the output to 8 mantissa bits
+# (one output ulp is 2^-8 of the largest value), at other points than
+# eager PyTorch, so 4 ulps
+TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+
+# per output of the wrapper: how many leading dimensions index slices of
+# one scale (0: the whole output)
+SCALE_DIMS = {"mdta1": (1, 2), "mdta2": (1,), "msa1": (2, 2), "msa2": (1, 1)}
+
+
+def worst_error(out, ref, kind: str | None = None) -> tuple[float, float]:
+    """(max |kernel - plain|, max |plain|) over the slice (of the outputs
+    ``out`` and ``ref``, each a tensor or a tuple of them, cut as
+    ``SCALE_DIMS[kind]`` says) whose error is largest against its scale."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    lead = SCALE_DIMS.get(kind, (0,) * len(outs))
+    worst, worst_ratio = (0.0, 0.0), -1.0
+    for o, r, n in zip(outs, refs, lead, strict=True):
+        err = (o.float() - r.float()).abs().flatten(n).amax(dim=-1).flatten()
+        scale = r.float().abs().flatten(n).amax(dim=-1).flatten()
+        ratio = err / scale.clamp_min(1e-30)
+        i = int(ratio.argmax())
+        if ratio[i].item() > worst_ratio:
+            worst, worst_ratio = (err[i].item(), scale[i].item()), ratio[i].item()
+    return worst
+
+
+def max_abs_error(out, ref) -> float:
+    """max |kernel - plain| over every output."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    return max((o.float() - r.float()).abs().max().item()
+               for o, r in zip(outs, refs, strict=True))
+
+
+def assert_outputs_close(out, ref, dtype: torch.dtype,
+                         kind: str | None = None) -> None:
+    """Each output of a wrapper of the same dtype and shape as the plain
+    version's, and every slice within ``TOLERANCE[dtype]`` (the float32
+    statistics of a bfloat16 run too: they sum rounded values)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    assert len(outs) == len(refs)
+    for o, r in zip(outs, refs):
+        assert o.dtype == r.dtype and o.shape == r.shape, (o.shape, r.shape)
+    err, scale = worst_error(out, ref, kind)
+    assert err <= TOLERANCE[dtype] * scale, (kind, err, scale)
+
+
+def trunk_args(kind: str, dtype: torch.dtype, g: torch.Generator, shape,
+               nbr: int = 3, device="cuda") -> tuple:
+    """Inputs of one fused-trunk kernel (``block``, ``group``, ``head`` or
+    ``tail``) at NHWC ``shape``, drawn from ``g`` on ``device``; the tail
+    gets ``nbr`` neighbour images per image of ``shape``."""
+    def rnd(*s, scale=1.0):
+        return (torch.randn(*s, generator=g, device=device) * scale).to(dtype)
+
+    def rand(*s):
+        return torch.rand(*s, generator=g, device=device).to(dtype)
+
+    c = shape[-1]
+    if kind == "block":
+        return (rnd(*shape), rnd(4 * c, c, 3, 3, scale=0.03),
+                rnd(4 * c, scale=0.1), rnd(c, 4 * c, 3, 3, scale=0.02),
+                rnd(c, scale=0.1), rnd(c, c, 1, 1, scale=0.1),
+                rnd(c, scale=0.1), rnd(c, c, 1, 1, scale=0.1),
+                rnd(c, scale=0.1))
+    if kind == "group":
+        return (rnd(*shape), rnd(*shape), rnd(c, c, 3, 3, scale=0.05),
+                rnd(c, scale=0.1))
+    if kind == "head":
+        return (rnd(*shape), rand(*shape[:3], 1),
+                rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
+                rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
+                rnd(1, c, 3, 3, scale=0.1), rnd(1, scale=0.1))
+    ws = []
+    for _ in range(4):
+        ws += [rnd(c, c, 3, 3, scale=0.05), rnd(c, scale=0.1)]
+    return (rnd(nbr * shape[0], *shape[1:]), rnd(*shape),
+            rand(nbr * shape[0], c), *ws)
+
+
+def align_embed_args(kind: str, dtype: torch.dtype, g: torch.Generator,
+                     shape, nbr: int, device="cuda") -> tuple:
+    """Inputs of one MDTA or dual-MSA pass (``mdta1``, ``mdta2``, ``msa1``
+    or ``msa2``), drawn from ``g`` on ``device``: ``shape`` (M, H, W) the
+    MDTA images, or the centres of ``nbr`` neighbours each; the norm
+    parameters are float32 and the attention matrices softmax rows (the
+    MSA's scaled by gates)."""
+    def rnd(*s, scale=1.0):
+        return (torch.randn(*s, generator=g, device=device) * scale).to(dtype)
+
+    def f32(*s, scale=1.0, shift=0.0):
+        return torch.randn(*s, generator=g, device=device) * scale + shift
+
+    def attn(b, gated):
+        a = torch.softmax(f32(b, 64, 64) * 2.0, dim=-1)
+        if gated:
+            a = a * torch.rand(b, 1, 64, generator=g, device=device)
+        return a.to(dtype)
+
+    c = 64
+    m, h, w = shape
+    if kind == "mdta1":
+        return (rnd(m, h, w, c), f32(c, scale=0.1, shift=1.0),
+                f32(c, scale=0.1), rnd(3 * c, c, 1, 1, scale=0.12),
+                rnd(3 * c, 1, 3, 3, scale=0.3))
+    if kind == "mdta2":
+        return (rnd(m, h, w, c), rnd(m, h, w, c), rnd(m, h, w, c),
+                attn(m, False), rnd(c, c, 1, 1, scale=0.12),
+                f32(c, scale=0.1, shift=1.0), f32(c, scale=0.1),
+                rnd(c, c, 3, 3, scale=0.04), rnd(c, scale=0.1))
+    b = m * nbr
+    nb = (rnd(b, h, w, c), rnd(b, h, w, c), rnd(m, h, w, c))
+    wf = rnd(c, 2 * c, 1, 1, scale=0.09)
+    if kind == "msa1":
+        return (*nb, wf)
+    return (*nb, attn(b, True).transpose(1, 2).contiguous(),
+            attn(b, True).transpose(1, 2).contiguous(),
+            rnd(c, c, 1, 1, scale=0.12), wf)

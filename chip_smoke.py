@@ -19,7 +19,10 @@ CUDA device the script exits non-zero before printing any result):
    at the 272x480, k=4 shapes and at a ragged even shape (an odd extent
    must be refused); the two MDTA passes at (4, 272, 480, 64) and (2, 18,
    34, 64), the two dual-MSA passes at 24 neighbours of 4 centres of
-   272x480 and at 3 neighbours of 2 centres of 18x34. Each kernel's bound
+   272x480 and at 3 neighbours of 2 centres of 18x34. Each output is held
+   against the plain one slice by slice, each slice against its own largest
+   value (``kernel_cases``: the MDTA and dual-MSA statistics per image and
+   gram, their feature maps per image). Each kernel's bound
    is computed from its inputs: the larger of its bytes (inputs read once,
    outputs written once) over 3.35 TB/s and its operations over the peak
    of its type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32);
@@ -39,8 +42,8 @@ CUDA device the script exits non-zero before printing any result):
    group-tail, 1 head and 1 tail kernels and, with ``fused_align``, 1 of
    each dual-MSA pass, and that the fused frames are within 40 dB PSNR of
    the unfused ones; then times each stage of one engine step alone
-   (``compensate_frames``, ``embed``, ``align_reconstruct``, the ring warp,
-   ``DualAttAlignment``, tsa, trunk, head).
+   (``compensate_frames``, ``embed``, ``align_reconstruct``, its neighbour
+   warp and ``DualAttAlignment``, tsa, trunk, head).
 
 The line before the last is a JSON object with one entry per kernel
 wrapper (launches from the main-path run); the last line is ``{"ok": true,
@@ -76,13 +79,8 @@ from cdfo_tpu_torch.ops import fused_groupconv as fg
 from cdfo_tpu_torch.ops import fused_head as fh
 from cdfo_tpu_torch.ops import fused_mdta as fm
 from cdfo_tpu_torch.ops import fused_tail as ft
-from cdfo_tpu_torch.ops.warp import flow_warp_ring
+from cdfo_tpu_torch.ops import kernel_cases as kc
 
-# max |kernel - plain| allowed, relative to max |plain|: float32 differs
-# only in summation order; bfloat16 rounds intermediates and the output to
-# 8 mantissa bits (one output ulp is 2^-8 of the largest value), at other
-# points than eager PyTorch, so 4 ulps
-TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 SOURCE = "cdfo_tpu_torch/csrc/fused_attention.cu"
 REPLACES = "cdfo_tpu/ops/fused_attention.py:43"
 LIBRARIES = ("fused_attention", "fused_block2", "fused_groupconv",
@@ -192,15 +190,6 @@ def bound(kind, args, outs, dtype) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def worst_error(out, ref) -> tuple[float, float]:
-    """(max |kernel - plain|, max |plain|) of the output (of a tensor or a
-    tuple of them) whose error is largest against its own scale."""
-    outs = out if isinstance(out, tuple) else (out,)
-    refs = ref if isinstance(ref, tuple) else (ref,)
-    pairs = [((o.float() - r.float()).abs().max().item(),
-              r.float().abs().max().item()) for o, r in zip(outs, refs)]
-    return max(pairs, key=lambda e: e[0] / max(e[1], 1e-30))
-
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -233,76 +222,6 @@ def reset_launches():
         wrapper.launches = 0
 
 
-def trunk_args(kind, shape, dtype, g):
-    """Inputs of one fused-trunk kernel at NHWC ``shape``, drawn from
-    ``g``; the tail gets 6 neighbours per image at the main shape, else 3."""
-    def rnd(*s, scale=1.0):
-        return (torch.randn(*s, generator=g, device="cuda") * scale).to(dtype)
-
-    def rand(*s):
-        return torch.rand(*s, generator=g, device="cuda").to(dtype)
-
-    c = shape[-1]
-    if kind == "block":
-        return (rnd(*shape), rnd(4 * c, c, 3, 3, scale=0.03),
-                rnd(4 * c, scale=0.1), rnd(c, 4 * c, 3, 3, scale=0.02),
-                rnd(c, scale=0.1), rnd(c, c, 1, 1, scale=0.1),
-                rnd(c, scale=0.1), rnd(c, c, 1, 1, scale=0.1),
-                rnd(c, scale=0.1))
-    if kind == "group":
-        return (rnd(*shape), rnd(*shape), rnd(c, c, 3, 3, scale=0.05),
-                rnd(c, scale=0.1))
-    if kind == "head":
-        return (rnd(*shape), rand(*shape[:3], 1),
-                rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
-                rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
-                rnd(1, c, 3, 3, scale=0.1), rnd(1, scale=0.1))
-    nbr = 6 if shape == TRUNK_MAIN else 3
-    ws = []
-    for _ in range(4):
-        ws += [rnd(c, c, 3, 3, scale=0.05), rnd(c, scale=0.1)]
-    return (rnd(nbr * shape[0], *shape[1:]), rnd(*shape),
-            rand(nbr * shape[0], c), *ws)
-
-
-def align_embed_args(kind, dtype, g, shape, nbr, device="cuda"):
-    """Inputs of one MDTA or dual-MSA pass, drawn from ``g`` on ``device``
-    (the tests draw them here too): ``shape`` (M, H, W) the MDTA images, or
-    the centres of ``nbr`` neighbours each; the norm parameters are float32
-    and the attention matrices softmax rows (the MSA's scaled by gates)."""
-    def rnd(*s, scale=1.0):
-        return (torch.randn(*s, generator=g, device=device) * scale).to(dtype)
-
-    def f32(*s, scale=1.0, shift=0.0):
-        return torch.randn(*s, generator=g, device=device) * scale + shift
-
-    def attn(b, gated):
-        a = torch.softmax(f32(b, 64, 64) * 2.0, dim=-1)
-        if gated:
-            a = a * torch.rand(b, 1, 64, generator=g, device=device)
-        return a.to(dtype)
-
-    c = 64
-    m, h, w = shape
-    if kind == "mdta1":
-        return (rnd(m, h, w, c), f32(c, scale=0.1, shift=1.0),
-                f32(c, scale=0.1), rnd(3 * c, c, 1, 1, scale=0.12),
-                rnd(3 * c, 1, 3, 3, scale=0.3))
-    if kind == "mdta2":
-        return (rnd(m, h, w, c), rnd(m, h, w, c), rnd(m, h, w, c),
-                attn(m, False), rnd(c, c, 1, 1, scale=0.12),
-                f32(c, scale=0.1, shift=1.0), f32(c, scale=0.1),
-                rnd(c, c, 3, 3, scale=0.04), rnd(c, scale=0.1))
-    b = m * nbr
-    nb = (rnd(b, h, w, c), rnd(b, h, w, c), rnd(m, h, w, c))
-    wf = rnd(c, 2 * c, 1, 1, scale=0.09)
-    if kind == "msa1":
-        return (*nb, wf)
-    return (*nb, attn(b, True).transpose(1, 2).contiguous(),
-            attn(b, True).transpose(1, 2).contiguous(),
-            rnd(c, c, 1, 1, scale=0.12), wf)
-
-
 @torch.no_grad()
 def check_kernel_table(card: str, table: dict, cases, seed: int) -> dict:
     """Phase 3 for the kernels of ``table`` ({kind: (JSON name, wrapper,
@@ -323,11 +242,12 @@ def check_kernel_table(card: str, table: dict, cases, seed: int) -> dict:
                 out = kernel(*args)
                 ref = plain(*args)
                 torch.cuda.synchronize()
-                err, scale = worst_error(out, ref)
+                err, scale = kc.worst_error(out, ref, kind)
+                max_abs = kc.max_abs_error(out, ref)
                 line = (f"kernel {name} {label} {str(dtype)[6:]}: max_abs_err "
-                        f"{err:.3e} (max |plain| {scale:.3f}, rel "
-                        f"{err / scale:.3e}, tolerance rel "
-                        f"{TOLERANCE[dtype]:.1e})")
+                        f"{max_abs:.3e}; worst slice {err:.3e} (max |plain| "
+                        f"{scale:.3f} there, rel {err / scale:.3e}, "
+                        f"tolerance rel {kc.TOLERANCE[dtype]:.1e})")
                 if main:
                     ms = median_ms(lambda: kernel(*args))
                     plain_ms = median_ms(lambda: plain(*args))
@@ -335,13 +255,13 @@ def check_kernel_table(card: str, table: dict, cases, seed: int) -> dict:
                     line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                              f"bound {bound_ms:.3f} ms ({bound_by}) [{card}]")
                     if dtype == torch.bfloat16:
-                        fields[kind] = {"max_abs_err": err, "ms": ms,
+                        fields[kind] = {"max_abs_err": max_abs, "ms": ms,
                                         "plain_ms": plain_ms,
                                         "bound_ms": bound_ms,
                                         "bound_by": bound_by,
                                         "library_ms": None}
                 print(line, flush=True)
-                if not err <= TOLERANCE[dtype] * scale:
+                if not err <= kc.TOLERANCE[dtype] * scale:
                     raise AssertionError(f"kernel disagrees with plain: "
                                          f"{line}")
                 del args, out, ref
@@ -354,10 +274,11 @@ def check_trunk_kernels(card: str) -> dict:
     shapes, then an odd extent the ``Block_`` must refuse."""
     fields = check_kernel_table(card, TRUNK_KERNELS, [
         (shape, shape == TRUNK_MAIN,
-         lambda kind, dtype, g, shape=shape: trunk_args(kind, shape, dtype, g))
+         lambda kind, dtype, g, shape=shape: kc.trunk_args(
+             kind, dtype, g, shape, nbr=6 if shape == TRUNK_MAIN else 3))
         for shape in TRUNK_SHAPES], seed=1)
     g = torch.Generator(device="cuda").manual_seed(1)
-    odd = trunk_args("block", (1, 16, 23, 64), torch.bfloat16, g)
+    odd = kc.trunk_args("block", torch.bfloat16, g, (1, 16, 23, 64))
     try:
         with torch.no_grad():
             fb.scale_block(*odd)
@@ -375,7 +296,7 @@ def check_align_embed_kernels(card: str) -> dict:
     return check_kernel_table(card, ALIGN_EMBED_KERNELS, [
         (f"{shape} (MSA: {nbr} neighbours per centre)",
          (shape, nbr) == ALIGN_EMBED_SHAPES[0],
-         lambda kind, dtype, g, shape=shape, nbr=nbr: align_embed_args(
+         lambda kind, dtype, g, shape=shape, nbr=nbr: kc.align_embed_args(
              kind, dtype, g, shape, nbr))
         for shape, nbr in ALIGN_EMBED_SHAPES], seed=2)
 
@@ -406,11 +327,11 @@ def check_kernels(card: str) -> dict:
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             scale = ref.float().abs().max().item()
-            tol = TOLERANCE[dtype] * scale
+            tol = kc.TOLERANCE[dtype] * scale
             line = (f"kernel {kind} {tuple(shape)} {str(dtype)[6:]}: "
                     f"max_abs_err {err:.3e} (max |plain| {scale:.3f}, "
                     f"rel {err / scale:.3e}, tolerance rel "
-                    f"{TOLERANCE[dtype]:.1e})")
+                    f"{kc.TOLERANCE[dtype]:.1e})")
             main = shape == KERNEL_CASES[0 if kind == "token" else 1][1]
             if main:
                 ms = median_ms(lambda: kernel(q, v))
@@ -507,32 +428,17 @@ def run_full_slice(card: str, **flags):
 
 @torch.inference_mode()
 def stage_times(eng, data, reps: int = 10) -> dict:
-    """ms per stage (CUDA events, median of ``reps``) of the first staged
-    engine step, each stage called alone through the model's own methods
-    on that step's inputs."""
-    model, k, half, t = eng.model, eng.k, eng.n // 2, data.num_frames
-    cfg, dt, nf = model.cfg, model.cfg.compute_dtype, model.cfg.nf
-    boot = range(-k - half, half)
-    rings = eng._boot(eng._put(eng._frame_inputs(
-        data, [min(max(f, 0), t - 1) for f in boot])), torch.tensor(
-            [(p + eng._S) % eng._L for p in boot], device=eng.device))
-    (lrs, pms, rms, ufs, mvs, center_lr, idx, cidx), _ = eng._stage(data, 0)
-    ring_l1, ring_fi, ring_uf = rings
-    center = ring_l1[cidx]
-    nm1, (h, w) = idx.shape[1], lrs.shape[1:3]
-    ufs_p = ring_uf[idx].reshape(k * nm1, h, w, nf)
-    mv = mvs.to(dt).reshape(k * nm1, h, w, 2)
-    warped = flow_warp_ring(ring_fi, idx.reshape(-1), mv)
-    align = model.MV_deform_align
-
-    def dual():
-        if cfg.fused_align:
-            return align.fused_msa(warped, ufs_p, center)
-        rep = center[:, None].expand(k, nm1, h, w, nf).reshape(-1, h, w, nf)
-        return align(rep, None, ufs_p, mv, warped_feat=warped,
-                     center=center if cfg.fused_trunk else None)
-
-    aligned = dual().reshape(k, nm1, h, w, nf)
+    """ms per stage (CUDA events, median of ``reps``) of the first step of
+    the staged sequence, each stage called alone through the model's own
+    methods on that step's inputs, the rings as the step finds them."""
+    model = eng.model
+    boot, steps = eng.stage_sequence(data)
+    (ring_l1, ring_fi, ring_uf), _ = eng.run_staged(boot, [])
+    (lrs, pms, rms, ufs, mvs, center_lr, idx, cidx), _ = steps[0]
+    dt = model.cfg.compute_dtype
+    center = ring_l1[cidx].to(dt)
+    nbrs = model.warp_neighbours(ring_fi, ring_uf[idx], mvs, idx)
+    aligned = model.align_neighbours(center, *nbrs)
     trunk_in = lrelu(model._tsa(aligned, center))
     trunk_out = model.recon_trunk(trunk_in)
     stages = {
@@ -541,9 +447,9 @@ def stage_times(eng, data, reps: int = 10) -> dict:
         "embed": lambda: model.embed(lrs.to(dt), pms.to(dt)),
         "align_reconstruct": lambda: model.align_reconstruct(
             center, center_lr, ring_fi, ring_uf[idx], mvs, idx),
-        "flow_warp_ring": lambda: flow_warp_ring(ring_fi, idx.reshape(-1),
-                                                 mv),
-        "DualAttAlignment": dual,
+        "warp_neighbours": lambda: model.warp_neighbours(
+            ring_fi, ring_uf[idx], mvs, idx),
+        "DualAttAlignment": lambda: model.align_neighbours(center, *nbrs),
         "tsa": lambda: model._tsa(aligned, center),
         "trunk": lambda: model.recon_trunk(trunk_in),
         "head": lambda: model.head_from_trunk(trunk_out, center_lr),
@@ -564,20 +470,12 @@ def profile_main_path(card: str, top: int = 15):
     data = synthetic_sequence(t=t, h=272, w=480, seed=0)
     eng = BatchedStreamingEngine(model, k=k)
     eng.run_sequence(data)   # warm-up
-    half = eng.n // 2
-    boot = range(-k - half, half)
-    binp = eng._put(eng._frame_inputs(
-        data, [min(max(f, 0), t - 1) for f in boot]))
-    bslots = torch.tensor([(p + eng._S) % eng._L for p in boot],
-                          device=eng.device)
-    staged = [eng._stage(data, j) for j in range(0, t, k)]
+    boot, steps = eng.stage_sequence(data)
     torch.cuda.synchronize()
     with torch.inference_mode(), profile(activities=[
             ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        rings = eng._boot(binp, bslots)
-        for st in staged:
-            eng._step(rings, *st)
+        eng.run_staged(boot, steps)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     spans = sorted((e.time_range.start, e.time_range.end)

@@ -8,9 +8,14 @@ import pytest
 import torch
 
 from cdfo_tpu_torch.ops import fused_attention as fa
-
-# relative to max |plain|; see chip_smoke.py for the reasoning
-TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+from cdfo_tpu_torch.ops import fused_align as fal
+from cdfo_tpu_torch.ops import fused_block2 as fb
+from cdfo_tpu_torch.ops import fused_groupconv as fg
+from cdfo_tpu_torch.ops import fused_head as fh
+from cdfo_tpu_torch.ops import fused_mdta as fm
+from cdfo_tpu_torch.ops import fused_tail as ft
+from cdfo_tpu_torch.ops import kernel_cases as kc
+from cdfo_tpu_torch.ops.kernel_cases import TOLERANCE
 
 
 @pytest.fixture
@@ -58,46 +63,20 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
 
 # -- the fused-trunk kernels (Block_, group tail, head, alignment tail) ------
 
-from cdfo_tpu_torch.ops import fused_block2 as fb  # noqa: E402
-from cdfo_tpu_torch.ops import fused_groupconv as fg  # noqa: E402
-from cdfo_tpu_torch.ops import fused_head as fh  # noqa: E402
-from cdfo_tpu_torch.ops import fused_tail as ft  # noqa: E402
+TRUNK = {
+    "block": (fb.scale_block, fb.scale_block_plain),
+    "group": (fg.grouptail, fg.grouptail_plain),
+    "head": (fh.fused_head, fh.fused_head_plain),
+    "tail": (ft.resblock_pair, ft.resblock_pair_plain),
+}
 
 
 def _trunk_case(kind, shape, dtype, device, seed=2):
     """(wrapper, plain, args) for one fused-trunk kernel at NHWC ``shape``
     (the tail gets 3 neighbours per image of ``shape``)."""
     g = torch.Generator(device=device).manual_seed(seed)
-
-    def rnd(*s, scale=1.0):
-        return (torch.randn(*s, generator=g, device=device) * scale).to(dtype)
-
-    def rand(*s):
-        return torch.rand(*s, generator=g, device=device).to(dtype)
-
-    c = shape[-1]
-    if kind == "block":
-        return fb.scale_block, fb.scale_block_plain, (
-            rnd(*shape), rnd(4 * c, c, 3, 3, scale=0.03), rnd(4 * c, scale=0.1),
-            rnd(c, 4 * c, 3, 3, scale=0.02), rnd(c, scale=0.1),
-            rnd(c, c, 1, 1, scale=0.1), rnd(c, scale=0.1),
-            rnd(c, c, 1, 1, scale=0.1), rnd(c, scale=0.1))
-    if kind == "group":
-        return fg.grouptail, fg.grouptail_plain, (
-            rnd(*shape), rnd(*shape), rnd(c, c, 3, 3, scale=0.05),
-            rnd(c, scale=0.1))
-    if kind == "head":
-        return fh.fused_head, fh.fused_head_plain, (
-            rnd(*shape), rand(*shape[:3], 1), rnd(4 * c, c, 1, 1, scale=0.1),
-            rnd(4 * c, scale=0.1), rnd(4 * c, c, 1, 1, scale=0.1),
-            rnd(4 * c, scale=0.1), rnd(1, c, 3, 3, scale=0.1),
-            rnd(1, scale=0.1))
-    ws = []
-    for _ in range(4):
-        ws += [rnd(c, c, 3, 3, scale=0.05), rnd(c, scale=0.1)]
-    return ft.resblock_pair, ft.resblock_pair_plain, (
-        rnd(3 * shape[0], *shape[1:]), rnd(*shape), rand(3 * shape[0], c),
-        *ws)
+    return (*TRUNK[kind], kc.trunk_args(kind, dtype, g, shape, nbr=3,
+                                        device=device))
 
 
 @pytest.mark.cuda
@@ -161,11 +140,6 @@ def test_trunk_kernel_rejects_what_it_does_not_take(cuda, kind):
 
 # -- the fused embed and alignment kernels (MDTA and dual-MSA passes) ---------
 
-from cdfo_tpu_torch.ops import fused_align as fal  # noqa: E402
-from cdfo_tpu_torch.ops import fused_mdta as fm  # noqa: E402
-from chip_smoke import align_embed_args  # noqa: E402
-from test_torch_kernel_emulation import assert_outputs_close  # noqa: E402
-
 ALIGN_EMBED = {
     "mdta1": (fm.mdta_stage1, fm.mdta_stage1_plain),
     "mdta2": (fm.mdta_stage2, fm.mdta_stage2_plain),
@@ -188,14 +162,14 @@ def test_align_embed_kernel_matches_plain(cuda, kind, shape, nbr, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     kernel, plain = ALIGN_EMBED[kind]
     g = torch.Generator(device=cuda).manual_seed(4)
-    args = align_embed_args(kind, dtype, g, shape, nbr, device=cuda)
+    args = kc.align_embed_args(kind, dtype, g, shape, nbr, device=cuda)
     before = kernel.launches
     with torch.no_grad():
         out = kernel(*args)
         ref = plain(*args)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    assert_outputs_close(out, ref, dtype)
+    kc.assert_outputs_close(out, ref, dtype, kind)
 
 
 @pytest.mark.cuda
@@ -203,8 +177,8 @@ def test_align_embed_kernel_matches_plain(cuda, kind, shape, nbr, dtype):
 def test_align_embed_kernel_rejects_what_it_does_not_take(cuda, kind):
     kernel, _ = ALIGN_EMBED[kind]
     g = torch.Generator(device=cuda).manual_seed(5)
-    x, *rest = align_embed_args(kind, torch.float32, g, (1, 8, 8), 2,
-                                device=cuda)
+    x, *rest = kc.align_embed_args(kind, torch.float32, g, (1, 8, 8), 2,
+                                   device=cuda)
     before = kernel.launches
     with torch.no_grad():
         with pytest.raises(ValueError, match="64 channels"):

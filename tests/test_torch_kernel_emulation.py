@@ -10,7 +10,7 @@ and ``mma.sync`` / ``ldmatrix`` (plain and transposed) exchange their
 fragments through per-warp memory. The
 wrappers then take their kernel route on CPU tensors and are held against
 their plain versions at small ragged shapes, in float32 and bfloat16, with
-``chip_smoke.py``'s tolerances. It checks the kernels' indexing, borders,
+the tolerances of ``ops/kernel_cases.py``. It checks the kernels' indexing, borders,
 tiling and fragment layouts; speed and the real compiler are the card's
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
@@ -29,9 +29,8 @@ from cdfo_tpu_torch.ops import fused_groupconv as fg
 from cdfo_tpu_torch.ops import fused_head as fh
 from cdfo_tpu_torch.ops import fused_mdta as fm
 from cdfo_tpu_torch.ops import fused_tail as ft
-from chip_smoke import align_embed_args
+from cdfo_tpu_torch.ops import kernel_cases as kc
 
-TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 # kind: (module, wrapper, plain version, library)
 KERNELS = {
     "block": (fb, fb.scale_block, fb.scale_block_plain, "fused_block2"),
@@ -103,6 +102,11 @@ template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int by
   return bytes <= 232448 ? 0 : 1;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+// a card of 2 SMs, so that a block sums several tiles and the reduction
+// launch several partials
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 2; return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated launch refused"; }
 inline std::barrier<>* emu_block_bar;
 inline std::barrier<>* emu_warp_bar[8];
@@ -212,54 +216,22 @@ def emulated(tmp_path_factory):
             for kind, k in KERNELS.items()}
 
 
+# NHWC shapes (the tail: 2 neighbours of one image) that span several
+# tiles of each kernel; the MDTA and MSA passes take (images or centres, H,
+# W) with 3 neighbours per centre: 2 x 2 MDTA tiles of 8 x 16 with ragged
+# edges, MSA tiles of 128 pixels ending inside a row
+SHAPES = {"block": (1, 10, 12, 64), "group": (1, 9, 35, 64),
+          "head": (2, 9, 5, 64), "tail": (1, 6, 18, 64)}
+
+
 def _case(kind, dtype):
-    """The kernel's arguments at small ragged shapes that span several
-    tiles (C = 64, as the kernels take)."""
+    """The kernel's arguments at small ragged shapes (C = 64, as the
+    kernels take)."""
     g = torch.Generator().manual_seed(5)
-
-    def rnd(*s, scale=1.0):
-        return (torch.randn(*s, generator=g) * scale).to(dtype)
-
-    def rand(*s):
-        return torch.rand(*s, generator=g).to(dtype)
-
-    c = 64
-    if kind == "block":
-        return (rnd(1, 10, 12, c), rnd(4 * c, c, 3, 3, scale=0.03),
-                rnd(4 * c, scale=0.1), rnd(c, 4 * c, 3, 3, scale=0.02),
-                rnd(c, scale=0.1), rnd(c, c, 1, 1, scale=0.1),
-                rnd(c, scale=0.1), rnd(c, c, 1, 1, scale=0.1),
-                rnd(c, scale=0.1))
-    if kind == "group":
-        return (rnd(1, 9, 35, c), rnd(1, 9, 35, c),
-                rnd(c, c, 3, 3, scale=0.05), rnd(c, scale=0.1))
-    if kind == "head":
-        return (rnd(2, 9, 5, c), rand(2, 9, 5, 1),
-                rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
-                rnd(4 * c, c, 1, 1, scale=0.1), rnd(4 * c, scale=0.1),
-                rnd(1, c, 3, 3, scale=0.1), rnd(1, scale=0.1))
-    if kind == "tail":
-        ws = []
-        for _ in range(4):
-            ws += [rnd(c, c, 3, 3, scale=0.05), rnd(c, scale=0.1)]
-        return (rnd(2, 6, 18, c), rnd(1, 6, 18, c), rand(2, c), *ws)
-    # 2 x 2 MDTA tiles of 8 x 16 with ragged edges; MSA tiles of 128
-    # pixels ending inside a row
-    return align_embed_args(kind, dtype, g, (2, 10, 19), 3, device="cpu")
-
-
-def assert_outputs_close(out, ref, dtype):
-    """Each output of a wrapper (a tensor or a tuple of them) within
-    ``TOLERANCE[dtype]`` of the plain version's largest magnitude (the
-    float32 statistics of a bfloat16 run too: they sum rounded values)."""
-    outs = out if isinstance(out, tuple) else (out,)
-    refs = ref if isinstance(ref, tuple) else (ref,)
-    assert len(outs) == len(refs)
-    for o, r in zip(outs, refs):
-        assert o.dtype == r.dtype and o.shape == r.shape, (o.shape, r.shape)
-        err = (o.float() - r.float()).abs().max().item()
-        assert err <= TOLERANCE[dtype] * r.float().abs().max().item(), (
-            err, r.shape)
+    if kind in SHAPES:
+        return kc.trunk_args(kind, dtype, g, SHAPES[kind], nbr=2,
+                             device="cpu")
+    return kc.align_embed_args(kind, dtype, g, (2, 10, 19), 3, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -294,4 +266,4 @@ def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
     finally:
         module._kernel.cache_clear()
     assert wrapper.launches == before + 1
-    assert_outputs_close(out, ref, dtype)
+    kc.assert_outputs_close(out, ref, dtype, kind)
