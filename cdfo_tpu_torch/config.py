@@ -3,11 +3,13 @@
 The port runs these slices of the JAX package: CVSR_V8 with the
 noise-free EGLA mask, in float32 or bfloat16, with ``fused_trunk`` (the
 trunk, the upsample head and the alignment tail as hand-written kernels on
-a GPU), ``fused_embed`` (the GCPI rounds' MDTA) and ``fused_align`` (the
-dual MSA; it needs ``fused_trunk``, as the JAX model reaches it only there)
-each off or on. ``fused_egla`` and the other strategies are off. A setting
-outside those slices raises naming the work that would add it, so nothing
-silently ignores a field.
+a GPU), ``fused_embed`` (the GCPI rounds' MDTA), ``fused_align`` (the dual
+MSA; it needs ``fused_trunk``, as the JAX model reaches it only there) and
+``fused_egla`` (EGLA; it needs only the noise-free mask, the port's only
+one) each off or on; all four together are the JAX headline configuration
+with the exact trunk. ``trunk_int8``, ``block_warp`` and ``scan_trunk`` are
+off. A setting outside those slices raises naming the work that would add
+it, so nothing silently ignores a field.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ import torch
 _LATER = {
     "scan_trunk": "the scan trunk (ROADMAP Queue 1.8, model zoo)",
     "trunk_int8": "the int8 trunk kernel (ROADMAP Queue 2: fused_block2_q)",
-    "fused_egla": "the fused EGLA kernels (ROADMAP Queue 2: fused_egla)",
     "block_warp": "the block-gather warp kernel (ROADMAP Queue 2: warp_block)",
 }
 _ABLATIONS = ("use_pab", "use_la", "use_ga", "use_mv", "use_pd", "use_egla")

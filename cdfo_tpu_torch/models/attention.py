@@ -5,7 +5,8 @@
 * ``EGLA``: residual-prior-guided long-range attention (a row then a column
   1-D self-attention, through the hand-written kernel on a GPU) plus an
   inverse-masked 8x8 window attention, with the noise-free ("expected")
-  residual mask.
+  residual mask. ``EGLA(fused=True)`` runs it as ``ops/fused_egla``'s two
+  kernels around the column attention, in the model's dtype.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from torch import nn
 from ..ops.fused_attention import (column_self_attention,
                                    token_attention_plain,
                                    token_self_attention)
+from ..ops.fused_egla import eg1_rows, eg2_local_fuse, unwindows, windows
 from .layers import Conv2d, _fill_normal
 
 
@@ -112,28 +114,21 @@ class _Direct9(nn.Module):
         return self.weight.reshape(9), self.bias.reshape(())
 
 
-def _windows(t, ws):
-    """(b, h, w, c) -> (b * h/ws * w/ws, ws*ws, c)."""
-    b, h, w, c = t.shape
-    t = t.reshape(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-    return t.reshape(b * (h // ws) * (w // ws), ws * ws, c)
-
-
-def _unwindows(t, b, h, w, ws):
-    c = t.shape[-1]
-    t = t.reshape(b, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
-    return t.reshape(b, h, w, c)
-
-
 class EGLA(nn.Module):
     """LLongRangAttention with the expected residual mask:
-    forward(res_prior, x) -> attended features + x."""
+    forward(res_prior, x) -> attended features + x. ``fused``: the two
+    ``ops/fused_egla`` kernels around the column attention (8x8 windows
+    only)."""
 
     def __init__(self, in_dim: int = 64, window_size: int = 8,
-                 dtype: torch.dtype = torch.float32):
+                 fused: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
+        if fused and window_size != 8:
+            raise ValueError("the fused EGLA kernels take 8x8 windows, got "
+                             f"window_size={window_size}")
         self.in_dim = in_dim
         self.window_size = window_size
+        self.fused = fused
         self.conv_du_re = nn.Sequential(
             Conv2d(in_dim, in_dim, 1, dtype=dtype), nn.ReLU(),
             Conv2d(in_dim, in_dim, 3, 2, 2, dtype=dtype), nn.ReLU())
@@ -144,16 +139,22 @@ class EGLA(nn.Module):
         self.directH1_conv = _Direct9((9, 1))
         self.fuse = Conv2d(in_dim * 2, in_dim, 1, dtype=dtype)
 
+    def residual_mask(self, res):
+        """(b, c) float32 0/1: the noise-free softmax input is spatially
+        constant, so softmax + threshold run on (b, c), in float32 (in bf16
+        a probability near 0.5 would flip its bit)."""
+        v = self.conv_du_re(res).mean(dim=(1, 2), keepdim=True)
+        rm = torch.softmax(self.conv_du_re2(v).float()[:, 0, 0], dim=-1)
+        return (rm >= 0.5).float()
+
     def forward(self, res, x):
         b, h, w, c = x.shape
         if c != self.in_dim:
             raise ValueError(f"EGLA({self.in_dim}) got {c} channels")
-        # residual mask: the noise-free softmax input is spatially constant,
-        # so softmax + threshold run on (b, 1, 1, c), in float32 (in bf16 a
-        # probability near 0.5 would flip its bit)
-        v = self.conv_du_re(res).mean(dim=(1, 2), keepdim=True)
-        rm = torch.softmax(self.conv_du_re2(v).float(), dim=-1)
-        res_mask = (rm >= 0.5).to(x.dtype)
+        mask = self.residual_mask(res)
+        if self.fused:
+            return self._fused_call(mask, x)
+        res_mask = mask[:, None, None].to(x.dtype)
         res_mask_inv = 1.0 - res_mask
 
         q_full, v_full = self.input_conv(x).chunk(2, dim=-1)
@@ -172,9 +173,40 @@ class EGLA(nn.Module):
         # local: inverse-masked window attention; 64-token windows take the
         # plain batched matmuls, as the JAX version does (use_pallas=False)
         ws = self.window_size
-        q_w = _windows(res_mask_inv * q_full, ws)
-        loc_out = token_attention_plain(q_w, _windows(v_full, ws))
-        loc_out = _unwindows(loc_out, b, h, w, ws)
+        q_w = windows(res_mask_inv * q_full, ws)
+        loc_out = token_attention_plain(q_w, windows(v_full, ws))
+        loc_out = unwindows(loc_out, b, h, w, ws)
 
         out = self.fuse(torch.cat([long_out, loc_out], dim=-1))
         return out + x
+
+    def _fused_call(self, mask, x):
+        """eg1 -> column attention -> eg2 (``ops/fused_egla``). The mask
+        (b, c) composes with the channel band into the q projection: aq =
+        Wq diag(mask) Mc, cq = (bq mask) Mc + b9, bv = Wv Mc, cv = bv_in Mc
+        + b9, in float32, then in x's dtype (``cdfo_tpu``'s
+        ``EGLA._fused_call``)."""
+        c, dt = self.in_dim, x.dtype
+        kin = self.input_conv.weight[:, :, 0, 0].float().t()    # (C, 2C)
+        wq, wv = kin[:, :c], kin[:, c:]
+        bin_ = self.input_conv.bias.float()
+        bq, bv_in = bin_[:c], bin_[c:]
+        w1_k, w1_b = self.directW1_conv.taps()
+        h1_k, h1_b = self.directH1_conv.taps()
+        mc = _band_matrix(w1_k.float(), c)                      # channel band
+        aq = torch.einsum("io,bo,oc->bic", wq, mask, mc)
+        cq = (mask * bq) @ mc + w1_b
+        bv = wv @ mc
+        cv = (bv_in @ mc + w1_b)[None]
+        h9 = torch.cat([h1_k.float(), h1_b.float()[None]])
+        x = x.contiguous()
+
+        def op(t):   # the kernels take contiguous operands of x's dtype
+            return t.to(dt).contiguous()
+
+        q_c, v_r = eg1_rows(x, op(aq), op(cq), op(bv), op(cv), h9)
+        long_out = column_self_attention(q_c, v_r)
+        kf = self.fuse.weight[:, :, 0, 0].float().t()            # (2C, C)
+        return eg2_local_fuse(
+            x, long_out, op(wq), op(bq[None]), op(wv), op(bv_in[None]),
+            op(1.0 - mask), op(kf[:c]), op(kf[c:]), op(self.fuse.bias[None]))

@@ -21,7 +21,11 @@ alignment tail one ``ops/fused_tail`` call, as in the JAX package (whose
 ``cfg.fused_embed`` runs the GCPI rounds as ``PartitionTransformerSA2Fast``
 (in ``embed``, so in ``forward`` too); ``cfg.fused_align`` runs
 ``align_reconstruct``'s dual MSA as ``DualAttAlignment.fused_msa``, which
-reads the k centre frames without broadcasting them.
+reads the k centre frames without broadcasting them; ``cfg.fused_egla`` runs
+EGLA (``RDAB``, in ``compensate_frames`` and ``forward``) as the two
+``ops/fused_egla`` kernels around the column attention, whose long-range
+attention then runs in the model's dtype (the unfused EGLA's promotes to
+float32).
 
 The model is built on the card unless the caller asks for another device.
 """
@@ -80,7 +84,7 @@ class CVSRV8(nn.Module):
         self.upconv2 = Conv2d(nf, nf * 4, 1, dtype=dt)
         self.conv_last = Conv2d(nf, 1, 3, 1, 1, dtype=dt)
         self.MV_deform_align = DualAttAlignment(nf, cfg.align_heads, dtype=dt)
-        self.RDAB = EGLA(nf, dtype=dt)
+        self.RDAB = EGLA(nf, fused=cfg.fused_egla, dtype=dt)
         init_weights(self, generator)
         self.to(device)
 

@@ -182,6 +182,15 @@ def check_operands(what: str, *tensors: torch.Tensor,
                          f"got shape {tuple(first.shape)}")
 
 
+def check_shapes(what: str, shapes) -> None:
+    """shapes: {name: (tensor, expected shape)}; raises naming each
+    operand of another shape."""
+    bad = {n: tuple(t.shape) for n, (t, s) in shapes.items()
+           if tuple(t.shape) != tuple(s)}
+    if bad:
+        raise ValueError(f"{what}: unexpected shapes {bad}")
+
+
 def check_float32(what: str, device: torch.device,
                   *tensors: torch.Tensor) -> None:
     """The float32 side operands (norm parameters, taps) of a kernel whose

@@ -108,14 +108,6 @@ def _kernel(symbol):
     return cb.kernel_function("fused_mdta", symbol, argtypes)
 
 
-def _check_shapes(what, shapes):
-    """shapes: {name: (tensor, expected shape)}."""
-    bad = {n: tuple(t.shape) for n, (t, s) in shapes.items()
-           if tuple(t.shape) != tuple(s)}
-    if bad:
-        raise ValueError(f"{what}: unexpected shapes {bad}")
-
-
 def mdta_stage1(x, ln_w, ln_b, w_qkv, w_dw):
     """(v, stats) of ``mdta_stage1_plain``."""
     cb.forbid_grad("fused_mdta stage 1", x, ln_w, ln_b, w_qkv, w_dw)
@@ -125,9 +117,9 @@ def mdta_stage1(x, ln_w, ln_b, w_qkv, w_dw):
     cb.check_operands(what, x, w_qkv, w_dw, channels=CHANNELS)
     cb.check_float32(what, x.device, ln_w, ln_b)
     c = CHANNELS
-    _check_shapes(what, {"ln_w": (ln_w, (c,)), "ln_b": (ln_b, (c,)),
-                         "w_qkv": (w_qkv, (3 * c, c, 1, 1)),
-                         "w_dw": (w_dw, (3 * c, 1, 3, 3))})
+    cb.check_shapes(what, {"ln_w": (ln_w, (c,)), "ln_b": (ln_b, (c,)),
+                           "w_qkv": (w_qkv, (3 * c, c, 1, 1)),
+                           "w_dw": (w_dw, (3 * c, 1, 3, 3))})
     m, h, wd, _ = x.shape
     v = torch.empty_like(x)
     stats = x.new_empty((m, 3, c, c), dtype=torch.float32)
@@ -156,12 +148,12 @@ def mdta_stage2(x, v, x2, amat, w_proj, ln_w, ln_b, w_conv, b_conv):
     cb.check_float32(what, x.device, ln_w, ln_b)
     c = CHANNELS
     m, h, wd, _ = x.shape
-    _check_shapes(what, {"v": (v, x.shape), "x2": (x2, x.shape),
-                         "amat": (amat, (m, c, c)),
-                         "w_proj": (w_proj, (c, c, 1, 1)),
-                         "ln_w": (ln_w, (c,)), "ln_b": (ln_b, (c,)),
-                         "w_conv": (w_conv, (c, c, 3, 3)),
-                         "b_conv": (b_conv, (c,))})
+    cb.check_shapes(what, {"v": (v, x.shape), "x2": (x2, x.shape),
+                           "amat": (amat, (m, c, c)),
+                           "w_proj": (w_proj, (c, c, 1, 1)),
+                           "ln_w": (ln_w, (c,)), "ln_b": (ln_b, (c,)),
+                           "w_conv": (w_conv, (c, c, 3, 3)),
+                           "b_conv": (b_conv, (c,))})
     out = torch.empty_like(x)
     ak = cb.matrix_weights(amat, x.dtype)
     pk = cb.kernel_weights(w_proj, x.dtype)

@@ -8,7 +8,13 @@ slice of it whose entries share one scale, max |kernel - plain| is at most
 whole output unless ``SCALE_DIMS`` splits it: the statistics of the MDTA
 and dual-MSA passes are held per image and per gram (a q^T q diagonal is
 ~100x the q^T k entries that set the attention), their GAP sums per image
-and per input, their feature maps per image.
+and per input, their feature maps per image, as are EGLA's q_c, v_r and
+output.
+
+``excite_egla_mask`` sets the weights of a model so that its EGLA residual
+mask is one-hot in every frame (under seeded random weights no channel's
+probability reaches the 0.5 threshold, and an all-zero mask zeroes the
+composed q projection of the fused EGLA).
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 
 # per output of the wrapper: how many leading dimensions index slices of
 # one scale (0: the whole output)
-SCALE_DIMS = {"mdta1": (1, 2), "mdta2": (1,), "msa1": (2, 2), "msa2": (1, 1)}
+SCALE_DIMS = {"mdta1": (1, 2), "mdta2": (1,), "msa1": (2, 2), "msa2": (1, 1),
+              "eg1": (1, 1), "eg2": (1,)}
 
 
 def worst_error(out, ref, kind: str | None = None) -> tuple[float, float]:
@@ -136,3 +143,33 @@ def align_embed_args(kind: str, dtype: torch.dtype, g: torch.Generator,
     return (*nb, attn(b, True).transpose(1, 2).contiguous(),
             attn(b, True).transpose(1, 2).contiguous(),
             rnd(c, c, 1, 1, scale=0.12), wf)
+
+
+def egla_args(kind: str, dtype: torch.dtype, g: torch.Generator, shape,
+              device="cuda") -> tuple:
+    """Inputs of ``eg1_rows`` (``eg1``) or ``eg2_local_fuse`` (``eg2``) at
+    NHWC ``shape``, drawn from ``g`` on ``device``: a general full-rank
+    per-frame q projection (a real one-hot mask makes it rank one), a random
+    0/1 inverse mask, nonzero biases and H-band taps (h9 float32), and a
+    long-range input of the scale of v."""
+    def rnd(*s, scale=1.0):
+        return (torch.randn(*s, generator=g, device=device) * scale).to(dtype)
+
+    m, c = shape[0], shape[-1]
+    if kind == "eg1":
+        return (rnd(*shape), rnd(m, c, c, scale=0.04), rnd(m, c, scale=0.1),
+                rnd(c, c, scale=0.125), rnd(1, c, scale=0.1),
+                torch.randn(10, generator=g, device=device) * 0.3)
+    mask_inv = (torch.rand(m, c, generator=g, device=device) < 0.5).to(dtype)
+    return (rnd(*shape), rnd(*shape), rnd(c, c, scale=0.04),
+            rnd(1, c, scale=0.1), rnd(c, c, scale=0.125), rnd(1, c, scale=0.1),
+            mask_inv, rnd(c, c, scale=0.1), rnd(c, c, scale=0.1),
+            rnd(1, c, scale=0.1))
+
+
+@torch.no_grad()
+def excite_egla_mask(model, channel: int = 3) -> None:
+    """Adds 10 to one channel's bias of ``model.RDAB.conv_du_re2[0]`` (a
+    ``CVSRV8``): that channel's softmax probability then passes 0.5 in
+    every frame, so the mask is one-hot."""
+    model.RDAB.conv_du_re2[0].bias[channel] += 10.0

@@ -19,31 +19,42 @@ CUDA device the script exits non-zero before printing any result):
    at the 272x480, k=4 shapes and at a ragged even shape (an odd extent
    must be refused); the two MDTA passes at (4, 272, 480, 64) and (2, 18,
    34, 64), the two dual-MSA passes at 24 neighbours of 4 centres of
-   272x480 and at 3 neighbours of 2 centres of 18x34. Each output is held
-   against the plain one slice by slice, each slice against its own largest
-   value (``kernel_cases``: the MDTA and dual-MSA statistics per image and
-   gram, their feature maps per image). Each kernel's bound
+   272x480 and at 3 neighbours of 2 centres of 18x34; EGLA's eg1 and eg2
+   at (4, 272, 480, 64) and at (2, 20, 40, 64) and (2, 24, 40, 64) (eg2
+   must refuse H = 20). Each output is held against the plain one slice by
+   slice, each slice against its own largest value (``kernel_cases``: the
+   MDTA and dual-MSA statistics per image and gram, their feature maps and
+   EGLA's outputs per image). Each kernel's bound
    is computed from its inputs: the larger of its bytes (inputs read once,
    outputs written once) over 3.35 TB/s and its operations over the peak
    of its type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32);
-4. three small CVSR_V8 (2 trunk groups, 16x24 frames) through the streaming
+4. four small CVSR_V8 (2 trunk groups, 16x24 frames) through the streaming
    engine on the card (float32, kernels on, TF32 off) against the same
    weights through the same engine on the CPU (plain versions): uint8
-   frames within 1 LSB, with no fused flag, with ``fused_trunk``, and with
-   ``fused_trunk``, ``fused_embed`` and ``fused_align``;
+   frames within 1 LSB, with no fused flag, with ``fused_trunk``, with
+   ``fused_trunk``, ``fused_embed`` and ``fused_align``, and with those and
+   ``fused_egla``;
 5. the full-width slice: CVSR_V8 at its default widths (nf=64, 7 trunk
    groups), bfloat16, seeded random weights, ``BatchedStreamingEngine(k=4)``
    on a 12-frame 272x480 synthetic sequence in timed mode, unfused, with
-   ``fused_trunk``, and with all three flags (the main path; the same
-   weights each time); checks the (12, 1080, 1920) uint8 output, that every
+   ``fused_trunk``, with ``fused_trunk``, ``fused_embed`` and
+   ``fused_align``, and with all four flags (the main path: the JAX
+   headline configuration with the exact trunk; the same weights each
+   time); checks the (12, 1080, 1920) uint8 output, that every
    ``compensate_frames`` call launched the attention kernel twice (row and
-   column stage) and, with ``fused_embed``, 3 of each MDTA pass, that every
+   column stage) or, with ``fused_egla``, the column stage, eg1 and eg2
+   once each, and, with ``fused_embed``, 3 of each MDTA pass, that every
    ``align_reconstruct`` call of a fused run launched 21 ``Block_``, 7
    group-tail, 1 head and 1 tail kernels and, with ``fused_align``, 1 of
    each dual-MSA pass, and that the fused frames are within 40 dB PSNR of
    the unfused ones; then times each stage of one engine step alone
-   (``compensate_frames``, ``embed``, ``align_reconstruct``, its neighbour
-   warp and ``DualAttAlignment``, tsa, trunk, head).
+   (``compensate_frames``, ``embed``, EGLA, ``align_reconstruct``, its
+   neighbour warp and ``DualAttAlignment``, tsa, trunk, head).
+
+Every model gets the same seeded weights with its EGLA residual mask made
+one-hot (``kernel_cases.excite_egla_mask``; under random weights it is all
+zero, which would zero the fused EGLA's q projection), and each slice
+prints the mask's set bits per frame of one ``compensate_frames`` call.
 
 The line before the last is a JSON object with one entry per kernel
 wrapper (launches from the main-path run); the last line is ``{"ok": true,
@@ -75,6 +86,7 @@ from cdfo_tpu_torch.ops import cuda_build
 from cdfo_tpu_torch.ops import fused_align as fal
 from cdfo_tpu_torch.ops import fused_attention as fa
 from cdfo_tpu_torch.ops import fused_block2 as fb
+from cdfo_tpu_torch.ops import fused_egla as fe
 from cdfo_tpu_torch.ops import fused_groupconv as fg
 from cdfo_tpu_torch.ops import fused_head as fh
 from cdfo_tpu_torch.ops import fused_mdta as fm
@@ -84,7 +96,8 @@ from cdfo_tpu_torch.ops import kernel_cases as kc
 SOURCE = "cdfo_tpu_torch/csrc/fused_attention.cu"
 REPLACES = "cdfo_tpu/ops/fused_attention.py:43"
 LIBRARIES = ("fused_attention", "fused_block2", "fused_groupconv",
-             "fused_head", "fused_tail", "fused_mdta", "fused_align")
+             "fused_head", "fused_tail", "fused_mdta", "fused_align",
+             "fused_egla")
 # the fused-trunk kernels: JSON name, wrapper, plain version, source, the
 # TPU kernel it replaces
 TRUNK_KERNELS = {
@@ -144,6 +157,22 @@ ALIGN_LAUNCHES = {"msa1": 1, "msa2": 1}
 # (images or centres, H, W), neighbours per centre: the main path's at
 # 272x480, k=4, then ragged ones
 ALIGN_EMBED_SHAPES = (((4, 272, 480), 6), ((2, 18, 34), 3))
+# the fused EGLA kernels, launched once each per compensate_frames call
+# (fused_egla); their NHWC shapes: the main path's, then ragged ones (eg1:
+# H not a multiple of the TPU's 16 rows, W of the 64-key tile)
+EGLA_KERNELS = {
+    "eg1": ("fused_egla.eg1_rows", fe.eg1_rows, fe.eg1_rows_plain,
+            "cdfo_tpu_torch/csrc/fused_egla.cu",
+            "cdfo_tpu/ops/fused_egla.py:98"),
+    "eg2": ("fused_egla.eg2_local_fuse", fe.eg2_local_fuse,
+            fe.eg2_local_fuse_plain, "cdfo_tpu_torch/csrc/fused_egla.cu",
+            "cdfo_tpu/ops/fused_egla.py:185"),
+}
+EGLA_LAUNCHES = {"eg1": 1, "eg2": 1}
+EGLA_MAIN = (4, 272, 480, 64)
+EGLA_RAGGED = {"eg1": (2, 20, 40, 64), "eg2": (2, 24, 40, 64)}
+ALL_FLAGS = dict(fused_trunk=True, fused_embed=True, fused_align=True,
+                 fused_egla=True)
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core
 # and fp32 CUDA-core FLOP/s
@@ -164,6 +193,8 @@ def flops(kind, args) -> float:
         b, h, w, _ = x.shape
         return 4.0 * b * w * h * h * c
     p = float(x[..., 0].numel())   # pixels of the first operand
+    if kind == "eg1":   # two projections, the row attention, the H-band
+        return p * (4 * c * c + 4 * x.shape[2] * c + 18 * c)
     per_pixel = {
         # body at 1x and 0.25x (2 * 2*9*4C^2 each), up path at 4x conv1
         # (2*9*4C^2) + folded conv2 (2*16*4C^2) at 1x, the two 1x1s
@@ -175,6 +206,8 @@ def flops(kind, args) -> float:
         "mdta2": 22 * c * c,
         "msa1": 10 * c * c,
         "msa2": 10 * c * c,
+        # the q and v projections, 64-token attention, the 128 -> 64 fuse
+        "eg2": 4 * c * c + 4 * 64 * c + 4 * c * c,
     }[kind]
     return per_pixel * p
 
@@ -218,7 +251,8 @@ def reset_launches():
     fa.token_self_attention.launches = 0
     fa.column_self_attention.launches = 0
     for _, wrapper, *_ in (*TRUNK_KERNELS.values(),
-                           *ALIGN_EMBED_KERNELS.values()):
+                           *ALIGN_EMBED_KERNELS.values(),
+                           *EGLA_KERNELS.values()):
         wrapper.launches = 0
 
 
@@ -301,6 +335,27 @@ def check_align_embed_kernels(card: str) -> dict:
         for shape, nbr in ALIGN_EMBED_SHAPES], seed=2)
 
 
+def check_egla_kernels(card: str) -> dict:
+    """Phase 3, fused EGLA part: ``check_kernel_table`` at the main shape
+    and the ragged ones, then an H off the 8x8 windows that eg2 must
+    refuse."""
+    fields = check_kernel_table(card, EGLA_KERNELS, [
+        ("main", True, lambda kind, dtype, g: kc.egla_args(
+            kind, dtype, g, EGLA_MAIN)),
+        ("ragged", False, lambda kind, dtype, g: kc.egla_args(
+            kind, dtype, g, EGLA_RAGGED[kind]))], seed=3)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    bad = kc.egla_args("eg2", torch.bfloat16, g, (1, 20, 40, 64))
+    try:
+        with torch.no_grad():
+            fe.eg2_local_fuse(*bad)
+    except ValueError as e:
+        print(f"eg2 at H = 20 refused: {e}", flush=True)
+    else:
+        raise AssertionError("fused_egla eg2 took H = 20")
+    return fields
+
+
 def sdpa(kind, q, v):
     """The one PyTorch call computing the attention kernel's function
     (softmax(q q^T) v, no scale), timed as its library yardstick; the port
@@ -312,8 +367,9 @@ def sdpa(kind, q, v):
 
 def check_kernels(card: str) -> dict:
     """Phase 3; returns the JSON fields of each wrapper, measured at the
-    main path's shape in float32 (the dtype the main path gives it: EGLA's
-    9-tap convs promote to float32 even in a bfloat16 model)."""
+    main path's shape in bfloat16, the dtype the fused EGLA gives the
+    column stage (the unfused EGLA's 9-tap convs promote its row and column
+    stages to float32)."""
     g = torch.Generator(device="cuda").manual_seed(0)
     fields = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -341,7 +397,7 @@ def check_kernels(card: str) -> dict:
                 line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                          f"scaled_dot_product_attention {library_ms:.3f} ms, "
                          f"bound {bound_ms:.3f} ms ({bound_by}) [{card}]")
-                if dtype == torch.float32:
+                if dtype == torch.bfloat16:
                     fields[kind] = {"max_abs_err": err, "ms": ms,
                                     "plain_ms": plain_ms,
                                     "bound_ms": bound_ms,
@@ -354,6 +410,30 @@ def check_kernels(card: str) -> dict:
     return fields
 
 
+def seeded_model(cfg, device="cuda"):
+    """CVSRV8 with the seeded weights every slice uses, the EGLA mask
+    one-hot."""
+    model = CVSRV8(cfg, generator=torch.Generator().manual_seed(0),
+                   device=device)
+    kc.excite_egla_mask(model)
+    return model
+
+
+@torch.inference_mode()
+def mask_bits(eng, data, label: str) -> None:
+    """Prints the EGLA mask's set bits per frame of the first step's
+    ``compensate_frames`` call; raises unless each frame has one."""
+    model = eng.model
+    _, steps = eng.stage_sequence(data)
+    rms = steps[0][0][2].to(model.cfg.compute_dtype)
+    bits = model.RDAB.residual_mask(model.conv_expand_rms(rms)).sum(dim=1)
+    bits = [int(b) for b in bits.tolist()]
+    print(f"{label}: EGLA mask bits per frame of one compensate_frames call "
+          f"{bits}", flush=True)
+    if bits != [1] * len(bits):
+        raise AssertionError(f"EGLA mask not one-hot: {bits}")
+
+
 def check_small_slice(**flags):
     """Phase 4: card (kernels) vs CPU (plain versions), one set of
     weights."""
@@ -363,9 +443,9 @@ def check_small_slice(**flags):
     data = synthetic_sequence(t=9, h=16, w=24, seed=3)
     frames = {}
     for dev in ("cpu", "cuda"):
-        model = CVSRV8(cfg, generator=torch.Generator().manual_seed(0),
-                       device=dev)
-        frames[dev], _ = BatchedStreamingEngine(model, k=4).run_sequence(data)
+        eng = BatchedStreamingEngine(seeded_model(cfg, dev), k=4)
+        frames[dev], _ = eng.run_sequence(data)
+    mask_bits(eng, data, f"small slice {flags}")
     diff = np.abs(frames["cuda"].astype(np.int32)
                   - frames["cpu"].astype(np.int32))
     print(f"small slice (nf=64, 2 groups, 9x16x24, k=4, fp32, {flags}): "
@@ -380,10 +460,10 @@ def run_full_slice(card: str, **flags):
     launches per wrapper in the timed run)."""
     t, k = 12, 4
     cfg = ModelConfig(compute_dtype=torch.bfloat16, **flags)
-    model = CVSRV8(cfg, generator=torch.Generator().manual_seed(0),
-                   device="cuda")
+    model = seeded_model(cfg)
     data = synthetic_sequence(t=t, h=272, w=480, seed=0)
     eng = BatchedStreamingEngine(model, k=k)
+    mask_bits(eng, data, f"full slice {flags}")
     t0 = time.perf_counter()
     eng.run_sequence(data)   # warm-up: cuDNN/cuBLAS plans, allocator
     print(f"full slice {flags}: warm-up run "
@@ -394,7 +474,8 @@ def run_full_slice(card: str, **flags):
     launches = {"token": fa.token_self_attention.launches,
                 "column": fa.column_self_attention.launches}
     launches.update({kind: wrapper.launches for kind, (_, wrapper, *_) in
-                     {**TRUNK_KERNELS, **ALIGN_EMBED_KERNELS}.items()})
+                     {**TRUNK_KERNELS, **ALIGN_EMBED_KERNELS,
+                      **EGLA_KERNELS}.items()})
     peak = torch.cuda.max_memory_allocated() / 2**30
     steps = len(range(0, t, k))
     calls = 1 + steps   # compensate_frames: bootstrap + one per step
@@ -407,7 +488,10 @@ def run_full_slice(card: str, **flags):
         raise AssertionError(f"frames {frames.shape} {frames.dtype}")
     if frames.std() == 0:
         raise AssertionError("full-slice output is constant")
-    want = {"token": calls, "column": calls}
+    egla = flags.get("fused_egla", False)
+    want = {"token": 0 if egla else calls, "column": calls}
+    want.update({kind: n * calls if egla else 0
+                 for kind, n in EGLA_LAUNCHES.items()})
     fused = flags.get("fused_trunk", False)
     want.update({kind: n * steps if fused else 0
                  for kind, n in TRUNK_LAUNCHES.items()})
@@ -441,10 +525,13 @@ def stage_times(eng, data, reps: int = 10) -> dict:
     aligned = model.align_neighbours(center, *nbrs)
     trunk_in = lrelu(model._tsa(aligned, center))
     trunk_out = model.recon_trunk(trunk_in)
+    rms_prior = model.conv_expand_rms(rms.to(dt))
+    egla_in = model.embed(lrs.to(dt), pms.to(dt)) + rms_prior
     stages = {
         "compensate_frames": lambda: model.compensate_frames(lrs, pms, rms,
                                                              ufs),
         "embed": lambda: model.embed(lrs.to(dt), pms.to(dt)),
+        "EGLA": lambda: model.RDAB(rms_prior, egla_in),
         "align_reconstruct": lambda: model.align_reconstruct(
             center, center_lr, ring_fi, ring_uf[idx], mvs, idx),
         "warp_neighbours": lambda: model.warp_neighbours(
@@ -464,9 +551,8 @@ def profile_main_path(card: str, top: int = 15):
     the union of kernel intervals over the host wall time."""
     from torch.profiler import ProfilerActivity, profile
     t, k = 12, 4
-    cfg = ModelConfig(compute_dtype=torch.bfloat16, fused_trunk=True,
-                      fused_embed=True, fused_align=True)
-    model = CVSRV8(cfg, generator=torch.Generator().manual_seed(0))
+    model = seeded_model(ModelConfig(compute_dtype=torch.bfloat16,
+                                     **ALL_FLAGS))
     data = synthetic_sequence(t=t, h=272, w=480, seed=0)
     eng = BatchedStreamingEngine(model, k=k)
     eng.run_sequence(data)   # warm-up
@@ -541,23 +627,25 @@ def main():
     fields = check_kernels(card)
     fields.update(check_trunk_kernels(card))
     fields.update(check_align_embed_kernels(card))
-    all_flags = dict(fused_trunk=True, fused_embed=True, fused_align=True)
+    fields.update(check_egla_kernels(card))
+    three = dict(fused_trunk=True, fused_embed=True, fused_align=True)
+    settings = (dict(fused_trunk=True), three, ALL_FLAGS)
     check_small_slice()
-    check_small_slice(fused_trunk=True)
-    check_small_slice(**all_flags)
+    for flags in settings:
+        check_small_slice(**flags)
     plain_frames, _ = run_full_slice(card)
-    for flags in (dict(fused_trunk=True), all_flags):
+    for flags in settings:
         frames, launches = run_full_slice(card, **flags)
         quality = psnr(frames, plain_frames)
         print(f"full slice {flags}: fused vs unfused uint8 frames PSNR "
-              f"{quality:.2f} dB (max diff "
+              f"{quality:.3f} dB (max diff "
               f"{np.abs(frames.astype(np.int32) - plain_frames).max()} LSB)",
               flush=True)
         if not quality >= 40.0:
             raise AssertionError(f"fused frames are {quality:.2f} dB from "
                                  "the unfused ones (limit 40 dB)")
 
-    # launches: the main path's run (all three flags)
+    # launches: the main path's run (all four flags)
     kernels = [
         {"name": f"fused_attention.{kind}_self_attention", "route": "cuda",
          "source": SOURCE, "replaces": REPLACES,
@@ -567,7 +655,7 @@ def main():
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[kind], **fields[kind]}
         for kind, (name, _, _, source, replaces) in
-        {**TRUNK_KERNELS, **ALIGN_EMBED_KERNELS}.items()]
+        {**TRUNK_KERNELS, **ALIGN_EMBED_KERNELS, **EGLA_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

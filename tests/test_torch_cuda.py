@@ -10,6 +10,7 @@ import torch
 from cdfo_tpu_torch.ops import fused_attention as fa
 from cdfo_tpu_torch.ops import fused_align as fal
 from cdfo_tpu_torch.ops import fused_block2 as fb
+from cdfo_tpu_torch.ops import fused_egla as fe
 from cdfo_tpu_torch.ops import fused_groupconv as fg
 from cdfo_tpu_torch.ops import fused_head as fh
 from cdfo_tpu_torch.ops import fused_mdta as fm
@@ -195,3 +196,110 @@ def test_align_embed_kernel_rejects_what_it_does_not_take(cuda, kind):
     with pytest.raises(NotImplementedError, match="Queue 1.7"):
         kernel(x.clone().requires_grad_(), *rest)
     assert kernel.launches == before
+
+
+# -- the fused EGLA kernels (eg1 rows, eg2 windows) ------------------------------
+
+EGLA = {"eg1": (fe.eg1_rows, fe.eg1_rows_plain),
+        "eg2": (fe.eg2_local_fuse, fe.eg2_local_fuse_plain)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 272, 480, 64), (2, 24, 40, 64),
+                                   (1, 8, 8, 64), (3, 16, 136, 64)])
+@pytest.mark.parametrize("kind", list(EGLA))
+def test_egla_kernel_matches_plain(cuda, kind, shape, dtype):
+    """The main path's shape, a ragged W (not a multiple of the 64-key or
+    128-query tile; eg2: a last tile of one window), one window, and a row
+    of three query tiles."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernel, plain = EGLA[kind]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    args = kc.egla_args(kind, dtype, g, shape, device=cuda)
+    before = kernel.launches
+    with torch.no_grad():
+        out = kernel(*args)
+        ref = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    kc.assert_outputs_close(out, ref, dtype, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [1, 5, 20])
+def test_eg1_takes_any_height(cuda, h, dtype):
+    """H off the TPU kernel's 16-row blocks, and shorter than the 9-row
+    band."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(7)
+    args = kc.egla_args("eg1", dtype, g, (2, h, 40, 64), device=cuda)
+    with torch.no_grad():
+        out = fe.eg1_rows(*args)
+        ref = fe.eg1_rows_plain(*args)
+    torch.cuda.synchronize()
+    kc.assert_outputs_close(out, ref, dtype, "eg1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(EGLA))
+def test_egla_kernel_rejects_what_it_does_not_take(cuda, kind):
+    kernel, _ = EGLA[kind]
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x, *rest = kc.egla_args(kind, torch.float32, g, (1, 8, 16, 64),
+                            device=cuda)
+    before = kernel.launches
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="64 channels"):
+            kernel(x[..., :32].contiguous(), *rest)
+        with pytest.raises(TypeError):
+            kernel(x.bfloat16(), *rest)
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel(x.transpose(1, 2).contiguous().transpose(1, 2), *rest)
+        if kind == "eg1":   # the H-band taps stay float32
+            with pytest.raises(TypeError, match="float32"):
+                kernel(x, *rest[:-1], rest[-1].bfloat16())
+            with pytest.raises(ValueError, match="shapes"):
+                kernel(x, rest[0][..., :32].contiguous(), *rest[1:])
+        else:
+            with pytest.raises(ValueError, match="multiples of 8"):
+                kernel(x[:, :6].contiguous(), rest[0][:, :6].contiguous(),
+                       *rest[1:])
+    with pytest.raises(NotImplementedError, match="Queue 1.7"):
+        kernel(x.clone().requires_grad_(), *rest)
+    assert kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_fused_egla_launches_and_matches_unfused(cuda):
+    """One eg1, one eg2 and one column launch per fused EGLA call, no token
+    launch; the fused module within the float32 tolerance of the unfused
+    one, the mask one-hot."""
+    from cdfo_tpu_torch.models.attention import EGLA as Module
+    from cdfo_tpu_torch.models.layers import init_weights
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mods = {}
+    for fused in (False, True):
+        mods[fused] = init_weights(Module(64, fused=fused),
+                                   torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            mods[fused].conv_du_re2[0].bias[3] += 10.0
+        mods[fused].to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    res, x = (torch.randn(2, 16, 48, 64, generator=g, device=cuda)
+              for _ in range(2))
+    counts = (fe.eg1_rows, fe.eg2_local_fuse, fa.column_self_attention,
+              fa.token_self_attention)
+    before = [f.launches for f in counts]
+    with torch.no_grad():
+        assert mods[True].residual_mask(res).sum(dim=1).tolist() == [1.0,
+                                                                     1.0]
+        out = mods[True](res, x)
+        assert [f.launches - b for f, b in zip(counts, before)] == \
+            [1, 1, 1, 0]
+        ref = mods[False](res, x)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    assert err <= 2e-4 * ref.abs().max().item()

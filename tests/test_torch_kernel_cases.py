@@ -63,3 +63,40 @@ def test_an_output_without_slices_is_held_whole():
     kc.assert_outputs_close(out, ref, torch.bfloat16, "block")
     with pytest.raises(AssertionError):
         kc.assert_outputs_close(out, ref, torch.bfloat16, "mdta2")
+
+
+def _egla_outputs(kind, seed=1):
+    """(args, plain outputs) of one EGLA kernel at a small seeded case."""
+    from cdfo_tpu_torch.ops import fused_egla as fe
+    g = torch.Generator().manual_seed(seed)
+    args = kc.egla_args(kind, torch.float32, g, (2, 8, 24, 64), device="cpu")
+    plain = fe.eg1_rows_plain if kind == "eg1" else fe.eg2_local_fuse_plain
+    return args, plain(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_egla_outputs_pass_against_themselves(dtype):
+    for kind in ("eg1", "eg2"):
+        _, ref = _egla_outputs(kind)
+        kc.assert_outputs_close(ref, ref, dtype, kind)
+
+
+@pytest.mark.parametrize("fault", ["zeroed_qc", "one_frame_qc",
+                                   "no_residual"])
+def test_a_wrong_egla_output_is_caught(fault):
+    """A zero q_c (what an all-zero mask or a lost q projection gives), a
+    zero q_c in one frame only, and eg2's output without its residual x
+    fail the check, at the bfloat16 tolerance."""
+    kind = "eg2" if fault == "no_residual" else "eg1"
+    args, ref = _egla_outputs(kind)
+    if kind == "eg1":
+        qc, vr = (t.clone() for t in ref)
+        if fault == "zeroed_qc":
+            qc.zero_()
+        else:
+            qc[1].zero_()
+        out = (qc, vr)
+    else:
+        out = ref - args[0]
+    with pytest.raises(AssertionError):
+        kc.assert_outputs_close(out, ref, torch.bfloat16, kind)

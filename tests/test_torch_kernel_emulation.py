@@ -3,14 +3,15 @@
 A CUDA kernel has no interpret mode, so this test compiles each
 ``cdfo_tpu_torch/csrc/fused_*.cu`` built on ``conv3x3_tile.cuh`` (Block_,
 group tail, head, alignment tail, the two MDTA passes, the two dual-MSA
-passes with their reduction launch) with the host C++ compiler against a
-small emulation of the CUDA subset they use (``_SHIM`` below): blocks run
-one after another with 256 threads each, ``__syncthreads`` is a barrier,
-and ``mma.sync`` / ``ldmatrix`` (plain and transposed) exchange their
-fragments through per-warp memory. The
-wrappers then take their kernel route on CPU tensors and are held against
-their plain versions at small ragged shapes, in float32 and bfloat16, with
-the tolerances of ``ops/kernel_cases.py``. It checks the kernels' indexing, borders,
+passes with their reduction launch, EGLA's eg1 with its two launches and
+eg2) with the host C++ compiler against a small emulation of the CUDA
+subset they use (``_SHIM`` below): blocks run one after another with 256
+threads each, ``__syncthreads`` is a barrier, and ``mma.sync`` /
+``ldmatrix`` (plain and transposed) and the warp shuffles exchange their
+values through per-warp memory. The wrappers then take their kernel route
+on CPU tensors and are held against their plain versions at small ragged
+shapes, in float32 and bfloat16, with the tolerances of
+``ops/kernel_cases.py``. It checks the kernels' indexing, borders,
 tiling and fragment layouts; speed and the real compiler are the card's
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
@@ -25,6 +26,7 @@ import torch
 from cdfo_tpu_torch.ops import cuda_build as cb
 from cdfo_tpu_torch.ops import fused_align as fal
 from cdfo_tpu_torch.ops import fused_block2 as fb
+from cdfo_tpu_torch.ops import fused_egla as fe
 from cdfo_tpu_torch.ops import fused_groupconv as fg
 from cdfo_tpu_torch.ops import fused_head as fh
 from cdfo_tpu_torch.ops import fused_mdta as fm
@@ -41,6 +43,8 @@ KERNELS = {
     "mdta2": (fm, fm.mdta_stage2, fm.mdta_stage2_plain, "fused_mdta"),
     "msa1": (fal, fal.msa_stage1, fal.msa_stage1_plain, "fused_align"),
     "msa2": (fal, fal.msa_stage2, fal.msa_stage2_plain, "fused_align"),
+    "eg1": (fe, fe.eg1_rows, fe.eg1_rows_plain, "fused_egla"),
+    "eg2": (fe, fe.eg2_local_fuse, fe.eg2_local_fuse_plain, "fused_egla"),
 }
 
 _SHIM = r"""
@@ -114,7 +118,7 @@ inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
 inline void cp_async_commit() {}
 inline void cp_async_wait() {}
-struct EmuWarp { uint32_t a[32][4]; uint32_t b[32][2]; const void* rows[32]; };
+struct EmuWarp { uint32_t a[32][4]; uint32_t b[32][2]; const void* rows[32]; float f[32]; };
 inline EmuWarp emu_warp[8];
 inline float emu_half(uint32_t v, int hi) { return __uint_as_float((hi ? v >> 16 : v & 0xffffu) << 16); }
 // mma.sync.m16n8k16 row.col bf16 -> f32: lane 4g + t holds A rows g, g + 8
@@ -165,6 +169,18 @@ inline void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* row) {
     r[j] = uint32_t(r0[l / 4].v) | (uint32_t(r1[l / 4].v) << 16);
   }
   emu_warp_bar[w]->arrive_and_wait();
+}
+// warp shuffles: every lane of the warp takes part, as in the kernels
+inline float __shfl_sync(unsigned, float v, int src) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_warp[w].f[l] = v;
+  emu_warp_bar[w]->arrive_and_wait();
+  const float r = emu_warp[w].f[src & 31];
+  emu_warp_bar[w]->arrive_and_wait();
+  return r;
+}
+inline float __shfl_xor_sync(unsigned m, float v, int lane_mask) {
+  return __shfl_sync(m, v, int(threadIdx.x % 32) ^ lane_mask);
 }
 template <class F> void emu_launch(dim3 grid, F&& body) {
   for (unsigned z = 0; z < grid.z; ++z)
@@ -219,9 +235,12 @@ def emulated(tmp_path_factory):
 # NHWC shapes (the tail: 2 neighbours of one image) that span several
 # tiles of each kernel; the MDTA and MSA passes take (images or centres, H,
 # W) with 3 neighbours per centre: 2 x 2 MDTA tiles of 8 x 16 with ragged
-# edges, MSA tiles of 128 pixels ending inside a row
+# edges, MSA tiles of 128 pixels ending inside a row. eg1: two query tiles
+# and three key tiles a row, the last ragged, and an H-band that reaches
+# past both image edges; eg2: a last tile whose second window is outside
 SHAPES = {"block": (1, 10, 12, 64), "group": (1, 9, 35, 64),
           "head": (2, 9, 5, 64), "tail": (1, 6, 18, 64)}
+EGLA_SHAPES = {"eg1": (2, 5, 140, 64), "eg2": (2, 8, 24, 64)}
 
 
 def _case(kind, dtype):
@@ -231,6 +250,8 @@ def _case(kind, dtype):
     if kind in SHAPES:
         return kc.trunk_args(kind, dtype, g, SHAPES[kind], nbr=2,
                              device="cpu")
+    if kind in EGLA_SHAPES:
+        return kc.egla_args(kind, dtype, g, EGLA_SHAPES[kind], device="cpu")
     return kc.align_embed_args(kind, dtype, g, (2, 10, 19), 3, device="cpu")
 
 

@@ -113,7 +113,7 @@ def test_compensate_frames(models):
 
 
 def test_config_rejects_settings_outside_the_slice():
-    for kw in ({"fused_egla": True}, {"trunk_int8": True},
+    for kw in ({"block_warp": True, "fused_egla": True}, {"trunk_int8": True},
                {"trunk_int8": True, "fused_trunk": True}, {"block_warp": True},
                {"scan_trunk": True}, {"mask_mode": "sample"},
                {"use_mv": False}, {"name": "cvsr_v9"},
