@@ -6,10 +6,13 @@ trunk, the upsample head and the alignment tail as hand-written kernels on
 a GPU), ``fused_embed`` (the GCPI rounds' MDTA), ``fused_align`` (the dual
 MSA; it needs ``fused_trunk``, as the JAX model reaches it only there) and
 ``fused_egla`` (EGLA; it needs only the noise-free mask, the port's only
-one) each off or on; all four together are the JAX headline configuration
-with the exact trunk. ``trunk_int8``, ``block_warp`` and ``scan_trunk`` are
-off. A setting outside those slices raises naming the work that would add
-it, so nothing silently ignores a field.
+one) each off or on; ``trunk_int8`` (the int8 trunk kernel; it needs
+``fused_trunk``, under which alone the JAX model reads it) and
+``block_warp`` (the block-gather neighbour warp) likewise. The four fused
+flags with ``trunk_int8`` are the JAX headline configuration; without it,
+its exact-trunk side-by-side. ``scan_trunk`` is off. A setting outside
+those slices raises naming the work that would add it, so nothing silently
+ignores a field.
 """
 from __future__ import annotations
 
@@ -19,8 +22,6 @@ import torch
 
 _LATER = {
     "scan_trunk": "the scan trunk (ROADMAP Queue 1.8, model zoo)",
-    "trunk_int8": "the int8 trunk kernel (ROADMAP Queue 2: fused_block2_q)",
-    "block_warp": "the block-gather warp kernel (ROADMAP Queue 2: warp_block)",
 }
 _ABLATIONS = ("use_pab", "use_la", "use_ga", "use_mv", "use_pd", "use_egla")
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -81,6 +82,11 @@ class ModelConfig:
                 "fused_align=True needs fused_trunk=True: the fused dual MSA "
                 "feeds the fused alignment tail (cdfo_tpu reaches it only "
                 "under fused_trunk and would ignore the flag otherwise)")
+        if self.trunk_int8 and not self.fused_trunk:
+            raise ValueError(
+                "trunk_int8=True needs fused_trunk=True: the int8 Block_ is "
+                "a kernel of the fused trunk (cdfo_tpu reads the flag only "
+                "under fused_trunk and would ignore it otherwise)")
         if self.compute_dtype not in _DTYPES:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype}: the port runs "

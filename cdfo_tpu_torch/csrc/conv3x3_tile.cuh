@@ -1,6 +1,6 @@
 // Shared tile routines of the port's convolution kernels, hand-written for
-// Hopper (sm_90a): fused_groupconv.cu, fused_tail.cu, fused_head.cu and
-// fused_block2.cu include this header and nothing else of each other.
+// Hopper (sm_90a): the fused_*.cu sources include this header and nothing
+// else of each other.
 //
 // Every activation a kernel reads is NHWC with C = 64 channels. A CTA of 8
 // warps copies the pixel windows it needs from device memory into shared
@@ -29,6 +29,11 @@
 // computes exactly the fragment elements it holds) and the weights in
 // plain [tap][N][K] order, so a float32 run differs from a float32
 // reference only in summation order.
+// int8 (`s8`, fused_block2_q.cu): `mma.sync.m16n8k32` s8 x s8 -> s32 on
+// windows of one byte per channel, 80 bytes per pixel; the same ldmatrix
+// addressing serves (a 16-byte row is 16 channels), K walks 32 channels at
+// a time, and the weights come in the k32 B-fragment order
+// (ops/fused_block2_q.py::kernel_weights_s8).
 
 #pragma once
 
@@ -45,10 +50,12 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 
 using bf16 = __nv_bfloat16;
+using s8 = int8_t;
 
 template <typename T> struct Pitch;
 template <> struct Pitch<float> { static constexpr int value = 68; };  // 272 B
 template <> struct Pitch<bf16> { static constexpr int value = 72; };   // 144 B
+template <> struct Pitch<s8> { static constexpr int value = 80; };     // 80 B
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -123,11 +130,23 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group 0;\n"); }
 
 // the four 8x8 b16 matrices whose rows lanes 0-7, 8-15, 16-23, 24-31 point at
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* row) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// s8 x s8 -> s32, K = 32: lane 4g + t holds A rows g, g + 8 (k 4t .. 4t+3
+// and 16+4t .. 16+4t+3, one byte each), B column g (same k) and C rows g,
+// g + 8, columns 2t, 2t+1
+__device__ __forceinline__ void mma16832(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 #endif
 
@@ -142,9 +161,9 @@ struct Weights {
   int k;   // K per tap, all input channels
 };
 
-// One lane's view of one m-tile of a convolution's input window: bfloat16:
-// the ldmatrix row (pixel 16*mt + lane%8 + 8*(lane/8 % 2), channel
-// 8*(lane/16)); float32: pixel rows g and g + 8. Pixels past n_pix repeat
+// One lane's view of one m-tile of a convolution's input window: bfloat16
+// and int8: the ldmatrix row (pixel 16*mt + lane%8 + 8*(lane/8 % 2), byte
+// 16*(lane/16) of its channels); float32: pixel rows g and g + 8. Pixels past n_pix repeat
 // the last one and are never stored.
 template <typename T>
 struct ATile {
@@ -161,8 +180,9 @@ __device__ __forceinline__ ATile<T> a_tile(const T* in, int in_w, int out_w, int
     row = min(row, n_pix - 1);
     return in + ((row / out_w) * S * in_w + (row % out_w) * S) * P;
   };
-  if constexpr (std::is_same<T, bf16>::value) {
-    const T* p = at(mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) + (lane >> 4) * 8;
+  if constexpr (!std::is_same<T, float>::value) {
+    const T* p = at(mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) +
+                 (lane >> 4) * (16 / static_cast<int>(sizeof(T)));
     return {p, p, in_w};
   } else {
     return {at(mt * 16 + (lane >> 2)), at(mt * 16 + (lane >> 2) + 8), in_w};
@@ -213,6 +233,59 @@ __device__ __forceinline__ void mma_tap_smem(float (&acc)[MT][NT][4], const ATil
   }
 }
 
+// The int8 forms: acc[m][nt] += A_m (16 x 32) . B (32 x 8) with one tap's
+// weights in shared memory (B fragments [K/32 = 2][NT][lane], 8 bytes each) ...
+template <int MT, int NT>
+__device__ __forceinline__ void mma_tap_smem(int (&acc)[MT][NT][4], const ATile<s8> (&a)[MT],
+                                             const int (&off)[MT], const s8* w, int lane) {
+  const uint2* b = reinterpret_cast<const uint2*>(w) + lane;
+#pragma unroll
+  for (int kt = 0; kt < C / 32; ++kt) {
+    uint32_t af[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) ldsm_x4(af[m], a[m].p0 + off[m] + kt * 32);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const uint2 bv = b[(kt * NT + nt) * 32];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        mma16832(acc[m][nt], af[m][0], af[m][1], af[m][2], af[m][3], bv.x, bv.y);
+      }
+    }
+  }
+}
+
+// ... and a warp's share of a KH x KW convolution over 64 int8 input
+// channels (k0 .. k0+63 of the weights), weights from device memory.
+template <int KH, int KW, int MT, int NT>
+__device__ __forceinline__ void conv_tiles(int (&acc)[MT][NT][4], const ATile<s8> (&a)[MT],
+                                           const Weights<s8>& w, int n0, int k0, int lane) {
+  constexpr int P = Pitch<s8>::value;
+#pragma unroll 1
+  for (int ky = 0; ky < KH; ++ky) {
+#pragma unroll
+    for (int kx = 0; kx < KW; ++kx) {
+#pragma unroll
+      for (int kc = 0; kc < C; kc += 32) {
+        uint32_t af[MT][4];
+#pragma unroll
+        for (int m = 0; m < MT; ++m) ldsm_x4(af[m], a[m].p0 + (ky * a[m].in_w + kx) * P + kc);
+        const uint2* b = reinterpret_cast<const uint2*>(w.p) +
+                         (((ky * KW + kx) * (w.k >> 5) + ((k0 + kc) >> 5)) * (w.n >> 3) + (n0 >> 3)) * 32 +
+                         lane;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const uint2 bv = __ldg(b + nt * 32);
+#pragma unroll
+          for (int m = 0; m < MT; ++m) {
+            mma16832(acc[m][nt], af[m][0], af[m][1], af[m][2], af[m][3], bv.x, bv.y);
+          }
+        }
+      }
+    }
+  }
+}
+
 template <int MT, int NT>
 __device__ __forceinline__ void mma_k16(float (&acc)[MT][NT][4], const ATile<float> (&a)[MT],
                                         const int (&off)[MT], const Weights<float>& w, int tap,
@@ -240,14 +313,14 @@ __device__ __forceinline__ void mma_k16(float (&acc)[MT][NT][4], const ATile<flo
   }
 }
 
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+template <typename A, int MT, int NT>
+__device__ __forceinline__ void zero(A (&acc)[MT][NT][4]) {
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][nt][i] = 0.f;
+      for (int i = 0; i < 4; ++i) acc[m][nt][i] = 0;
 }
 
 // One warp's share of a KH x KW convolution over 64 input channels (input

@@ -25,7 +25,9 @@ reads the k centre frames without broadcasting them; ``cfg.fused_egla`` runs
 EGLA (``RDAB``, in ``compensate_frames`` and ``forward``) as the two
 ``ops/fused_egla`` kernels around the column attention, whose long-range
 attention then runs in the model's dtype (the unfused EGLA's promotes to
-float32).
+float32). ``cfg.trunk_int8`` (under ``fused_trunk``) runs the trunk's
+``Block_`` as the int8 kernel of ``ops/fused_block2_q`` (approximate), and
+``cfg.block_warp`` the neighbour warp as ``ops/warp_block``.
 
 The model is built on the card unless the caller asks for another device.
 """
@@ -40,6 +42,7 @@ from ..config import ModelConfig
 from ..ops.fused_head import fused_head
 from ..ops.resize import interpolate_bilinear, pixel_shuffle
 from ..ops.warp import flow_warp_ring
+from ..ops.warp_block import flow_warp_ring_block
 from .alignment import DualAttAlignment
 from .attention import EGLA
 from .layers import Conv2d, init_weights, lrelu
@@ -78,8 +81,11 @@ class CVSRV8(nn.Module):
         # tsa_fusion is a 1x1 conv over the frame-major (N*nf) channel
         # concat; it is applied as a frame contraction (see _tsa)
         self.tsa_fusion = Conv2d(cfg.nframes * nf, nf, 1, dtype=dt)
-        trunk = SCNetFast if cfg.fused_trunk else SCNetS
-        self.recon_trunk = trunk(nf, cfg.scn_groups, dtype=dt)
+        if cfg.fused_trunk:
+            self.recon_trunk = SCNetFast(nf, cfg.scn_groups, dtype=dt,
+                                         use_int8=cfg.trunk_int8)
+        else:
+            self.recon_trunk = SCNetS(nf, cfg.scn_groups, dtype=dt)
         self.upconv1 = Conv2d(nf, nf * 4, 1, dtype=dt)
         self.upconv2 = Conv2d(nf, nf * 4, 1, dtype=dt)
         self.conv_last = Conv2d(nf, 1, 3, 1, 1, dtype=dt)
@@ -174,13 +180,17 @@ class CVSRV8(nn.Module):
         """``align_reconstruct``'s neighbour warp, with the neighbours
         folded into the batch: (warped (k*(N-1), H, W, nf), ufs prior
         (k*(N-1), H, W, nf), flows (k*(N-1), H, W, 2)), in the compute
-        dtype."""
+        dtype. With ``cfg.block_warp`` the warp is ``ops/warp_block``'s (one
+        kernel launch on the card, its path chosen per 4x4 block on the
+        device)."""
         dt, nf = self.cfg.compute_dtype, self.cfg.nf
         k, nm1 = nbr_idx.shape
         _, h, w, _ = ring_fi.shape
         ufs_p = nbr_ufs_p.to(dt).reshape(k * nm1, h, w, nf)
         mv = nbr_mv.to(dt).reshape(k * nm1, h, w, 2)
-        warped = flow_warp_ring(ring_fi.to(dt), nbr_idx.reshape(k * nm1), mv)
+        warp = flow_warp_ring_block if self.cfg.block_warp else flow_warp_ring
+        warped = warp(ring_fi.to(dt).contiguous(), nbr_idx.reshape(k * nm1),
+                      mv.contiguous())
         return warped, ufs_p, mv
 
     def align_neighbours(self, center_l1, warped, ufs_p, mv):

@@ -21,33 +21,47 @@ CUDA device the script exits non-zero before printing any result):
    34, 64), the two dual-MSA passes at 24 neighbours of 4 centres of
    272x480 and at 3 neighbours of 2 centres of 18x34; EGLA's eg1 and eg2
    at (4, 272, 480, 64) and at (2, 20, 40, 64) and (2, 24, 40, 64) (eg2
-   must refuse H = 20). Each output is held against the plain one slice by
+   must refuse H = 20); the int8 ``Block_`` at the trunk's two shapes (an
+   odd extent must be refused), its clipped values counted alike by kernel
+   and plain version; the block-gather ring warp at 24 neighbour images of
+   a ring of 8 272x480 frames and at (5 of 3, 20, 36), on flows constant
+   over 4x4 blocks, on those with a mixed bottom band and single moved
+   pixels, and on arbitrary flows: bit for bit equal to its plain version,
+   the same path in every block, within tolerance of the per-pixel
+   ``flow_warp_ring``, with ``F.grid_sample`` as its library time. Each output is held against the plain one slice by
    slice, each slice against its own largest value (``kernel_cases``: the
    MDTA and dual-MSA statistics per image and gram, their feature maps and
    EGLA's outputs per image). Each kernel's bound
    is computed from its inputs: the larger of its bytes (inputs read once,
    outputs written once) over 3.35 TB/s and its operations over the peak
-   of its type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s fp32);
-4. four small CVSR_V8 (2 trunk groups, 16x24 frames) through the streaming
+   of their type (989 TFLOP/s bf16 tensor cores, 1979 TOP/s int8, 67
+   TFLOP/s fp32);
+4. six small CVSR_V8 (2 trunk groups, 16x24 frames) through the streaming
    engine on the card (float32, kernels on, TF32 off) against the same
    weights through the same engine on the CPU (plain versions): uint8
    frames within 1 LSB, with no fused flag, with ``fused_trunk``, with
-   ``fused_trunk``, ``fused_embed`` and ``fused_align``, and with those and
-   ``fused_egla``;
+   ``fused_trunk``, ``fused_embed`` and ``fused_align``, with those and
+   ``fused_egla``, and with all four and ``trunk_int8`` (path A; the CPU
+   walks the kernel's step geometry) or ``block_warp`` (path B);
 5. the full-width slice: CVSR_V8 at its default widths (nf=64, 7 trunk
    groups), bfloat16, seeded random weights, ``BatchedStreamingEngine(k=4)``
    on a 12-frame 272x480 synthetic sequence in timed mode, unfused, with
    ``fused_trunk``, with ``fused_trunk``, ``fused_embed`` and
-   ``fused_align``, and with all four flags (the main path: the JAX
-   headline configuration with the exact trunk; the same weights each
+   ``fused_align``, with all four flags (the main path of the exact
+   trunk), and with all four and ``trunk_int8`` (path A: the JAX headline
+   configuration), ``block_warp`` (path B) or both (the same weights each
    time); checks the (12, 1080, 1920) uint8 output, that every
    ``compensate_frames`` call launched the attention kernel twice (row and
    column stage) or, with ``fused_egla``, the column stage, eg1 and eg2
    once each, and, with ``fused_embed``, 3 of each MDTA pass, that every
    ``align_reconstruct`` call of a fused run launched 21 ``Block_``, 7
    group-tail, 1 head and 1 tail kernels and, with ``fused_align``, 1 of
-   each dual-MSA pass, and that the fused frames are within 40 dB PSNR of
-   the unfused ones; then times each stage of one engine step alone
+   each dual-MSA pass, with ``trunk_int8`` 21 int8 ``Block_`` and no exact
+   one, with ``block_warp`` 1 warp kernel, and that the fused frames are
+   within 40 dB PSNR of the unfused ones (30 dB with ``trunk_int8``, whose
+   PSNR against the exact four-flag frames says what int8 costs under
+   these weights; the share of clipped y1 / y2 values of one trunk call is
+   printed beside it); then times each stage of one engine step alone
    (``compensate_frames``, ``embed``, EGLA, ``align_reconstruct``, its
    neighbour warp and ``DualAttAlignment``, tsa, trunk, head).
 
@@ -57,18 +71,26 @@ zero, which would zero the fused EGLA's q projection), and each slice
 prints the mask's set bits per frame of one ``compensate_frames`` call.
 
 The line before the last is a JSON object with one entry per kernel
-wrapper (launches from the main-path run); the last line is ``{"ok": true,
+wrapper (launches from the four-flag run; the int8 ``Block_``'s from path
+A's and the warp's from path B's); the last line is ``{"ok": true,
 "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
 builds the kernels and instead profiles one timed 12-frame run of the main
 path (``torch.profiler``): device time by kernel, in order, and the
-device's busy share of the run's wall time.
+device's busy share of the run's wall time. Flags named after it are added
+to the four (``--profile trunk_int8 block_warp``).
+
+    python3 chip_smoke.py --phases
+
+builds the int8 ``Block_`` with its phase clocks compiled in and prints the
+cycles one CTA spends in each phase of a step at the main shape.
 """
 from __future__ import annotations
 
 import collections
+import ctypes
 import json
 import subprocess
 import sys
@@ -86,18 +108,21 @@ from cdfo_tpu_torch.ops import cuda_build
 from cdfo_tpu_torch.ops import fused_align as fal
 from cdfo_tpu_torch.ops import fused_attention as fa
 from cdfo_tpu_torch.ops import fused_block2 as fb
+from cdfo_tpu_torch.ops import fused_block2_q as fq
 from cdfo_tpu_torch.ops import fused_egla as fe
 from cdfo_tpu_torch.ops import fused_groupconv as fg
 from cdfo_tpu_torch.ops import fused_head as fh
 from cdfo_tpu_torch.ops import fused_mdta as fm
 from cdfo_tpu_torch.ops import fused_tail as ft
 from cdfo_tpu_torch.ops import kernel_cases as kc
+from cdfo_tpu_torch.ops import warp_block as wb
+from cdfo_tpu_torch.ops.warp import flow_warp_ring
 
 SOURCE = "cdfo_tpu_torch/csrc/fused_attention.cu"
 REPLACES = "cdfo_tpu/ops/fused_attention.py:43"
 LIBRARIES = ("fused_attention", "fused_block2", "fused_groupconv",
              "fused_head", "fused_tail", "fused_mdta", "fused_align",
-             "fused_egla")
+             "fused_egla", "fused_block2_q", "warp_block")
 # the fused-trunk kernels: JSON name, wrapper, plain version, source, the
 # TPU kernel it replaces
 TRUNK_KERNELS = {
@@ -173,11 +198,34 @@ EGLA_MAIN = (4, 272, 480, 64)
 EGLA_RAGGED = {"eg1": (2, 20, 40, 64), "eg2": (2, 24, 40, 64)}
 ALL_FLAGS = dict(fused_trunk=True, fused_embed=True, fused_align=True,
                  fused_egla=True)
+# the int8 Block_ (21 launches per align_reconstruct call under trunk_int8,
+# in place of the exact one) and the block-gather ring warp (1 under
+# block_warp)
+INT8_KERNELS = {
+    "blockq": ("fused_block2_q.scale_block_q", fq.scale_block_q,
+               fq.scale_block_q_plain, "cdfo_tpu_torch/csrc/fused_block2_q.cu",
+               "cdfo_tpu/ops/fused_block2_q.py:373"),
+}
+WARP_KERNELS = {
+    "warp": ("warp_block.flow_warp_ring_block", wb.flow_warp_ring_block,
+             wb.flow_warp_ring_block_plain, "cdfo_tpu_torch/csrc/warp_block.cu",
+             "cdfo_tpu/ops/warp_block.py:191"),
+}
+ALL_KERNELS = {**TRUNK_KERNELS, **ALIGN_EMBED_KERNELS, **EGLA_KERNELS,
+               **INT8_KERNELS, **WARP_KERNELS}
+# (ring slots, neighbour images, H, W): k=4 centres of 6 neighbours from the
+# engine's ring of 8, then a ragged one
+WARP_MAIN = (8, 24, 272, 480)
+WARP_SHAPES = (WARP_MAIN, (3, 5, 20, 36))
+PATH_A = dict(ALL_FLAGS, trunk_int8=True)
+PATH_B = dict(ALL_FLAGS, block_warp=True)
+PATH_AB = dict(ALL_FLAGS, trunk_int8=True, block_warp=True)
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, dense bf16 tensor-core
-# and fp32 CUDA-core FLOP/s
+# and fp32 CUDA-core FLOP/s, dense int8 tensor-core OP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_INT8 = 1979e12
 
 
 def flops(kind, args) -> float:
@@ -192,6 +240,8 @@ def flops(kind, args) -> float:
     if kind == "column":
         b, h, w, _ = x.shape
         return 4.0 * b * w * h * h * c
+    if kind == "warp":   # 4 taps or their two-stage equivalent per value
+        return 16.0 * args[2][..., 0].numel() * c
     p = float(x[..., 0].numel())   # pixels of the first operand
     if kind == "eg1":   # two projections, the row attention, the H-band
         return p * (4 * c * c + 4 * x.shape[2] * c + 18 * c)
@@ -199,6 +249,8 @@ def flops(kind, args) -> float:
         # body at 1x and 0.25x (2 * 2*9*4C^2 each), up path at 4x conv1
         # (2*9*4C^2) + folded conv2 (2*16*4C^2) at 1x, the two 1x1s
         "block": 144 * c * c * 1.25 + 288 * c * c + 128 * c * c + 4 * c * c,
+        # the int8 Block_'s part in the working type: the 0.5x body, the 1x1s
+        "blockq": 144 * c * c * 0.25 + 4 * c * c,
         "group": 18 * c * c,
         "head": 40 * c * c + 288 * c,
         "tail": 72 * c * c,
@@ -218,7 +270,12 @@ def bound(kind, args, outs, dtype) -> tuple[float, str]:
     nbytes = sum(t.numel() * t.element_size() for t in (*args, *outs)
                  if isinstance(t, torch.Tensor))
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = flops(kind, args) / PEAK_FLOPS[dtype]
+    if kind == "warp":   # blended in float32 on the CUDA cores in any dtype
+        t_ops = flops(kind, args) / PEAK_FLOPS[torch.float32]
+    else:
+        t_ops = flops(kind, args) / PEAK_FLOPS[dtype]
+    if kind == "blockq":   # conv1 at 1x and 2x, conv2 and the folded conv2
+        t_ops += (flops("block", args) - flops(kind, args)) / PEAK_INT8
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -250,14 +307,13 @@ def median_ms(fn, reps: int = 15) -> float:
 def reset_launches():
     fa.token_self_attention.launches = 0
     fa.column_self_attention.launches = 0
-    for _, wrapper, *_ in (*TRUNK_KERNELS.values(),
-                           *ALIGN_EMBED_KERNELS.values(),
-                           *EGLA_KERNELS.values()):
+    for _, wrapper, *_ in ALL_KERNELS.values():
         wrapper.launches = 0
 
 
 @torch.no_grad()
-def check_kernel_table(card: str, table: dict, cases, seed: int) -> dict:
+def check_kernel_table(card: str, table: dict, cases, seed: int,
+                       plain_reps: int = 15) -> dict:
     """Phase 3 for the kernels of ``table`` ({kind: (JSON name, wrapper,
     plain version, source, replaces)}): each against its plain version in
     float32 and bfloat16 on every case ``(label, main, args_of)``, where
@@ -281,10 +337,10 @@ def check_kernel_table(card: str, table: dict, cases, seed: int) -> dict:
                 line = (f"kernel {name} {label} {str(dtype)[6:]}: max_abs_err "
                         f"{max_abs:.3e}; worst slice {err:.3e} (max |plain| "
                         f"{scale:.3f} there, rel {err / scale:.3e}, "
-                        f"tolerance rel {kc.TOLERANCE[dtype]:.1e})")
+                        f"tolerance rel {kc.tolerance(dtype, kind):.1e})")
                 if main:
                     ms = median_ms(lambda: kernel(*args))
-                    plain_ms = median_ms(lambda: plain(*args))
+                    plain_ms = median_ms(lambda: plain(*args), plain_reps)
                     bound_ms, bound_by = bound(kind, args, out, dtype)
                     line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
                              f"bound {bound_ms:.3f} ms ({bound_by}) [{card}]")
@@ -295,7 +351,7 @@ def check_kernel_table(card: str, table: dict, cases, seed: int) -> dict:
                                         "bound_by": bound_by,
                                         "library_ms": None}
                 print(line, flush=True)
-                if not err <= kc.TOLERANCE[dtype] * scale:
+                if not err <= kc.tolerance(dtype, kind) * scale:
                     raise AssertionError(f"kernel disagrees with plain: "
                                          f"{line}")
                 del args, out, ref
@@ -353,6 +409,143 @@ def check_egla_kernels(card: str) -> dict:
         print(f"eg2 at H = 20 refused: {e}", flush=True)
     else:
         raise AssertionError("fused_egla eg2 took H = 20")
+    return fields
+
+
+def check_int8_kernel(card: str) -> dict:
+    """Phase 3, int8 ``Block_``: ``check_kernel_table`` at the trunk
+    shapes (the plain version walks the kernel's step geometry), then the
+    clipped values as kernel and plain version count them, the outputs'
+    correlation, and an odd extent that must be refused. The table's
+    kernel time includes the wrapper's weight quantization and packing,
+    which the trunk does once per model; the JSON line's ``ms`` is the
+    time with the pack kept, as the trunk calls it, taken in turns with
+    the exact ``Block_``'s under the same rule."""
+    fields = check_kernel_table(card, INT8_KERNELS, [
+        (shape, shape == TRUNK_MAIN,
+         lambda kind, dtype, g, shape=shape: kc.trunk_args(kind, dtype, g,
+                                                           shape))
+        for shape in TRUNK_SHAPES], seed=4, plain_reps=3)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    with torch.no_grad():
+        for shape in TRUNK_SHAPES:
+            args = kc.trunk_args("blockq", torch.bfloat16, g, shape)
+            out, clips = fq.scale_block_q(*args, clip_counts=True)
+            ref, want = fq.scale_block_q_plain(*args, clip_counts=True)
+            kc.assert_outputs_close(out, ref, torch.bfloat16, "blockq")
+            exact = fb.scale_block(*args)
+            err, scale = kc.worst_error(out, exact, "blockq")
+            n = out.numel()
+            print(f"int8 Block_ {shape} bf16: clipped y1 {clips[0]:.0f} of "
+                  f"{4 * n} (plain {want[0]:.0f}), y2 {clips[1]:.0f} of "
+                  f"{16 * n} (plain {want[1]:.0f}); against the exact kernel "
+                  f"rel {err / scale:.3e} (cdfo_tpu's own bound: 5e-2)",
+                  flush=True)
+            if (clips - want).abs().max().item() > 2 + 0.01 * want.max().item():
+                raise AssertionError("kernel and plain version count other "
+                                     "clipped values")
+            if not err <= 0.05 * scale:
+                raise AssertionError("int8 Block_ is far from the exact one")
+            if shape == TRUNK_MAIN:
+                x, *params = args
+                pq = fq.pack_weights_q(*params, x.dtype)
+                pe = fb.pack_weights(*params, x.dtype)
+                runs = {"exact": lambda: fb.scale_block(*args, packed=pe),
+                        "int8": lambda: fq.scale_block_q(*args, packed=pq)}
+                ms = {name: [] for name in runs}
+                for name in ("exact", "int8", "int8", "exact"):
+                    ms[name].append(median_ms(runs[name]))
+                fields["blockq"]["ms"] = float(np.mean(ms["int8"]))
+                print(f"int8 Block_ {shape} bf16, weights packed once: "
+                      f"{ms['int8'][0]:.3f} and {ms['int8'][1]:.3f} ms; the "
+                      f"exact Block_ before and after it {ms['exact'][0]:.3f} "
+                      f"and {ms['exact'][1]:.3f} ms [{card}]", flush=True)
+        odd = kc.trunk_args("blockq", torch.bfloat16, g, (1, 16, 23, 64))
+        try:
+            fq.scale_block_q(*odd)
+        except ValueError as e:
+            print(f"odd extent refused: {e}", flush=True)
+        else:
+            raise AssertionError("fused_block2_q took an odd extent")
+    return fields
+
+
+def grid_sample_warp(frames_nchw, grid):
+    """The one PyTorch call computing the warp's function on frames
+    already gathered from the ring (bilinear, zeros, align_corners=True at
+    normalised grid + flow), timed as its library yardstick; the port
+    never calls it."""
+    return F.grid_sample(frames_nchw, grid, mode="bilinear",
+                         padding_mode="zeros", align_corners=True)
+
+
+@torch.no_grad()
+def check_warp_kernel(card: str) -> dict:
+    """Phase 3, block-gather ring warp: on every flow case and shape, in
+    float32 and bfloat16, the kernel equals its plain version bit for bit
+    and takes the same path per block (none in the bottom 4 rows), and
+    both stay within tolerance of the per-pixel ``flow_warp_ring``; times
+    at the main shape, JSON fields from the blocky case (the engine's
+    flows) in bfloat16."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    fields = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in WARP_SHAPES:
+            for case in kc.WARP_CASES:
+                ring, idx, flow = args = kc.warp_args(case, dtype, g, shape)
+                out, paths = wb.flow_warp_ring_block(*args, return_paths=True)
+                ref, want = wb.flow_warp_ring_block_plain(*args,
+                                                          return_paths=True)
+                shipped = flow_warp_ring(*args)
+                torch.cuda.synchronize()
+                max_abs = kc.max_abs_error(out, ref)
+                err, scale = kc.worst_error(out, shipped, "warp")
+                line = (f"kernel warp_block {case} {shape} {str(dtype)[6:]}: "
+                        f"max_abs_err {max_abs:.3e} against plain, patch path "
+                        f"in {paths.float().mean().item():.4f} of the blocks; "
+                        f"against flow_warp_ring worst slice {err:.3e} (rel "
+                        f"{err / scale:.3e}, tolerance rel "
+                        f"{kc.tolerance(dtype, 'warp'):.1e})")
+                if shape == WARP_MAIN:
+                    ms = median_ms(lambda: wb.flow_warp_ring_block(*args))
+                    plain_ms = median_ms(
+                        lambda: wb.flow_warp_ring_block_plain(*args), 5)
+                    eager_ms = median_ms(lambda: flow_warp_ring(*args))
+                    b, h, w, _ = flow.shape
+                    frames = ring[idx].permute(0, 3, 1, 2)
+                    f32 = flow.float()
+                    gx = (torch.arange(w, device="cuda") + f32[..., 0]) \
+                        * (2.0 / (w - 1)) - 1.0
+                    gy = (torch.arange(h, device="cuda")[:, None]
+                          + f32[..., 1]) * (2.0 / (h - 1)) - 1.0
+                    grid = torch.stack([gx, gy], dim=-1).to(dtype)
+                    lib = grid_sample_warp(frames, grid).permute(0, 2, 3, 1)
+                    lib_err, _ = kc.worst_error(lib, shipped, "warp")
+                    library_ms = median_ms(
+                        lambda: grid_sample_warp(frames, grid))
+                    bound_ms, bound_by = bound("warp", args, out, dtype)
+                    line += (f"; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                             f"flow_warp_ring {eager_ms:.3f} ms, "
+                             f"F.grid_sample {library_ms:.3f} ms (worst slice "
+                             f"{lib_err:.2e} from flow_warp_ring), bound "
+                             f"{bound_ms:.3f} ms ({bound_by}) [{card}]")
+                    if dtype == torch.bfloat16 and case == "blocky":
+                        fields["warp"] = {
+                            "max_abs_err": max_abs, "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "library_ms": library_ms}
+                    del frames, grid, lib
+                print(line, flush=True)
+                if max_abs != 0.0 or not torch.equal(paths, want):
+                    raise AssertionError(f"kernel disagrees with plain: "
+                                         f"{line}")
+                if paths[:, -1].any():
+                    raise AssertionError("a bottom block took the patch path")
+                if not err <= kc.tolerance(dtype, "warp") * scale:
+                    raise AssertionError(f"block warp disagrees with "
+                                         f"flow_warp_ring: {line}")
+                del args, ring, idx, flow, out, ref, shipped
+                torch.cuda.empty_cache()
     return fields
 
 
@@ -436,7 +629,8 @@ def mask_bits(eng, data, label: str) -> None:
 
 def check_small_slice(**flags):
     """Phase 4: card (kernels) vs CPU (plain versions), one set of
-    weights."""
+    weights. Under ``trunk_int8`` the CPU's plain version walks the
+    kernel's step geometry (its default), so both compute one scheme."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = ModelConfig(scn_groups=2, **flags)
@@ -473,9 +667,8 @@ def run_full_slice(card: str, **flags):
     frames, fps = eng.run_sequence(data, collect_timing=True)
     launches = {"token": fa.token_self_attention.launches,
                 "column": fa.column_self_attention.launches}
-    launches.update({kind: wrapper.launches for kind, (_, wrapper, *_) in
-                     {**TRUNK_KERNELS, **ALIGN_EMBED_KERNELS,
-                      **EGLA_KERNELS}.items()})
+    launches.update({kind: wrapper.launches
+                     for kind, (_, wrapper, *_) in ALL_KERNELS.items()})
     peak = torch.cuda.max_memory_allocated() / 2**30
     steps = len(range(0, t, k))
     calls = 1 + steps   # compensate_frames: bootstrap + one per step
@@ -493,28 +686,38 @@ def run_full_slice(card: str, **flags):
     want.update({kind: n * calls if egla else 0
                  for kind, n in EGLA_LAUNCHES.items()})
     fused = flags.get("fused_trunk", False)
+    int8 = flags.get("trunk_int8", False)
     want.update({kind: n * steps if fused else 0
                  for kind, n in TRUNK_LAUNCHES.items()})
+    want["blockq"] = TRUNK_LAUNCHES["block"] * steps if int8 else 0
+    want["block"] = 0 if int8 else want["block"]
+    want["warp"] = steps if flags.get("block_warp") else 0
     want.update({kind: n * calls if flags.get("fused_embed") else 0
                  for kind, n in EMBED_LAUNCHES.items()})
     want.update({kind: n * steps if flags.get("fused_align") else 0
                  for kind, n in ALIGN_LAUNCHES.items()})
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
-    times = stage_times(eng, data)
+    times, clipped = stage_times(eng, data)
     print(f"stage ms, one k={k} step {flags}: "
           + ", ".join(f"{n} {v:.3f}" for n, v in times.items())
           + f" [{card}]", flush=True)
+    if clipped is not None:
+        print(f"full slice {flags}: clipped share of one trunk call's "
+              f"quantized values: y1 {clipped[0]:.3e}, y2 {clipped[1]:.3e}",
+              flush=True)
     del model, eng
     torch.cuda.empty_cache()
     return frames, launches
 
 
 @torch.inference_mode()
-def stage_times(eng, data, reps: int = 10) -> dict:
+def stage_times(eng, data, reps: int = 10):
     """ms per stage (CUDA events, median of ``reps``) of the first step of
     the staged sequence, each stage called alone through the model's own
-    methods on that step's inputs, the rings as the step finds them."""
+    methods on that step's inputs, the rings as the step finds them; and,
+    under ``trunk_int8``, the share of that step's trunk call's y1 and y2
+    values that clipped (else None)."""
     model = eng.model
     boot, steps = eng.stage_sequence(data)
     (ring_l1, ring_fi, ring_uf), _ = eng.run_staged(boot, [])
@@ -541,18 +744,42 @@ def stage_times(eng, data, reps: int = 10) -> dict:
         "trunk": lambda: model.recon_trunk(trunk_in),
         "head": lambda: model.head_from_trunk(trunk_out, center_lr),
     }
-    return {name: median_ms(fn, reps) for name, fn in stages.items()}
+    times = {name: median_ms(fn, reps) for name, fn in stages.items()}
+    return times, (int8_clipped_share(model.recon_trunk, trunk_in)
+                   if model.cfg.trunk_int8 else None)
 
 
-def profile_main_path(card: str, top: int = 15):
+def int8_clipped_share(trunk, x):
+    """One call of the int8 trunk on ``x``, block by block with the
+    kernel's clip counters on: (clipped y1 values / all y1 values, the
+    same for y2)."""
+    total = torch.zeros(2, dtype=torch.float64, device=x.device)
+    blocks = 0
+    skip = x.contiguous()
+    for group in trunk.body:
+        t = skip
+        for block in group.body:
+            params = block._params()
+            t, clips = fq.scale_block_q(t, *params,
+                                        packed=block._packed(t, params),
+                                        clip_counts=True)
+            total += clips
+            blocks += 1
+        skip = fg.grouptail(t, skip, group.conv.weight, group.conv.bias)
+    n = blocks * x.numel()
+    return total[0].item() / (4 * n), total[1].item() / (16 * n)
+
+
+def profile_main_path(card: str, extra=(), top: int = 15):
     """``--profile``: the engine's timed region (bootstrap and every step of
     a 12-frame 272x480 sequence, inputs staged before it) of the main path
-    under ``torch.profiler``; prints the kernels by summed device time and
-    the union of kernel intervals over the host wall time."""
+    (with the flags named in ``extra`` on as well) under
+    ``torch.profiler``; prints the kernels by summed device time and the
+    union of kernel intervals over the host wall time."""
     from torch.profiler import ProfilerActivity, profile
     t, k = 12, 4
-    model = seeded_model(ModelConfig(compute_dtype=torch.bfloat16,
-                                     **ALL_FLAGS))
+    flags = dict(ALL_FLAGS, **{name: True for name in extra})
+    model = seeded_model(ModelConfig(compute_dtype=torch.bfloat16, **flags))
     data = synthetic_sequence(t=t, h=272, w=480, seed=0)
     eng = BatchedStreamingEngine(model, k=k)
     eng.run_sequence(data)   # warm-up
@@ -580,7 +807,7 @@ def profile_main_path(card: str, top: int = 15):
         elif b > end:
             busy += b - end
             end = b
-    print(f"profiled main path ({t} frames, k={k}, bf16, 272x480, "
+    print(f"profiled main path {list(extra)} ({t} frames, k={k}, bf16, 272x480, "
           f"{len(spans)} device events): host wall {wall_ms:.3f} ms, device "
           f"busy {busy / 1e3:.3f} ms ({100 * busy / 1e3 / wall_ms:.1f}%, idle "
           f"{100 - 100 * busy / 1e3 / wall_ms:.1f}%) [{card}]", flush=True)
@@ -589,6 +816,62 @@ def profile_main_path(card: str, top: int = 15):
             :top]:
         print(f"  {ms:9.3f} ms {100 * ms / total:5.1f}% {n:5d}x  "
               f"{name[:110]}", flush=True)
+
+
+# the PHASE marks of csrc/fused_block2_q.cu, in order
+INT8_PHASES = ("load x window", "z = ku x + bu and the amaxes",
+               "quantize xq and us", "0.5x window d",
+               "int8 conv1 taps (as dispatched)", "quantizing epilogue of y1 / y2",
+               "y5 = conv1 at 0.5x", "conv2 phase: fold, body, 0.5x",
+               "fold / 0.5x sums and e", "output", "y amax reduction")
+
+
+@torch.no_grad()
+def int8_phase_clocks(card: str):
+    """``--phases``: compiles ``csrc/fused_block2_q.cu`` once more with
+    ``-DCDFO_PHASE_CLOCKS``, launches it at the main shape in bfloat16 and
+    prints the cycles thread 0 of one strip's CTA spent between the kernel's
+    phase marks, per 8 x 8 step (a warp's own view: its waits at barriers
+    count where it waits)."""
+    out = cuda_build.BUILD_DIR / "fused_block2_q-phase-clocks.so"
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                    "-DCDFO_PHASE_CLOCKS", "-o", str(out),
+                    str(cuda_build.CSRC / "fused_block2_q.cu")],
+                   check=True, capture_output=True, timeout=900)
+    lib = ctypes.CDLL(str(out))
+    lib.cdfo_fused_block2_q.argtypes = ([ctypes.c_void_p] * 18
+                                        + [ctypes.c_int] * 4
+                                        + [ctypes.c_void_p])
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x, *params = kc.trunk_args("blockq", torch.bfloat16, g, TRUNK_MAIN)
+    packed = fq.pack_weights_q(*params, torch.bfloat16)
+    res = torch.empty_like(x)
+    clocks = (ctypes.c_longlong * 16)()
+
+    def launch():
+        err = lib.cdfo_fused_block2_q(
+            x.data_ptr(), *(t.data_ptr() for t in packed), res.data_ptr(),
+            None, 1, *x.shape[:3], torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"phase-clock launch failed: CUDA error {err}")
+
+    ms = median_ms(launch)
+    kc.assert_outputs_close(res, fq.scale_block_q_plain(x, *params),
+                            torch.bfloat16, "blockq")
+    lib.cdfo_phase_clocks_read(clocks)
+    launch()
+    torch.cuda.synchronize()
+    if lib.cdfo_phase_clocks_read(clocks) != 0:
+        raise RuntimeError("could not read the phase clocks")
+    steps = -(-x.shape[1] // fq.KERNEL_GEOMETRY.rows)
+    total = sum(clocks)
+    print(f"int8 Block_ with phase clocks {tuple(x.shape)} bf16: {ms:.3f} ms "
+          f"a launch; cycles per step of one CTA ({steps} steps, "
+          f"{total / steps:.0f} in all) [{card}]", flush=True)
+    for name, c in zip(INT8_PHASES, clocks):
+        print(f"  {c / steps:9.0f} {100 * c / total:5.1f}%  {name}",
+              flush=True)
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -620,32 +903,59 @@ def main():
                     print(f"  {name}: {line}", flush=True)
     print(f"built {len(LIBRARIES)} libraries in parallel in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if sys.argv[1:] == ["--profile"]:
-        profile_main_path(card)
+    if sys.argv[1:2] == ["--profile"]:
+        profile_main_path(card, sys.argv[2:])
+        return
+    if sys.argv[1:] == ["--phases"]:
+        int8_phase_clocks(card)
         return
 
     fields = check_kernels(card)
     fields.update(check_trunk_kernels(card))
     fields.update(check_align_embed_kernels(card))
     fields.update(check_egla_kernels(card))
+    fields.update(check_int8_kernel(card))
+    fields.update(check_warp_kernel(card))
     three = dict(fused_trunk=True, fused_embed=True, fused_align=True)
-    settings = (dict(fused_trunk=True), three, ALL_FLAGS)
+    settings = (dict(fused_trunk=True), three, ALL_FLAGS, PATH_A, PATH_B,
+                PATH_AB)
     check_small_slice()
-    for flags in settings:
+    for flags in settings[:-1]:
         check_small_slice(**flags)
     plain_frames, _ = run_full_slice(card)
+    launches = {}
     for flags in settings:
-        frames, launches = run_full_slice(card, **flags)
+        frames, counted = run_full_slice(card, **flags)
         quality = psnr(frames, plain_frames)
         print(f"full slice {flags}: fused vs unfused uint8 frames PSNR "
               f"{quality:.3f} dB (max diff "
               f"{np.abs(frames.astype(np.int32) - plain_frames).max()} LSB)",
               flush=True)
-        if not quality >= 40.0:
+        # the int8 trunk is approximate: its floor only catches a broken run
+        limit = 30.0 if flags.get("trunk_int8") else 40.0
+        if not quality >= limit:
             raise AssertionError(f"fused frames are {quality:.2f} dB from "
-                                 "the unfused ones (limit 40 dB)")
+                                 f"the unfused ones (limit {limit} dB)")
+        if flags == ALL_FLAGS:
+            exact_frames = frames
+            launches.update(counted)
+        elif flags in (PATH_A, PATH_B, PATH_AB):
+            against = psnr(frames, exact_frames)
+            print(f"full slice {flags}: against the exact four-flag frames "
+                  f"PSNR {against:.3f} dB (max diff "
+                  f"{np.abs(frames.astype(np.int32) - exact_frames).max()} "
+                  f"LSB)", flush=True)
+            if flags == PATH_B and not against >= 50.0:
+                raise AssertionError("the block warp changed the frames by "
+                                     f"more than rounding: {against:.2f} dB")
+            # each new kernel's launches from the run of its own path
+            if flags == PATH_A:
+                launches["blockq"] = counted["blockq"]
+            elif flags == PATH_B:
+                launches["warp"] = counted["warp"]
 
-    # launches: the main path's run (all four flags)
+    # launches: the four-flag run's; the int8 Block_'s from path A's run and
+    # the warp's from path B's
     kernels = [
         {"name": f"fused_attention.{kind}_self_attention", "route": "cuda",
          "source": SOURCE, "replaces": REPLACES,
@@ -654,8 +964,7 @@ def main():
     kernels += [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[kind], **fields[kind]}
-        for kind, (name, _, _, source, replaces) in
-        {**TRUNK_KERNELS, **ALIGN_EMBED_KERNELS, **EGLA_KERNELS}.items()]
+        for kind, (name, _, _, source, replaces) in ALL_KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,12 +10,14 @@ import torch
 from cdfo_tpu_torch.ops import fused_attention as fa
 from cdfo_tpu_torch.ops import fused_align as fal
 from cdfo_tpu_torch.ops import fused_block2 as fb
+from cdfo_tpu_torch.ops import fused_block2_q as fq
 from cdfo_tpu_torch.ops import fused_egla as fe
 from cdfo_tpu_torch.ops import fused_groupconv as fg
 from cdfo_tpu_torch.ops import fused_head as fh
 from cdfo_tpu_torch.ops import fused_mdta as fm
 from cdfo_tpu_torch.ops import fused_tail as ft
 from cdfo_tpu_torch.ops import kernel_cases as kc
+from cdfo_tpu_torch.ops import warp_block as wb
 from cdfo_tpu_torch.ops.kernel_cases import TOLERANCE
 
 
@@ -303,3 +305,156 @@ def test_fused_egla_launches_and_matches_unfused(cuda):
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     assert err <= 2e-4 * ref.abs().max().item()
+
+
+# -- the int8 Block_ ------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 16, 24, 64), (2, 18, 34, 64),
+                                   (1, 10, 6, 64), (1, 72, 16, 64)])
+def test_int8_block_matches_plain(cuda, shape, dtype):
+    """One to nine serial steps per strip, ragged rows and columns; the
+    clipped values are counted alike."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(2)
+    args = kc.trunk_args("blockq", dtype, g, shape, device=cuda)
+    before = fq.scale_block_q.launches
+    with torch.no_grad():
+        out, clips = fq.scale_block_q(*args, clip_counts=True)
+        ref, want = fq.scale_block_q_plain(*args, clip_counts=True)
+        again = fq.scale_block_q(*args)
+    torch.cuda.synchronize()
+    assert fq.scale_block_q.launches == before + 2
+    assert torch.equal(out, again)
+    kc.assert_outputs_close(out, ref, dtype, "blockq")
+    assert (clips - want).abs().max().item() <= 2 + 0.01 * want.max().item()
+
+
+@pytest.mark.cuda
+def test_int8_block_counts_clipped_values(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x, *ws = kc.trunk_args("blockq", torch.bfloat16, g, (1, 64, 16, 64),
+                           device=cuda)
+    x[:, 32:] *= 40.0   # rows that outgrow the lagged scale of those above
+    with torch.no_grad():
+        _, clips = fq.scale_block_q(x, *ws, clip_counts=True)
+        _, want = fq.scale_block_q_plain(x, *ws, clip_counts=True)
+    assert clips.min().item() > 0
+    assert (clips - want).abs().max().item() <= 0.01 * want.max().item()
+
+
+@pytest.mark.cuda
+def test_int8_block_rejects_what_it_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    args = kc.trunk_args("blockq", torch.float32, g, (1, 8, 8, 64),
+                         device=cuda)
+    narrow = kc.trunk_args("blockq", torch.float32, g, (1, 8, 8, 32),
+                           device=cuda)
+    odd = kc.trunk_args("blockq", torch.float32, g, (1, 8, 7, 64),
+                        device=cuda)
+    before = fq.scale_block_q.launches
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="64 channels"):
+            fq.scale_block_q(*narrow)
+        with pytest.raises(TypeError):
+            fq.scale_block_q(*(a.half() for a in args))
+        with pytest.raises(ValueError, match="even"):
+            fq.scale_block_q(*odd)
+        with pytest.raises(ValueError, match="the kernel walks"):
+            fq.scale_block_q(*args, geometry=fq.tpu_geometry(8))
+    assert fq.scale_block_q.launches == before
+
+
+@pytest.mark.cuda
+def test_int8_trunk_caches_its_pack(cuda):
+    from cdfo_tpu_torch.models.layers import init_weights
+    from cdfo_tpu_torch.models.trunk_fast import SCNetFast
+    trunk = init_weights(SCNetFast(64, 1, dtype=torch.bfloat16,
+                                   use_int8=True),
+                         torch.Generator().manual_seed(0)).to(cuda)
+    x = torch.randn(1, 16, 16, 64, device=cuda).bfloat16()
+    before = fq.scale_block_q.launches
+    with torch.no_grad():
+        a = trunk(x)
+        pack = trunk.body[0].body[0]._pack
+        b = trunk(x)
+    assert fq.scale_block_q.launches == before + 6
+    assert trunk.body[0].body[0]._pack is pack and torch.equal(a, b)
+    assert pack[0].dtype == torch.int8 and len(pack) == 15
+
+
+# -- the block-gather ring warp ---------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 2, 16, 32), (8, 24, 272, 480),
+                                   (2, 5, 20, 36)])
+@pytest.mark.parametrize("case", kc.WARP_CASES)
+def test_block_warp_matches_plain(cuda, case, shape, dtype):
+    """Equal bit for bit: the kernel rounds every product and sum as the
+    plain version does, and takes the same path in every block."""
+    from cdfo_tpu_torch.ops.warp import flow_warp_ring
+    g = torch.Generator(device=cuda).manual_seed(5)
+    ring, idx, flow = kc.warp_args(case, dtype, g, shape, device=cuda)
+    before = wb.flow_warp_ring_block.launches
+    with torch.no_grad():
+        out, paths = wb.flow_warp_ring_block(ring, idx, flow,
+                                             return_paths=True)
+        ref, want = wb.flow_warp_ring_block_plain(ring, idx, flow,
+                                                  return_paths=True)
+        shipped = flow_warp_ring(ring, idx, flow)
+    torch.cuda.synchronize()
+    assert wb.flow_warp_ring_block.launches == before + 1
+    assert torch.equal(paths, want) and not paths[:, -1].any()
+    assert torch.equal(out, ref)
+    kc.assert_outputs_close(out, shipped, dtype, "warp")
+
+
+@pytest.mark.cuda
+def test_warp_neighbours_does_not_wait_for_the_card(cuda):
+    """The path is chosen on the device: ``warp_neighbours`` under
+    ``block_warp`` synchronises the host nowhere."""
+    from cdfo_tpu_torch import ModelConfig
+    from cdfo_tpu_torch.models import CVSRV8
+    model = CVSRV8(ModelConfig(scn_groups=1, compute_dtype=torch.bfloat16,
+                               block_warp=True),
+                   generator=torch.Generator().manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    ring, idx, flow = kc.warp_args("mixed", torch.bfloat16, g,
+                                   (8, 12, 32, 48), device=cuda)
+    ufs = torch.zeros(2, 6, 32, 48, 64, device=cuda)
+    args = (ring, ufs, flow.float().reshape(2, 6, 32, 48, 2),
+            idx.reshape(2, 6))
+    with torch.no_grad():
+        model.warp_neighbours(*args)   # builds and loads the library
+        torch.cuda.synchronize()
+        before = wb.flow_warp_ring_block.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            warped, _, _ = model.warp_neighbours(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert wb.flow_warp_ring_block.launches == before + 1
+    torch.cuda.synchronize()
+    assert warped.shape == (12, 32, 48, 64) and warped.float().std() > 0
+
+
+@pytest.mark.cuda
+def test_block_warp_rejects_what_it_does_not_take(cuda):
+    ring = torch.zeros(3, 8, 12, 64, device=cuda)
+    idx = torch.zeros(2, dtype=torch.int64, device=cuda)
+    flow = torch.zeros(2, 8, 12, 2, device=cuda)
+    before = wb.flow_warp_ring_block.launches
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="64 channels"):
+            wb.flow_warp_ring_block(ring[..., :32].contiguous(), idx, flow)
+        with pytest.raises(TypeError):
+            wb.flow_warp_ring_block(ring, idx, flow.bfloat16())
+        with pytest.raises(TypeError, match="integer"):
+            wb.flow_warp_ring_block(ring, idx.cpu(), flow)
+        with pytest.raises(ValueError, match="multiples of 4"):
+            wb.flow_warp_ring_block(ring[:, :6].contiguous(), idx,
+                                    flow[:, :6].contiguous())
+    assert wb.flow_warp_ring_block.launches == before

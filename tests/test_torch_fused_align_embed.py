@@ -279,8 +279,9 @@ def test_config_takes_the_fused_flags_and_refuses_align_alone():
     assert ModelConfig(fused_embed=True).fused_embed
     with pytest.raises(ValueError, match="fused_trunk"):
         ModelConfig(fused_align=True)
-    with pytest.raises(NotImplementedError, match="block_warp"):
-        ModelConfig(block_warp=True, **FUSED)
+    assert ModelConfig(block_warp=True, **FUSED).block_warp
+    with pytest.raises(NotImplementedError, match="scan_trunk"):
+        ModelConfig(scan_trunk=True, **FUSED)
 
 
 def test_default_device_is_the_card(monkeypatch):

@@ -310,8 +310,12 @@ def test_fused_engine_matches_jax_engine(setup, k):
 def test_config_takes_fused_trunk_and_refuses_int8():
     assert ModelConfig(fused_trunk=True,
                        compute_dtype=torch.bfloat16).fused_trunk
-    with pytest.raises(NotImplementedError, match="fused_block2_q"):
-        ModelConfig(fused_trunk=True, trunk_int8=True)
+    # the int8 trunk is a kernel of the fused trunk
+    assert ModelConfig(fused_trunk=True, trunk_int8=True).trunk_int8
+    with pytest.raises(ValueError, match="fused_trunk"):
+        ModelConfig(trunk_int8=True)
+    with pytest.raises(NotImplementedError, match="scan trunk"):
+        ModelConfig(fused_trunk=True, scan_trunk=True)
 
 
 # -- the build --------------------------------------------------------------------

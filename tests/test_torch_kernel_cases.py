@@ -100,3 +100,79 @@ def test_a_wrong_egla_output_is_caught(fault):
         out = ref - args[0]
     with pytest.raises(AssertionError):
         kc.assert_outputs_close(out, ref, torch.bfloat16, kind)
+
+
+def _blockq_outputs(margin=None):
+    """The int8 Block_'s plain output at a small seeded case of five
+    serial steps; with ``margin``, under another LAG_MARGIN."""
+    from cdfo_tpu_torch.ops import fused_block2_q as fq
+    g = torch.Generator().manual_seed(2)
+    args = kc.trunk_args("blockq", torch.float32, g, (1, 40, 8, 16),
+                         device="cpu")
+    old = fq.LAG_MARGIN
+    try:
+        if margin is not None:
+            fq.LAG_MARGIN = margin
+        with torch.no_grad():
+            return fq.scale_block_q_plain(*args)
+    finally:
+        fq.LAG_MARGIN = old
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_block_tolerance(dtype):
+    """A tenth of cdfo_tpu's own int8-vs-exact bound in float32, the 4
+    output ulps of every bfloat16 kernel in bfloat16; other kinds keep
+    the common limits."""
+    assert kc.tolerance(dtype, "blockq") == {torch.float32: 5e-3,
+                                             torch.bfloat16: 1.6e-2}[dtype]
+    assert kc.tolerance(dtype, "block") == kc.TOLERANCE[dtype]
+    assert kc.tolerance(dtype) == kc.TOLERANCE[dtype]
+    ref = _blockq_outputs()
+    kc.assert_outputs_close(ref, ref, dtype, "blockq")
+
+
+@pytest.mark.parametrize("fault", ["zeroed_lag", "no_margin_is_fine"])
+def test_a_zeroed_lag_scale_is_caught(fault):
+    """A kernel that lost its running amax (a zero lagged scale: every y
+    of the steps after the first clips to +-127 times 1e-8 / 127) fails in
+    both dtypes; the margin alone (1.0 for 1.25) moves a few values by a
+    quantization step and stays inside the bfloat16 limit."""
+    ref = _blockq_outputs()
+    if fault == "zeroed_lag":
+        out = _blockq_outputs(margin=0.0)
+        for dtype in (torch.float32, torch.bfloat16):
+            with pytest.raises(AssertionError):
+                kc.assert_outputs_close(out, ref, dtype, "blockq")
+    else:
+        out = _blockq_outputs(margin=1.0)
+        assert (out != ref).any()
+        kc.assert_outputs_close(out, ref, torch.bfloat16, "blockq")
+
+
+def test_a_warp_that_ignores_the_keep_mask_is_caught():
+    """A warp whose out-of-range taps read the clamped edge pixel and
+    whose keep mask is lost (what the TPU layout's clipped patch starts
+    would give without their masks) differs wherever a block hangs over
+    the frame; the kernel cases hold such blocks (a partly valid corner
+    and bottom block, one fully outside), so the check fails."""
+    from cdfo_tpu_torch.ops import warp_block as wb
+    pad = torch.nn.functional.pad
+    g = torch.Generator().manual_seed(0)
+    ring, idx, flow = kc.warp_args("blocky", torch.float32, g, (3, 2, 16, 32),
+                                   device="cpu")
+    with torch.no_grad():
+        ref = wb.flow_warp_ring_block_plain(ring, idx, flow)
+        kc.assert_outputs_close(ref, ref, torch.bfloat16, "warp_blocky")
+        # the same warp on a ring whose border repeats the edge: every tap
+        # of the frame's samples is then in range and every keep bit on
+        edge = pad(ring.permute(0, 3, 1, 2), (60, 60, 60, 60),
+                   mode="replicate").permute(0, 2, 3, 1).contiguous()
+        wide = pad(flow.permute(0, 3, 1, 2), (60, 60, 60, 60),
+                   mode="replicate").permute(0, 2, 3, 1).contiguous()
+        out = wb.flow_warp_ring_block_plain(edge, idx, wide)[:, 60:-60,
+                                                             60:-60]
+    # samples that stay inside the frame are untouched
+    assert ((out - ref).abs() <= 2e-5).float().mean().item() > 0.5
+    with pytest.raises(AssertionError):
+        kc.assert_outputs_close(out, ref, torch.bfloat16, "warp_blocky")

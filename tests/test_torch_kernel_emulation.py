@@ -26,16 +26,19 @@ import torch
 from cdfo_tpu_torch.ops import cuda_build as cb
 from cdfo_tpu_torch.ops import fused_align as fal
 from cdfo_tpu_torch.ops import fused_block2 as fb
+from cdfo_tpu_torch.ops import fused_block2_q as fq
 from cdfo_tpu_torch.ops import fused_egla as fe
 from cdfo_tpu_torch.ops import fused_groupconv as fg
 from cdfo_tpu_torch.ops import fused_head as fh
 from cdfo_tpu_torch.ops import fused_mdta as fm
 from cdfo_tpu_torch.ops import fused_tail as ft
 from cdfo_tpu_torch.ops import kernel_cases as kc
+from cdfo_tpu_torch.ops import warp_block as wb
 
 # kind: (module, wrapper, plain version, library)
 KERNELS = {
     "block": (fb, fb.scale_block, fb.scale_block_plain, "fused_block2"),
+    "blockq": (fq, fq.scale_block_q, fq.scale_block_q_plain, "fused_block2_q"),
     "group": (fg, fg.grouptail, fg.grouptail_plain, "fused_groupconv"),
     "head": (fh, fh.fused_head, fh.fused_head_plain, "fused_head"),
     "tail": (ft, ft.resblock_pair, ft.resblock_pair_plain, "fused_tail"),
@@ -45,6 +48,9 @@ KERNELS = {
     "msa2": (fal, fal.msa_stage2, fal.msa_stage2_plain, "fused_align"),
     "eg1": (fe, fe.eg1_rows, fe.eg1_rows_plain, "fused_egla"),
     "eg2": (fe, fe.eg2_local_fuse, fe.eg2_local_fuse_plain, "fused_egla"),
+    **{f"warp_{case}": (wb, wb.flow_warp_ring_block,
+                        wb.flow_warp_ring_block_plain, "warp_block")
+       for case in kc.WARP_CASES},
 }
 
 _SHIM = r"""
@@ -79,7 +85,15 @@ struct alignas(8) uint2 { unsigned x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+// round-to-nearest single operations (never fused on the card)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __int2float_rn(int v) { return static_cast<float>(v); }
+inline int __float2int_rn(float v) {   // saturates, as the card's does
+  return static_cast<int>(rintf(fminf(fmaxf(v, -2147483520.f), 2147483520.f)));
+}
 template <class T> T __ldg(const T* p) { return *p; }
 inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
 struct __nv_bfloat16 { uint16_t v; };
@@ -146,14 +160,40 @@ inline void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint3
   for (int i = 0; i < 4; ++i) c[i] += d[i];
   emu_warp_bar[w]->arrive_and_wait();
 }
-// ldmatrix.x4: lane l gets row l/4, columns 2(l%4), 2(l%4)+1 of matrix j
+// mma.sync.m16n8k32 row.col s8 -> s32: lane 4g + t holds A rows g, g + 8
+// (k 4t .. 4t+3 and 16+4t .. 16+4t+3, a byte each), B column g (same k)
+// and C rows g, g + 8, columns 2t, 2t+1
+inline void mma16832(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                     uint32_t b0, uint32_t b1) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  EmuWarp& X = emu_warp[w];
+  X.a[l][0] = a0; X.a[l][1] = a1; X.a[l][2] = a2; X.a[l][3] = a3;
+  X.b[l][0] = b0; X.b[l][1] = b1;
+  emu_warp_bar[w]->arrive_and_wait();
+  const int g = l >> 2, t = l & 3;
+  auto byte = [](uint32_t v, int i) { return int(int8_t((v >> (8 * i)) & 0xffu)); };
+  auto A = [&](int r, int k) {
+    return byte(X.a[(r % 8) * 4 + (k % 16) / 4][(r >= 8) + 2 * (k >= 16)], k % 4);
+  };
+  auto B = [&](int k, int n) { return byte(X.b[n * 4 + (k % 16) / 4][k >= 16], k % 4); };
+  int d[4] = {0, 0, 0, 0};
+  for (int k = 0; k < 32; ++k) {
+    d[0] += A(g, k) * B(k, 2 * t);
+    d[1] += A(g, k) * B(k, 2 * t + 1);
+    d[2] += A(g + 8, k) * B(k, 2 * t);
+    d[3] += A(g + 8, k) * B(k, 2 * t + 1);
+  }
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
+  emu_warp_bar[w]->arrive_and_wait();
+}
+// ldmatrix.x4: lane l gets bytes 4(l%4) .. 4(l%4)+3 of row l/4 of matrix j
 // in r[j]; lanes 8j .. 8j+7 give matrix j's row addresses
-inline void ldsm_x4(uint32_t (&r)[4], const __nv_bfloat16* row) {
+inline void ldsm_x4(uint32_t (&r)[4], const void* row) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   emu_warp[w].rows[l] = row;
   emu_warp_bar[w]->arrive_and_wait();
   for (int j = 0; j < 4; ++j) {
-    memcpy(&r[j], static_cast<const __nv_bfloat16*>(emu_warp[w].rows[j * 8 + l / 4]) + 2 * (l % 4), 4);
+    memcpy(&r[j], static_cast<const char*>(emu_warp[w].rows[j * 8 + l / 4]) + 4 * (l % 4), 4);
   }
   emu_warp_bar[w]->arrive_and_wait();
 }
@@ -235,10 +275,12 @@ def emulated(tmp_path_factory):
 # NHWC shapes (the tail: 2 neighbours of one image) that span several
 # tiles of each kernel; the MDTA and MSA passes take (images or centres, H,
 # W) with 3 neighbours per centre: 2 x 2 MDTA tiles of 8 x 16 with ragged
-# edges, MSA tiles of 128 pixels ending inside a row. eg1: two query tiles
+# edges, MSA tiles of 128 pixels ending inside a row. The int8 Block_: two
+# column strips of two serial steps each, the second ragged. eg1: two query tiles
 # and three key tiles a row, the last ragged, and an H-band that reaches
 # past both image edges; eg2: a last tile whose second window is outside
-SHAPES = {"block": (1, 10, 12, 64), "group": (1, 9, 35, 64),
+SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 10, 12, 64),
+          "group": (1, 9, 35, 64),
           "head": (2, 9, 5, 64), "tail": (1, 6, 18, 64)}
 EGLA_SHAPES = {"eg1": (2, 5, 140, 64), "eg2": (2, 8, 24, 64)}
 
@@ -252,6 +294,8 @@ def _case(kind, dtype):
                              device="cpu")
     if kind in EGLA_SHAPES:
         return kc.egla_args(kind, dtype, g, EGLA_SHAPES[kind], device="cpu")
+    if kind.startswith("warp_"):
+        return kc.warp_args(kind[5:], dtype, g, (3, 2, 16, 32), device="cpu")
     return kc.align_embed_args(kind, dtype, g, (2, 10, 19), 3, device="cpu")
 
 

@@ -113,10 +113,16 @@ def test_compensate_frames(models):
 
 
 def test_config_rejects_settings_outside_the_slice():
-    for kw in ({"block_warp": True, "fused_egla": True}, {"trunk_int8": True},
-               {"trunk_int8": True, "fused_trunk": True}, {"block_warp": True},
+    for kw in ({"scan_trunk": True, "fused_egla": True},
+               {"scan_trunk": True, "fused_trunk": True},
                {"scan_trunk": True}, {"mask_mode": "sample"},
                {"use_mv": False}, {"name": "cvsr_v9"},
                {"compute_dtype": torch.float16}):
         with pytest.raises(NotImplementedError):
             ModelConfig(**kw)
+    # trunk_int8 is read only under fused_trunk; block_warp stands alone
+    with pytest.raises(ValueError, match="fused_trunk"):
+        ModelConfig(trunk_int8=True)
+    assert ModelConfig(trunk_int8=True, fused_trunk=True).trunk_int8
+    assert ModelConfig(block_warp=True).block_warp
+    assert ModelConfig(block_warp=True, fused_egla=True).block_warp
