@@ -11,6 +11,16 @@ FPS protocol: frames / (device time of the forward work), frame 0's
 bootstrap embed included: every input is staged on the device before the
 timer; the bootstrap and all steps are dispatched back to back; one
 ``torch.cuda.synchronize()`` ends the timed region.
+
+Untimed (served) mode overlaps the host with the card, as the JAX engine
+does: step j is dispatched, its uint8 frames start back to the host, and
+step j+1's inputs are prepared and uploaded while the card runs step j;
+step j's frames are read only then. On a GPU the uploads leave pinned host
+buffers on an upload stream (``non_blocking``), an event orders each
+upload before the step that reads it, and the frames come back through
+pinned buffers on a download stream. The frames equal the timed mode's
+bit for bit: the same kernels run in the same order on the compute
+stream.
 """
 from __future__ import annotations
 
@@ -37,14 +47,52 @@ class BatchedStreamingEngine:
         # position p lives in slot (p + S) % L
         self._L = k * (-(-(k + nframes - 1) // k))
         self._S = (k - (nframes // 2)) % k
+        self._copies = {}   # upload and download streams, made at first use
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def _put(self, arrays):
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                     for a in arrays)
+        """Host arrays on the device. On a GPU: uploaded from pinned
+        buffers on the upload stream; the compute stream waits for them
+        before any work enqueued after this call."""
+        hosts = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+        if self.device.type != "cuda":
+            return tuple(h.to(self.device) for h in hosts)
+        compute = torch.cuda.current_stream(self.device)
+        copy = self._copy_stream("up")
+        with torch.cuda.stream(copy):
+            out = tuple(h.pin_memory().to(self.device, non_blocking=True)
+                        for h in hosts)
+        for t in out:
+            t.record_stream(compute)
+        compute.wait_stream(copy)
+        return out
+
+    def _fetch(self, sr8):
+        """Starts the copy of a step's uint8 frames to the host; returns a
+        function that waits for it and gives the numpy array."""
+        if self.device.type != "cuda":
+            return sr8.numpy
+        copy = self._copy_stream("down")
+        copy.wait_stream(torch.cuda.current_stream(self.device))
+        host = torch.empty(sr8.shape, dtype=sr8.dtype, pin_memory=True)
+        with torch.cuda.stream(copy):
+            host.copy_(sr8, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(copy)
+        sr8.record_stream(copy)
+
+        def wait():
+            done.synchronize()
+            return host.numpy()
+        return wait
+
+    def _copy_stream(self, way: str):
+        if way not in self._copies:
+            self._copies[way] = torch.cuda.Stream(self.device)
+        return self._copies[way]
 
     # -- host-side input prep (outside the timed region) -----------------
 
@@ -152,8 +200,8 @@ class BatchedStreamingEngine:
         starts = list(range(0, t, k))
         out_frames = [None] * t
 
-        def collect(j, sr8):
-            sr_np = sr8.cpu().numpy()
+        def collect(j, fetched):
+            sr_np = fetched()
             for b, c in enumerate(range(j, j + k)):
                 if c < t:
                     out_frames[c] = crop_sr_output(sr_np[b])
@@ -166,10 +214,14 @@ class BatchedStreamingEngine:
             self._sync()
             total = time.perf_counter() - t0
             for j, sr8 in zip(starts, srs):
-                collect(j, sr8)
+                collect(j, self._fetch(sr8))
             return np.stack(out_frames), t / total
 
         rings = self._boot(*self._stage_boot(data))
-        for j in starts:
-            collect(j, self._step(rings, *self._stage(data, j)))
+        staged = self._stage(data, starts[0])
+        for i, j in enumerate(starts):
+            fetched = self._fetch(self._step(rings, *staged))
+            if i + 1 < len(starts):   # host prep and upload under step j
+                staged = self._stage(data, starts[i + 1])
+            collect(j, fetched)
         return np.stack(out_frames), None

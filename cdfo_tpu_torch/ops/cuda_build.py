@@ -144,7 +144,7 @@ def forbid_grad(what: str, *tensors: torch.Tensor) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{what} is inference-only: its backward is not ported (ROADMAP "
-            "Queue 1.7, the recompute backwards of cdfo_tpu/ops/fused_vjp.py);"
+            "Queue 1.4, the recompute backwards of cdfo_tpu/ops/fused_vjp.py);"
             " call it under torch.no_grad() or torch.inference_mode()")
 
 

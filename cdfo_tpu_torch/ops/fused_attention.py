@@ -14,6 +14,12 @@ product with v (``cdfo_tpu/ops/fused_attention.py``).
   raises: there is no fallback. Each wrapper counts its kernel launches in
   its ``launches`` attribute.
 
+The kernel is inference-only: on a CUDA tensor under autograd a wrapper
+raises ``NotImplementedError`` (the launch would return a result without a
+``grad_fn``). The CPU plain version stays differentiable, since the unfused
+``EGLA.forward`` trains through it, so the check comes after the device
+test.
+
 The column wrapper reads (B, H, W, C) NHWC in place: a token is one (b, w)
 column, its positions H rows of stride W*C. The TPU version transposes in
 HBM first.
@@ -72,6 +78,7 @@ def token_self_attention(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """out[t] = softmax(q[t] q[t]^T) v[t]; q, v (T, N, C)."""
     if not cb.on_card(q, "fused_attention"):
         return token_attention_plain(q, v)
+    cb.forbid_grad("fused_attention", q, v)
     t, n, c = q.shape
     out = _launch(q, v, t, 1, n * c, 0, n, c)
     token_self_attention.launches += 1
@@ -83,6 +90,7 @@ def column_self_attention(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     q, v (B, H, W, C)."""
     if not cb.on_card(q, "fused_attention"):
         return column_attention_plain(q, v)
+    cb.forbid_grad("fused_attention", q, v)
     b, h, w, c = q.shape
     out = _launch(q, v, b * w, w, h * w * c, c, h, w * c)
     column_self_attention.launches += 1

@@ -18,7 +18,10 @@ composed q projection of the fused EGLA).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from .probe_dma import mk_starts
 
 # relative to max |plain| of the slice: float32 differs only in summation
 # order; bfloat16 rounds intermediates and the output to 8 mantissa bits
@@ -33,7 +36,12 @@ TOLERANCE = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
 # between the int8 and the exact kernel (rel < 0.05); bfloat16 keeps the
 # 4 output ulps of every bfloat16 kernel, since one ulp of the output type
 # is already 4e-3 to 8e-3 of the largest value.
-KIND_TOLERANCE = {"blockq": {torch.float32: 5e-3, torch.bfloat16: 1.6e-2}}
+KIND_TOLERANCE = {"blockq": {torch.float32: 5e-3, torch.bfloat16: 1.6e-2},
+                  # the DMA probe's checksum: float32 sums of the same
+                  # bfloat16 values in another order (float32's limit); its
+                  # big copy returns copied values, exactly
+                  "gather": {torch.bfloat16: 1e-4},
+                  "big": {torch.bfloat16: 0.0}}
 # and its outputs correlate with the plain version's at least this much
 # (cdfo_tpu asks 0.999 between int8 and exact)
 BLOCKQ_MIN_CORRELATION = 0.9999
@@ -42,7 +50,8 @@ BLOCKQ_MIN_CORRELATION = 0.9999
 # one scale (0: the whole output)
 SCALE_DIMS = {"mdta1": (1, 2), "mdta2": (1,), "msa1": (2, 2), "msa2": (1, 1),
               "eg1": (1, 1), "eg2": (1,), "blockq": (1,), "warp": (1,),
-              "warp_blocky": (1,), "warp_mixed": (1,), "warp_arbitrary": (1,)}
+              "warp_blocky": (1,), "warp_mixed": (1,), "warp_arbitrary": (1,),
+              "body": (1,)}
 WARP_CASES = ("blocky", "mixed", "arbitrary")
 
 
@@ -214,6 +223,51 @@ def egla_args(kind: str, dtype: torch.dtype, g: torch.Generator, shape,
             rnd(1, c, scale=0.1), rnd(c, c, scale=0.125), rnd(1, c, scale=0.1),
             mask_inv, rnd(c, c, scale=0.1), rnd(c, c, scale=0.1),
             rnd(1, c, scale=0.1))
+
+
+def body_args(dtype: torch.dtype, g: torch.Generator, shape,
+              device="cuda") -> tuple:
+    """(x, w1, b1, w2, b2) of the ``Block_`` body pair at NHWC ``shape``,
+    HWIO weights, with the trunk microbenchmark's scales."""
+    def rnd(*s, scale=1.0):
+        return (torch.randn(*s, generator=g, device=device) * scale).to(dtype)
+
+    c = shape[-1]
+    return (rnd(*shape), rnd(3, 3, c, 4 * c, scale=0.05),
+            rnd(4 * c, scale=0.05), rnd(3, 3, 4 * c, c, scale=0.02),
+            rnd(c, scale=0.05))
+
+
+def dots_args(g: torch.Generator, m: int, k: int, n: int, nplanes: int = 4,
+              device="cuda") -> tuple:
+    """(lhs (m, k), rhs (nplanes, k, n)) bfloat16 of the dot probe, with the
+    tool's scale."""
+    def rnd(*s):
+        return (torch.randn(*s, generator=g, device=device) * 0.1).bfloat16()
+
+    return rnd(m, k), rnd(nplanes, k, n)
+
+
+def rows_args(g: torch.Generator, m: int, c: int, n: int, nrows: int = 8,
+              device="cuda") -> tuple:
+    """(w (m, 9c) bf16, b (m, 1) float32, cm (1, n) float32, u (nrows + 2,
+    c, n + 8) bf16) of the row probes: the tool's scales, and a column mask
+    with about one zero in eight (the tool's is all ones) so that a kernel
+    that drops the mask fails."""
+    def rnd(*s):
+        return (torch.randn(*s, generator=g, device=device) * 0.1).bfloat16()
+
+    cm = (torch.rand(1, n, generator=g, device=device) >= 0.125).float()
+    return rnd(m, 9 * c), rnd(m, 1).float(), cm, rnd(nrows + 2, c, n + 8)
+
+
+def dma_args(rng: np.random.RandomState, h: int, w: int, c: int, nblk: int,
+             pw: int, device="cuda") -> tuple:
+    """(ring (h + 8, (w + 8) c) bf16, starts (2 nblk,) int32) of the DMA
+    probe, drawn from ``rng`` as the tool draws them."""
+    ring = torch.from_numpy(rng.randn(h + 8, (w + 8) * c).astype(np.float32))
+    starts = torch.from_numpy(mk_starts(rng, h, w, c, nblk, pw))
+    return ring.bfloat16().to(device), starts.to(device)
 
 
 @torch.no_grad()

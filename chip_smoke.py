@@ -28,11 +28,19 @@ CUDA device the script exits non-zero before printing any result):
    over 4x4 blocks, on those with a mixed bottom band and single moved
    pixels, and on arbitrary flows: bit for bit equal to its plain version,
    the same path in every block, within tolerance of the per-pixel
-   ``flow_warp_ring``, with ``F.grid_sample`` as its library time. Each output is held against the plain one slice by
-   slice, each slice against its own largest value (``kernel_cases``: the
-   MDTA and dual-MSA statistics per image and gram, their feature maps and
-   EGLA's outputs per image). Each kernel's bound
-   is computed from its inputs: the larger of its bytes (inputs read once,
+   ``flow_warp_ring``, with ``F.grid_sample`` as its library time; the
+   ``Block_`` body pair at the trunk's two shapes, with cuDNN's two
+   convolutions as its library time; the dot probes (``dot_case`` at three
+   shapes, one streamed and two with resident planes, with one
+   ``torch.matmul`` over K = reps * k as its library time; ``rowpipe`` and
+   ``kstack``, which must refuse reps <= nrows) and the DMA probes (the
+   gather at its tool's 8160 patches, with ``ring[index]`` as its library
+   time; the big copy, with ``clone()``; these two timed as CUDA-graph
+   replays, their work being shorter than their wrappers' host work). Each
+   output is held against the plain one slice by slice, each slice against
+   its own largest value (``kernel_cases``: the MDTA and dual-MSA statistics
+   per image and gram, their feature maps and EGLA's outputs per image).
+   Each kernel's bound is computed from its inputs: the larger of its bytes (inputs read once,
    outputs written once) over 3.35 TB/s and its operations over the peak
    of their type (989 TFLOP/s bf16 tensor cores, 1979 TOP/s int8, 67
    TFLOP/s fp32);
@@ -63,7 +71,14 @@ CUDA device the script exits non-zero before printing any result):
    these weights; the share of clipped y1 / y2 values of one trunk call is
    printed beside it); then times each stage of one engine step alone
    (``compensate_frames``, ``embed``, EGLA, ``align_reconstruct``, its
-   neighbour warp and ``DualAttAlignment``, tsa, trunk, head).
+   neighbour warp and ``DualAttAlignment``, tsa, trunk, head); path AB
+   also runs the served (untimed) mode, whose fps by wall time it prints
+   beside the timed fps, its frames equal to the timed mode's bit for bit;
+6. the trunk microbenchmarks, ``cdfo_tpu_torch.tools.microbench_trunk``
+   (bf16 defaults), ``microbench_dots`` in its three modes and
+   ``microbench_dma`` (patch, row, big) at their TPU tools' case lists,
+   each case held against its plain version before it is timed; every
+   kernel of the tools must launch.
 
 Every model gets the same seeded weights with its EGLA residual mask made
 one-hot (``kernel_cases.excite_egla_mask``; under random weights it is all
@@ -72,8 +87,9 @@ prints the mask's set bits per frame of one ``compensate_frames`` call.
 
 The line before the last is a JSON object with one entry per kernel
 wrapper (launches from the four-flag run; the int8 ``Block_``'s from path
-A's and the warp's from path B's); the last line is ``{"ok": true,
-"device": {...}}``.
+A's, the warp's from path B's, and those of the body pair and the probes,
+which no model path runs, from phase 6's run of the tools); the last line
+is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --profile
 
@@ -107,6 +123,7 @@ from cdfo_tpu_torch.models.layers import lrelu
 from cdfo_tpu_torch.ops import cuda_build
 from cdfo_tpu_torch.ops import fused_align as fal
 from cdfo_tpu_torch.ops import fused_attention as fa
+from cdfo_tpu_torch.ops import fused_block as fbody
 from cdfo_tpu_torch.ops import fused_block2 as fb
 from cdfo_tpu_torch.ops import fused_block2_q as fq
 from cdfo_tpu_torch.ops import fused_egla as fe
@@ -115,14 +132,19 @@ from cdfo_tpu_torch.ops import fused_head as fh
 from cdfo_tpu_torch.ops import fused_mdta as fm
 from cdfo_tpu_torch.ops import fused_tail as ft
 from cdfo_tpu_torch.ops import kernel_cases as kc
+from cdfo_tpu_torch.ops import probe_dma as pm
+from cdfo_tpu_torch.ops import probe_dots as pd
 from cdfo_tpu_torch.ops import warp_block as wb
 from cdfo_tpu_torch.ops.warp import flow_warp_ring
+from cdfo_tpu_torch.tools import captured, microbench_dma, microbench_dots
+from cdfo_tpu_torch.tools import microbench_trunk
 
 SOURCE = "cdfo_tpu_torch/csrc/fused_attention.cu"
 REPLACES = "cdfo_tpu/ops/fused_attention.py:43"
 LIBRARIES = ("fused_attention", "fused_block2", "fused_groupconv",
              "fused_head", "fused_tail", "fused_mdta", "fused_align",
-             "fused_egla", "fused_block2_q", "warp_block")
+             "fused_egla", "fused_block2_q", "warp_block", "fused_block",
+             "probe_dots", "probe_dma")
 # the fused-trunk kernels: JSON name, wrapper, plain version, source, the
 # TPU kernel it replaces
 TRUNK_KERNELS = {
@@ -213,6 +235,37 @@ WARP_KERNELS = {
 }
 ALL_KERNELS = {**TRUNK_KERNELS, **ALIGN_EMBED_KERNELS, **EGLA_KERNELS,
                **INT8_KERNELS, **WARP_KERNELS}
+# the kernels of the trunk microbenchmarks (no model path launches them;
+# their launches are counted over phase 6's run of the three tools): the
+# Block_ body pair, the dot probes and the DMA probes
+BODY_KERNELS = {
+    "body": ("fused_block.block_body", fbody.block_body,
+             fbody.block_body_plain, "cdfo_tpu_torch/csrc/fused_block.cu",
+             "cdfo_tpu/ops/fused_block.py:148"),
+}
+PROBE_KERNELS = {
+    "dots": ("probe_dots.dot_case", pd.dot_case, pd.dot_case_plain,
+             "cdfo_tpu_torch/csrc/probe_dots.cu",
+             "tools/microbench_dots.py:53"),
+    "rowpipe": ("probe_dots.rowpipe", pd.rowpipe, pd.rowpipe_plain,
+                "cdfo_tpu_torch/csrc/probe_dots.cu",
+                "tools/microbench_dots.py:123"),
+    "kstack": ("probe_dots.kstack", pd.kstack, pd.kstack_plain,
+               "cdfo_tpu_torch/csrc/probe_dots.cu",
+               "tools/microbench_dots.py:189"),
+    "gather": ("probe_dma.gather", pm.gather, pm.gather_plain,
+               "cdfo_tpu_torch/csrc/probe_dma.cu",
+               "tools/microbench_dma.py:89"),
+    "big": ("probe_dma.big", pm.big, pm.big_plain,
+            "cdfo_tpu_torch/csrc/probe_dma.cu", "tools/microbench_dma.py:89"),
+}
+TOOL_KERNELS = {**BODY_KERNELS, **PROBE_KERNELS}
+# the probes' timed cases: the trunk's conv1-style product (M, K, N) or row
+# (M, C, N) at a fixed rep count; the DMA probe at its tool's defaults
+PROBE_DOT = (256, 192, 516, 2048)
+PROBE_ROWS = (256, 64, 516, 1024)
+PROBE_NROWS = 8
+PROBE_DMA = (272, 480, 64, 68 * 120)
 # (ring slots, neighbour images, H, W): k=4 centres of 6 neighbours from the
 # engine's ring of 8, then a ragged one
 WARP_MAIN = (8, 24, 272, 480)
@@ -260,6 +313,8 @@ def flops(kind, args) -> float:
         "msa2": 10 * c * c,
         # the q and v projections, 64-token attention, the 128 -> 64 fuse
         "eg2": 4 * c * c + 4 * 64 * c + 4 * c * c,
+        # conv3x3 64 -> 256 and 256 -> 64
+        "body": 144 * c * c,
     }[kind]
     return per_pixel * p
 
@@ -307,7 +362,7 @@ def median_ms(fn, reps: int = 15) -> float:
 def reset_launches():
     fa.token_self_attention.launches = 0
     fa.column_self_attention.launches = 0
-    for _, wrapper, *_ in ALL_KERNELS.values():
+    for _, wrapper, *_ in (*ALL_KERNELS.values(), *TOOL_KERNELS.values()):
         wrapper.launches = 0
 
 
@@ -549,6 +604,161 @@ def check_warp_kernel(card: str) -> dict:
     return fields
 
 
+def check_body_kernel(card: str) -> dict:
+    """Phase 3, the ``Block_`` body pair: ``check_kernel_table`` at the
+    trunk's two shapes, and cuDNN's two convolutions (the trunk
+    microbenchmark's ``plain_nhwc``) as its library time at the main one
+    in bfloat16."""
+    fields = check_kernel_table(card, BODY_KERNELS, [
+        (shape, shape == TRUNK_MAIN,
+         lambda kind, dtype, g, shape=shape: kc.body_args(dtype, g, shape))
+        for shape in TRUNK_SHAPES], seed=6)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    args = kc.body_args(torch.bfloat16, g, TRUNK_MAIN)
+    with torch.no_grad():
+        cudnn = microbench_trunk.candidates(*args)["plain_nhwc"]
+        err, scale = kc.worst_error(cudnn().contiguous(),
+                                    fbody.block_body_plain(*args), "body")
+        fields["body"]["library_ms"] = median_ms(cudnn)
+    print(f"kernel fused_block {TRUNK_MAIN} bfloat16: cuDNN's two convs "
+          f"{fields['body']['library_ms']:.3f} ms (worst slice rel "
+          f"{err / scale:.2e} from plain) against the kernel's "
+          f"{fields['body']['ms']:.3f} [{card}]", flush=True)
+    return fields
+
+
+def _probe_timing(card, kind, kernel, plain, library, flop, nbytes,
+                  graphed=False) -> dict:
+    """Times ``kernel``, ``plain`` and ``library`` (None: no PyTorch call
+    computes the function) and computes the bound; returns the JSON
+    fields. ``graphed``: the kernel and library calls are timed as replays
+    of a CUDA graph, free of the host's per-call gaps (the DMA probes' work
+    is shorter than their wrappers' host work)."""
+    timed = captured if graphed else (lambda fn: fn)
+    ms = median_ms(timed(kernel))
+    plain_ms = median_ms(plain, 5)
+    library_ms = None if library is None else median_ms(timed(library), 5)
+    t_ops, t_bytes = flop / PEAK_FLOPS[torch.bfloat16], nbytes / PEAK_BYTES
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+    print(f"probe {kind}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}) [{card}]",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
+
+
+def _probe_check(kind, out, ref) -> float:
+    """Holds a probe's output against its plain version's; returns max
+    |kernel - plain|."""
+    torch.cuda.synchronize()
+    err, scale = kc.worst_error(out, ref, kind)
+    tol = kc.tolerance(torch.bfloat16, kind)
+    max_abs = kc.max_abs_error(out, ref)
+    print(f"probe {kind}: max_abs_err {max_abs:.3e} (max |plain| "
+          f"{scale:.3f}, rel {err / max(scale, 1e-30):.3e}, tolerance rel "
+          f"{tol:.1e})", flush=True)
+    if not err <= tol * scale:
+        raise AssertionError(f"probe {kind} disagrees with its plain version")
+    return max_abs
+
+
+@torch.no_grad()
+def check_probe_kernels(card: str) -> dict:
+    """Phase 3, the trunk probes: each held against its plain version on
+    its timed case (the dot probe also at the two other widths of its
+    tool's m and with resident planes; kstack at reps <= nrows must be
+    refused), with kernel, plain, library and bound times. The dot probe's
+    library call is one ``torch.matmul`` over K = reps * k of the same
+    products; the gather's ``ring[index]`` of every patch; the big copy's
+    ``clone()``."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    fields = {}
+    m, k, n, reps = PROBE_DOT
+    for mm, kk, nn, rr in ((64, 768, 516, 9), (128, 128, 2064, 9),
+                           (m, k, n, reps)):
+        lhs, rhs = kc.dots_args(g, mm, kk, nn)
+        err = _probe_check("dots", pd.dot_case(lhs, rhs, rr),
+                           pd.dot_case_plain(lhs, rhs, rr))
+    lhs_k = lhs.repeat(1, reps)
+    rhs_k = rhs[torch.arange(reps, device="cuda") % rhs.shape[0]].reshape(
+        reps * k, n)
+    lib = torch.matmul(lhs_k, rhs_k)
+    _probe_check("dots", lib, pd.dot_case_plain(lhs, rhs, reps))
+    fields["dots"] = {"max_abs_err": err, **_probe_timing(
+        card, f"dots {PROBE_DOT}", lambda: pd.dot_case(lhs, rhs, reps),
+        lambda: pd.dot_case_plain(lhs, rhs, reps),
+        lambda: torch.matmul(lhs_k, rhs_k), 2.0 * m * k * n * reps,
+        2 * (m * k + rhs.numel() + m * n))}
+    del lhs_k, rhs_k, lib
+    m, c, n, reps = PROBE_ROWS
+    for kind, wrapper, plain in (("rowpipe", pd.rowpipe, pd.rowpipe_plain),
+                                 ("kstack", pd.kstack, pd.kstack_plain)):
+        args = kc.rows_args(g, m, c, n, PROBE_NROWS)
+        err = _probe_check(kind, wrapper(*args, reps, PROBE_NROWS),
+                           plain(*args, reps, PROBE_NROWS))
+        nbytes = sum(t.numel() * t.element_size() for t in args) + 2 * m * n
+        fields[kind] = {"max_abs_err": err, **_probe_timing(
+            card, f"{kind} {PROBE_ROWS}",
+            lambda: wrapper(*args, reps, PROBE_NROWS),
+            lambda: plain(*args, reps, PROBE_NROWS), None,
+            2.0 * m * 9 * c * n * reps, nbytes)}
+    try:
+        pd.kstack(*args, PROBE_NROWS, PROBE_NROWS)
+    except ValueError as e:
+        print(f"kstack at reps = nrows refused: {e}", flush=True)
+    else:
+        raise AssertionError("kstack took reps = nrows")
+    h, w, c, nblk = PROBE_DMA
+    ring, starts = kc.dma_args(np.random.RandomState(0), h, w, c, nblk, 6)
+    ph, pw = pm.PATCHES["patch"]
+    pwl = pw * c
+    err = _probe_check("gather", pm.gather(ring, starts, ph, pwl),
+                       pm.gather_plain(ring, starts, ph, pwl))
+    st = starts.long().reshape(-1, 2)
+    yi = st[:, 0, None, None] + torch.arange(ph, device="cuda")[:, None]
+    xi = st[:, 1, None, None] + torch.arange(pwl, device="cuda")
+    fields["gather"] = {"max_abs_err": err, **_probe_timing(
+        card, f"gather {nblk} patches of ({ph}, {pwl}), ring "
+        f"{tuple(ring.shape)} (17.5 MB: it fits the 50 MB L2)",
+        lambda: pm.gather(ring, starts, ph, pwl),
+        lambda: pm.gather_plain(ring, starts, ph, pwl),
+        lambda: ring[yi, xi], 0.0, nblk * ph * pwl * 2 + 128 * 4,
+        graphed=True)}
+    rows = pm.big_rows(h, w, nblk)
+    err = _probe_check("big", pm.big(ring, starts, rows),
+                       pm.big_plain(ring, starts, rows))
+    y0 = min(max(int(starts[0]), 0), ring.shape[0] - rows)
+    fields["big"] = {"max_abs_err": err, **_probe_timing(
+        card, f"big {rows} rows", lambda: pm.big(ring, starts, rows),
+        lambda: pm.big_plain(ring, starts, rows),
+        lambda: ring[y0:y0 + rows].clone(), 0.0,
+        rows * ring.shape[1] * 2 + 128 * 4, graphed=True)}
+    torch.cuda.empty_cache()
+    return fields
+
+
+def run_tools(card: str) -> dict:
+    """Phase 6: the three trunk microbenchmarks at their default case lists
+    (each case held against its plain version first, inside the tool);
+    returns the launches of each of their kernels over the phase."""
+    reset_launches()
+    t0 = time.perf_counter()
+    microbench_trunk.main([])
+    for mode in ("dots", "rowpipe", "kstack"):
+        microbench_dots.main(["--mode", mode])
+    microbench_dma.main([])
+    launches = {kind: wrapper.launches
+                for kind, (_, wrapper, *_) in TOOL_KERNELS.items()}
+    print(f"trunk microbenchmarks in {time.perf_counter() - t0:.1f} s, "
+          f"kernel launches {launches} [{card}]", flush=True)
+    missing = [kind for kind, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the tools never launched {missing}")
+    return launches
+
+
 def sdpa(kind, q, v):
     """The one PyTorch call computing the attention kernel's function
     (softmax(q q^T) v, no scale), timed as its library yardstick; the port
@@ -698,6 +908,18 @@ def run_full_slice(card: str, **flags):
                  for kind, n in ALIGN_LAUNCHES.items()})
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
+    if flags == PATH_AB:
+        # the served mode: staging of step j+1 and the readback under the
+        # card's work, frames equal to the timed mode's
+        t0 = time.perf_counter()
+        served, _ = eng.run_sequence(data)
+        wall = time.perf_counter() - t0
+        print(f"full slice {flags}: untimed run_sequence {t / wall:.3f} fps "
+              f"by its wall time ({wall * 1e3:.1f} ms, inputs staged and "
+              f"frames read back inside) against the timed {fps:.3f} fps "
+              f"[{card}]", flush=True)
+        if not np.array_equal(served, frames):
+            raise AssertionError("untimed and timed frames differ")
     times, clipped = stage_times(eng, data)
     print(f"stage ms, one k={k} step {flags}: "
           + ", ".join(f"{n} {v:.3f}" for n, v in times.items())
@@ -916,6 +1138,8 @@ def main():
     fields.update(check_egla_kernels(card))
     fields.update(check_int8_kernel(card))
     fields.update(check_warp_kernel(card))
+    fields.update(check_body_kernel(card))
+    fields.update(check_probe_kernels(card))
     three = dict(fused_trunk=True, fused_embed=True, fused_align=True)
     settings = (dict(fused_trunk=True), three, ALL_FLAGS, PATH_A, PATH_B,
                 PATH_AB)
@@ -953,6 +1177,7 @@ def main():
                 launches["blockq"] = counted["blockq"]
             elif flags == PATH_B:
                 launches["warp"] = counted["warp"]
+    launches.update(run_tools(card))
 
     # launches: the four-flag run's; the int8 Block_'s from path A's run and
     # the warp's from path B's
@@ -964,7 +1189,8 @@ def main():
     kernels += [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[kind], **fields[kind]}
-        for kind, (name, _, _, source, replaces) in ALL_KERNELS.items()]
+        for kind, (name, _, _, source, replaces) in {
+            **ALL_KERNELS, **TOOL_KERNELS}.items()]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

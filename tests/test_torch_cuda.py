@@ -195,7 +195,7 @@ def test_align_embed_kernel_rejects_what_it_does_not_take(cuda, kind):
             bad[NORM_ARG[kind]] = bad[NORM_ARG[kind]].bfloat16()
             with pytest.raises(TypeError, match="float32"):
                 kernel(*bad)
-    with pytest.raises(NotImplementedError, match="Queue 1.7"):
+    with pytest.raises(NotImplementedError, match="Queue 1.4"):
         kernel(x.clone().requires_grad_(), *rest)
     assert kernel.launches == before
 
@@ -268,7 +268,7 @@ def test_egla_kernel_rejects_what_it_does_not_take(cuda, kind):
             with pytest.raises(ValueError, match="multiples of 8"):
                 kernel(x[:, :6].contiguous(), rest[0][:, :6].contiguous(),
                        *rest[1:])
-    with pytest.raises(NotImplementedError, match="Queue 1.7"):
+    with pytest.raises(NotImplementedError, match="Queue 1.4"):
         kernel(x.clone().requires_grad_(), *rest)
     assert kernel.launches == before
 
@@ -458,3 +458,99 @@ def test_block_warp_rejects_what_it_does_not_take(cuda):
             wb.flow_warp_ring_block(ring[:, :6].contiguous(), idx,
                                     flow[:, :6].contiguous())
     assert wb.flow_warp_ring_block.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["token", "column"])
+def test_attention_refuses_grad(cuda, kind):
+    """The kernel has no backward: under autograd the wrapper raises
+    instead of returning a result without a grad_fn."""
+    fn = (fa.token_self_attention if kind == "token"
+          else fa.column_self_attention)
+    shape = (2, 16, 64) if kind == "token" else (1, 16, 8, 64)
+    q = torch.randn(shape, device=cuda, requires_grad=True)
+    v = torch.randn(shape, device=cuda)
+    before = fn.launches
+    with pytest.raises(NotImplementedError, match="Queue 1.4"):
+        fn(q, v)
+    assert fn.launches == before
+    with torch.no_grad():
+        fn(q, v)
+    assert fn.launches == before + 1
+
+
+# -- the trunk microbenchmarks' kernels (Block_ body pair, probes) ------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("shape", [(1, 16, 32, 64), (2, 18, 34, 64),
+                                   (1, 5, 7, 64)])
+def test_body_kernel_matches_plain(cuda, shape, residual, dtype):
+    """Whole tiles, ragged right and bottom edges, and an odd extent
+    smaller than one tile."""
+    from cdfo_tpu_torch.ops import fused_block as fbody
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(10)
+    args = kc.body_args(dtype, g, shape, device=cuda)
+    before = fbody.block_body.launches
+    with torch.no_grad():
+        out = fbody.block_body(*args, residual=residual)
+        ref = fbody.block_body_plain(*args, residual=residual)
+    torch.cuda.synchronize()
+    assert fbody.block_body.launches == before + 1
+    kc.assert_outputs_close(out, ref, dtype, "body")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,reps", [(64, 768, 132, 7), (128, 128, 260, 5),
+                                        (256, 192, 516, 9), (256, 576, 70, 3)])
+def test_dot_probe_matches_plain(cuda, m, k, n, reps):
+    """Streamed and resident planes, each m the kernel takes, ragged n."""
+    from cdfo_tpu_torch.ops import probe_dots as pd
+    g = torch.Generator(device=cuda).manual_seed(11)
+    lhs, rhs = kc.dots_args(g, m, k, n, device=cuda)
+    before = pd.dot_case.launches
+    out = pd.dot_case(lhs, rhs, reps)
+    torch.cuda.synchronize()
+    assert pd.dot_case.launches == before + 1
+    kc.assert_outputs_close(out, pd.dot_case_plain(lhs, rhs, reps),
+                            torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rowpipe", "kstack"])
+@pytest.mark.parametrize("m,c,n", [(256, 64, 516), (64, 256, 132)])
+def test_row_probes_match_plain(cuda, kind, m, c, n):
+    from cdfo_tpu_torch.ops import probe_dots as pd
+    wrapper, plain = {"rowpipe": (pd.rowpipe, pd.rowpipe_plain),
+                      "kstack": (pd.kstack, pd.kstack_plain)}[kind]
+    g = torch.Generator(device=cuda).manual_seed(12)
+    args = kc.rows_args(g, m, c, n, 8, device=cuda)
+    for reps in (9, 30):
+        out = wrapper(*args, reps, 8)
+        torch.cuda.synchronize()
+        kc.assert_outputs_close(out, plain(*args, reps, 8), torch.bfloat16)
+    with pytest.raises(ValueError, match="reps"):
+        pd.kstack(*args, 8, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["patch", "row", "run16", "big"])
+def test_dma_probe_matches_plain(cuda, mode):
+    import numpy as np
+    from cdfo_tpu_torch.ops import probe_dma as pm
+    rng = np.random.RandomState(3)
+    pw = pm.PATCHES.get(mode, (8, 6))[1]
+    ring, starts = kc.dma_args(rng, 64, 96, 64, 300, pw, device=cuda)
+    if mode == "big":
+        rows = pm.big_rows(64, 96, 300)
+        out, ref = pm.big(ring, starts, rows), pm.big_plain(ring, starts, rows)
+        kind = "big"
+    else:
+        ph = pm.PATCHES[mode][0]
+        out = pm.gather(ring, starts, ph, pw * 64)
+        ref = pm.gather_plain(ring, starts, ph, pw * 64)
+        kind = "gather"
+    torch.cuda.synchronize()
+    kc.assert_outputs_close(out, ref, torch.bfloat16, kind)

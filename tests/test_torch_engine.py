@@ -68,3 +68,32 @@ def test_ring_geometry_matches(setup, k):
     ours = BatchedStreamingEngine(tmodel, k=k)
     ref = JEngine(jmodel, params, k=k)
     assert (ours._L, ours._S) == (ref._L, ref._S)
+
+
+def test_untimed_mode_stages_the_next_step_before_reading_back(setup,
+                                                               monkeypatch):
+    """As the JAX engine: step j+1's inputs are prepared and uploaded
+    before step j's frames are read back, so host work overlaps the
+    device's."""
+    _, _, tmodel = setup
+    eng = BatchedStreamingEngine(tmodel, k=4)
+    log = []
+    stage, fetch = eng._stage, eng._fetch
+
+    def logged_stage(data, j):
+        log.append(("stage", j))
+        return stage(data, j)
+
+    def logged_fetch(sr8):
+        wait, n = fetch(sr8), sum(e[0] == "read" for e in log)
+
+        def read():
+            log.append(("read", 4 * n))
+            return wait()
+        return read
+
+    monkeypatch.setattr(eng, "_stage", logged_stage)
+    monkeypatch.setattr(eng, "_fetch", logged_fetch)
+    eng.run_sequence(synthetic_sequence(t=T, h=H, w=W, seed=3))
+    assert log == [("stage", 0), ("stage", 4), ("read", 0), ("stage", 8),
+                   ("read", 4), ("read", 8)]

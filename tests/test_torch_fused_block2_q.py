@@ -153,7 +153,7 @@ def test_wrapper_refusals():
     with torch.no_grad(), pytest.raises(ValueError, match="even"):
         fq.scale_block_q(torch.zeros(1, 6, 7, 8), *targs[1:])
     x = torch.zeros(1, 6, 8, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1.7"):
+    with pytest.raises(NotImplementedError, match="Queue 1.4"):
         fq.scale_block_q(x, *targs[1:])
 
 

@@ -126,7 +126,7 @@ def test_block_refuses_odd_extents_and_grad():
     with torch.no_grad(), pytest.raises(ValueError, match="even"):
         scale_block(torch.zeros(1, 6, 7, c), *ws)
     x = torch.zeros(1, 6, 8, c, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1.7"):
+    with pytest.raises(NotImplementedError, match="Queue 1.4"):
         scale_block(x, *ws)
 
 
@@ -246,9 +246,9 @@ def test_wrappers_refuse_grad():
     x = torch.zeros(2, 4, 4, 8, requires_grad=True)
     w = torch.zeros(8, 8, 3, 3)
     b = torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="Queue 1.7"):
+    with pytest.raises(NotImplementedError, match="Queue 1.4"):
         grouptail(x, x, w, b)
-    with pytest.raises(NotImplementedError, match="Queue 1.7"):
+    with pytest.raises(NotImplementedError, match="Queue 1.4"):
         resblock_pair(x, x[:1], torch.ones(2, 8), *([w, b] * 4))
 
 

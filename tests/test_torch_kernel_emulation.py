@@ -1,10 +1,12 @@
 """The convolution-tile CUDA kernels' own code, run on the CPU.
 
 A CUDA kernel has no interpret mode, so this test compiles each
-``cdfo_tpu_torch/csrc/fused_*.cu`` built on ``conv3x3_tile.cuh`` (Block_,
-group tail, head, alignment tail, the two MDTA passes, the two dual-MSA
-passes with their reduction launch, EGLA's eg1 with its two launches and
-eg2) with the host C++ compiler against a small emulation of the CUDA
+``cdfo_tpu_torch/csrc/*.cu`` built on ``conv3x3_tile.cuh`` (Block_, its
+body pair, group tail, head, alignment tail, the two MDTA passes, the two
+dual-MSA passes with their reduction launch, EGLA's eg1 with its two
+launches and eg2, the int8 Block_, the block warp, and the trunk probes:
+the dot probes with their partial-sum launch and the DMA probes) with the
+host C++ compiler against a small emulation of the CUDA
 subset they use (``_SHIM`` below): blocks run one after another with 256
 threads each, ``__syncthreads`` is a barrier, and ``mma.sync`` /
 ``ldmatrix`` (plain and transposed) and the warp shuffles exchange their
@@ -20,11 +22,13 @@ import ctypes
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
 from cdfo_tpu_torch.ops import cuda_build as cb
 from cdfo_tpu_torch.ops import fused_align as fal
+from cdfo_tpu_torch.ops import fused_block as fbody
 from cdfo_tpu_torch.ops import fused_block2 as fb
 from cdfo_tpu_torch.ops import fused_block2_q as fq
 from cdfo_tpu_torch.ops import fused_egla as fe
@@ -33,10 +37,13 @@ from cdfo_tpu_torch.ops import fused_head as fh
 from cdfo_tpu_torch.ops import fused_mdta as fm
 from cdfo_tpu_torch.ops import fused_tail as ft
 from cdfo_tpu_torch.ops import kernel_cases as kc
+from cdfo_tpu_torch.ops import probe_dma as pm
+from cdfo_tpu_torch.ops import probe_dots as pd
 from cdfo_tpu_torch.ops import warp_block as wb
 
 # kind: (module, wrapper, plain version, library)
 KERNELS = {
+    "body": (fbody, fbody.block_body, fbody.block_body_plain, "fused_block"),
     "block": (fb, fb.scale_block, fb.scale_block_plain, "fused_block2"),
     "blockq": (fq, fq.scale_block_q, fq.scale_block_q_plain, "fused_block2_q"),
     "group": (fg, fg.grouptail, fg.grouptail_plain, "fused_groupconv"),
@@ -51,6 +58,15 @@ KERNELS = {
     **{f"warp_{case}": (wb, wb.flow_warp_ring_block,
                         wb.flow_warp_ring_block_plain, "warp_block")
        for case in kc.WARP_CASES},
+}
+# the trunk probes (bfloat16 only): kind: (module, wrapper, plain, library)
+PROBES = {
+    "dots": (pd, pd.dot_case, pd.dot_case_plain, "probe_dots"),
+    "dots_resident": (pd, pd.dot_case, pd.dot_case_plain, "probe_dots"),
+    "rowpipe": (pd, pd.rowpipe, pd.rowpipe_plain, "probe_dots"),
+    "kstack": (pd, pd.kstack, pd.kstack_plain, "probe_dots"),
+    "gather": (pm, pm.gather, pm.gather_plain, "probe_dma"),
+    "big": (pm, pm.big, pm.big_plain, "probe_dma"),
 }
 
 _SHIM = r"""
@@ -265,11 +281,11 @@ def emulated(tmp_path_factory):
         assert proc.returncode == 0, proc.stderr[-4000:]
         return out
 
-    names = sorted({k[3] for k in KERNELS.values()})
+    table = {**KERNELS, **PROBES}
+    names = sorted({k[3] for k in table.values()})
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
         paths = dict(zip(names, pool.map(compile_one, names)))
-    return {kind: ctypes.CDLL(str(paths[k[3]]))
-            for kind, k in KERNELS.items()}
+    return {kind: ctypes.CDLL(str(paths[k[3]])) for kind, k in table.items()}
 
 
 # NHWC shapes (the tail: 2 neighbours of one image) that span several
@@ -280,6 +296,7 @@ def emulated(tmp_path_factory):
 # and three key tiles a row, the last ragged, and an H-band that reaches
 # past both image edges; eg2: a last tile whose second window is outside
 SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 10, 12, 64),
+          "body": (1, 10, 20, 64),
           "group": (1, 9, 35, 64),
           "head": (2, 9, 5, 64), "tail": (1, 6, 18, 64)}
 EGLA_SHAPES = {"eg1": (2, 5, 140, 64), "eg2": (2, 8, 24, 64)}
@@ -289,6 +306,8 @@ def _case(kind, dtype):
     """The kernel's arguments at small ragged shapes (C = 64, as the
     kernels take)."""
     g = torch.Generator().manual_seed(5)
+    if kind == "body":
+        return kc.body_args(dtype, g, SHAPES[kind], device="cpu")
     if kind in SHAPES:
         return kc.trunk_args(kind, dtype, g, SHAPES[kind], nbr=2,
                              device="cpu")
@@ -299,11 +318,9 @@ def _case(kind, dtype):
     return kc.align_embed_args(kind, dtype, g, (2, 10, 19), 3, device="cpu")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kind", list(KERNELS))
-def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
-    module, wrapper, plain, _ = KERNELS[kind]
-    lib = emulated[kind]
+def _route_through(monkeypatch, lib):
+    """The wrappers' kernel route on CPU tensors, through the emulated
+    library."""
 
     def kernel_function(name, symbol, argtypes):
         fn = getattr(lib, symbol)
@@ -317,10 +334,16 @@ def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
         err = fn(*args, None)
         assert err == 0, f"{what}: {err_str(err)}"
 
-    # the wrapper's kernel route on CPU tensors, through the emulated library
     monkeypatch.setattr(cb, "kernel_function", kernel_function)
     monkeypatch.setattr(cb, "launch", launch)
     monkeypatch.setattr(cb, "on_card", lambda t, what: True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", list(KERNELS))
+def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
+    module, wrapper, plain, _ = KERNELS[kind]
+    _route_through(monkeypatch, emulated[kind])
     module._kernel.cache_clear()
     try:
         args = _case(kind, dtype)
@@ -332,3 +355,40 @@ def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
         module._kernel.cache_clear()
     assert wrapper.launches == before + 1
     kc.assert_outputs_close(out, ref, dtype, kind)
+
+
+def _probe_case(kind):
+    """A probe's arguments at small ragged sizes: m = 64 (the kernels' m
+    are 64, 128 and 256), a ragged n, reps split over the emulated card's 2
+    SMs; the dot probe also at m = 256 with its planes resident in shared
+    memory (three pixel blocks, one rep group); the DMA probe at 10
+    patches of 6 x 32-channel pixels."""
+    g = torch.Generator().manual_seed(6)
+    if kind == "dots":
+        return (*kc.dots_args(g, 64, 128, 132, device="cpu"), 5)
+    if kind == "dots_resident":
+        return (*kc.dots_args(g, 256, 64, 132, device="cpu"), 6)
+    if kind in ("rowpipe", "kstack"):
+        return (*kc.rows_args(g, 64, 64, 132, nrows=4, device="cpu"), 9, 4)
+    ring, starts = kc.dma_args(np.random.RandomState(0), 16, 24, 32, 10, 6,
+                               device="cpu")
+    if kind == "big":
+        return ring, starts, pm.big_rows(16, 24, 10)
+    starts[2], starts[5] = 40, 10**6   # outside the ring: clamped into it
+    return ring, starts, 8, 6 * 32
+
+
+@pytest.mark.parametrize("kind", list(PROBES))
+def test_emulated_probe_matches_plain(emulated, monkeypatch, kind):
+    module, wrapper, plain, _ = PROBES[kind]
+    _route_through(monkeypatch, emulated[kind])
+    module._kernel.cache_clear()
+    try:
+        args = _probe_case(kind)
+        before = wrapper.launches
+        out = wrapper(*args)
+        ref = plain(*args)
+    finally:
+        module._kernel.cache_clear()
+    assert wrapper.launches == before + 1
+    kc.assert_outputs_close(out, ref, torch.bfloat16, kind)

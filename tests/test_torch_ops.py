@@ -179,6 +179,41 @@ def test_attention_wrappers_refuse_other_devices():
         tfa.token_self_attention(q, q)
 
 
+@pytest.mark.parametrize("kind", ["token", "column"])
+def test_attention_wrappers_refuse_grad_on_the_card(monkeypatch, kind):
+    """On a CUDA tensor that requires grad the wrappers raise before any
+    launch: the kernel has no backward, and its result would carry no
+    grad_fn."""
+    def no_launch(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(cuda_build, "on_card", lambda t, what: True)
+    monkeypatch.setattr(cuda_build, "launch", no_launch)
+    fn = (tfa.token_self_attention if kind == "token"
+          else tfa.column_self_attention)
+    shape = (2, 8, 64) if kind == "token" else (1, 8, 4, 64)
+    q = torch.randn(shape, requires_grad=True)
+    v = torch.randn(shape)
+    before = fn.launches
+    with pytest.raises(NotImplementedError, match="Queue 1.4"):
+        fn(q, v)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("kind", ["token", "column"])
+def test_attention_plain_route_keeps_the_gradient(kind):
+    """On the CPU the wrappers take the plain version, which the unfused
+    EGLA trains through: q gets a non-zero gradient."""
+    fn = (tfa.token_self_attention if kind == "token"
+          else tfa.column_self_attention)
+    shape = (2, 8, 16) if kind == "token" else (1, 8, 4, 16)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(shape, generator=g).requires_grad_()
+    v = torch.randn(shape, generator=g)
+    fn(q, v).square().sum().backward()
+    assert q.grad is not None and q.grad.abs().max() > 0
+
+
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     """Without nvcc the build raises; nothing falls back to the plain
     version."""
