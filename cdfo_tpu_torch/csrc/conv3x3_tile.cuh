@@ -405,6 +405,16 @@ cudaError_t allow_smem(Kernel k, int bytes) {
   return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// The SMs of the current device, -1 if it cannot be asked
+inline int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    return -1;
+  }
+  return sms;
+}
+
 }  // namespace cdfo
 
 #ifndef CDFO_LAUNCH

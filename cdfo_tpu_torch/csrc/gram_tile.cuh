@@ -156,12 +156,8 @@ inline cudaError_t launch_reduce(const float* ws, int parts, int n, int n_a, flo
 // from the size (parts_of), so the caller never computes it. -1 if the
 // device cannot be asked or the size does not fit an int.
 inline int workspace_floats(int tiles, int groups, int sums, int per_part) {
-  int dev = 0, sms = 0;
-  if (tiles <= 0 || groups <= 0 || cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      sms <= 0) {
-    return -1;
-  }
+  const int sms = sm_count();
+  if (tiles <= 0 || groups <= 0 || sms <= 0) return -1;
   const int want = (2 * sms + groups - 1) / groups;
   const long long n = static_cast<long long>(want < tiles ? want : tiles) * sums * per_part;
   return n > 0x7fffffff ? -1 : static_cast<int>(n);

@@ -147,15 +147,6 @@ big_kernel(const bf16* __restrict__ ring, const int* __restrict__ starts, float*
       });
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    return -1;
-  }
-  return sms;
-}
-
 int stages_of(int patch_bytes) {
   const int s = MAX_SMEM / patch_bytes;
   return s < MAX_STAGES ? s : MAX_STAGES;

@@ -25,32 +25,40 @@
 // one pixel every 72 bf16 (conv3x3_tile.cuh's pitch), and read by
 // ldmatrix; the weights (lhs, W) come in mma-fragment order from device
 // memory through L1/L2 (ops/cuda_build.py::kernel_weights), as the trunk
-// reads its weights. A CTA of 8 warps covers WM x 64 pixels and all m
-// channels, a warp 4 m-tiles x 4 n-tiles (64 pixels x 32 channels), so m
-// is 64, 128 or 256 (WN = m / 32 warps across channels, WM = 8 / WN across
-// pixels); k (and c) are multiples of 64; a ragged last pixel block is
-// zero-filled on load and masked on store.
-//   dots: the chunks of all nplanes planes stay resident in shared memory
-//   when they fit 200 KB (at 4 planes: k <= 320 for m = 256, k <= 128 for
-//   m = 128, k = 64 for m = 64), else two chunk buffers stream them from
-//   L2, the next chunk's cp.async under the current chunk's mma.
+// reads its weights. A CTA of 8 warps covers all m channels and a block of
+// pixels; a warp covers MT m-tiles (16 pixels each) x 4 n-tiles (32
+// channels), so m is 64, 128 or 256 (WN = m / 32 warps across channels,
+// WM = 8 / WN across pixels, a block of 16 MT WM pixels); k (and c) are
+// multiples of 64; a ragged last pixel block is zero-filled on load and
+// masked on store.
+//   dots (MT = 4): the chunks of all nplanes planes stay resident in
+//   shared memory when they fit 200 KB (at 4 planes: k <= 320 for m = 256,
+//   k <= 128 for m = 128, k = 64 for m = 64) and the caller does not ask
+//   for streaming; else two chunk buffers stream them from L2, the next
+//   chunk's cp.async under the current chunk's mma.
 //   Where the output has fewer pixel blocks than the card has SMs, the reps
 //   are split into groups (grid.y) that leave fp32 partial sums; a second
 //   launch adds them in a fixed order and rounds once, so every run gives
 //   the same bits.
-//   rowpipe: a chunk is 64 channels of one of the three rows over the
-//   block's pixels plus 2, and serves all three dx by shifted ldmatrix
-//   rows: the shift is free here.
-//   kstack: the CTA first writes the shifted copies of its pixels of row r
-//   into a device scratch (us, per rep group), then streams 9 chunks of
-//   us through shared memory for one product of K = 9c.
-//   Both split the reps into groups too, each with its own scratch; the
+//   rowpipe (MT of the caller's choice, 4 by default): a chunk is 64
+//   channels of one of the three rows over the block's pixels plus 2,
+//   streamed from L2 as dots streams, and serves all three dx by shifted
+//   ldmatrix rows: the shift is free here.
+//   kstack: the stacked rows live on chip, as the TPU's us lives in VMEM:
+//   a ring of nrows + 2 slots of 3 shifted copies of the block's pixels
+//   in shared memory. Each iteration lands row r of u (streamed from L2
+//   under the previous product, as rowpipe streams its rows) in a staging
+//   buffer, copies it into slot r at the three shifts, and runs the 9c-deep
+//   product on slots r .. r + 2. MT is the largest of 4, 2, 1 whose ring
+//   fits 200 KB (2 for the tool's m = 256, c = 64, nrows = 8), so that
+//   rowpipe can be run at the same tile for a like-for-like comparison.
+//   Both split the reps into groups too, each with its own y scratch; the
 //   group whose range holds the last iteration with r = 0 writes out. A
 //   kstack group first repeats up to nrows iterations before its range, so
-//   that the rows 1 and 2 it reads were built by itself. kstack reads
-//   scratch rows that earlier iterations wrote (rows nrows and nrows + 1
-//   never are), so its output is defined only for reps > nrows, as the
-//   TPU kernel's: the wrapper refuses fewer.
+//   that the slots 1 and 2 it reads were built by itself. kstack reads
+//   slots that earlier iterations built (slots nrows and nrows + 1 never
+//   are: they stay zero), so its output is defined only for reps > nrows,
+//   as the TPU kernel's: the wrapper refuses fewer.
 
 #include "conv3x3_tile.cuh"
 
@@ -59,8 +67,10 @@ namespace {
 using namespace cdfo;
 
 constexpr int P = Pitch<bf16>::value;   // 72
-constexpr int MT = 4, NT = 4;          // a warp's m-tiles (pixels) and n-tiles (channels)
+constexpr int NT = 4;                  // a warp's n-tiles (channels)
+constexpr int DOTS_MT = 4;             // the dot probe's m-tiles (pixels) per warp
 constexpr int MAX_SMEM = 200 * 1024;
+constexpr int PIXEL_BYTES = P * static_cast<int>(sizeof(bf16));   // one pixel of a chunk
 
 // Copies pixels [p0, p0 + np) x channels [c0, c0 + 64) of a [pixel][ld]
 // bf16 array (pixels at or past `valid` read as 0) into a chunk buffer.
@@ -77,19 +87,23 @@ __device__ __forceinline__ void stage_chunk(bf16* dst, const bf16* __restrict__ 
   }
 }
 
-// acc += A (the warp's 64 pixels of a chunk buffer, from pixel `p0`) . W
-// (k-tiles kt0 .. kt0 + 3, the warp's 4 n-tiles from nt0)
+// acc += A (the warp's 16 MT pixels of a chunk buffer, from pixel `p0`) .
+// W (k-tiles kt0 .. kt0 + 3, the warp's 4 n-tiles from nt0)
+template <int MT>
 __device__ __forceinline__ void chunk_mma(float (&acc)[MT][NT][4], const bf16* buf, int p0,
                                           const Weights<bf16>& w, int kt0, int nt0, int lane) {
   ATile<bf16> a[MT];
 #pragma unroll
   for (int m = 0; m < MT; ++m) {
-    const bf16* p = buf + (p0 + 16 * m + (lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8;
-    a[m] = {p, p, 0};
+    a[m].p0 = buf + (p0 + 16 * m + (lane & 7) + ((lane >> 3) & 1) * 8) * P + (lane >> 4) * 8;
+    a[m].p1 = a[m].p0;
+    a[m].in_w = 0;
   }
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const int off[MT] = {16 * j, 16 * j, 16 * j, 16 * j};
+    int off[MT];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) off[m] = 16 * j;
     mma_k16<MT, NT>(acc, a, off, w, 0, kt0 + j, nt0, lane);
   }
 }
@@ -129,11 +143,11 @@ template <int WN>
 __global__ void __launch_bounds__(THREADS, 1)
 dots_kernel(const bf16* __restrict__ rhs, const bf16* __restrict__ wl, float* __restrict__ part,
             int m, int k, int n, int nplanes, int reps, int groups, int resident) {
-  constexpr int WM = WARPS / WN, BN = 64 * WM;
+  constexpr int MT = DOTS_MT, WM = WARPS / WN, BN = 16 * MT * WM;
   extern __shared__ uint4 cdfo_smem[];
   bf16* bufs = reinterpret_cast<bf16*>(cdfo_smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wp = (warp / WN) * 64, nt0 = (warp % WN) * NT;
+  const int wp = (warp / WN) * 16 * MT, nt0 = (warp % WN) * NT;
   const int n0 = blockIdx.x * BN, g = blockIdx.y;
   const int kc = k / 64;
   const Weights<bf16> w{wl, m, k};
@@ -190,6 +204,7 @@ dots_reduce(const float* __restrict__ part, bf16* __restrict__ out, int m, int n
 
 // y = lrelu(acc + b) * cm of the warp's tile, bf16, into the scratch row
 // [pixel][channel]; at the output iteration also into out (m, n)
+template <int MT>
 __device__ __forceinline__ void row_epilogue(const float (&acc)[MT][NT][4], const float* __restrict__ b,
                                              const float* __restrict__ cm, bf16* __restrict__ yrow,
                                              bf16* __restrict__ out, bool last, int m, int n, int pbase,
@@ -213,16 +228,16 @@ __device__ __forceinline__ void row_epilogue(const float (&acc)[MT][NT][4], cons
 // u: (nrows + 2, n + 8, c) bf16 (the TPU layout (nrows + 2, c, n + 8)
 // transposed); W packed (m, 9c), K index dx*3c + row*c + ch; y scratch
 // [groups][nrows][n][m]
-template <int WN>
+template <int WN, int MT>
 __global__ void __launch_bounds__(THREADS, 1)
 rowpipe_kernel(const bf16* __restrict__ u, const bf16* __restrict__ wp_, const float* __restrict__ b,
                const float* __restrict__ cm, bf16* __restrict__ yscr, bf16* __restrict__ out, int m,
                int c, int n, int nrows, int reps, int groups) {
-  constexpr int WM = WARPS / WN, BN = 64 * WM;
+  constexpr int WM = WARPS / WN, BN = 16 * MT * WM;
   extern __shared__ uint4 cdfo_smem[];
   bf16* bufs = reinterpret_cast<bf16*>(cdfo_smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wp = (warp / WN) * 64, nt0 = (warp % WN) * NT;
+  const int wp = (warp / WN) * 16 * MT, nt0 = (warp % WN) * NT;
   const int n0 = blockIdx.x * BN, g = blockIdx.y;
   const int cc = c / 64, un = n + 8;
   const Weights<bf16> w{wp_, m, 9 * c};
@@ -253,85 +268,97 @@ rowpipe_kernel(const bf16* __restrict__ u, const bf16* __restrict__ wp_, const f
   }
 }
 
-// us scratch: [groups][nrows + 2][3][n][c]; W packed (m, 9c), K index
-// row*3c + dx*c + ch
-template <int WN>
+// Shared memory of kstack: the staging buffer [cc][BN + 2][P] and the ring
+// [nrows + 2][3][cc][BN][P]
+inline long long kstack_smem(int bn, int c, int nrows) {
+  return static_cast<long long>(c / 64) * PIXEL_BYTES * ((bn + 2) + 3LL * (nrows + 2) * bn);
+}
+
+// W packed (m, 9c), K index row*3c + dx*c + ch; the stacked rows in shared
+// memory (see kstack_smem)
+template <int WN, int MT>
 __global__ void __launch_bounds__(THREADS, 1)
 kstack_kernel(const bf16* __restrict__ u, const bf16* __restrict__ wp_, const float* __restrict__ b,
-              const float* __restrict__ cm, bf16* __restrict__ us, bf16* __restrict__ yscr,
-              bf16* __restrict__ out, int m, int c, int n, int nrows, int reps, int groups) {
-  constexpr int WM = WARPS / WN, BN = 64 * WM;
+              const float* __restrict__ cm, bf16* __restrict__ yscr, bf16* __restrict__ out, int m,
+              int c, int n, int nrows, int reps, int groups) {
+  constexpr int WM = WARPS / WN, BN = 16 * MT * WM;
   extern __shared__ uint4 cdfo_smem[];
-  bf16* bufs = reinterpret_cast<bf16*>(cdfo_smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wp = (warp / WN) * 64, nt0 = (warp % WN) * NT;
-  const int n0 = blockIdx.x * BN, g = blockIdx.y;
   const int cc = c / 64, un = n + 8;
-  const int np = min(BN, n - n0);
+  bf16* stage = reinterpret_cast<bf16*>(cdfo_smem);
+  bf16* ring = stage + cc * (BN + 2) * P;
+  const int slot = 3 * cc * BN * P;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wp = (warp / WN) * 16 * MT, nt0 = (warp % WN) * NT;
+  const int n0 = blockIdx.x * BN, g = blockIdx.y;
   const Weights<bf16> w{wp_, m, 9 * c};
   const int last = ((reps - 1) / nrows) * nrows;
-  bf16* usg = us + static_cast<long long>(g) * (nrows + 2) * 3 * n * c;
   int lo, hi;
   rep_range(reps, groups, g, lo, hi);
+  const int first = max(0, lo - nrows);
+  for (int e = threadIdx.x; e < (nrows + 2) * slot / 8; e += blockDim.x) {
+    reinterpret_cast<uint4*>(ring)[e] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  // row i % nrows of u, the block's pixels plus 2, into the staging buffer
+  const auto fetch = [&](int i) {
+    const bf16* src = u + static_cast<long long>(i % nrows) * un * c;
+    for (int q = 0; q < cc; ++q) stage_chunk(stage + q * (BN + 2) * P, src, c, n0, BN + 2, un, q * 64);
+    cp_async_commit();
+  };
+  if (first < hi) fetch(first);
 #pragma unroll 1
-  for (int i = max(0, lo - nrows); i < hi; ++i) {
+  for (int i = first; i < hi; ++i) {
     const int r = i % nrows;
-    // build: us[r][dx][px] = u[r][px + dx] for this block's pixels
-    const bf16* src = u + static_cast<long long>(r) * un * c;
-    for (int e = threadIdx.x; e < 3 * np * (c / 8); e += blockDim.x) {
-      const int v = e % (c / 8), rest = e / (c / 8), p = rest % np, dx = rest / np;
-      const uint4 val = *reinterpret_cast<const uint4*>(src + static_cast<long long>(n0 + p + dx) * c + v * 8);
-      *reinterpret_cast<uint4*>(usg + ((static_cast<long long>(r) * 3 + dx) * n + n0 + p) * c + v * 8) = val;
+    // the row has landed, and the previous product is done with the ring
+    cp_async_wait();
+    __syncthreads();
+    // build: slot r [dx][q][p] = staged [q][p + dx]
+    bf16* dst = ring + r * slot;
+    for (int e = threadIdx.x; e < 3 * cc * BN * 8; e += blockDim.x) {
+      const int v = e & 7, p = (e >> 3) % BN, dq = (e >> 3) / BN;   // dq = dx * cc + q
+      const int dx = dq / cc, q = dq % cc;
+      *reinterpret_cast<uint4*>(dst + (dq * BN + p) * P + v * 8) =
+          *reinterpret_cast<const uint4*>(stage + (q * (BN + 2) + p + dx) * P + v * 8);
     }
     __syncthreads();
+    if (i + 1 < hi) fetch(i + 1);   // under this product
     float acc[MT][NT][4];
     zero(acc);
-    stream_chunks(
-        9 * cc, bufs, BN * P,
-        [&](int q, bf16* buf) {
-          const int rd = q / cc;   // row * 3 + dx
-          stage_chunk(buf, usg + (static_cast<long long>(r) * 3 + rd) * n * c, c, n0, BN, n,
-                      (q % cc) * 64);
-        },
-        [&](int q, const bf16* buf) {
-          chunk_mma(acc, buf, wp, w, ((q / cc) * c + (q % cc) * 64) / 16, nt0, lane);
-        });
+#pragma unroll 1
+    for (int rd = 0; rd < 9; ++rd) {   // rd = row * 3 + dx
+      const bf16* rows = ring + (r + rd / 3) * slot + (rd % 3) * cc * BN * P;
+#pragma unroll 1
+      for (int q = 0; q < cc; ++q) {
+        chunk_mma(acc, rows + q * BN * P, wp, w, (rd * c + q * 64) / 16, nt0, lane);
+      }
+    }
     // (a repeated iteration before the range writes no output)
     row_epilogue(acc, b, cm, yscr + (static_cast<long long>(g) * nrows + r) * n * m, out,
                  i == last && i >= lo, m, n, n0 + wp, nt0, lane);
   }
 }
 
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-    return -1;
-  }
-  return sms;
-}
-
-int block_pixels(int m) { return 64 * (WARPS / (m / 32)); }
+int block_pixels(int m, int mt) { return 16 * mt * (WARPS / (m / 32)); }
 
 bool takes_m(int m) { return m == 64 || m == 128 || m == 256; }
 
-template <template <int> class Launch, typename... Args>
-cudaError_t by_m(int m, Args... args) {
-  switch (m) {
-    case 64: return Launch<2>::run(args...);
-    case 128: return Launch<4>::run(args...);
-    case 256: return Launch<8>::run(args...);
-    default: return cudaErrorInvalidValue;
+bool takes_mt(int mt) { return mt == 1 || mt == 2 || mt == 4; }
+
+// The largest MT of 4, 2, 1 whose kstack ring fits MAX_SMEM; -1 if none
+int kstack_mt(int m, int c, int nrows) {
+  for (int mt = 4; mt >= 1; mt /= 2) {
+    if (kstack_smem(block_pixels(m, mt), c, nrows) <= MAX_SMEM) return mt;
   }
+  return -1;
 }
 
 template <int WN>
 struct DotsLaunch {
   static cudaError_t run(const void* rhs, const void* wl, float* part, void* out, int m, int k,
-                         int n, int nplanes, int reps, int groups, cudaStream_t stream) {
-    constexpr int BN = 64 * (WARPS / WN);
-    const int chunk = BN * P * static_cast<int>(sizeof(bf16));
-    const int resident = nplanes * (k / 64) * chunk <= MAX_SMEM;
+                         int n, int nplanes, int reps, int groups, int stream_planes,
+                         cudaStream_t stream) {
+    constexpr int BN = 16 * DOTS_MT * (WARPS / WN);
+    const int chunk = BN * PIXEL_BYTES;
+    const int resident = !stream_planes && nplanes * (k / 64) * chunk <= MAX_SMEM;
     const int bytes = resident ? nplanes * (k / 64) * chunk : 2 * chunk;
     cudaError_t err = allow_smem(dots_kernel<WN>, bytes);
     if (err != cudaSuccess) return err;
@@ -347,71 +374,107 @@ struct DotsLaunch {
   }
 };
 
-template <int WN>
-struct RowLaunch {
-  static cudaError_t run(int kstack, const void* u, const void* wpk, const float* b, const float* cm,
-                         void* us, void* yscr, void* out, int m, int c, int n, int nrows, int reps,
-                         int groups, cudaStream_t stream) {
-    constexpr int BN = 64 * (WARPS / WN);
-    const int bytes = 2 * (BN + 2) * P * static_cast<int>(sizeof(bf16));
-    const dim3 grid((n + BN - 1) / BN, groups);
-    const auto ub = static_cast<const bf16*>(u);
-    const auto wb = static_cast<const bf16*>(wpk);
-    cudaError_t err;
-    if (kstack) {
-      err = allow_smem(kstack_kernel<WN>, bytes);
-      if (err != cudaSuccess) return err;
-      CDFO_LAUNCH(kstack_kernel<WN>, grid, bytes, stream, ub, wb, b, cm, static_cast<bf16*>(us),
-                  static_cast<bf16*>(yscr), static_cast<bf16*>(out), m, c, n, nrows, reps, groups);
-    } else {
-      err = allow_smem(rowpipe_kernel<WN>, bytes);
-      if (err != cudaSuccess) return err;
-      CDFO_LAUNCH(rowpipe_kernel<WN>, grid, bytes, stream, ub, wb, b, cm,
-                  static_cast<bf16*>(yscr), static_cast<bf16*>(out), m, c, n, nrows, reps, groups);
-    }
-    return cudaGetLastError();
+template <int WN, int MT>
+cudaError_t rows_launch(int kstack, const bf16* u, const bf16* wpk, const float* b, const float* cm,
+                        bf16* yscr, bf16* out, int m, int c, int n, int nrows, int reps, int groups,
+                        cudaStream_t stream) {
+  constexpr int BN = 16 * MT * (WARPS / WN);
+  const dim3 grid((n + BN - 1) / BN, groups);
+  cudaError_t err;
+  if (kstack) {
+    const long long bytes = kstack_smem(BN, c, nrows);
+    if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
+    const auto kernel = kstack_kernel<WN, MT>;
+    err = allow_smem(kernel, static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+    CDFO_LAUNCH(kernel, grid, static_cast<int>(bytes), stream, u, wpk, b, cm, yscr, out, m, c, n,
+                nrows, reps, groups);
+  } else {
+    const int bytes = 2 * (BN + 2) * PIXEL_BYTES;
+    const auto kernel = rowpipe_kernel<WN, MT>;
+    err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return err;
+    CDFO_LAUNCH(kernel, grid, bytes, stream, u, wpk, b, cm, yscr, out, m, c, n, nrows, reps, groups);
   }
-};
+  return cudaGetLastError();
+}
+
+template <int WN, typename... Args>
+cudaError_t rows_by_mt(int mt, Args... args) {
+  switch (mt) {
+    case 1: return rows_launch<WN, 1>(args...);
+    case 2: return rows_launch<WN, 2>(args...);
+    case 4: return rows_launch<WN, 4>(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
 // The number of rep groups (grid.y) of a probe whose output has
-// ceil(n / block pixels) pixel blocks: as many as fill the current
-// device's SMs with one CTA each, at least 1, at most reps. -1 if m is not
-// 64, 128 or 256 or the device cannot be asked.
-extern "C" int cdfo_probe_groups(int m, int n, int reps) {
+// ceil(n / block pixels) pixel blocks at MT m-tiles per warp: as many as
+// fill the current device's SMs with one CTA each, at least 1, at most
+// reps. -1 if m is not 64, 128 or 256, MT not 1, 2 or 4, or the device
+// cannot be asked.
+extern "C" int cdfo_probe_groups(int m, int mt, int n, int reps) {
   const int sms = sm_count();
-  if (!takes_m(m) || n <= 0 || reps <= 0 || sms <= 0) return -1;
-  const int bn = block_pixels(m), blocks = (n + bn - 1) / bn;
+  if (!takes_m(m) || !takes_mt(mt) || n <= 0 || reps <= 0 || sms <= 0) return -1;
+  const int bn = block_pixels(m, mt), blocks = (n + bn - 1) / bn;
   const int g = sms / blocks;
   return g < 1 ? 1 : (g > reps ? reps : g);
 }
 
+// The m-tiles per warp of kstack at (m, c, nrows): the largest of 4, 2, 1
+// whose ring of stacked rows fits shared memory; -1 if none does or m is
+// not 64, 128 or 256 or c not a multiple of 64.
+extern "C" int cdfo_probe_kstack_mt(int m, int c, int nrows) {
+  if (!takes_m(m) || c <= 0 || c % 64 != 0 || nrows < 3) return -1;
+  return kstack_mt(m, c, nrows);
+}
+
 // dots: rhs (nplanes, n, k) bf16 (the TPU layout (nplanes, k, n)
 // transposed), wl the (m, k) lhs in kernel_weights order, part the fp32
-// workspace [groups][n][m], out (m, n) bf16. Returns a cudaError_t.
+// workspace [groups][n][m] (groups from cdfo_probe_groups at MT = 4), out
+// (m, n) bf16; stream_planes: stream the planes from L2 even where they
+// fit shared memory. Returns a cudaError_t.
 extern "C" int cdfo_probe_dots(const void* rhs, const void* wl, void* part, void* out, int m,
-                               int k, int n, int nplanes, int reps, int groups, void* stream) {
+                               int k, int n, int nplanes, int reps, int groups, int stream_planes,
+                               void* stream) {
   if (!takes_m(m) || k <= 0 || k % 64 != 0 || n <= 0 || nplanes <= 0 || reps <= 0 ||
       groups <= 0 || groups > 65535) {
     return cudaErrorInvalidValue;
   }
-  return by_m<DotsLaunch>(m, rhs, wl, static_cast<float*>(part), out, m, k, n, nplanes, reps,
-                          groups, static_cast<cudaStream_t>(stream));
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto f = static_cast<float*>(part);
+  switch (m) {
+    case 64: return DotsLaunch<2>::run(rhs, wl, f, out, m, k, n, nplanes, reps, groups, stream_planes, s);
+    case 128: return DotsLaunch<4>::run(rhs, wl, f, out, m, k, n, nplanes, reps, groups, stream_planes, s);
+    default: return DotsLaunch<8>::run(rhs, wl, f, out, m, k, n, nplanes, reps, groups, stream_planes, s);
+  }
 }
 
-// rowpipe (kstack = 0) or kstack (1): u (nrows + 2, n + 8, c) bf16, wpk the
-// (m, 9c) W in kernel_weights order, b (m,) and cm (n,) float32, us the
-// kstack scratch [groups][nrows + 2][3][n][c] (unused by rowpipe), yscr
-// [groups][nrows][n][m] bf16, out (m, n) bf16. kstack needs reps > nrows.
-extern "C" int cdfo_probe_rows(int kstack, const void* u, const void* wpk, const void* b,
-                               const void* cm, void* us, void* yscr, void* out, int m, int c,
-                               int n, int nrows, int reps, int groups, void* stream) {
-  if (!takes_m(m) || c <= 0 || c % 64 != 0 || n <= 0 || nrows < 3 || reps <= 0 ||
+// rowpipe (kstack = 0) or kstack (1) at mt m-tiles per warp (kstack: the
+// one cdfo_probe_kstack_mt gives): u (nrows + 2, n + 8, c) bf16, wpk the
+// (m, 9c) W in kernel_weights order, b (m,) and cm (n,) float32, yscr
+// [groups][nrows][n][m] bf16 (groups from cdfo_probe_groups at the same
+// mt), out (m, n) bf16. kstack needs reps > nrows. Returns a cudaError_t.
+extern "C" int cdfo_probe_rows(int kstack, int mt, const void* u, const void* wpk, const void* b,
+                               const void* cm, void* yscr, void* out, int m, int c, int n,
+                               int nrows, int reps, int groups, void* stream) {
+  if (!takes_m(m) || !takes_mt(mt) || c <= 0 || c % 64 != 0 || n <= 0 || nrows < 3 || reps <= 0 ||
       (kstack && reps <= nrows) || groups <= 0 || groups > 65535) {
     return cudaErrorInvalidValue;
   }
-  return by_m<RowLaunch>(m, kstack, u, wpk, static_cast<const float*>(b),
-                         static_cast<const float*>(cm), us, yscr, out, m, c, n, nrows, reps,
-                         groups, static_cast<cudaStream_t>(stream));
+  const auto ub = static_cast<const bf16*>(u);
+  const auto wb = static_cast<const bf16*>(wpk);
+  const auto bb = static_cast<const float*>(b);
+  const auto cb = static_cast<const float*>(cm);
+  const auto yb = static_cast<bf16*>(yscr);
+  const auto ob = static_cast<bf16*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (m) {
+    case 64: return rows_by_mt<2>(mt, kstack, ub, wb, bb, cb, yb, ob, m, c, n, nrows, reps, groups, s);
+    case 128: return rows_by_mt<4>(mt, kstack, ub, wb, bb, cb, yb, ob, m, c, n, nrows, reps, groups, s);
+    default: return rows_by_mt<8>(mt, kstack, ub, wb, bb, cb, yb, ob, m, c, n, nrows, reps, groups, s);
+  }
 }

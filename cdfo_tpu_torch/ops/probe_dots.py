@@ -19,7 +19,12 @@ float64, and the row-0 iteration alone) and a wrapper that launches the
 hand-written kernel of ``csrc/probe_dots.cu`` on a CUDA tensor, or takes
 the plain version on a CPU one, counting its launches in ``launches``.
 All operands are bfloat16 but the float32 b and cm, as in the TPU probes.
-The kernels take m of 64, 128 or 256 and k (c) a multiple of 64.
+The kernels take m of 64, 128 or 256 and k (c) a multiple of 64; kstack
+also needs its ring of stacked rows to fit shared memory (``kstack_mt``).
+Two arguments serve the tools' like-for-like comparisons and change no
+result: ``dot_case(..., streamed=True)`` streams the planes from L2 where
+they would fit shared memory, and ``rowpipe(..., mt=)`` sets the m-tiles
+(16 pixels each) per warp, 4 by default, so that it can run at kstack's.
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ from . import cuda_build as cb
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL_M = (64, 128, 256)
+KERNEL_MT = (1, 2, 4)
+DOTS_MT = 4
 
 
 def _counts(reps: int, nplanes: int) -> list[int]:
@@ -87,15 +94,30 @@ def _check_rows(what, stacked, reps, nrows, u):
 
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol):
-    argtypes = {"cdfo_probe_groups": [_I] * 3,
-                "cdfo_probe_dots": [_P] * 4 + [_I] * 6 + [_P],
-                "cdfo_probe_rows": [_I] + [_P] * 7 + [_I] * 6 + [_P]}[symbol]
+    argtypes = {"cdfo_probe_groups": [_I] * 4,
+                "cdfo_probe_kstack_mt": [_I] * 3,
+                "cdfo_probe_dots": [_P] * 4 + [_I] * 7 + [_P],
+                "cdfo_probe_rows": [_I] * 2 + [_P] * 6 + [_I] * 6 + [_P]
+                }[symbol]
     return cb.kernel_function("probe_dots", symbol, argtypes)
 
 
-def _groups(what, m, n, reps):
+def kstack_mt(m: int, c: int, nrows: int) -> int:
+    """The m-tiles per warp of the kstack kernel at (m, c, nrows): the
+    largest of 4, 2, 1 whose ring of nrows + 2 stacked rows fits shared
+    memory (card only); raises ValueError where none does."""
+    fn, _ = _kernel("cdfo_probe_kstack_mt")
+    mt = fn(m, c, nrows)
+    if mt <= 0:
+        raise ValueError(f"probe_dots kstack: no tile of m {m} whose ring "
+                         f"of {nrows} + 2 stacked rows of c {c} fits shared "
+                         "memory")
+    return mt
+
+
+def _groups(what, m, mt, n, reps):
     fn, _ = _kernel("cdfo_probe_groups")
-    g = fn(m, n, reps)
+    g = fn(m, mt, n, reps)
     if g <= 0:
         raise RuntimeError(f"{what}: no rep groups for m {m}, n {n}")
     return g
@@ -111,8 +133,9 @@ def _check_card(what, m, k, *tensors):
                          f"multiple of 64, got m {m}, k {k}")
 
 
-def dot_case(lhs, rhs, reps: int):
-    """``dot_case_plain``."""
+def dot_case(lhs, rhs, reps: int, streamed: bool = False):
+    """``dot_case_plain``; ``streamed``: the kernel streams the planes
+    from L2 even where they fit shared memory."""
     if not cb.on_card(lhs, "probe_dots"):
         return dot_case_plain(lhs, rhs, reps)
     what = "probe_dots"
@@ -124,17 +147,17 @@ def dot_case(lhs, rhs, reps: int):
         raise ValueError(f"{what}: reps {reps}")
     rhs_t = rhs.transpose(1, 2).contiguous()
     wl = cb.kernel_weights(lhs[:, :, None, None], torch.bfloat16)
-    groups = _groups(what, m, n, reps)
+    groups = _groups(what, m, DOTS_MT, n, reps)
     part = torch.empty(groups * n * m, dtype=torch.float32, device=lhs.device)
     out = lhs.new_empty((m, n))
     cb.launch(_kernel("cdfo_probe_dots"), what, lhs.device, rhs_t.data_ptr(),
               wl.data_ptr(), part.data_ptr(), out.data_ptr(), m, k, n, nplanes,
-              reps, groups)
+              reps, groups, int(streamed))
     dot_case.launches += 1
     return out
 
 
-def _rows_on_card(what, stacked, w, b, cm, u, reps, nrows):
+def _rows_on_card(what, stacked, w, b, cm, u, reps, nrows, mt):
     _check_rows(what, stacked, reps, nrows, u)
     m, _ = w.shape
     _, c, n8 = u.shape
@@ -143,24 +166,27 @@ def _rows_on_card(what, stacked, w, b, cm, u, reps, nrows):
     cb.check_float32(what, w.device, b, cm)
     cb.check_shapes(what, {"w": (w, (m, 9 * c)), "b": (b, (m, 1)),
                            "cm": (cm, (1, n))})
+    if stacked:
+        mt = kstack_mt(m, c, nrows)
+    elif mt not in KERNEL_MT:
+        raise ValueError(f"{what}: mt {mt} not in {KERNEL_MT}")
     u_t = u.transpose(1, 2).contiguous()
     wpk = cb.kernel_weights(w[:, :, None, None], torch.bfloat16)
-    groups = _groups(what, m, n, reps)
+    groups = _groups(what, m, mt, n, reps)
     yscr = u.new_empty(groups * nrows * n * m)
-    us = u.new_empty(groups * (nrows + 2) * 3 * n * c if stacked else 1)
     out = u.new_empty((m, n))
-    cb.launch(_kernel("cdfo_probe_rows"), what, w.device, int(stacked),
+    cb.launch(_kernel("cdfo_probe_rows"), what, w.device, int(stacked), mt,
               u_t.data_ptr(), wpk.data_ptr(), b.data_ptr(), cm.data_ptr(),
-              us.data_ptr(), yscr.data_ptr(), out.data_ptr(), m, c, n, nrows,
-              reps, groups)
+              yscr.data_ptr(), out.data_ptr(), m, c, n, nrows, reps, groups)
     return out
 
 
-def rowpipe(w, b, cm, u, reps: int, nrows: int):
-    """``rowpipe_plain``."""
+def rowpipe(w, b, cm, u, reps: int, nrows: int, mt: int = 4):
+    """``rowpipe_plain``; ``mt``: the kernel's m-tiles per warp."""
     if not cb.on_card(w, "probe_dots rowpipe"):
         return rowpipe_plain(w, b, cm, u, reps, nrows)
-    out = _rows_on_card("probe_dots rowpipe", False, w, b, cm, u, reps, nrows)
+    out = _rows_on_card("probe_dots rowpipe", False, w, b, cm, u, reps, nrows,
+                        mt)
     rowpipe.launches += 1
     return out
 
@@ -169,7 +195,8 @@ def kstack(w, b, cm, u, reps: int, nrows: int):
     """``kstack_plain``."""
     if not cb.on_card(w, "probe_dots kstack"):
         return kstack_plain(w, b, cm, u, reps, nrows)
-    out = _rows_on_card("probe_dots kstack", True, w, b, cm, u, reps, nrows)
+    out = _rows_on_card("probe_dots kstack", True, w, b, cm, u, reps, nrows,
+                        None)
     kstack.launches += 1
     return out
 

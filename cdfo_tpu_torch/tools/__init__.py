@@ -17,33 +17,45 @@ def require_card(tool: str) -> str:
     return torch.cuda.get_device_name(0)
 
 
-def event_seconds(fn, iters: int, warmup: int = 1) -> float:
-    """The best time of one ``fn()`` over ``iters`` calls (CUDA events,
+def event_ms(fn, reps: int, warmup: int = 1) -> list[float]:
+    """The milliseconds of each of ``reps`` calls of ``fn()`` (CUDA events,
     after ``warmup`` calls)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(iters):
+    times = []
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        best = min(best, start.elapsed_time(end) / 1e3)
-    return best
+        times.append(start.elapsed_time(end))
+    return times
 
 
-def captured(fn):
+def captured(fn, *wrappers):
     """``fn()`` captured once into a CUDA graph (after one warm-up call that
-    builds the kernel's library); returns the graph's ``replay``. A replay
-    launches the same kernels without the host's per-call work, so kernels
-    shorter than that work are timed without the gaps it leaves. A wrapper
-    counts the captured launch, not the replays."""
+    builds the kernel's library); returns a function that replays it. A
+    replay launches the same kernels without the host's per-call work, so
+    kernels shorter than that work are timed without the gaps it leaves.
+    The capture launches nothing: the counts that ``wrappers`` (those ``fn``
+    calls) took during it are taken back and added at each replay instead,
+    so ``launches`` counts the kernels that ran."""
     fn()
     torch.cuda.synchronize()
+    before = [w.launches for w in wrappers]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
-    return graph.replay
+    per_replay = [w.launches - b for w, b in zip(wrappers, before)]
+    for w, b in zip(wrappers, before):
+        w.launches = b
+
+    def replay():
+        graph.replay()
+        for w, n in zip(wrappers, per_replay):
+            w.launches += n
+
+    return replay

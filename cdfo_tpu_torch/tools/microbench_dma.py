@@ -15,9 +15,10 @@ Each mode first holds the kernel's checksum against its plain version
 of twice as many and reports their difference per call, as the TPU tool
 does. Each chain is captured in a CUDA graph and timed by its replays
 (best of 3, CUDA events): a call's device work is shorter than the
-wrapper's host work, which would otherwise set the time. The ring, (H+8,
-(W+8)*C) bf16, is 17.5 MB at the defaults and stays in the card's 50 MB
-L2 between calls.
+wrapper's host work, which would otherwise set the time. The wrappers'
+``launches`` count the kernels of every replay. The ring, (H+8, (W+8)*C)
+bf16, is 17.5 MB at the defaults and stays in the card's 50 MB L2 between
+calls, so these are L2 rates (the TPU tool's ring sits in HBM).
 
     python -m cdfo_tpu_torch.tools.microbench_dma [--nblocks 8160] [--c 64]
 """
@@ -30,7 +31,7 @@ import torch
 
 from ..ops import kernel_cases as kc
 from ..ops import probe_dma as pm
-from . import captured, event_seconds, require_card
+from . import captured, event_ms, require_card
 
 
 @torch.no_grad()
@@ -83,7 +84,8 @@ def main(argv=None) -> dict:
             for _ in range(reps):
                 call()
 
-        times = {reps: event_seconds(captured(lambda n=reps: chain(n)), 3)
+        times = {reps: min(event_ms(captured(lambda n=reps: chain(n),
+                                             pm.gather, pm.big), 3)) / 1e3
                  for reps in (args.reps, 2 * args.reps)}
         dt = (times[2 * args.reps] - times[args.reps]) / args.reps
         results[mode] = (dt, nbytes / dt / 1e9)

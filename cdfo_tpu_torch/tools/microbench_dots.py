@@ -8,7 +8,10 @@ does the ``Block_``'s per-row issue lose to K-stacked issue?
   --mode rowpipe  the fused ``Block_``'s y-row pipeline: three dx-shifted
                   products, bias, lrelu, mask, bf16 store per row
   --mode kstack   the K-stacked row pipeline: one row built into three
-                  shifted copies, then one product of K = 9C per row
+                  shifted copies in shared memory, then one product of
+                  K = 9C per row; each case is followed by rowpipe at
+                  kstack's tile (m-tiles per warp), so that the two differ
+                  only in issue order and the build
 
 Each case first holds the kernel against its plain version
 (``ops/kernel_cases.py``'s tolerance), then times it at two rep counts
@@ -22,12 +25,13 @@ counts are the TPU tool's.
 from __future__ import annotations
 
 import argparse
+import functools
 
 import torch
 
 from ..ops import kernel_cases as kc
 from ..ops import probe_dots as pd
-from . import event_seconds, require_card
+from . import event_ms, require_card
 
 DOT_CASES = [
     (256, 192, 516),    # conv1-style per-row dot (shipped)
@@ -60,8 +64,8 @@ def _check(out, ref, what):
 
 def _diff(fn, flop_it, reps_hi, iters):
     reps_lo = reps_hi // 2
-    t_lo = event_seconds(lambda: fn(reps_lo), iters)
-    t_hi = event_seconds(lambda: fn(reps_hi), iters)
+    t_lo = min(event_ms(lambda: fn(reps_lo), iters)) / 1e3
+    t_hi = min(event_ms(lambda: fn(reps_hi), iters)) / 1e3
     dt = max(t_hi - t_lo, 1e-9)
     return t_lo, t_hi, flop_it * (reps_hi - reps_lo) / dt / 1e12
 
@@ -85,11 +89,14 @@ def bench_case(m, k, n, *, iters=4, nplanes=4, seed=0):
 
 
 @torch.no_grad()
-def bench_rows(kind, m, c, n, *, nrows=8, iters=4, seed=0):
-    """``rowpipe`` or ``kstack``: checks then times one case; prints the
-    TPU tool's line and returns (TF/s, relerr)."""
+def bench_rows(kind, m, c, n, *, nrows=8, iters=4, seed=0, mt=None):
+    """``rowpipe`` (at ``mt`` m-tiles per warp where given) or ``kstack``:
+    checks then times one case; prints the TPU tool's line and returns
+    (TF/s, relerr)."""
     wrapper, plain = {"rowpipe": (pd.rowpipe, pd.rowpipe_plain),
                       "kstack": (pd.kstack, pd.kstack_plain)}[kind]
+    if mt is not None:
+        wrapper = functools.partial(wrapper, mt=mt)
     g = torch.Generator(device="cuda").manual_seed(seed)
     args = kc.rows_args(g, m, c, n, nrows)
     flop_it = 2.0 * m * 9 * c * n
@@ -98,9 +105,10 @@ def bench_rows(kind, m, c, n, *, nrows=8, iters=4, seed=0):
                  plain(*args, reps_hi // 2, nrows), f"{kind} {m} {c} {n}")
     t_lo, t_hi, tfs = _diff(lambda reps: wrapper(*args, reps, nrows),
                             flop_it, reps_hi, iters)
+    tile = "" if mt is None else f"  (at kstack's tile, {mt} m-tiles/warp)"
     print(f"{kind:7s} M={m:4d} C={c:3d} N={n:5d}: lo={t_lo * 1e3:7.2f} ms "
           f"hi={t_hi * 1e3:7.2f} ms  diff -> {tfs:7.1f} TF/s  (relerr "
-          f"{rel:.1e})", flush=True)
+          f"{rel:.1e}){tile}", flush=True)
     return tfs, rel
 
 
@@ -116,9 +124,15 @@ def main(argv=None) -> dict:
     if args.mode == "dots":
         return {case: bench_case(*case, iters=args.iters)
                 for case in DOT_CASES}
-    cases = ROWPIPE_CASES if args.mode == "rowpipe" else KSTACK_CASES
-    return {case: bench_rows(args.mode, *case, iters=args.iters)
-            for case in cases}
+    if args.mode == "rowpipe":
+        return {case: bench_rows("rowpipe", *case, iters=args.iters)
+                for case in ROWPIPE_CASES}
+    results = {}
+    for case in KSTACK_CASES:
+        results[case] = bench_rows("kstack", *case, iters=args.iters)
+        bench_rows("rowpipe", *case, iters=args.iters,
+                   mt=pd.kstack_mt(case[0], case[1], 8))
+    return results
 
 
 if __name__ == "__main__":

@@ -7,10 +7,13 @@ Candidates, all computing y = conv3x3_{256->64}(lrelu(conv3x3_{64->256}(x)
   plain_im2col  ``F.unfold`` of the 9 taps + one ``torch.matmul`` per conv
   kernel        the hand-written kernel (``ops/fused_block.block_body``)
 
-Weights from ``np.random.RandomState(0)`` with the TPU tool's scales; each
-line gives ms per call (CUDA events), TF/s and the relative error against
-the first candidate. In float32 cuDNN's and cuBLAS's TF32 is switched off,
-so the error column measures the kernels and not TF32.
+Weights from ``np.random.RandomState(0)`` with the TPU tool's scales. The
+kernel is first held against its plain version
+(``ops/fused_block.block_body_plain``, ``ops/kernel_cases.py``'s
+tolerance); each line then gives ms per call (best of 20, CUDA events),
+TF/s and the relative error against the first candidate. In float32
+cuDNN's and cuBLAS's TF32 is switched off, so the error column measures
+the kernels and not TF32.
 
     python -m cdfo_tpu_torch.tools.microbench_trunk [--h 272 --w 480 --b 1
         --dtype bfloat16 --which all]
@@ -24,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import fused_block as fb
-from . import event_seconds, require_card
+from ..ops import kernel_cases as kc
+from . import event_ms, require_card
 
 CANDIDATES = ("plain_nhwc", "plain_im2col", "kernel")
 
@@ -78,7 +82,6 @@ def main(argv=None) -> dict:
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--which", default="all", choices=["all", *CANDIDATES])
-    p.add_argument("--iters", type=int, default=20)
     args = p.parse_args(argv)
     card = require_card("microbench_trunk")
     dt = getattr(torch, args.dtype)
@@ -105,7 +108,11 @@ def main(argv=None) -> dict:
     for name, fn in candidates(x, w1, b1, w2, b2).items():
         if args.which not in ("all", name):
             continue
-        t = event_seconds(fn, args.iters, warmup=3)
+        if name == "kernel":
+            kc.assert_outputs_close(
+                fn(), fb.block_body_plain(x, w1, b1, w2, b2, residual=True),
+                dt, "body")
+        t = min(event_ms(fn, 20, warmup=3)) / 1e3
         out = fn().float()
         if ref is None:
             ref, err = out, 0.0

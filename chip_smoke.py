@@ -32,18 +32,23 @@ CUDA device the script exits non-zero before printing any result):
    ``Block_`` body pair at the trunk's two shapes, with cuDNN's two
    convolutions as its library time; the dot probes (``dot_case`` at three
    shapes, one streamed and two with resident planes, with one
-   ``torch.matmul`` over K = reps * k as its library time; ``rowpipe`` and
+   ``torch.matmul`` over K = reps * k as its library time, and the timed
+   case's resident planes also streamed, at the same K; ``rowpipe`` and
    ``kstack``, which must refuse reps <= nrows) and the DMA probes (the
    gather at its tool's 8160 patches, with ``ring[index]`` as its library
    time; the big copy, with ``clone()``; these two timed as CUDA-graph
-   replays, their work being shorter than their wrappers' host work). Each
-   output is held against the plain one slice by slice, each slice against
-   its own largest value (``kernel_cases``: the MDTA and dual-MSA statistics
-   per image and gram, their feature maps and EGLA's outputs per image).
-   Each kernel's bound is computed from its inputs: the larger of its bytes (inputs read once,
-   outputs written once) over 3.35 TB/s and its operations over the peak
-   of their type (989 TFLOP/s bf16 tensor cores, 1979 TOP/s int8, 67
-   TFLOP/s fp32);
+   replays, their work being shorter than their wrappers' host work, in
+   chains over 16 copies of the ring, so that each call reads device
+   memory, as the block warp's ring of 8 frames does; their warm,
+   L2-resident times are printed beside).
+   Each output is held against the plain one slice by slice, each slice
+   against its own largest value (``kernel_cases``: the MDTA and dual-MSA
+   statistics per image and gram, their feature maps and EGLA's outputs
+   per image). Each kernel's bound is computed from its inputs: the larger
+   of its bytes (inputs read once, outputs written once; for the DMA
+   probes the distinct bytes of the ring their patches or rows cover) over
+   3.35 TB/s and its operations over the peak of their type (989 TFLOP/s
+   bf16 tensor cores, 1979 TOP/s int8, 67 TFLOP/s fp32);
 4. six small CVSR_V8 (2 trunk groups, 16x24 frames) through the streaming
    engine on the card (float32, kernels on, TF32 off) against the same
    weights through the same engine on the CPU (plain versions): uint8
@@ -136,8 +141,8 @@ from cdfo_tpu_torch.ops import probe_dma as pm
 from cdfo_tpu_torch.ops import probe_dots as pd
 from cdfo_tpu_torch.ops import warp_block as wb
 from cdfo_tpu_torch.ops.warp import flow_warp_ring
-from cdfo_tpu_torch.tools import captured, microbench_dma, microbench_dots
-from cdfo_tpu_torch.tools import microbench_trunk
+from cdfo_tpu_torch.tools import captured, event_ms, microbench_dma
+from cdfo_tpu_torch.tools import microbench_dots, microbench_trunk
 
 SOURCE = "cdfo_tpu_torch/csrc/fused_attention.cu"
 REPLACES = "cdfo_tpu/ops/fused_attention.py:43"
@@ -266,6 +271,9 @@ PROBE_DOT = (256, 192, 516, 2048)
 PROBE_ROWS = (256, 64, 516, 1024)
 PROBE_NROWS = 8
 PROBE_DMA = (272, 480, 64, 68 * 120)
+# copies of the DMA probes' ring that their timed chains walk in turn: 280
+# MB, so that each call finds its copy evicted from the 50 MB L2
+COLD_COPIES = 16
 # (ring slots, neighbour images, H, W): k=4 centres of 6 neighbours from the
 # engine's ring of 8, then a ragged one
 WARP_MAIN = (8, 24, 272, 480)
@@ -344,19 +352,9 @@ def card_line() -> str:
 
 
 def median_ms(fn, reps: int = 15) -> float:
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    return float(np.median(event_ms(fn, reps, warmup=3)))
+
+
 
 
 def reset_launches():
@@ -627,26 +625,66 @@ def check_body_kernel(card: str) -> dict:
     return fields
 
 
+def chain_ms(fn, rings, wrapper=None) -> float:
+    """The ms of one ``fn(ring)`` in a chain of calls over ``rings`` in
+    turn: the difference of CUDA-graph chains of one and two rounds over
+    them, per call (the DMA tool's method: it cancels the graph's launch
+    and the host's per-call work). ``wrapper`` counts the replays."""
+    def chain(rounds):
+        for _ in range(rounds):
+            for r in rings:
+                fn(r)
+
+    wrappers = () if wrapper is None else (wrapper,)
+    t = {n: median_ms(captured(lambda n=n: chain(n), *wrappers), 5)
+         for n in (1, 2)}
+    return (t[2] - t[1]) / len(rings)
+
+
 def _probe_timing(card, kind, kernel, plain, library, flop, nbytes,
-                  graphed=False) -> dict:
+                  ring=None, wrapper=None) -> dict:
     """Times ``kernel``, ``plain`` and ``library`` (None: no PyTorch call
     computes the function) and computes the bound; returns the JSON
-    fields. ``graphed``: the kernel and library calls are timed as replays
-    of a CUDA graph, free of the host's per-call gaps (the DMA probes' work
-    is shorter than their wrappers' host work)."""
-    timed = captured if graphed else (lambda fn: fn)
-    ms = median_ms(timed(kernel))
-    plain_ms = median_ms(plain, 5)
-    library_ms = None if library is None else median_ms(timed(library), 5)
+    fields. With ``ring`` (the DMA probes') each is a function of the ring,
+    and the kernel and library calls are timed in chains (``chain_ms``)
+    over ``COLD_COPIES`` copies of it, so that each call finds its copy out
+    of L2 and reads device memory at the bound's rate, as the block warp
+    reads its ring of 8 frames; the warm times, one ring in L2, are
+    printed beside."""
+    if ring is None:
+        ms = median_ms(kernel)
+        plain_ms = median_ms(plain, 5)
+        library_ms = None if library is None else median_ms(library, 5)
+        warm = ""
+    else:
+        copies = [ring] + [ring.clone() for _ in range(COLD_COPIES - 1)]
+        ms = chain_ms(kernel, copies, wrapper)
+        library_ms = chain_ms(library, copies)
+        plain_ms = median_ms(lambda: plain(ring), 5)
+        one = [ring] * COLD_COPIES
+        warm = (f" (chained over {COLD_COPIES} copies of the ring, "
+                f"{COLD_COPIES * ring.numel() * 2 / 1e6:.0f} MB; warm, one "
+                f"ring in L2: kernel {chain_ms(kernel, one, wrapper):.4f} "
+                f"ms, library {chain_ms(library, one):.4f} ms)")
+        del copies
     t_ops, t_bytes = flop / PEAK_FLOPS[torch.bfloat16], nbytes / PEAK_BYTES
     bound_ms = 1e3 * max(t_ops, t_bytes)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
-    print(f"probe {kind}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}) [{card}]",
-          flush=True)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"probe {kind}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"library {lib}, bound {bound_ms:.4f} ms ({bound_by}){warm} "
+          f"[{card}]", flush=True)
+    if ms < bound_ms:
+        raise AssertionError(f"probe {kind} ran faster than its bound")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
+
+
+def covered_bytes(ring, yi, xi) -> int:
+    """The distinct bytes of ``ring`` at the indices ``ring[yi, xi]``."""
+    hit = torch.zeros(ring.shape, dtype=torch.bool, device=ring.device)
+    hit[yi, xi] = True
+    return int(hit.sum()) * ring.element_size()
 
 
 def _probe_check(kind, out, ref) -> float:
@@ -692,6 +730,13 @@ def check_probe_kernels(card: str) -> dict:
         lambda: torch.matmul(lhs_k, rhs_k), 2.0 * m * k * n * reps,
         2 * (m * k + rhs.numel() + m * n))}
     del lhs_k, rhs_k, lib
+    # the same case with its planes streamed from L2: residency alone
+    _probe_check("dots", pd.dot_case(lhs, rhs, reps, streamed=True),
+                 pd.dot_case_plain(lhs, rhs, reps))
+    streamed_ms = median_ms(lambda: pd.dot_case(lhs, rhs, reps, streamed=True))
+    print(f"probe dots {PROBE_DOT}: planes streamed from L2 {streamed_ms:.3f} "
+          f"ms against resident {fields['dots']['ms']:.3f} ms, same K "
+          f"[{card}]", flush=True)
     m, c, n, reps = PROBE_ROWS
     for kind, wrapper, plain in (("rowpipe", pd.rowpipe, pd.rowpipe_plain),
                                  ("kstack", pd.kstack, pd.kstack_plain)):
@@ -719,22 +764,25 @@ def check_probe_kernels(card: str) -> dict:
     st = starts.long().reshape(-1, 2)
     yi = st[:, 0, None, None] + torch.arange(ph, device="cuda")[:, None]
     xi = st[:, 1, None, None] + torch.arange(pwl, device="cuda")
+    covered = covered_bytes(ring, yi, xi)
     fields["gather"] = {"max_abs_err": err, **_probe_timing(
-        card, f"gather {nblk} patches of ({ph}, {pwl}), ring "
-        f"{tuple(ring.shape)} (17.5 MB: it fits the 50 MB L2)",
-        lambda: pm.gather(ring, starts, ph, pwl),
-        lambda: pm.gather_plain(ring, starts, ph, pwl),
-        lambda: ring[yi, xi], 0.0, nblk * ph * pwl * 2 + 128 * 4,
-        graphed=True)}
+        card, f"gather {nblk} patches of ({ph}, {pwl}) "
+        f"({nblk * ph * pwl * 2 / 1e6:.1f} MB, covering {covered / 1e6:.1f} "
+        f"MB of the {ring.numel() * 2 / 1e6:.1f} MB ring {tuple(ring.shape)})",
+        lambda r: pm.gather(r, starts, ph, pwl),
+        lambda r: pm.gather_plain(r, starts, ph, pwl),
+        lambda r: r[yi, xi], 0.0, covered + starts.numel() * 4 + 128 * 4,
+        ring=ring, wrapper=pm.gather)}
     rows = pm.big_rows(h, w, nblk)
     err = _probe_check("big", pm.big(ring, starts, rows),
                        pm.big_plain(ring, starts, rows))
     y0 = min(max(int(starts[0]), 0), ring.shape[0] - rows)
     fields["big"] = {"max_abs_err": err, **_probe_timing(
-        card, f"big {rows} rows", lambda: pm.big(ring, starts, rows),
-        lambda: pm.big_plain(ring, starts, rows),
-        lambda: ring[y0:y0 + rows].clone(), 0.0,
-        rows * ring.shape[1] * 2 + 128 * 4, graphed=True)}
+        card, f"big {rows} rows ({rows * ring.shape[1] * 2 / 1e6:.1f} MB)",
+        lambda r: pm.big(r, starts, rows),
+        lambda r: pm.big_plain(r, starts, rows),
+        lambda r: r[y0:y0 + rows].clone(), 0.0,
+        rows * ring.shape[1] * 2 + 4 + 128 * 4, ring=ring, wrapper=pm.big)}
     torch.cuda.empty_cache()
     return fields
 

@@ -4,6 +4,8 @@ no CUDA device exists. On a GPU machine (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import functools
+
 import pytest
 import torch
 
@@ -506,33 +508,45 @@ def test_body_kernel_matches_plain(cuda, shape, residual, dtype):
 @pytest.mark.parametrize("m,k,n,reps", [(64, 768, 132, 7), (128, 128, 260, 5),
                                         (256, 192, 516, 9), (256, 576, 70, 3)])
 def test_dot_probe_matches_plain(cuda, m, k, n, reps):
-    """Streamed and resident planes, each m the kernel takes, ragged n."""
+    """Streamed and resident planes, each m the kernel takes, ragged n;
+    resident planes also streamed on request."""
     from cdfo_tpu_torch.ops import probe_dots as pd
     g = torch.Generator(device=cuda).manual_seed(11)
     lhs, rhs = kc.dots_args(g, m, k, n, device=cuda)
-    before = pd.dot_case.launches
-    out = pd.dot_case(lhs, rhs, reps)
-    torch.cuda.synchronize()
-    assert pd.dot_case.launches == before + 1
-    kc.assert_outputs_close(out, pd.dot_case_plain(lhs, rhs, reps),
-                            torch.bfloat16)
+    ref = pd.dot_case_plain(lhs, rhs, reps)
+    for streamed in (False, True):
+        before = pd.dot_case.launches
+        out = pd.dot_case(lhs, rhs, reps, streamed=streamed)
+        torch.cuda.synchronize()
+        assert pd.dot_case.launches == before + 1
+        kc.assert_outputs_close(out, ref, torch.bfloat16)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["rowpipe", "kstack"])
-@pytest.mark.parametrize("m,c,n", [(256, 64, 516), (64, 256, 132)])
+@pytest.mark.parametrize("m,c,n", [(256, 64, 516), (128, 64, 132),
+                                   (64, 256, 132)])
 def test_row_probes_match_plain(cuda, kind, m, c, n):
+    """rowpipe at each tile it takes; kstack where its ring of stacked
+    rows fits shared memory (not at c = 256, which it must refuse)."""
     from cdfo_tpu_torch.ops import probe_dots as pd
-    wrapper, plain = {"rowpipe": (pd.rowpipe, pd.rowpipe_plain),
-                      "kstack": (pd.kstack, pd.kstack_plain)}[kind]
     g = torch.Generator(device=cuda).manual_seed(12)
     args = kc.rows_args(g, m, c, n, 8, device=cuda)
-    for reps in (9, 30):
-        out = wrapper(*args, reps, 8)
-        torch.cuda.synchronize()
-        kc.assert_outputs_close(out, plain(*args, reps, 8), torch.bfloat16)
     with pytest.raises(ValueError, match="reps"):
         pd.kstack(*args, 8, 8)
+    if kind == "kstack" and c > 64:
+        with pytest.raises(ValueError, match="fits shared memory"):
+            pd.kstack(*args, 9, 8)
+        return
+    runs = ([pd.kstack] if kind == "kstack" else
+            [functools.partial(pd.rowpipe, mt=mt) for mt in pd.KERNEL_MT])
+    plain = pd.kstack_plain if kind == "kstack" else pd.rowpipe_plain
+    for run in runs:
+        for reps in (9, 30):
+            out = run(*args, reps, 8)
+            torch.cuda.synchronize()
+            kc.assert_outputs_close(out, plain(*args, reps, 8),
+                                    torch.bfloat16)
 
 
 @pytest.mark.cuda

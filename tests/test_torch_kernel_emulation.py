@@ -63,7 +63,9 @@ KERNELS = {
 PROBES = {
     "dots": (pd, pd.dot_case, pd.dot_case_plain, "probe_dots"),
     "dots_resident": (pd, pd.dot_case, pd.dot_case_plain, "probe_dots"),
+    "dots_streamed": (pd, pd.dot_case, pd.dot_case_plain, "probe_dots"),
     "rowpipe": (pd, pd.rowpipe, pd.rowpipe_plain, "probe_dots"),
+    "rowpipe_mt2": (pd, pd.rowpipe, pd.rowpipe_plain, "probe_dots"),
     "kstack": (pd, pd.kstack, pd.kstack_plain, "probe_dots"),
     "gather": (pm, pm.gather, pm.gather_plain, "probe_dma"),
     "big": (pm, pm.big, pm.big_plain, "probe_dma"),
@@ -358,24 +360,32 @@ def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
 
 
 def _probe_case(kind):
-    """A probe's arguments at small ragged sizes: m = 64 (the kernels' m
-    are 64, 128 and 256), a ragged n, reps split over the emulated card's 2
-    SMs; the dot probe also at m = 256 with its planes resident in shared
-    memory (three pixel blocks, one rep group); the DMA probe at 10
-    patches of 6 x 32-channel pixels."""
+    """A probe's arguments and the wrapper's keyword arguments at small
+    ragged sizes: m = 64 (the kernels' m are 64, 128 and 256), a ragged n,
+    reps split over the emulated card's 2 SMs; the dot probe also at m =
+    256 with its planes resident in shared memory (three pixel blocks, one
+    rep group), and the same streamed; kstack and a second rowpipe at m =
+    128, where kstack's ring fits at 2 m-tiles per warp; the DMA probe at
+    10 patches of 6 x 32-channel pixels."""
     g = torch.Generator().manual_seed(6)
     if kind == "dots":
-        return (*kc.dots_args(g, 64, 128, 132, device="cpu"), 5)
-    if kind == "dots_resident":
-        return (*kc.dots_args(g, 256, 64, 132, device="cpu"), 6)
-    if kind in ("rowpipe", "kstack"):
-        return (*kc.rows_args(g, 64, 64, 132, nrows=4, device="cpu"), 9, 4)
+        return (*kc.dots_args(g, 64, 128, 132, device="cpu"), 5), {}
+    if kind in ("dots_resident", "dots_streamed"):
+        return ((*kc.dots_args(g, 256, 64, 132, device="cpu"), 6),
+                {"streamed": kind == "dots_streamed"})
+    if kind == "rowpipe":
+        return (*kc.rows_args(g, 64, 64, 132, nrows=4, device="cpu"), 9,
+                4), {}
+    if kind in ("rowpipe_mt2", "kstack"):
+        kw = {"mt": 2} if kind == "rowpipe_mt2" else {}
+        return (*kc.rows_args(g, 128, 64, 132, nrows=4, device="cpu"), 9,
+                4), kw
     ring, starts = kc.dma_args(np.random.RandomState(0), 16, 24, 32, 10, 6,
                                device="cpu")
     if kind == "big":
-        return ring, starts, pm.big_rows(16, 24, 10)
+        return (ring, starts, pm.big_rows(16, 24, 10)), {}
     starts[2], starts[5] = 40, 10**6   # outside the ring: clamped into it
-    return ring, starts, 8, 6 * 32
+    return (ring, starts, 8, 6 * 32), {}
 
 
 @pytest.mark.parametrize("kind", list(PROBES))
@@ -384,10 +394,12 @@ def test_emulated_probe_matches_plain(emulated, monkeypatch, kind):
     _route_through(monkeypatch, emulated[kind])
     module._kernel.cache_clear()
     try:
-        args = _probe_case(kind)
+        args, kw = _probe_case(kind)
         before = wrapper.launches
-        out = wrapper(*args)
+        out = wrapper(*args, **kw)
         ref = plain(*args)
+        if kind == "kstack":
+            assert pd.kstack_mt(128, 64, 4) == 2
     finally:
         module._kernel.cache_clear()
     assert wrapper.launches == before + 1

@@ -7,6 +7,7 @@ The dot probes give bfloat16 outputs, held at the kernels' bfloat16
 tolerance; the DMA checksums are sums of the same values (float32 limit)
 or copies (exact)."""
 import functools
+import importlib
 import importlib.util
 import pathlib
 
@@ -152,3 +153,14 @@ def test_dma_probe_matches_tpu_kernels(dma, mode):
     assert wrapper.launches == before
     kc.assert_outputs_close(out, ref, torch.bfloat16,
                             "big" if mode == "big" else "gather")
+
+
+@pytest.mark.parametrize("tool", ["microbench_trunk", "microbench_dots",
+                                  "microbench_dma"])
+def test_tools_raise_without_a_card(monkeypatch, tool):
+    """The port's tools measure the kernels on the card and have no CPU
+    mode: without CUDA they raise before doing any work."""
+    mod = importlib.import_module(f"cdfo_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CPU mode"):
+        mod.main([])
