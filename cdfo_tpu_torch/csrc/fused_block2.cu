@@ -18,8 +18,8 @@
 // bias, activation and resize passes through device memory.
 //
 // Design: one CTA of 8 warps per S x S output tile (S = 8 in bf16, 4 in
-// fp32, by shared memory); every off-scale intermediate stays in shared
-// memory, as the TPU kernel keeps it in VMEM. Windows, by scale (image
+// fp32, by shared memory, which is full at S = 8); every off-scale
+// intermediate stays in shared memory, as the TPU kernel keeps it in VMEM. Windows, by scale (image
 // origin of each window in brackets):
 //   xs  1x    (S+4)^2     x, zeroed outside the image        [r0-2]
 //   us  2x    (2S+4)^2    up2(ku x + bu), zeroed outside     [2r0-2]
@@ -29,11 +29,42 @@
 //   y5  0.5x  (S/2+4)^2   lrelu(conv1 ds), one chunk         [r0/2-2]
 // The 256 mid channels are walked in 4 chunks of 64: each chunk computes
 // y1, y2 and y5 (conv1 rows of the chunk), then adds the chunk's part of
-// conv2(y1), fold(y2) and conv2(y5) to fp32 partial sums kept in shared
-// memory across chunks. In the conv1 phase a warp takes 4 m-tiles (bf16),
-// which share each weight fragment, and each tap's weights are staged in
-// shared memory once per CTA; in the conv2 phase the 8 warps split fold,
-// body and 0.5x work into 8 tasks of about the same number of mma.
+// conv2(y1), fold(y2) and conv2(y5) to fp32 partial sums kept across
+// chunks.
+//
+// bfloat16 (the main path), on wgmma (`wgmma_tile.cuh`). What held the
+// mma.sync kernel back: ~1.1 MB of weights per 8x8 tile (conv2's and the
+// fold's B fragments from L1/L2 in every warp) and, per wgmma measurements
+// of this kernel, conv1: half the CTA's cycles, its activation operand
+// reloaded by ldmatrix for every 64-channel chunk and tap in 16-row pieces.
+// - Weights: every weight a CTA needs arrives in shared memory as a stream
+//   of 8 KB stages, one 64 x 64 tap of a chunk each (conv1's 9 taps, the
+//   fold's 16, conv2's 9 per chunk: 136), by 1-D bulk copies through the
+//   TMA unit into a ring of 4 stages on mbarriers; each warp counts itself
+//   done with a stage and the last reader refills its slot, so the two
+//   warpgroups never wait for each other at a stage.
+// - conv1 in window coordinates, both operands from shared memory: the
+//   input windows (xs, us, ds) are 128-byte pixel rows, 128-byte swizzled,
+//   so that N consecutive output positions of a tap are a K-major wgmma
+//   tile starting at any row (the swizzle follows the address): weights as
+//   A (m64, the chunk's 64 mid channels), pixels as B (N = 120, 80, 80 a
+//   warpgroup), the two warpgroups splitting the 560 positions of y2, y1
+//   and y5 (the window width, 2 columns more than the output's, is
+//   computed and dropped: 12% more products than the outputs need) on one
+//   code path (ptxas serializes every wgmma of a kernel in which only one
+//   warpgroup takes a path with them). Results go to the y windows
+//   (swizzled too) by transposing stmatrix stores.
+// - The fold (each warpgroup 32 of its 64 output channels, m64n32k16) and
+//   conv2 (warpgroup 0 the body's 64 pixels, warpgroup 1 the 0.5x branch's
+//   36, m64n64k16) with A from the y windows by ldmatrix into registers,
+//   all of a pair of stages' fragments loaded before its products issue;
+//   the fp32 partial sums in shared memory.
+// Its time beside the mma.sync kernel's and the int8 kernel's is in
+// `PERF.md` (`chip_smoke.py` phase 3).
+// float32 (the twin for the float32 checks) keeps the first design: a
+// warp takes 1 m-tile in the conv1 phase, the conv2 phase splits fold,
+// body and 0.5x work into 8 tasks, B fragments from device memory, the
+// products on the CUDA cores, all three sums in shared memory.
 // The epilogue rounds fold + b2 and conv2(y5) + b2, applies kd and ku as
 // 1x1 GEMMs, expands the 0.5x branch with the clamped bilinear 2x stencil
 // and sums everything with x in fp32, rounding once. Intermediates are
@@ -43,7 +74,41 @@
 // Odd H or W are refused by the wrapper: the reference Block_ itself is
 // undefined there (down2 then up2 gives 2 * floor(H / 2) rows).
 
-#include "conv3x3_tile.cuh"
+#include "wgmma_tile.cuh"
+
+// With -DCDFO_PHASE_CLOCKS (`chip_smoke.py --phases`) thread 0 of every CTA
+// of the bf16 route adds the cycles between its PHASE marks (prologue,
+// conv1 with the y stores, fold and conv2 with the sums, epilogue; the
+// chunks' phases summed) to cdfo_phase_clocks, and 1 to its last entry;
+// cdfo_phase_clocks_read copies them out (and zeroes them).
+#ifdef CDFO_PHASE_CLOCKS
+__device__ unsigned long long cdfo_phase_clocks[16];
+#define PHASE_START                  \
+  long long phase_t = clock64();     \
+  long long phase_acc[4] = {0, 0, 0, 0};
+#define PHASE(i)                           \
+  {                                        \
+    const long long t_ = clock64();        \
+    phase_acc[i] += t_ - phase_t;          \
+    phase_t = t_;                          \
+  }
+#define PHASE_END                                                                   \
+  if (threadIdx.x == 0) {                                                          \
+    for (int i_ = 0; i_ < 4; ++i_) {                                               \
+      atomicAdd(&cdfo_phase_clocks[i_], static_cast<unsigned long long>(phase_acc[i_])); \
+    }                                                                              \
+    atomicAdd(&cdfo_phase_clocks[15], 1ull);                                       \
+  }
+extern "C" int cdfo_phase_clocks_read(long long* dst) {
+  const long long zeros[16] = {0};
+  const cudaError_t err = cudaMemcpyFromSymbol(dst, cdfo_phase_clocks, sizeof(zeros));
+  return err != cudaSuccess ? err : cudaMemcpyToSymbol(cdfo_phase_clocks, zeros, sizeof(zeros));
+}
+#else
+#define PHASE_START
+#define PHASE(i)
+#define PHASE_END
+#endif
 
 namespace {
 
@@ -55,27 +120,69 @@ template <> struct Tile<float> { static constexpr int S = 4; };
 
 template <typename T>
 struct Geo {
+  // bfloat16 takes the wgmma route: every weight tap staged in shared memory
+  static constexpr bool TC = std::is_same<T, bf16>::value;
   static constexpr int S = Tile<T>::S;
   static constexpr int X1 = S + 4, U = 2 * S + 4, D = S / 2 + 6;
   static constexpr int Y1 = S + 2, Y2 = 2 * S + 2, Y5 = S / 2 + 4, E = S / 2 + 2;
+  // the windows xs, us, ds, y1, y2, y5; the wgmma route keeps them in
+  // 128-byte pixel rows, 128-byte swizzled (`win`), as wgmma reads a
+  // K-major tile (and for ldmatrix without bank conflicts)
   static constexpr int PIXELS = X1 * X1 + U * U + D * D + Y1 * Y1 + Y2 * Y2 + Y5 * Y5;
-  // fp32 partial sums of conv2(y1), fold(y2) and conv2(y5) across chunks
+  static constexpr int WIN_BYTES = PIXELS * (TC ? C : Pitch<T>::value) * int(sizeof(T));
+  // fp32 partial sums across chunks of conv2(y1), fold(y2) and conv2(y5)
   static constexpr int SUM_PIXELS = 2 * S * S + E * E;
   static constexpr int SUM_PITCH = C + 8;   // floats; conflict-free float2 fragment access
-  // bf16: two buffers for one tap of a conv1 chunk's weights (64 x 64)
-  static constexpr int STAGE = std::is_same<T, bf16>::value ? C * C : 0;
-  static constexpr int BYTES = PIXELS * Pitch<T>::value * static_cast<int>(sizeof(T)) +
-                               SUM_PIXELS * SUM_PITCH * 4 + 2 * STAGE * static_cast<int>(sizeof(T));
-  // m-tiles per warp in the conv1 phase: bf16 shares each weight fragment
-  // among 4; the fp32 twin keeps 1 (its CUDA-core products need the
-  // registers)
-  static constexpr int MT1 = std::is_same<T, bf16>::value ? 4 : 1;
+  // the wgmma route's ring of weight stages (one 64 x 64 tap of a chunk,
+  // 8 KB, 1024-byte aligned), their mbarriers and counts
+  static constexpr int RING = TC ? 4 : 0;
+  static constexpr int STAGE_BYTES = C * C * 2;
+  // (the ring, the windows, each of xs, us, ds 1024-byte aligned, the sums,
+  // then 64 bytes of mbarriers and counts and a row that takes the
+  // stores of positions outside the y windows; 1024 for the alignment)
+  static constexpr int RING_BYTES = TC ? RING * STAGE_BYTES + 64 + C * 2 + 1024 : 0;
+  static_assert(RING * (8 + 4) <= 64, "mbarriers and counts");
+  static_assert(!TC || (X1 * X1 * C * 2) % 1024 == 0 && (U * U * C * 2) % 1024 == 0,
+                "us and ds 1024-byte aligned after xs");
+  static constexpr int BYTES = WIN_BYTES + SUM_PIXELS * SUM_PITCH * 4 + RING_BYTES;
+  // m-tiles per warp in the float32 conv1 phase (its CUDA-core products
+  // need the registers)
+  static constexpr int MT1 = 1;
   static_assert(X1 * X1 <= Y2 * Y2 && D * D <= Y2 * Y2, "z and mean(x) live in y2");
   static_assert(S * S <= Y1 * Y1 && E * E <= Y5 * Y5 && E * E <= D * D, "epilogue buffers");
   static_assert((S * S) % 16 == 0, "whole m-tiles of output pixels");
+  static_assert(BYTES <= 232448, "one block's shared memory");
 };
 
 constexpr int CM = 4 * C;   // mid channels
+
+// load_window and mask_window (conv3x3_tile.cuh) for a window of 128-byte
+// pixel rows whose 16-byte chunk c sits at chunk c ^ (pixel & 7)
+__device__ void load_window_sw(bf16* dst, const bf16* __restrict__ src, int h, int w, int y0,
+                               int x0, int rows, int cols) {
+  for (int i = threadIdx.x; i < rows * cols * 8; i += blockDim.x) {
+    const int v = i & 7, pix = i >> 3;
+    const int y = min(max(y0 + pix / cols, 0), h - 1), x = min(max(x0 + pix % cols, 0), w - 1);
+    *reinterpret_cast<uint4*>(dst + pix * C + ((v ^ pix) & 7) * 8) =
+        __ldg(reinterpret_cast<const uint4*>(src + (static_cast<long long>(y) * w + x) * C) + v);
+  }
+}
+__device__ void mask_window_sw(bf16* buf, int h, int w, int y0, int x0, int rows, int cols) {
+  for (int i = threadIdx.x; i < rows * cols * 8; i += blockDim.x) {
+    const int pix = i >> 3;
+    if (!inside(y0 + pix / cols, x0 + pix % cols, h, w)) {
+      *reinterpret_cast<uint4*>(buf + pix * C + (i & 7) * 8) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void zero1(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -87,21 +194,43 @@ block_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restr
   constexpr int S = G::S, X1 = G::X1, U = G::U, D = G::D;
   constexpr int Y1 = G::Y1, Y2 = G::Y2, Y5 = G::Y5, E = G::E, P = Pitch<T>::value;
   extern __shared__ uint4 cdfo_smem[];
-  T* xs = reinterpret_cast<T*>(cdfo_smem);
-  T* us = xs + X1 * X1 * P;
-  T* ds = us + U * U * P;
-  T* y1 = ds + D * D * P;
-  T* y2 = y1 + Y1 * Y1 * P;
-  T* y5 = y2 + Y2 * Y2 * P;
-  float* sum_b = reinterpret_cast<float*>(y5 + Y5 * Y5 * P);   // conv2(y1), S x S
-  float* sum_f = sum_b + S * S * G::SUM_PITCH;                 // fold(y2), S x S
-  float* sum_5 = sum_f + S * S * G::SUM_PITCH;                 // conv2(y5), E x E
-  T* wst = reinterpret_cast<T*>(sum_5 + E * E * G::SUM_PITCH);  // staged conv1 taps
+  unsigned char* base = reinterpret_cast<unsigned char*>(cdfo_smem);
+  bf16* ring = nullptr;         // wgmma route: the weight stages, their
+  uint64_t* bars = nullptr;     // mbarriers and the count of warps done
+  unsigned* used = nullptr;     // with each
+  if constexpr (G::TC) {
+    base += (1024u - (shared_address(base) & 1023u)) & 1023u;
+    ring = reinterpret_cast<bf16*>(base);
+    base += G::RING * G::STAGE_BYTES;
+  }
+  constexpr int WP = G::TC ? C : P;   // a window pixel's elements
+  T* xs = reinterpret_cast<T*>(base);
+  T* us = xs + X1 * X1 * WP;
+  T* ds = us + U * U * WP;
+  T* y1 = ds + D * D * WP;
+  T* y2 = y1 + Y1 * Y1 * WP;
+  T* y5 = y2 + Y2 * Y2 * WP;
+  float* sum_b = reinterpret_cast<float*>(y5 + Y5 * Y5 * WP);   // conv2(y1), S x S
+  float* sum_f = sum_b + S * S * G::SUM_PITCH;                  // fold(y2), S x S
+  float* sum_5 = sum_f + S * S * G::SUM_PITCH;                  // conv2(y5), E x E
+  if constexpr (G::TC) {
+    bars = reinterpret_cast<uint64_t*>(sum_5 + E * E * G::SUM_PITCH);
+    used = reinterpret_cast<unsigned*>(bars + G::RING);
+  }
   T* zs = y2;   // prologue: ku x + bu at 1x, window of xs
   T* dm = y2;   // prologue: down2(x) at 0.5x, window of ds
   T* fs = y1;   // epilogue: fold + b2 at 1x, S x S
   T* bs = y5;   // epilogue: conv2(y5) + b2 at 0.5x, E x E, origin r0/2-1
   T* es = ds;   // epilogue: ku bs + bu
+  T* trash = reinterpret_cast<T*>(bars + 8);   // wgmma route, 64 bytes past the mbarriers
+  // element c of window pixel p (the wgmma route's swizzled rows)
+  auto win = [&](T* buf, int p, int c) -> T* {
+    if constexpr (G::TC) {
+      return buf + p * C + ((((c >> 3) ^ p) & 7) << 3) + (c & 7);
+    } else {
+      return buf + p * P + c;
+    }
+  };
 
   const int hh = h / 2, wh = wd / 2;   // the 0.5x image
   const int r0 = blockIdx.y * S, c0 = blockIdx.x * S;
@@ -110,30 +239,86 @@ block_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restr
   const T* xb = x + img;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
+  // wgmma route: w1 is the stream of weight stages (ops/fused_block2.py::
+  // stage_weights), 34 a chunk; the first RING are copied in under the
+  // prologue
+  constexpr int SPC = 9 + 16 + 9, NSTAGES = 4 * SPC;
+  auto load_stage = [&](int js) {
+    const int slot = js & (G::RING - 1);
+    mbar_expect_tx(bars + slot, G::STAGE_BYTES);
+    bulk_copy(ring + slot * C * C, w1 + static_cast<long long>(js) * C * C, G::STAGE_BYTES,
+              bars + slot);
+  };
+  if constexpr (G::TC) {
+    if (threadIdx.x == 0) {
+      for (int slot = 0; slot < G::RING; ++slot) {
+        mbar_init(bars + slot, 1);
+        used[slot] = 0;
+      }
+      mbar_init_fence();
+      for (int js = 0; js < G::RING; ++js) load_stage(js);
+    }
+  }
+
+  PHASE_START
   // ---- prologue: xs (clamped for now), z = ku x + bu ---------------------
-  load_window(xs, xb, h, wd, r0 - 2, c0 - 2, X1, X1, true);
+  if constexpr (G::TC) {
+    load_window_sw(xs, xb, h, wd, r0 - 2, c0 - 2, X1, X1);
+  } else {
+    load_window(xs, xb, h, wd, r0 - 2, c0 - 2, X1, X1, true);
+  }
   __syncthreads();
   const Weights<T> wt1{w1, CM, C}, wt2{w2, C, CM}, wtf{wf, C, CM}, wtd{wdn, C, C}, wtu{wup, C, C};
-  // a 1x1 conv (64 -> 64) + bias over an n x n window, two m-tiles per warp
-  auto conv1x1 = [&](const T* in, int n, const Weights<T>& wt, const T* bias, T* dst, auto&& keep) {
+  // a 1x1 conv (64 -> 64) + bias over an n x n window, two m-tiles per warp;
+  // in_sw: the input is a swizzled window (wgmma route); dst(p, c): where
+  // output pixel p, channel c goes
+  auto conv1x1 = [&](const T* in, bool in_sw, int n, const Weights<T>& wt, const T* bias,
+                     auto&& dst, auto&& keep) {
     const int np = n * n, mts = (np + 15) / 16;
     for (int mt = 2 * warp; mt < mts; mt += 2 * WARPS) {
       const int mt1 = min(mt + 1, mts - 1);
-      const ATile<T> a[2] = {a_tile<1>(in, n, n, np, mt, lane), a_tile<1>(in, n, n, np, mt1, lane)};
       float acc[2][8][4];
       zero(acc);
-      conv_tiles<1, 1, 2, 8>(acc, a, wt, 0, 0, lane);
+      if constexpr (G::TC) {
+        if (in_sw) {
+          // ldmatrix rows of the swizzled window, B fragments as mma_k16
+          const int rows[2] = {min(mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, np - 1),
+                               min(mt1 * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, np - 1)};
+          const uint2* b = reinterpret_cast<const uint2*>(wt.p) + lane;
+#pragma unroll
+          for (int kt = 0; kt < C / 16; ++kt) {
+            uint32_t af[2][4];
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+              ldsm_x4(af[m], win(const_cast<T*>(in), rows[m], 16 * kt + (lane >> 4) * 8));
+            }
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+              const uint2 bv = __ldg(b + (kt * 8 + nt) * 32);
+#pragma unroll
+              for (int m = 0; m < 2; ++m) {
+                mma16816(acc[m][nt], af[m][0], af[m][1], af[m][2], af[m][3], bv.x, bv.y);
+              }
+            }
+          }
+        }
+      }
+      if (!G::TC || !in_sw) {
+        const ATile<T> a[2] = {a_tile<1>(in, n, n, np, mt, lane), a_tile<1>(in, n, n, np, mt1, lane)};
+        conv_tiles<1, 1, 2, 8>(acc, a, wt, 0, 0, lane);
+      }
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
         for_each_pair(acc[m], m ? mt1 : mt, 0, np, lane, [&](int p, int c, float v0, float v1) {
           const float2 bb = load2(bias + c);
           const bool k = keep(p);
-          store2(dst + p * P + c, k ? v0 + bb.x : 0.f, k ? v1 + bb.y : 0.f);
+          store2(dst(p, c), k ? v0 + bb.x : 0.f, k ? v1 + bb.y : 0.f);
         });
       }
     }
   };
-  conv1x1(xs, X1, wtu, bup, zs, [](int) { return true; });
+  auto pitch = [&](T* buf) { return [=](int p, int c) { return buf + p * P + c; }; };
+  conv1x1(xs, G::TC, X1, wtu, bup, pitch(zs), [](int) { return true; });
   __syncthreads();
   // u = up2(z) on the 2x window; z's window holds clamped rows and columns,
   // which is the bilinear border rule. 2x row 2r0-2+qy blends z window rows
@@ -158,9 +343,13 @@ block_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restr
         v[j] = wb * r0v + (1.f - wb) * r1v;
       }
     }
-    store8(us + pix * P + c, v);
+    store8(win(us, pix, c), v);
   }
-  mask_window(xs, h, wd, r0 - 2, c0 - 2, X1, X1);
+  if constexpr (G::TC) {
+    mask_window_sw(xs, h, wd, r0 - 2, c0 - 2, X1, X1);
+  } else {
+    mask_window(xs, h, wd, r0 - 2, c0 - 2, X1, X1);
+  }
   __syncthreads();
   // dm = down2(x): 2x2 means of x at the 0.5x window, zero outside
   for (int i = threadIdx.x; i < D * D * (C / 8); i += blockDim.x) {
@@ -181,7 +370,7 @@ block_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restr
   }
   __syncthreads();
   // d = kd dm + bd, zero outside the 0.5x image
-  conv1x1(dm, D, wtd, bdn, ds,
+  conv1x1(dm, false, D, wtd, bdn, [&](int p, int c) { return win(ds, p, c); },
           [&](int p) { return inside(q0 - 3 + p / D, s0 - 3 + p % D, hh, wh); });
   __syncthreads();
 
@@ -235,98 +424,308 @@ block_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restr
     }
   };
 
-#pragma unroll 1
-  for (int ch = 0; ch < 4; ++ch) {
-    const T* b1c = b1 + ch * C;
-    for (int task = warp; task * MT1 < NM; task += WARPS) {
-      ATile<T> a[MT1];
-      int f[MT1];
-#pragma unroll
-      for (int m = 0; m < MT1; ++m) {
-        f[m] = min(task * MT1 + m, NM - 1);
-        a[m] = y_tile(f[m]);
+  if constexpr (G::TC) {
+    // Every product on wgmma, its weights streamed through the ring in the
+    // order of stage_weights: per chunk the 9 conv1 taps, the fold's 16 and
+    // conv2's 9, every stage read by both warpgroups. Each warp counts
+    // itself done with a stage's slot (`used`); the last of the 8 refills
+    // it with stage js + 4, so the warpgroups never wait for each other at
+    // a stage (and none can run two stages of a slot ahead: it reads each
+    // stage itself).
+    const int wg = warp >> 2, wl = warp & 3;
+    // this lane's ldmatrix row of m-tile mt of an out_w-wide output over a
+    // window in_w wide at stride st (rows past n_pix repeat the last), and
+    // its 16-byte chunk of k-step kt
+    auto a_pixel = [&](int in_w, int out_w, int n_pix, int st, int mt) {
+      const int row = min(mt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8, n_pix - 1);
+      return (row / out_w) * st * in_w + (row % out_w) * st;
+    };
+    auto a_chunk = [&](int kt) { return 16 * kt + (lane >> 4) * 8; };
+    // acc (m-tile mt, channels n0 ..) += or -> the partial sums in buf
+    auto sums = [&](auto& acc, float* buf, int mt, int n0, int np, bool load) {
+      for_each_pair(acc, mt, n0, np, lane, [&](int p, int n, float& v0, float& v1) {
+        float2* q = reinterpret_cast<float2*>(buf + p * SP + n);
+        if (load) {
+          v0 += q->x;
+          v1 += q->y;
+        } else {
+          *q = make_float2(v0, v1);
+        }
+      });
+    };
+    auto release = [&](int js) {
+      __syncwarp();
+      const int slot = js & (G::RING - 1);
+      if (lane == 0 && atomicAdd(used + slot, 1u) == WARPS - 1) {
+        used[slot] = 0;
+        if (js + G::RING < NSTAGES) load_stage(js + G::RING);
       }
-      float acc[MT1][8][4];
-      zero(acc);
-      if constexpr (G::STAGE > 0) {
-        // every warp has exactly one task: the 8 warps walk the 9 taps in
-        // step, each tap's chunk weights (4 k-tiles x 8 n-tiles of
-        // fragments, 8 KB) copied once per CTA into shared memory while the
-        // previous tap computes
-        static_assert(NM <= MT1 * WARPS, "one conv1 task per warp");
-        auto stage = [&](int tap, int buf) {
-          for (int i = threadIdx.x; i < 4 * 128; i += blockDim.x) {
-            const int kt = i >> 7, j = i & 127;
-            cp_async16(wst + buf * C * C + kt * 1024 + j * 8,
-                       w1 + (tap * 4 + kt) * (CM * 16) + ch * 1024 + j * 8);
+    };
+    // a y window's conv1 outputs (an accumulator set of one warpgroup: its
+    // window positions q0 .. q0 + 8 NT - 1, chunk channels 16 wl + g and +8)
+    // as lrelu(acc + b1), zeroed outside the image, by transposing
+    // stmatrix stores: a position in a column x >= Wout goes to `trash`
+    auto store_y = [&](auto& acc, const auto& job, float2 bias) {
+      constexpr int NT = std::extent<std::remove_reference_t<decltype(acc)>>::value;
+      const int t2 = 2 * (lane & 3);
+      const int q0w = job.q, win_w = job.in_w, out_w = job.out_w, rows = job.out_w;
+      const int y0 = job.y0, x0 = job.x0, hs = job.hs, ws = job.ws;
+      T* ybuf = job.y;
+      // q / win_w as a multiply (exact for q < 1024, win_w <= 20)
+      const int inv = (65536 + win_w - 1) / win_w;
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t r[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          if (j + u >= NT) continue;
+          float v[2][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int q = q0w + 8 * (j + u) + t2 + e, oy = (q * inv) >> 16, ox = q - oy * win_w;
+            const bool in = ox < out_w && oy < rows && inside(y0 + oy, x0 + ox, hs, ws);
+            v[0][e] = in ? lrelu(acc[j + u][e] + bias.x) : 0.f;
+            v[1][e] = in ? lrelu(acc[j + u][2 + e] + bias.y) : 0.f;
           }
-          cp_async_commit();
+          r[2 * u] = pack_bf16x2(v[0][0], v[0][1]);
+          r[2 * u + 1] = pack_bf16x2(v[1][0], v[1][1]);
+        }
+        const int q = q0w + 8 * (j + ((lane >> 4) & 1)) + (lane & 7);
+        const int oy = (q * inv) >> 16, ox = q - oy * win_w;
+        const int c = 16 * wl + 8 * ((lane >> 3) & 1);
+        T* row = ox < out_w && oy < rows ? win(ybuf, oy * out_w + ox, c) : trash + c;
+        if (j + 1 < NT) {
+          stsm_x4_trans(row, r[0], r[1], r[2], r[3]);
+        } else {
+          stsm_x2_trans(row, r[0], r[1]);
+        }
+      }
+    };
+    // the fold's and conv2's stages js (and js + 1 with `two`): every A
+    // fragment loaded by ldmatrix first, then the products in one commit
+    // group, waited for once (no register a product reads is written while
+    // one is in flight)
+    auto run_stages = [&](int js, auto two, auto&& load_a, auto&& issue) {
+      constexpr int NS = decltype(two)::value ? 2 : 1;
+      uint32_t af[NS][C / 16][4];
+      uint64_t desc[NS];
+#pragma unroll
+      for (int st = 0; st < NS; ++st) {
+        const int slot = (js + st) & (G::RING - 1);
+        mbar_wait(bars + slot, ((js + st) / G::RING) & 1);
+        desc[st] = wgmma_desc(ring + slot * C * C);
+#pragma unroll
+        for (int kt = 0; kt < C / 16; ++kt) load_a(st, kt, af[st][kt]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int st = 0; st < NS; ++st)
+#pragma unroll
+        for (int kt = 0; kt < C / 16; ++kt) issue(af[st][kt], desc[st] + 2 * kt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(af);
+#pragma unroll
+      for (int st = 0; st < NS; ++st) release(js + st);
+    };
+    PHASE(0)
+#pragma unroll 1
+    for (int ch = 0; ch < 4; ++ch) {
+      const int j0 = ch * SPC;
+      // conv1 in window coordinates: for output position q = y * Win + x
+      // of a window Win wide, tap (ky, kx) reads input pixel q + ky * Win +
+      // kx, so 8 consecutive positions read 8 consecutive 128-byte pixel
+      // rows: a K-major wgmma tile from any row (the swizzle follows the
+      // address), no ldmatrix. D = weights (A: the stage, 64 mid channels
+      // x 64 in) . pixels (B: N positions). Each warpgroup takes three
+      // jobs of 120, 80 and 80 positions (warpgroup 0: y2's 0-279;
+      // warpgroup 1: y1, y2's 280-359, y5), one code path for both (a
+      // wgmma in a path only one warpgroup takes is serialized); the x >=
+      // Wout columns are computed and dropped. A tap's products stay in
+      // flight while the next tap's stage is awaited.
+      {
+        const float2 bias = make_float2(to_f(b1[ch * C + 16 * wl + (lane >> 2)]),
+                                        to_f(b1[ch * C + 16 * wl + (lane >> 2) + 8]));
+        struct Job {
+          T* in;       // input window
+          int in_w;    // its width
+          int q;       // first position
+          T* y;        // output window
+          int out_w;   // its width (and height)
+          int y0, x0;  // its image origin
+          int hs, ws;  // the image at its scale
         };
-        stage(0, 0);
+        const Job y2a{us, U, 0, y2, Y2, 2 * r0 - 1, 2 * c0 - 1, 2 * h, 2 * wd};
+        const Job y1a{xs, X1, 0, y1, Y1, r0 - 1, c0 - 1, h, wd};
+        const Job y5a{ds, D, 0, y5, Y5, q0 - 2, s0 - 2, hh, wh};
+        Job jobs[3] = {wg ? y1a : y2a, wg ? y2a : y2a, wg ? y5a : y2a};
+        jobs[1].q = wg ? 280 : 120;
+        jobs[2].q = wg ? 0 : 200;
+        float acc0[15][4], acc1[10][4], acc2[10][4];
+        zero1(acc0);
+        zero1(acc1);
+        zero1(acc2);
+        keep(acc0);
+        keep(acc1);
+        keep(acc2);
 #pragma unroll 1
         for (int tap = 0; tap < 9; ++tap) {
-          cp_async_wait();
-          __syncthreads();
-          if (tap + 1 < 9) stage(tap + 1, (tap + 1) & 1);
-          int off[MT1];
+          const int js = j0 + tap, slot = js & (G::RING - 1);
+          const int ky = tap / 3, kx = tap % 3;
+          uint64_t bd[3];
 #pragma unroll
-          for (int m = 0; m < MT1; ++m) off[m] = ((tap / 3) * a[m].in_w + tap % 3) * P;
-          mma_tap_smem<MT1, 8>(acc, a, off, wst + (tap & 1) * C * C, lane);
+          for (int i = 0; i < 3; ++i) {
+            bd[i] = wgmma_desc(jobs[i].in + (jobs[i].q + ky * jobs[i].in_w + kx) * C);
+          }
+          mbar_wait(bars + slot, (js / G::RING) & 1);
+          const uint64_t ad = wgmma_desc(ring + slot * C * C);
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            wgmma_ss_64x120(acc0, ad + 2 * k, bd[0] + 2 * k);
+            wgmma_ss_64x80(acc1, ad + 2 * k, bd[1] + 2 * k);
+            wgmma_ss_64x80(acc2, ad + 2 * k, bd[2] + 2 * k);
+          }
+          wgmma_commit();
+          wgmma_wait<1>();
+          if (tap > 0) release(js - 1);
         }
-      } else {
+        wgmma_wait<0>();
+        keep(acc0);
+        keep(acc1);
+        keep(acc2);
+        release(j0 + 8);
+        store_y(acc0, jobs[0], bias);
+        store_y(acc1, jobs[1], bias);
+        store_y(acc2, jobs[2], bias);
+      }
+      __syncthreads();
+      PHASE(1)
+      // fold: warp wl of each warpgroup takes m-tile wl of the S x S
+      // output, channels 32 wg .. 32 wg + 31 (the stage's B rows from 32 wg)
+      {
+        const int pix = a_pixel(Y2, S, S * S, 2, wl);
+        float acc[4][4];
+        zero1(acc);
+        if (ch > 0) sums(acc, sum_f, wl, 32 * wg, S * S, true);
+        keep(acc);
+#pragma unroll 1
+        for (int tp = 0; tp < 16; tp += 2) {
+          run_stages(
+              j0 + 9 + tp, std::true_type{},
+              [&](int st, int kt, uint32_t (&r)[4]) {
+                const int tap = tp + st;
+                ldsm_x4(r, win(y2, pix + (tap >> 2) * Y2 + (tap & 3), a_chunk(kt)));
+              },
+              [&](uint32_t (&r)[4], uint64_t d) {
+                wgmma_64x32(acc, r, d + wg * (32 * 128 / 16));
+              });
+        }
+        keep(acc);
+        sums(acc, sum_f, wl, 32 * wg, S * S, false);
+      }
+      // conv2: warpgroup 0 the body's m-tile wl (y1), warpgroup 1 the 0.5x
+      // branch's min(wl, NE - 1) (y5; a warp past NE repeats the last
+      // m-tile and stores nothing), adding to the sums in shared memory
+      {
+        const int mt = wg ? min(wl, NE - 1) : wl;
+        const bool dup = wg && wl >= NE;
+        T* yb = wg ? y5 : y1;
+        const int in_w = wg ? Y5 : Y1, np = wg ? E * E : S * S;
+        const int pix = wg ? a_pixel(Y5, E, E * E, 1, mt) : a_pixel(Y1, S, S * S, 1, mt);
+        float* buf = wg ? sum_5 : sum_b;
+        float acc[8][4];
+        zero1(acc);
+        if (ch > 0 && !dup) sums(acc, buf, mt, 0, np, true);
+        keep(acc);
+        auto load = [&](int tap, int kt, uint32_t (&r)[4]) {
+          ldsm_x4(r, win(yb, pix + (tap / 3) * in_w + tap % 3, a_chunk(kt)));
+        };
+        auto issue = [&](uint32_t (&r)[4], uint64_t d) { wgmma_64x64(acc, r, d); };
+#pragma unroll 1
+        for (int tp = 0; tp < 8; tp += 2) {
+          run_stages(
+              j0 + 25 + tp, std::true_type{},
+              [&](int st, int kt, uint32_t (&r)[4]) { load(tp + st, kt, r); }, issue);
+        }
+        run_stages(
+            j0 + 33, std::false_type{}, [&](int, int kt, uint32_t (&r)[4]) { load(8, kt, r); },
+            issue);
+        keep(acc);
+        if (!dup) sums(acc, buf, mt, 0, np, false);
+      }
+      __syncthreads();
+      PHASE(2)
+    }
+  } else {
+  #pragma unroll 1
+    for (int ch = 0; ch < 4; ++ch) {
+      const T* b1c = b1 + ch * C;
+      for (int task = warp; task * MT1 < NM; task += WARPS) {
+        ATile<T> a[MT1];
+        int f[MT1];
+  #pragma unroll
+        for (int m = 0; m < MT1; ++m) {
+          f[m] = min(task * MT1 + m, NM - 1);
+          a[m] = y_tile(f[m]);
+        }
+        float acc[MT1][8][4];
+        zero(acc);
         conv_tiles<3, 3, MT1, 8>(acc, a, wt1, ch * C, 0, lane);
+        float2 bias[8];
+  #pragma unroll
+        for (int nt = 0; nt < 8; ++nt) bias[nt] = load2(b1c + nt * 8 + (lane & 3) * 2);
+  #pragma unroll
+        for (int m = 0; m < MT1; ++m) {
+          if (m == 0 || f[m] != f[m - 1]) y_store(f[m], acc[m], bias);
+        }
       }
-      float2 bias[8];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) bias[nt] = load2(b1c + nt * 8 + (lane & 3) * 2);
-#pragma unroll
-      for (int m = 0; m < MT1; ++m) {
-        if (m == 0 || f[m] != f[m - 1]) y_store(f[m], acc[m], bias);
+      __syncthreads();
+      // (a warp whose pair starts past the m-tile count has no task)
+      if (warp < 4 && 2 * (warp >> 1) < NF) {
+        const int m0 = 2 * (warp >> 1), m1 = min(m0 + 1, NF - 1), n0 = (warp & 1) * 32;
+        const int mts[2] = {m0, m1};
+        const ATile<T> a[2] = {a_tile<2>(y2, Y2, S, S * S, m0, lane),
+                               a_tile<2>(y2, Y2, S, S * S, m1, lane)};
+        float acc[2][4][4];
+        zero(acc);
+        if (ch > 0) sums(acc, sum_f, mts, n0, S * S, true);
+        conv_tiles<4, 4, 2, 4>(acc, a, wtf, n0, ch * C, lane);
+        sums(acc, sum_f, mts, n0, S * S, false);
+      } else if (warp >= 4 && 2 * (warp & 1) < (warp < 6 ? NF : NE)) {
+        const bool body = warp < 6;
+        const int cnt = body ? NF : NE;
+        const int m0 = 2 * (warp & 1), m1 = min(m0 + 1, cnt - 1);
+        const int mts[2] = {m0, m1};
+        const ATile<T> a[2] = {
+            body ? a_tile<1>(y1, Y1, S, S * S, m0, lane) : a_tile<1>(y5, Y5, E, E * E, m0, lane),
+            body ? a_tile<1>(y1, Y1, S, S * S, m1, lane) : a_tile<1>(y5, Y5, E, E * E, m1, lane)};
+        float acc[2][8][4];
+        zero(acc);
+        float* buf = body ? sum_b : sum_5;
+        const int np = body ? S * S : E * E;
+        if (ch > 0) sums(acc, buf, mts, 0, np, true);
+        conv_tiles<3, 3, 2, 8>(acc, a, wt2, 0, ch * C, lane);
+        sums(acc, buf, mts, 0, np, false);
       }
+      __syncthreads();
     }
-    __syncthreads();
-    // (a warp whose pair starts past the m-tile count has no task)
-    if (warp < 4 && 2 * (warp >> 1) < NF) {
-      const int m0 = 2 * (warp >> 1), m1 = min(m0 + 1, NF - 1), n0 = (warp & 1) * 32;
-      const int mts[2] = {m0, m1};
-      const ATile<T> a[2] = {a_tile<2>(y2, Y2, S, S * S, m0, lane),
-                             a_tile<2>(y2, Y2, S, S * S, m1, lane)};
-      float acc[2][4][4];
-      zero(acc);
-      if (ch > 0) sums(acc, sum_f, mts, n0, S * S, true);
-      conv_tiles<4, 4, 2, 4>(acc, a, wtf, n0, ch * C, lane);
-      sums(acc, sum_f, mts, n0, S * S, false);
-    } else if (warp >= 4 && 2 * (warp & 1) < (warp < 6 ? NF : NE)) {
-      const bool body = warp < 6;
-      const int cnt = body ? NF : NE;
-      const int m0 = 2 * (warp & 1), m1 = min(m0 + 1, cnt - 1);
-      const int mts[2] = {m0, m1};
-      const ATile<T> a[2] = {
-          body ? a_tile<1>(y1, Y1, S, S * S, m0, lane) : a_tile<1>(y5, Y5, E, E * E, m0, lane),
-          body ? a_tile<1>(y1, Y1, S, S * S, m1, lane) : a_tile<1>(y5, Y5, E, E * E, m1, lane)};
-      float acc[2][8][4];
-      zero(acc);
-      float* buf = body ? sum_b : sum_5;
-      const int np = body ? S * S : E * E;
-      if (ch > 0) sums(acc, buf, mts, 0, np, true);
-      conv_tiles<3, 3, 2, 8>(acc, a, wt2, 0, ch * C, lane);
-      sums(acc, buf, mts, 0, np, false);
-    }
-    __syncthreads();
   }
 
   // ---- epilogue -------------------------------------------------------------
-  // fs = fold + b2 and bs = conv2(y5) + b2, rounded to the working type
-  for (int i = threadIdx.x; i < (S * S + E * E) * (C / 2); i += blockDim.x) {
+  // fs = fold + b2 (fp32; the wgmma route wrote it above) and bs =
+  // conv2(y5) + b2, rounded to the working type
+  constexpr int NFS = S * S;
+  for (int i = threadIdx.x; i < (NFS + E * E) * (C / 2); i += blockDim.x) {
     const int pix = i / (C / 2), c = 2 * (i % (C / 2));
-    const bool fold = pix < S * S;
-    const int p = fold ? pix : pix - S * S;
+    const bool fold = pix < NFS;
+    const int p = fold ? pix : pix - NFS;
     const float2 v = *reinterpret_cast<const float2*>((fold ? sum_f : sum_5) + p * SP + c);
     const float2 bb = load2(b2 + c);
     store2((fold ? fs : bs) + p * P + c, v.x + bb.x, v.y + bb.y);
   }
   __syncthreads();
-  conv1x1(bs, E, wtu, bup, es, [](int) { return true; });
+  conv1x1(bs, false, E, wtu, bup, pitch(es), [](int) { return true; });
   __syncthreads();
   // out = x + conv2(y1) + b2 + kd fs + bd + up2(es), one m-tile pair per warp
   for (int mt = 2 * warp; mt < NF; mt += 2 * WARPS) {
@@ -356,13 +755,17 @@ block_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restr
         const float hb0 = wa * eab.x + (1.f - wa) * ebb.x, hb1 = wa * eab.y + (1.f - wa) * ebb.y;
         const float2 body = *reinterpret_cast<const float2*>(sum_b + p * SP + n);
         const float2 bb2 = load2(b2 + n), bbd = load2(bdn + n);
-        const float2 xv = load2(xs + ((py + 2) * X1 + px + 2) * P + n);
+        const float2 xv = load2(win(xs, (py + 2) * X1 + px + 2, n));
         const long long o = (static_cast<long long>(y) * wd + xx) * C + n;
         store2(out + img + o,
                v0 + body.x + bb2.x + bbd.x + wb * ha0 + (1.f - wb) * hb0 + xv.x,
                v1 + body.y + bb2.y + bbd.y + wb * ha1 + (1.f - wb) * hb1 + xv.y);
       });
     }
+  }
+  if constexpr (G::TC) {
+    PHASE(3)
+    PHASE_END
   }
 }
 
@@ -385,7 +788,9 @@ cudaError_t launch(const void* const* p, void* out, int batch, int h, int wd,
 // layout of conv3x3_tile.cuh (taps x out x in): w1 [9][256][64], b1
 // [256], w2 [9][64][256], b2 [64], wf [16][64][256] (the folded down2 .
 // conv2, tap 4*ey + ex), wdn [64][64] + bdn [64] (down_0), wup [64][64] + bup
-// [64] (up_0). All device pointers of one dtype (is_bf16: 1 for bfloat16, 0
+// [64] (up_0). bfloat16 takes in w1 the weight stages of
+// ops/fused_block2.py::stage_weights ([4][34][64][64], swizzled) and
+// ignores w2 and wf. All device pointers of one dtype (is_bf16: 1 for bfloat16, 0
 // for float32). Returns a cudaError_t.
 extern "C" int cdfo_fused_block2(const void* x, const void* w1, const void* b1, const void* w2,
                                  const void* b2, const void* wf, const void* wdn, const void* bdn,

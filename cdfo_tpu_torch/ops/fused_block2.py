@@ -14,7 +14,9 @@ with ``body`` = conv3x3 (C -> 4C), lrelu(0.1), conv3x3 (4C -> C), and
 * ``scale_block``: the wrapper the fused trunk calls. A CPU tensor takes
   the plain version; a CUDA tensor launches the hand-written kernel in
   ``csrc/fused_block2.cu`` (the port of ``scale_block_hcw``), which keeps
-  every 2x and 0.5x intermediate on chip, or raises. Launches are counted
+  every 2x and 0.5x intermediate on chip, or raises. In bfloat16 the
+  kernel runs its products on ``wgmma`` with every weight tap streamed
+  into shared memory (``stage_weights``). Launches are counted
   in ``scale_block.launches``.
 
 H and W must be even (the reference ``Block_`` is undefined otherwise);
@@ -71,16 +73,54 @@ def fold_down_conv2(w2: torch.Tensor) -> torch.Tensor:
     return 0.25 * t
 
 
+def swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """(..., rows, 64) bfloat16 with each row's 16-byte chunk c moved to
+    chunk c ^ (row % 8): the 128-byte swizzle in which ``wgmma`` reads a
+    K-major tile from shared memory (``csrc/wgmma_tile.cuh``)."""
+    rows = t.shape[-2]
+    src = torch.arange(8)[None, :] ^ (torch.arange(rows)[:, None] % 8)
+    idx = src.to(t.device)[..., None].expand(*t.shape[:-2], rows, 8, 8)
+    return torch.gather(t.reshape(*t.shape[:-1], 8, 8), -2, idx).reshape(t.shape)
+
+
+def stage_weights(w1, w2, dtype=torch.bfloat16) -> torch.Tensor:
+    """conv1, the folded conv2 and conv2 as the bfloat16 kernel streams
+    them: (4 chunks, 34 stages, 64 n, 64 k), per chunk conv1's 9 taps, the
+    fold's 16 and conv2's 9, one 64 x 64 tap per stage, B[n][k] with k the
+    reduced channel, 128-byte swizzled. Chunk ch holds conv1's output channels 64ch .. 64ch+63 and the
+    matching input channels of the fold and conv2."""
+    c = w2.shape[0]
+    taps1 = w1.permute(2, 3, 0, 1).reshape(9, 4, c, c)           # tap, ch, n, k
+    fold = fold_down_conv2(w2).permute(2, 3, 0, 1).reshape(16, c, 4, c)
+    taps2 = w2.permute(2, 3, 0, 1).reshape(9, c, 4, c)
+    stages = torch.cat([taps1.to(dtype), fold.permute(0, 2, 1, 3).to(dtype),
+                        taps2.permute(0, 2, 1, 3).to(dtype)], dim=0)
+    return swizzle128(stages.transpose(0, 1).contiguous()).contiguous()
+
+
 def pack_weights(w1, b1, w2, b2, wd, bd, wu, bu, dtype):
-    """The kernel's operands in ``dtype``: (w1, b1, w2, b2, wf, wd, bd, wu,
-    bu), each conv in ``cuda_build.kernel_weights``' layout and wf the
-    down2-folded conv2. Callers cache it."""
+    """The kernel's operands in ``dtype``: float32 (w1, b1, w2, b2, wf, wd,
+    bd, wu, bu), each conv in ``cuda_build.kernel_weights``' layout and wf
+    the down2-folded conv2; bfloat16 (stages, b1, b2, wd, bd, wu, bu) with
+    conv1, conv2 and the fold as ``stage_weights``. Callers cache it."""
     def kw(w):
         return cb.kernel_weights(w, dtype)
 
+    if dtype == torch.bfloat16:
+        return (stage_weights(w1, w2, dtype), b1.to(dtype), b2.to(dtype),
+                kw(wd), bd.to(dtype), kw(wu), bu.to(dtype))
     return (kw(w1), b1.to(dtype), kw(w2), b2.to(dtype),
             kw(fold_down_conv2(w2)), kw(wd), bd.to(dtype), kw(wu),
             bu.to(dtype))
+
+
+def _pointers(packed):
+    """The ten weight pointers of the C interface (w1, b1, w2, b2, wf, wd,
+    bd, wu, bu; the bfloat16 stages in w1's place, w2 and wf NULL)."""
+    ptrs = [t.data_ptr() for t in packed]
+    if len(ptrs) == 7:
+        ptrs = ptrs[:2] + [None] + ptrs[2:3] + [None] + ptrs[3:]
+    return ptrs
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,7 +153,7 @@ def scale_block(x, w1, b1, w2, b2, wd, bd, wu, bu, packed=None):
     bsz, h, wdt, _ = x.shape
     out = torch.empty_like(x)
     cb.launch(_kernel(), "fused_block2", x.device, x.data_ptr(),
-              *(t.data_ptr() for t in packed), out.data_ptr(),
+              *_pointers(packed), out.data_ptr(),
               cb.DTYPE_CODES[x.dtype], bsz, h, wdt)
     scale_block.launches += 1
     return out

@@ -137,6 +137,15 @@ def trunk_args(kind: str, dtype: torch.dtype, g: torch.Generator, shape,
             rand(nbr * shape[0], c), *ws)
 
 
+def attention_args(dtype: torch.dtype, g: torch.Generator, shape,
+                   device="cuda") -> tuple:
+    """(q, v) of the attention kernel at ``shape`` ((T, N, C) tokens or
+    (B, H, W, C) columns), drawn from ``g`` on ``device``; q at 0.35 so that
+    the softmax rows are neither flat nor one-hot."""
+    q = (torch.randn(shape, generator=g, device=device) * 0.35).to(dtype)
+    return q, torch.randn(shape, generator=g, device=device).to(dtype)
+
+
 def warp_args(case: str, dtype: torch.dtype, g: torch.Generator, shape,
               device="cuda") -> tuple:
     """(ring, frame_idx, flow) of the block warp for ``shape`` (L ring

@@ -13,8 +13,9 @@ CUDA device the script exits non-zero before printing any result):
 3. each kernel against its plain PyTorch version on the card, in float32
    and bfloat16, with kernel and plain times (CUDA events, median of 15) at
    the main path's shapes: the attention kernel at its row and column
-   shapes and at ragged ones (and ``scaled_dot_product_attention``, the one
-   PyTorch call that computes the same function, as its library time); the
+   shapes and at ragged ones, one past the 512 positions the bf16 kernel
+   keeps resident (and ``scaled_dot_product_attention``, the one PyTorch
+   call that computes the same function, as its library time); the
    four fused-trunk kernels (``Block_``, group tail, head, alignment tail)
    at the 272x480, k=4 shapes and at a ragged even shape (an odd extent
    must be refused); the two MDTA passes at (4, 272, 480, 64) and (2, 18,
@@ -23,7 +24,9 @@ CUDA device the script exits non-zero before printing any result):
    at (4, 272, 480, 64) and at (2, 20, 40, 64) and (2, 24, 40, 64) (eg2
    must refuse H = 20); the int8 ``Block_`` at the trunk's two shapes (an
    odd extent must be refused), its clipped values counted alike by kernel
-   and plain version; the block-gather ring warp at 24 neighbour images of
+   and plain version, timed in turns with the exact ``Block_`` (exact,
+   int8, int8, exact), the two ordered by launches x (time - bound) a run;
+   the block-gather ring warp at 24 neighbour images of
    a ring of 8 272x480 frames and at (5 of 3, 20, 36), on flows constant
    over 4x4 blocks, on those with a mixed bottom band and single moved
    pixels, and on arbitrary flows: bit for bit equal to its plain version,
@@ -106,7 +109,8 @@ to the four (``--profile trunk_int8 block_warp``).
     python3 chip_smoke.py --phases
 
 builds the int8 ``Block_`` with its phase clocks compiled in and prints the
-cycles one CTA spends in each phase of a step at the main shape.
+cycles one CTA spends in each phase of a step at the main shape; then the
+exact ``Block_``'s (bf16 route) cycles per CTA in each phase.
 """
 from __future__ import annotations
 
@@ -181,6 +185,8 @@ KERNEL_CASES = [
     ("token", (3, 270, 64)),
     ("token", (2, 33, 64)),
     ("column", (2, 33, 20, 64)),
+    ("column", (2, 273, 5, 64)),
+    ("token", (3, 520, 64)),   # bf16: past the 512 positions kept resident
 ]
 WRAPPERS = {
     "token": (fa.token_self_attention, fa.token_attention_plain),
@@ -473,7 +479,9 @@ def check_int8_kernel(card: str) -> dict:
     kernel time includes the wrapper's weight quantization and packing,
     which the trunk does once per model; the JSON line's ``ms`` is the
     time with the pack kept, as the trunk calls it, taken in turns with
-    the exact ``Block_``'s under the same rule."""
+    the exact ``Block_``'s under the same rule (which main() puts in the
+    exact ``Block_``'s ``ms`` too: its bf16 weight stages take ~1 ms to pack
+    per call)."""
     fields = check_kernel_table(card, INT8_KERNELS, [
         (shape, shape == TRUNK_MAIN,
          lambda kind, dtype, g, shape=shape: kc.trunk_args(kind, dtype, g,
@@ -509,10 +517,23 @@ def check_int8_kernel(card: str) -> dict:
                 for name in ("exact", "int8", "int8", "exact"):
                     ms[name].append(median_ms(runs[name]))
                 fields["blockq"]["ms"] = float(np.mean(ms["int8"]))
+                fields["block_packed_ms"] = float(np.mean(ms["exact"]))
                 print(f"int8 Block_ {shape} bf16, weights packed once: "
                       f"{ms['int8'][0]:.3f} and {ms['int8'][1]:.3f} ms; the "
                       f"exact Block_ before and after it {ms['exact'][0]:.3f} "
                       f"and {ms['exact'][1]:.3f} ms [{card}]", flush=True)
+                # the redesign order: launches x (time - bound) per 12-frame
+                # run, each on its own path (63 Block_ either way)
+                n = TRUNK_LAUNCHES["block"] * 3
+                loss = {name: n * (float(np.mean(ms[name]))
+                                   - bound(kind, args, out, x.dtype)[0])
+                        for name, kind in (("exact", "block"),
+                                           ("int8", "blockq"))}
+                first = max(loss, key=loss.get)
+                print(f"Block_ order by launches x (time - bound), {n} "
+                      f"launches a 12-frame run: exact {loss['exact']:.1f} "
+                      f"ms, int8 {loss['int8']:.1f} ms; {first} first "
+                      f"[{card}]", flush=True)
         odd = kc.trunk_args("blockq", torch.bfloat16, g, (1, 16, 23, 64))
         try:
             fq.scale_block_q(*odd)
@@ -826,9 +847,7 @@ def check_kernels(card: str) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         for kind, shape in KERNEL_CASES:
             kernel, plain = WRAPPERS[kind]
-            q = (torch.randn(shape, generator=g, device="cuda") * 0.35
-                 ).to(dtype)
-            v = torch.randn(shape, generator=g, device="cuda").to(dtype)
+            q, v = kc.attention_args(dtype, g, shape)
             out = kernel(q, v)
             ref = plain(q, v)
             torch.cuda.synchronize()
@@ -1144,6 +1163,58 @@ def int8_phase_clocks(card: str):
               flush=True)
 
 
+# the PHASE marks of csrc/fused_block2.cu's bf16 route, in order
+EXACT_PHASES = ("prologue", "conv1 and the y stores (4 chunks)",
+                "fold and conv2 with the sums (4 chunks)", "epilogue")
+
+
+@torch.no_grad()
+def exact_phase_clocks(card: str):
+    """``--phases``, exact ``Block_``: compiles ``csrc/fused_block2.cu``
+    once more with ``-DCDFO_PHASE_CLOCKS``, launches it at the main shape
+    in bfloat16 with its weight stages packed once and prints the cycles
+    thread 0 of a CTA spends between the kernel's phase marks, averaged
+    over every CTA of the launch."""
+    out = cuda_build.BUILD_DIR / "fused_block2-phase-clocks.so"
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                    "-DCDFO_PHASE_CLOCKS", "-o", str(out),
+                    str(cuda_build.CSRC / "fused_block2.cu")],
+                   check=True, capture_output=True, timeout=900)
+    lib = ctypes.CDLL(str(out))
+    lib.cdfo_fused_block2.argtypes = ([ctypes.c_void_p] * 11
+                                      + [ctypes.c_int] * 4
+                                      + [ctypes.c_void_p])
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x, *params = kc.trunk_args("block", torch.bfloat16, g, TRUNK_MAIN)
+    pointers = fb._pointers(fb.pack_weights(*params, torch.bfloat16))
+    res = torch.empty_like(x)
+    clocks = (ctypes.c_longlong * 16)()
+
+    def launch():
+        err = lib.cdfo_fused_block2(
+            x.data_ptr(), *pointers, res.data_ptr(), 1, *x.shape[:3],
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"phase-clock launch failed: CUDA error {err}")
+
+    ms = median_ms(launch)
+    kc.assert_outputs_close(res, fb.scale_block_plain(x, *params),
+                            torch.bfloat16, "block")
+    lib.cdfo_phase_clocks_read(clocks)
+    launch()
+    torch.cuda.synchronize()
+    if lib.cdfo_phase_clocks_read(clocks) != 0 or clocks[15] == 0:
+        raise RuntimeError("could not read the phase clocks")
+    ctas = clocks[15]
+    total = sum(clocks[:len(EXACT_PHASES)])
+    print(f"exact Block_ with phase clocks {tuple(x.shape)} bf16: {ms:.3f} ms "
+          f"a launch; cycles per CTA, averaged over {ctas} CTAs "
+          f"({total / ctas:.0f} in all) [{card}]", flush=True)
+    for name, c in zip(EXACT_PHASES, clocks):
+        print(f"  {c / ctas:9.0f} {100 * c / total:5.1f}%  {name}", flush=True)
+
+
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
@@ -1178,6 +1249,7 @@ def main():
         return
     if sys.argv[1:] == ["--phases"]:
         int8_phase_clocks(card)
+        exact_phase_clocks(card)
         return
 
     fields = check_kernels(card)
@@ -1185,6 +1257,7 @@ def main():
     fields.update(check_align_embed_kernels(card))
     fields.update(check_egla_kernels(card))
     fields.update(check_int8_kernel(card))
+    fields["block"]["ms"] = fields.pop("block_packed_ms")
     fields.update(check_warp_kernel(card))
     fields.update(check_body_kernel(card))
     fields.update(check_probe_kernels(card))

@@ -54,6 +54,30 @@ def test_kernel_matches_plain(cuda, dtype, kind, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    ("column", (4, 272, 480, 64)), ("token", (1088, 480, 64)),
+    *[("token", (3, n, 64)) for n in (1, 16, 17, 63, 65, 273, 520)],
+    *[("column", (2, n, 5, 64)) for n in (1, 16, 17, 63, 65, 273)]])
+def test_bf16_attention_matches_plain(cuda, kind, shape):
+    """The tensor-core route at the main path's column and row shapes and
+    at N around the 16-row strips and 64-key groups (520: past the 512
+    positions kept resident)."""
+    kernel, plain = {
+        "token": (fa.token_self_attention, fa.token_attention_plain),
+        "column": (fa.column_self_attention, fa.column_attention_plain),
+    }[kind]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, v = kc.attention_args(torch.bfloat16, g, shape, device=cuda)
+    before = kernel.launches
+    with torch.no_grad():
+        out = kernel(q, v)
+        ref = plain(q, v)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    kc.assert_outputs_close(out, ref, torch.bfloat16, kind)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(2, 8, 32, device=cuda)
     with pytest.raises(ValueError, match="64 channels"):
@@ -101,6 +125,22 @@ def test_trunk_kernel_matches_plain(cuda, kind, shape, dtype):
     assert out.dtype == ref.dtype and out.shape == ref.shape
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= TOLERANCE[dtype] * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_at_a_ragged_even_shape(cuda, dtype):
+    """34 x 46: neither extent a multiple of the 8 x 8 tile, each 0.5x
+    extent odd."""
+    torch.backends.cudnn.allow_tf32 = False
+    kernel, plain, args = _trunk_case("block", (1, 34, 46, 64), dtype, cuda)
+    before = kernel.launches
+    with torch.no_grad():
+        out = kernel(*args)
+        ref = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    kc.assert_outputs_close(out, ref, dtype, "block")
 
 
 @pytest.mark.cuda

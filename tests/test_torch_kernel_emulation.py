@@ -4,13 +4,17 @@ A CUDA kernel has no interpret mode, so this test compiles each
 ``cdfo_tpu_torch/csrc/*.cu`` built on ``conv3x3_tile.cuh`` (Block_, its
 body pair, group tail, head, alignment tail, the two MDTA passes, the two
 dual-MSA passes with their reduction launch, EGLA's eg1 with its two
-launches and eg2, the int8 Block_, the block warp, and the trunk probes:
+launches and eg2, the int8 Block_, the block warp, EGLA's long-range
+attention, and the trunk probes:
 the dot probes with their partial-sum launch and the DMA probes) with the
 host C++ compiler against a small emulation of the CUDA
 subset they use (``_SHIM`` below): blocks run one after another with 256
-threads each, ``__syncthreads`` is a barrier, and ``mma.sync`` /
-``ldmatrix`` (plain and transposed) and the warp shuffles exchange their
-values through per-warp memory. The wrappers then take their kernel route
+threads each (or the count a launch names), ``__syncthreads`` is a
+barrier, ``mma.sync`` / ``ldmatrix`` / ``stmatrix`` (plain and transposed)
+and the warp shuffles exchange their values through per-warp memory, a
+warpgroup's ``wgmma`` through per-warpgroup memory, reading its shared
+tiles through their descriptors, and a bulk copy is a copy that completes
+its mbarrier's phase. The wrappers then take their kernel route
 on CPU tensors and are held against their plain versions at small ragged
 shapes, in float32 and bfloat16, with the tolerances of
 ``ops/kernel_cases.py``. It checks the kernels' indexing, borders,
@@ -28,6 +32,7 @@ import torch
 
 from cdfo_tpu_torch.ops import cuda_build as cb
 from cdfo_tpu_torch.ops import fused_align as fal
+from cdfo_tpu_torch.ops import fused_attention as fa
 from cdfo_tpu_torch.ops import fused_block as fbody
 from cdfo_tpu_torch.ops import fused_block2 as fb
 from cdfo_tpu_torch.ops import fused_block2_q as fq
@@ -43,6 +48,12 @@ from cdfo_tpu_torch.ops import warp_block as wb
 
 # kind: (module, wrapper, plain version, library)
 KERNELS = {
+    "token": (fa, fa.token_self_attention, fa.token_attention_plain,
+              "fused_attention"),
+    "token_long": (fa, fa.token_self_attention, fa.token_attention_plain,
+                   "fused_attention"),
+    "column": (fa, fa.column_self_attention, fa.column_attention_plain,
+               "fused_attention"),
     "body": (fbody, fbody.block_body, fbody.block_body_plain, "fused_block"),
     "block": (fb, fb.scale_block, fb.scale_block_plain, "fused_block2"),
     "blockq": (fq, fq.scale_block_q, fq.scale_block_q_plain, "fused_block2_q"),
@@ -84,6 +95,7 @@ using std::max;
 using std::min;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __constant__
@@ -146,6 +158,7 @@ inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 2;
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated launch refused"; }
 inline std::barrier<>* emu_block_bar;
 inline std::barrier<>* emu_warp_bar[8];
+inline std::barrier<>* emu_wg_bar[2];   // the two warpgroups of a block
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
 inline void cp_async_commit() {}
@@ -240,22 +253,136 @@ inline float __shfl_sync(unsigned, float v, int src) {
 inline float __shfl_xor_sync(unsigned m, float v, int lane_mask) {
   return __shfl_sync(m, v, int(threadIdx.x % 32) ^ lane_mask);
 }
-template <class F> void emu_launch(dim3 grid, F&& body) {
+template <class F> void emu_launch(dim3 grid, F&& body, unsigned threads = 256) {
+  blockDim = dim3(threads);
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
         blockIdx = {x, y, z};
-        std::barrier<> bar(256);
+        std::barrier<> bar(threads);
         emu_block_bar = &bar;
         for (int i = 0; i < 8; ++i) emu_warp_bar[i] = new std::barrier<>(32);
-        std::vector<std::thread> threads;
-        for (unsigned i = 0; i < 256; ++i) threads.emplace_back([&, i] { threadIdx = {i, 0, 0}; body(); });
-        for (auto& t : threads) t.join();
+        for (int i = 0; i < 2; ++i) emu_wg_bar[i] = new std::barrier<>(128);
+        std::vector<std::thread> threads_;
+        for (unsigned i = 0; i < threads; ++i) threads_.emplace_back([&, i] { threadIdx = {i, 0, 0}; body(); });
+        for (auto& t : threads_) t.join();
         for (int i = 0; i < 8; ++i) delete emu_warp_bar[i];
+        for (int i = 0; i < 2; ++i) delete emu_wg_bar[i];
       }
+  blockDim = dim3(256);
 }
 #define CDFO_LAUNCH(kernel, grid, smem, stream, ...) emu_launch((grid), [&] { kernel(__VA_ARGS__); })
-namespace { alignas(16) uint4 cdfo_smem[232448 / 16]; }
+#define CDFO_LAUNCH_N(kernel, grid, threads, smem, stream, ...) \
+  emu_launch((grid), [&] { kernel(__VA_ARGS__); }, (threads))
+// ex2.approx.ftz
+inline float ex2(float x) { return exp2f(x); }
+namespace { alignas(1024) uint4 cdfo_smem[232448 / 16]; }
+// wgmma_tile.cuh: shared addresses count from the block's shared memory;
+// the products run at once; a bulk copy is a plain copy, after which its
+// mbarrier counts one more completed phase, and mbar_wait waits for the
+// phase of its parity
+inline uint32_t shared_address(const void* p) {
+  return uint32_t(static_cast<const char*>(p) - reinterpret_cast<const char*>(cdfo_smem));
+}
+inline void wgmma_fence() {}
+inline void wgmma_commit() {}
+template <int N> void wgmma_wait() {}
+template <class T> void keep(T&) {}
+inline void mbar_init(uint64_t* bar, int) { __atomic_store_n(bar, 0, __ATOMIC_SEQ_CST); }
+inline void mbar_init_fence() {}
+inline void mbar_expect_tx(uint64_t*, uint32_t) {}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  while ((__atomic_load_n(bar, __ATOMIC_SEQ_CST) & 1) == parity) std::this_thread::yield();
+}
+inline void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  memcpy(dst, src, bytes);
+  __atomic_fetch_add(bar, 1, __ATOMIC_SEQ_CST);
+}
+// stmatrix.trans: matrix j stored transposed, lane 4g + t's pair to bytes
+// 2g .. 2g+1 of rows 2t and 2t + 1 (x2: matrices 0 and 1)
+inline void emu_stsm_trans(void* row, const uint32_t* r, int n) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_warp[w].rows[l] = row;
+  emu_warp_bar[w]->arrive_and_wait();
+  const int g = l / 4, t = l % 4;
+  for (int j = 0; j < n; ++j) {
+    for (int e = 0; e < 2; ++e) {
+      const uint16_t v = uint16_t(e ? r[j] >> 16 : r[j] & 0xffffu);
+      memcpy(static_cast<char*>(const_cast<void*>(emu_warp[w].rows[j * 8 + 2 * t + e])) + 2 * g, &v, 2);
+    }
+  }
+  emu_warp_bar[w]->arrive_and_wait();
+}
+inline void stsm_x4_trans(void* row, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
+  const uint32_t r[4] = {r0, r1, r2, r3};
+  emu_stsm_trans(row, r, 4);
+}
+inline void stsm_x2_trans(void* row, uint32_t r0, uint32_t r1) {
+  const uint32_t r[2] = {r0, r1};
+  emu_stsm_trans(row, r, 2);
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __syncwarp() {}
+// wgmma m64nNk16 bf16 -> f32. A from registers (warp w of the warpgroup:
+// rows 16w .. 16w+15 in the m16n8k16 A-fragment layout) or, with a_desc,
+// a K-major tile like B. B a 128-byte swizzled tile read through its
+// descriptor: K-major, element (k, n) at start + (n / 8) * SBO + (n % 8) *
+// 128 + 2k; MN-major (trans_b), element (k, n) at start + (k / 8) * SBO +
+// (k % 8) * 128 + 2n; each address with its bits 4-6 XORed with its bits
+// 7-9
+inline uint32_t emu_wg_a[2][128][4];
+inline float emu_tile(uint64_t desc, int row, int col) {   // 128-byte row `row`, element `col`
+  const unsigned char* smem = reinterpret_cast<const unsigned char*>(cdfo_smem);
+  const uint32_t start = uint32_t(desc & 0x3FFF) << 4;
+  const uint32_t sbo = uint32_t((desc >> 32) & 0x3FFF) << 4;
+  if (int(desc >> 62) != 1 || sbo != 1024) return NAN;   // the one form the kernels use
+  uint32_t addr = start + (row / 8) * sbo + (row % 8) * 128 + 2 * col;
+  addr ^= ((addr >> 7) & 7) << 4;
+  uint16_t v;
+  memcpy(&v, smem + addr, 2);
+  return __uint_as_float(uint32_t(v) << 16);
+}
+template <int N>
+void emu_wgmma(float (&d)[N / 8][4], const uint32_t* a, uint64_t a_desc, uint64_t desc,
+               bool trans_b) {
+  const int tid = threadIdx.x, wg = tid / 128, r = tid % 128;
+  if (a) memcpy(emu_wg_a[wg][r], a, 16);
+  emu_wg_bar[wg]->arrive_and_wait();
+  const int l = r % 32, g = l >> 2, t = l & 3, w = r / 32;
+  auto A = [&](int row, int k) {   // row of this warp's 16
+    if (!a) return emu_tile(a_desc, 16 * w + row, k);
+    const uint32_t* lane_regs = emu_wg_a[wg][w * 32 + (row % 8) * 4 + (k % 8) / 2];
+    return emu_half(lane_regs[(row >= 8) + 2 * (k >= 8)], k & 1);
+  };
+  for (int j = 0; j < N / 8; ++j)
+    for (int i = 0; i < 4; ++i) {
+      const int row = g + 8 * (i >= 2), col = 8 * j + 2 * t + (i & 1);
+      float sum = 0.f;
+      for (int k = 0; k < 16; ++k) {
+        sum += A(row, k) * (trans_b ? emu_tile(desc, k, col) : emu_tile(desc, col, k));
+      }
+      d[j][i] += sum;
+    }
+  emu_wg_bar[wg]->arrive_and_wait();
+}
+inline void wgmma_64x64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc) {
+  emu_wgmma<64>(d, a, 0, desc, false);
+}
+inline void wgmma_64x32(float (&d)[4][4], const uint32_t (&a)[4], uint64_t desc) {
+  emu_wgmma<32>(d, a, 0, desc, false);
+}
+inline void wgmma_64x64_tb(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc) {
+  emu_wgmma<64>(d, a, 0, desc, true);
+}
+template <int N> void emu_wgmma_ss(float (&d)[N / 8][4], uint64_t a_desc, uint64_t desc) {
+  emu_wgmma<N>(d, nullptr, a_desc, desc, false);
+}
+inline void wgmma_ss_64x80(float (&d)[10][4], uint64_t a, uint64_t b) { emu_wgmma_ss<80>(d, a, b); }
+inline void wgmma_ss_64x120(float (&d)[15][4], uint64_t a, uint64_t b) { emu_wgmma_ss<120>(d, a, b); }
+inline void wgmma_ss_64x136(float (&d)[17][4], uint64_t a, uint64_t b) { emu_wgmma_ss<136>(d, a, b); }
+
 """
 
 
@@ -302,6 +429,13 @@ SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 10, 12, 64),
           "group": (1, 9, 35, 64),
           "head": (2, 9, 5, 64), "tail": (1, 6, 18, 64)}
 EGLA_SHAPES = {"eg1": (2, 5, 140, 64), "eg2": (2, 8, 24, 64)}
+# the attention (bfloat16: its three routes): columns of a ragged H read in
+# place from NHWC (H <= 272: one warpgroup on wgmma, three 64-query tiles,
+# the last moved back); tokens past 272 positions (two passes over the keys
+# on mma.sync, 19 strips over 8 warps); one token longer than the 512
+# positions kept resident (the chunked walk)
+ATTENTION_SHAPES = {"token": (1, 300, 64), "token_long": (1, 520, 64),
+                    "column": (1, 150, 2, 64)}
 
 
 def _case(kind, dtype):
@@ -313,6 +447,9 @@ def _case(kind, dtype):
     if kind in SHAPES:
         return kc.trunk_args(kind, dtype, g, SHAPES[kind], nbr=2,
                              device="cpu")
+    if kind in ATTENTION_SHAPES:
+        return kc.attention_args(dtype, g, ATTENTION_SHAPES[kind],
+                                 device="cpu")
     if kind in EGLA_SHAPES:
         return kc.egla_args(kind, dtype, g, EGLA_SHAPES[kind], device="cpu")
     if kind.startswith("warp_"):
@@ -404,3 +541,27 @@ def test_emulated_probe_matches_plain(emulated, monkeypatch, kind):
         module._kernel.cache_clear()
     assert wrapper.launches == before + 1
     kc.assert_outputs_close(out, ref, torch.bfloat16, kind)
+
+
+def test_block_stage_weights_layout():
+    """The bfloat16 Block_'s weight stream: stage (chunk, i) holds conv1's
+    tap i (i < 9), the folded conv2's tap i - 9 (i < 25) or conv2's tap
+    i - 25, as B[n][k] with its 16-byte chunks swizzled by n % 8."""
+    g = torch.Generator().manual_seed(7)
+    w1 = torch.randn(256, 64, 3, 3, generator=g)
+    w2 = torch.randn(64, 256, 3, 3, generator=g)
+    st = fb.stage_weights(w1, w2)
+    assert st.shape == (4, 34, 64, 64) and st.dtype == torch.bfloat16
+    wf = fb.fold_down_conv2(w2)
+    n, k = torch.meshgrid(torch.arange(64), torch.arange(64), indexing="ij")
+    at = st[:, :, n, ((k // 8) ^ (n % 8)) * 8 + k % 8]   # (chunk, stage, n, k)
+    for ch in (0, 3):
+        for i in (0, 4, 8):
+            ref = w1[64 * ch:64 * ch + 64, :, i // 3, i % 3]
+            assert torch.equal(at[ch, i], ref.bfloat16())
+        for t in (0, 7, 15):
+            ref = wf[:, 64 * ch:64 * ch + 64, t // 4, t % 4]
+            assert torch.equal(at[ch, 9 + t], ref.bfloat16())
+        for i in (0, 5, 8):
+            ref = w2[:, 64 * ch:64 * ch + 64, i // 3, i % 3]
+            assert torch.equal(at[ch, 25 + i], ref.bfloat16())
