@@ -76,39 +76,10 @@
 
 #include "wgmma_tile.cuh"
 
-// With -DCDFO_PHASE_CLOCKS (`chip_smoke.py --phases`) thread 0 of every CTA
-// of the bf16 route adds the cycles between its PHASE marks (prologue,
-// conv1 with the y stores, fold and conv2 with the sums, epilogue; the
-// chunks' phases summed) to cdfo_phase_clocks, and 1 to its last entry;
-// cdfo_phase_clocks_read copies them out (and zeroes them).
-#ifdef CDFO_PHASE_CLOCKS
-__device__ unsigned long long cdfo_phase_clocks[16];
-#define PHASE_START                  \
-  long long phase_t = clock64();     \
-  long long phase_acc[4] = {0, 0, 0, 0};
-#define PHASE(i)                           \
-  {                                        \
-    const long long t_ = clock64();        \
-    phase_acc[i] += t_ - phase_t;          \
-    phase_t = t_;                          \
-  }
-#define PHASE_END                                                                   \
-  if (threadIdx.x == 0) {                                                          \
-    for (int i_ = 0; i_ < 4; ++i_) {                                               \
-      atomicAdd(&cdfo_phase_clocks[i_], static_cast<unsigned long long>(phase_acc[i_])); \
-    }                                                                              \
-    atomicAdd(&cdfo_phase_clocks[15], 1ull);                                       \
-  }
-extern "C" int cdfo_phase_clocks_read(long long* dst) {
-  const long long zeros[16] = {0};
-  const cudaError_t err = cudaMemcpyFromSymbol(dst, cdfo_phase_clocks, sizeof(zeros));
-  return err != cudaSuccess ? err : cudaMemcpyToSymbol(cdfo_phase_clocks, zeros, sizeof(zeros));
-}
-#else
-#define PHASE_START
-#define PHASE(i)
-#define PHASE_END
-#endif
+// Phase marks (`phase_clocks.cuh`) of the bf16 route: prologue, conv1 with
+// the y stores, fold and conv2 with the sums (the chunks' phases summed),
+// epilogue.
+#include "phase_clocks.cuh"
 
 namespace {
 
@@ -790,7 +761,7 @@ cudaError_t launch(const void* const* p, void* out, int batch, int h, int wd,
 // conv2, tap 4*ey + ex), wdn [64][64] + bdn [64] (down_0), wup [64][64] + bup
 // [64] (up_0). bfloat16 takes in w1 the weight stages of
 // ops/fused_block2.py::stage_weights ([4][34][64][64], swizzled) and
-// ignores w2 and wf. All device pointers of one dtype (is_bf16: 1 for bfloat16, 0
+// NULL for w2 and wf. All device pointers of one dtype (is_bf16: 1 for bfloat16, 0
 // for float32). Returns a cudaError_t.
 extern "C" int cdfo_fused_block2(const void* x, const void* w1, const void* b1, const void* w2,
                                  const void* b2, const void* wf, const void* wdn, const void* bdn,

@@ -47,27 +47,9 @@
 
 #include "conv3x3_tile.cuh"
 
-// With -DCDFO_PHASE_CLOCKS (`chip_smoke.py --phases`) thread 0 of strip 7 of
-// image 0 adds the cycles between the PHASE marks of its walk to
-// cdfo_phase_clocks, which cdfo_phase_clocks_read copies out (and zeroes).
-#ifdef CDFO_PHASE_CLOCKS
-__device__ long long cdfo_phase_clocks[16];
-#define PHASE_START long long phase_t = clock64();
-#define PHASE(i)                                                      \
-  if (blockIdx.x == 7 && blockIdx.z == 0 && threadIdx.x == 0) {       \
-    const long long t_ = clock64();                                   \
-    cdfo_phase_clocks[i] += t_ - phase_t;                             \
-    phase_t = t_;                                                     \
-  }
-extern "C" int cdfo_phase_clocks_read(long long* dst) {
-  const long long zeros[16] = {0};
-  const cudaError_t err = cudaMemcpyFromSymbol(dst, cdfo_phase_clocks, sizeof(zeros));
-  return err != cudaSuccess ? err : cudaMemcpyToSymbol(cdfo_phase_clocks, zeros, sizeof(zeros));
-}
-#else
-#define PHASE_START
-#define PHASE(i)
-#endif
+// Phase marks (`phase_clocks.cuh`) of each step of a strip's walk, summed
+// over its steps.
+#include "phase_clocks.cuh"
 
 namespace {
 
@@ -574,6 +556,7 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
     }
     PHASE(10)
   }
+  PHASE_END
   if (counts != nullptr) {
     float cl[2] = {clip1, clip2};
     const bool is_max[2] = {false, false};

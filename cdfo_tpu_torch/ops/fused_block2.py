@@ -73,14 +73,23 @@ def fold_down_conv2(w2: torch.Tensor) -> torch.Tensor:
     return 0.25 * t
 
 
+@functools.lru_cache(maxsize=None)
+def _swizzle_index(rows: int, device: torch.device) -> torch.Tensor:
+    """The ``swizzle128`` source chunk of each (row, chunk), flattened, kept
+    on ``device`` so that a pack copies nothing from the host."""
+    row = torch.arange(rows)[:, None]
+    return (8 * row + (torch.arange(8)[None, :] ^ (row % 8))).reshape(-1) \
+        .to(device)
+
+
 def swizzle128(t: torch.Tensor) -> torch.Tensor:
     """(..., rows, 64) bfloat16 with each row's 16-byte chunk c moved to
     chunk c ^ (row % 8): the 128-byte swizzle in which ``wgmma`` reads a
     K-major tile from shared memory (``csrc/wgmma_tile.cuh``)."""
     rows = t.shape[-2]
-    src = torch.arange(8)[None, :] ^ (torch.arange(rows)[:, None] % 8)
-    idx = src.to(t.device)[..., None].expand(*t.shape[:-2], rows, 8, 8)
-    return torch.gather(t.reshape(*t.shape[:-1], 8, 8), -2, idx).reshape(t.shape)
+    chunks = t.reshape(*t.shape[:-2], rows * 8, 8)
+    return chunks.index_select(-2, _swizzle_index(rows, t.device)) \
+        .reshape(t.shape)
 
 
 def stage_weights(w1, w2, dtype=torch.bfloat16) -> torch.Tensor:
@@ -95,32 +104,30 @@ def stage_weights(w1, w2, dtype=torch.bfloat16) -> torch.Tensor:
     taps2 = w2.permute(2, 3, 0, 1).reshape(9, c, 4, c)
     stages = torch.cat([taps1.to(dtype), fold.permute(0, 2, 1, 3).to(dtype),
                         taps2.permute(0, 2, 1, 3).to(dtype)], dim=0)
-    return swizzle128(stages.transpose(0, 1).contiguous()).contiguous()
+    return swizzle128(stages.transpose(0, 1))
 
 
 def pack_weights(w1, b1, w2, b2, wd, bd, wu, bu, dtype):
-    """The kernel's operands in ``dtype``: float32 (w1, b1, w2, b2, wf, wd,
-    bd, wu, bu), each conv in ``cuda_build.kernel_weights``' layout and wf
-    the down2-folded conv2; bfloat16 (stages, b1, b2, wd, bd, wu, bu) with
-    conv1, conv2 and the fold as ``stage_weights``. Callers cache it."""
+    """The kernel's operands in ``dtype``, in the C interface's order (w1,
+    b1, w2, b2, wf, wd, bd, wu, bu): each conv in ``cuda_build.kernel_weights``'
+    layout and wf the down2-folded conv2; in bfloat16 w1's place holds
+    conv1, conv2 and the fold as ``stage_weights`` and w2 and wf are None.
+    Callers cache it."""
     def kw(w):
         return cb.kernel_weights(w, dtype)
 
     if dtype == torch.bfloat16:
-        return (stage_weights(w1, w2, dtype), b1.to(dtype), b2.to(dtype),
-                kw(wd), bd.to(dtype), kw(wu), bu.to(dtype))
+        return (stage_weights(w1, w2, dtype), b1.to(dtype), None,
+                b2.to(dtype), None, kw(wd), bd.to(dtype), kw(wu),
+                bu.to(dtype))
     return (kw(w1), b1.to(dtype), kw(w2), b2.to(dtype),
             kw(fold_down_conv2(w2)), kw(wd), bd.to(dtype), kw(wu),
             bu.to(dtype))
 
 
-def _pointers(packed):
-    """The ten weight pointers of the C interface (w1, b1, w2, b2, wf, wd,
-    bd, wu, bu; the bfloat16 stages in w1's place, w2 and wf NULL)."""
-    ptrs = [t.data_ptr() for t in packed]
-    if len(ptrs) == 7:
-        ptrs = ptrs[:2] + [None] + ptrs[2:3] + [None] + ptrs[3:]
-    return ptrs
+def pointers(packed):
+    """The nine weight pointers of the C interface (NULL for None)."""
+    return [None if t is None else t.data_ptr() for t in packed]
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,7 +160,7 @@ def scale_block(x, w1, b1, w2, b2, wd, bd, wu, bu, packed=None):
     bsz, h, wdt, _ = x.shape
     out = torch.empty_like(x)
     cb.launch(_kernel(), "fused_block2", x.device, x.data_ptr(),
-              *_pointers(packed), out.data_ptr(),
+              *pointers(packed), out.data_ptr(),
               cb.DTYPE_CODES[x.dtype], bsz, h, wdt)
     scale_block.launches += 1
     return out

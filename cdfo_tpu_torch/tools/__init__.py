@@ -1,8 +1,9 @@
 """The trunk's microbenchmarks on the GPU, ports of the TPU tools in the
 repository's ``tools/`` (``microbench_trunk``, ``microbench_dots``,
-``microbench_dma``). Each runs as ``python -m
-cdfo_tpu_torch.tools.<name>`` with its TPU tool's arguments and defaults,
-on the card only: without CUDA it raises."""
+``microbench_dma``), and ``compare_block``, the exact ``Block_`` against
+another checkout's. Each runs as ``python -m
+cdfo_tpu_torch.tools.<name>`` (the ports with their TPU tools' arguments
+and defaults), on the card only: without CUDA it raises."""
 from __future__ import annotations
 
 import torch

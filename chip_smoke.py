@@ -108,9 +108,9 @@ to the four (``--profile trunk_int8 block_warp``).
 
     python3 chip_smoke.py --phases
 
-builds the int8 ``Block_`` with its phase clocks compiled in and prints the
-cycles one CTA spends in each phase of a step at the main shape; then the
-exact ``Block_``'s (bf16 route) cycles per CTA in each phase.
+builds the int8 and the exact ``Block_`` with their phase clocks compiled in
+and prints, at the main shape in bfloat16, the cycles a CTA spends in each
+phase, averaged over the launch's CTAs (the int8 kernel's also per step).
 """
 from __future__ import annotations
 
@@ -480,8 +480,8 @@ def check_int8_kernel(card: str) -> dict:
     which the trunk does once per model; the JSON line's ``ms`` is the
     time with the pack kept, as the trunk calls it, taken in turns with
     the exact ``Block_``'s under the same rule (which main() puts in the
-    exact ``Block_``'s ``ms`` too: its bf16 weight stages take ~1 ms to pack
-    per call)."""
+    exact ``Block_``'s ``ms`` too; its time per call with the packing is
+    in its phase-3 line)."""
     fields = check_kernel_table(card, INT8_KERNELS, [
         (shape, shape == TRUNK_MAIN,
          lambda kind, dtype, g, shape=shape: kc.trunk_args(kind, dtype, g,
@@ -1113,106 +1113,84 @@ INT8_PHASES = ("load x window", "z = ku x + bu and the amaxes",
                "int8 conv1 taps (as dispatched)", "quantizing epilogue of y1 / y2",
                "y5 = conv1 at 0.5x", "conv2 phase: fold, body, 0.5x",
                "fold / 0.5x sums and e", "output", "y amax reduction")
-
-
-@torch.no_grad()
-def int8_phase_clocks(card: str):
-    """``--phases``: compiles ``csrc/fused_block2_q.cu`` once more with
-    ``-DCDFO_PHASE_CLOCKS``, launches it at the main shape in bfloat16 and
-    prints the cycles thread 0 of one strip's CTA spent between the kernel's
-    phase marks, per 8 x 8 step (a warp's own view: its waits at barriers
-    count where it waits)."""
-    out = cuda_build.BUILD_DIR / "fused_block2_q-phase-clocks.so"
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
-                    "-DCDFO_PHASE_CLOCKS", "-o", str(out),
-                    str(cuda_build.CSRC / "fused_block2_q.cu")],
-                   check=True, capture_output=True, timeout=900)
-    lib = ctypes.CDLL(str(out))
-    lib.cdfo_fused_block2_q.argtypes = ([ctypes.c_void_p] * 18
-                                        + [ctypes.c_int] * 4
-                                        + [ctypes.c_void_p])
-    g = torch.Generator(device="cuda").manual_seed(4)
-    x, *params = kc.trunk_args("blockq", torch.bfloat16, g, TRUNK_MAIN)
-    packed = fq.pack_weights_q(*params, torch.bfloat16)
-    res = torch.empty_like(x)
-    clocks = (ctypes.c_longlong * 16)()
-
-    def launch():
-        err = lib.cdfo_fused_block2_q(
-            x.data_ptr(), *(t.data_ptr() for t in packed), res.data_ptr(),
-            None, 1, *x.shape[:3], torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"phase-clock launch failed: CUDA error {err}")
-
-    ms = median_ms(launch)
-    kc.assert_outputs_close(res, fq.scale_block_q_plain(x, *params),
-                            torch.bfloat16, "blockq")
-    lib.cdfo_phase_clocks_read(clocks)
-    launch()
-    torch.cuda.synchronize()
-    if lib.cdfo_phase_clocks_read(clocks) != 0:
-        raise RuntimeError("could not read the phase clocks")
-    steps = -(-x.shape[1] // fq.KERNEL_GEOMETRY.rows)
-    total = sum(clocks)
-    print(f"int8 Block_ with phase clocks {tuple(x.shape)} bf16: {ms:.3f} ms "
-          f"a launch; cycles per step of one CTA ({steps} steps, "
-          f"{total / steps:.0f} in all) [{card}]", flush=True)
-    for name, c in zip(INT8_PHASES, clocks):
-        print(f"  {c / steps:9.0f} {100 * c / total:5.1f}%  {name}",
-              flush=True)
-
-
 # the PHASE marks of csrc/fused_block2.cu's bf16 route, in order
 EXACT_PHASES = ("prologue", "conv1 and the y stores (4 chunks)",
                 "fold and conv2 with the sums (4 chunks)", "epilogue")
 
 
 @torch.no_grad()
-def exact_phase_clocks(card: str):
-    """``--phases``, exact ``Block_``: compiles ``csrc/fused_block2.cu``
-    once more with ``-DCDFO_PHASE_CLOCKS``, launches it at the main shape
-    in bfloat16 with its weight stages packed once and prints the cycles
-    thread 0 of a CTA spends between the kernel's phase marks, averaged
-    over every CTA of the launch."""
-    out = cuda_build.BUILD_DIR / "fused_block2-phase-clocks.so"
+def phase_clocks(card: str, label: str, source: str, symbol: str, nargs: int,
+                 args, res, check, names, steps: int = 1):
+    """``--phases``: compiles ``csrc/<source>.cu`` once more with
+    ``-DCDFO_PHASE_CLOCKS``, launches ``symbol(*args, stream)`` (``nargs``
+    pointers, then ints, as ``args`` gives them; ``res`` its output, which
+    ``check(res)`` holds against the plain version), and prints the cycles
+    thread 0 of a CTA spends between the kernel's phase marks
+    (``csrc/phase_clocks.cuh``), averaged over every CTA of the launch and
+    over ``steps`` steps of a CTA (a warp's own view: its waits at
+    barriers count where it waits)."""
+    out = cuda_build.BUILD_DIR / f"{source}-phase-clocks.so"
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
                     "-DCDFO_PHASE_CLOCKS", "-o", str(out),
-                    str(cuda_build.CSRC / "fused_block2.cu")],
+                    str(cuda_build.CSRC / f"{source}.cu")],
                    check=True, capture_output=True, timeout=900)
     lib = ctypes.CDLL(str(out))
-    lib.cdfo_fused_block2.argtypes = ([ctypes.c_void_p] * 11
-                                      + [ctypes.c_int] * 4
-                                      + [ctypes.c_void_p])
-    g = torch.Generator(device="cuda").manual_seed(1)
-    x, *params = kc.trunk_args("block", torch.bfloat16, g, TRUNK_MAIN)
-    pointers = fb._pointers(fb.pack_weights(*params, torch.bfloat16))
-    res = torch.empty_like(x)
+    kernel = getattr(lib, symbol)
+    kernel.argtypes = ([ctypes.c_void_p] * nargs
+                       + [ctypes.c_int] * (len(args) - nargs)
+                       + [ctypes.c_void_p])
     clocks = (ctypes.c_longlong * 16)()
 
     def launch():
-        err = lib.cdfo_fused_block2(
-            x.data_ptr(), *pointers, res.data_ptr(), 1, *x.shape[:3],
-            torch.cuda.current_stream().cuda_stream)
+        err = kernel(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"phase-clock launch failed: CUDA error {err}")
 
     ms = median_ms(launch)
-    kc.assert_outputs_close(res, fb.scale_block_plain(x, *params),
-                            torch.bfloat16, "block")
+    check(res)
     lib.cdfo_phase_clocks_read(clocks)
     launch()
     torch.cuda.synchronize()
     if lib.cdfo_phase_clocks_read(clocks) != 0 or clocks[15] == 0:
         raise RuntimeError("could not read the phase clocks")
-    ctas = clocks[15]
-    total = sum(clocks[:len(EXACT_PHASES)])
-    print(f"exact Block_ with phase clocks {tuple(x.shape)} bf16: {ms:.3f} ms "
-          f"a launch; cycles per CTA, averaged over {ctas} CTAs "
-          f"({total / ctas:.0f} in all) [{card}]", flush=True)
-    for name, c in zip(EXACT_PHASES, clocks):
-        print(f"  {c / ctas:9.0f} {100 * c / total:5.1f}%  {name}", flush=True)
+    per = clocks[15] * steps
+    total = sum(clocks[:len(names)])
+    print(f"{label} with phase clocks bf16: {ms:.3f} ms a launch; cycles per "
+          f"{'step of a CTA' if steps > 1 else 'CTA'}, averaged over "
+          f"{clocks[15]} CTAs{f' x {steps} steps' if steps > 1 else ''} "
+          f"({total / per:.0f} in all) [{card}]", flush=True)
+    for name, c in zip(names, clocks):
+        print(f"  {c / per:9.0f} {100 * c / total:5.1f}%  {name}", flush=True)
+
+
+def run_phase_clocks(card: str):
+    """``--phases`` for the int8 and the exact ``Block_`` at the main shape
+    in bfloat16, their weights packed once."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x, *params = kc.trunk_args("blockq", torch.bfloat16, g, TRUNK_MAIN)
+    packed = fq.pack_weights_q(*params, torch.bfloat16)
+    res = torch.empty_like(x)
+    phase_clocks(
+        card, f"int8 Block_ {tuple(x.shape)}", "fused_block2_q",
+        "cdfo_fused_block2_q", 18,
+        [x.data_ptr(), *(t.data_ptr() for t in packed), res.data_ptr(), None,
+         1, *x.shape[:3]], res,
+        lambda r: kc.assert_outputs_close(
+            r, fq.scale_block_q_plain(x, *params), torch.bfloat16, "blockq"),
+        INT8_PHASES, steps=-(-x.shape[1] // fq.KERNEL_GEOMETRY.rows))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    x, *params = kc.trunk_args("block", torch.bfloat16, g, TRUNK_MAIN)
+    packed = fb.pack_weights(*params, torch.bfloat16)
+    res = torch.empty_like(x)
+    phase_clocks(
+        card, f"exact Block_ {tuple(x.shape)}", "fused_block2",
+        "cdfo_fused_block2", 11,
+        [x.data_ptr(), *fb.pointers(packed), res.data_ptr(), 1,
+         *x.shape[:3]], res,
+        lambda r: kc.assert_outputs_close(
+            r, fb.scale_block_plain(x, *params), torch.bfloat16, "block"),
+        EXACT_PHASES)
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -1248,8 +1226,7 @@ def main():
         profile_main_path(card, sys.argv[2:])
         return
     if sys.argv[1:] == ["--phases"]:
-        int8_phase_clocks(card)
-        exact_phase_clocks(card)
+        run_phase_clocks(card)
         return
 
     fields = check_kernels(card)

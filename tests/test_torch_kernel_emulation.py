@@ -496,6 +496,44 @@ def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
     kc.assert_outputs_close(out, ref, dtype, kind)
 
 
+def _unnormalised_rounding(q, v):
+    """The attention with exp(s - max) rounded to bfloat16 before P.V and
+    the row sum divided out after it: the rounding point of the kernel
+    before its redesign, where the TPU kernel rounds the normalised p."""
+    qf = q.float()
+    s = torch.matmul(qf, qf.transpose(-1, -2))
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.matmul(e.bfloat16().float(), v.float())
+    return (out / e.sum(-1, keepdim=True)).to(v.dtype)
+
+
+@pytest.mark.parametrize("kind", ["token", "column"])
+def test_emulated_attention_rounds_the_normalised_p(emulated, monkeypatch,
+                                                    kind):
+    """The bfloat16 attention rounds p = e / sum(e), as
+    ``cdfo_tpu/ops/fused_attention.py`` does, and not exp(s - max): on both
+    routes (two passes on mma.sync past 272 positions, wgmma up to it) its
+    output is several times nearer the normalised-p reference than the
+    unnormalised one, which differs from it by far more than the kernel's
+    own fp32 summation order does."""
+    _route_through(monkeypatch, emulated[kind])
+    fa._kernel.cache_clear()
+    try:
+        q, v = _case(kind, torch.bfloat16)
+        with torch.no_grad():
+            out = KERNELS[kind][1](q, v)
+    finally:
+        fa._kernel.cache_clear()
+    if kind == "column":   # tokens are the columns: (B W, H, C)
+        q, v, out = (t.permute(0, 2, 1, 3).flatten(0, 1) for t in (q, v, out))
+    normalised = fa.token_attention_plain(q, v).float()
+    unnormalised = _unnormalised_rounding(q, v).float()
+    near = (out.float() - normalised).abs().mean().item()
+    far = (out.float() - unnormalised).abs().mean().item()
+    apart = (normalised - unnormalised).abs().mean().item()
+    assert apart > 4 * near and far > 4 * near, (near, far, apart)
+
+
 def _probe_case(kind):
     """A probe's arguments and the wrapper's keyword arguments at small
     ragged sizes: m = 64 (the kernels' m are 64, 128 and 256), a ragged n,

@@ -156,7 +156,7 @@ def test_dma_probe_matches_tpu_kernels(dma, mode):
 
 
 @pytest.mark.parametrize("tool", ["microbench_trunk", "microbench_dots",
-                                  "microbench_dma"])
+                                  "microbench_dma", "compare_block"])
 def test_tools_raise_without_a_card(monkeypatch, tool):
     """The port's tools measure the kernels on the card and have no CPU
     mode: without CUDA they raise before doing any work."""
@@ -164,3 +164,25 @@ def test_tools_raise_without_a_card(monkeypatch, tool):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CPU mode"):
         mod.main([])
+
+
+def test_compare_block_loads_another_checkout():
+    """``tools/compare_block`` imports another checkout's ``Block_`` module
+    as a package of its own (here this checkout's): a module apart from the
+    port's, whose CPU route and weight packs are this checkout's."""
+    from cdfo_tpu_torch.ops import fused_block2 as fb
+    from cdfo_tpu_torch.tools import compare_block
+
+    other = compare_block.other_block(pathlib.Path(__file__).resolve()
+                                      .parents[1])
+    assert other is not fb and other.__name__.startswith(
+        "cdfo_tpu_torch_other.")
+    g = torch.Generator().manual_seed(3)
+    x, *params = kc.trunk_args("block", torch.float32, g, (1, 6, 8, 64),
+                               device="cpu")
+    assert torch.equal(other.scale_block(x, *params),
+                       fb.scale_block_plain(x, *params))
+    for dtype in (torch.float32, torch.bfloat16):
+        for a, b in zip(other.pack_weights(*params, dtype),
+                        fb.pack_weights(*params, dtype)):
+            assert (a is None and b is None) or torch.equal(a, b)
