@@ -2,9 +2,9 @@
 // fused_block2.cu,
 //   out = x + body(x) + kd(fold(body1(up2(ku x)))) + up2(ku(body(kd(down2 x))))
 // with conv1 at 1x and 2x, conv2 at 1x and the down2-folded conv2 as
-// int8 x int8 -> int32 tensor-core products (mma.sync.m16n8k32), and the
-// 0.5x branch, the 1x1 convs, the resizes and the residual in the working
-// type T (bfloat16, or float32 for the card-vs-CPU checks).
+// int8 x int8 -> int32 tensor-core products, and the 0.5x branch, the 1x1
+// convs, the resizes and the residual in the working type T (bfloat16, or
+// float32 for the card-vs-CPU checks).
 //
 // Replaces the TPU kernel cdfo_tpu/ops/fused_block2_q.py::scale_block_hcw_q
 // (kernel body _kernel), which the int8 trunk launches 21 times per call.
@@ -14,41 +14,71 @@
 // the lrelu'd conv1 outputs y1, y2 quantized with a lagged running scale
 // (1.25 x the largest amax of the earlier steps of the strip, step 0 from
 // the analytic bound); int32 sums dequantised by s_act * s_w[channel].
+// Every float step that sets a quantized value is written without fused
+// multiply-add, so that it rounds as the plain version does.
 //
 // What bounds it: operations, as fused_block2.cu (~1.27 TOP per call at
-// 4 x 272 x 480, 94% of them int8 at twice the bf16 tensor-core peak). That
-// peak is wgmma's: through mma.sync the int8 products run no faster per
-// multiply-add than the exact kernel's bf16 ones (PERF.md), so this kernel
-// is the scheme made right, and an s8 wgmma version the way to its rate.
+// 4 x 272 x 480, 94% of them int8, whose tensor-core peak, 1979 TOP/s, only
+// wgmma reaches: through mma.sync int8 runs no faster per multiply-add
+// than bf16).
 //
-// Design: the lag needs a serial order, which CTAs do not have. One CTA of
-// 8 warps owns an 8-pixel column strip of one image and walks its 8 x 8
-// steps from the top row down, carrying the two running amaxes in
-// registers (the TPU kernel walks 16-row steps of the whole width; the
-// plain version takes the geometry as an argument). Per step the windows
-// of fused_block2.cu live in shared memory, the int8 ones at one byte per
-// channel (image origin of each window in brackets):
-//   xs  T   1x    12^2   x, clamped at the image border      [r0-2]
-//   xq  s8  1x    12^2   quantized xm (x zeroed outside)     [r0-2]
-//   us  s8  2x    20^2   quantized up2(ku x + bu)            [2r0-2]
-//   ds  T   0.5x  10^2   kd down2(x) + bd, zeroed outside    [r0/2-3]
-//   y1  s8  1x    10^2   quantized lrelu(conv1 xq), a chunk  [r0-1]
-//   y2  s8  2x    18^2   quantized lrelu(conv1 us), a chunk  [2r0-1]
-//   y5  T   0.5x  8^2    lrelu(conv1 ds), one chunk          [r0/2-2]
-// The 256 mid channels are walked in 4 chunks of 64. Per chunk, 7 warps
-// take 4 of the 28 int8 conv1 m-tiles each, the chunk's weights staged a
-// row of taps at a time in shared memory; then the 8 warps share the 4 y5
-// m-tiles (T, dequantised weights); then fold (warps 0-3, int8), conv2(y1)
-// (warps 4-5, int8) and conv2(y5) (warps 6-7, T) add the chunk to partial
-// sums in shared memory, int32 for the int8 products. Three block reductions per
-// step give the amaxes; every float step that sets a quantized value is
-// written without fused multiply-add, so that it rounds as the plain
-// version does.
+// bfloat16 (the main path): a walk down each strip on s8 wgmma
+// (`wgmma_tile.cuh`: wgmma_ss_s8_64x64, wgmma_s8_64x32, the swizzle-free
+// descriptor wgmma_desc_plain, the bulk-copy ring on mbarriers,
+// async_fence). The first design (one CTA of 8 warps walking an 8-pixel
+// column strip, mma.sync, conv2's and the fold's weights read as fragments
+// from L1/L2 by every warp, three block reductions a step) ran at 10.3x its
+// bound. What was measured (PERF.md, the int8 `Block_`'s redesign):
+// - Two passes, every step its own CTA: the lag makes the steps of a strip
+//   a chain only through two scalars (a step's y1 and y2 before
+//   quantization depend on x alone), so pass 1 computed every step's
+//   prologue, conv1 and amaxes at once and pass 2 every step with the
+//   prefix max of its strip's. Rejected: a step fills the shared memory,
+//   so each SM runs one CTA either way and 8160 CTAs buy no overlap, while
+//   pass 1 repeats the prologue and conv1 (9.6 ms against 7.1).
+// - Kept: one CTA per strip walks its steps (240 CTAs, two rounds on 132
+//   SMs), carrying the running amaxes, each step's own taken from the
+//   values it quantizes: no step is computed twice.
+// - Also measured and rejected: the fold and conv2 as ss m64n48k32 tiles
+//   (y2 as four parity grids, so that the stride-2 fold is a tile): the
+//   accumulators spilled at 255 registers and ptxas serialized the wgmma.
+// - What the walk's steps were then bound by, and the repairs: a shared
+//   atomic count per stage and warp before each refill (now one per group
+//   of stages, taken before the next group's fragments load, and conv1's 9
+//   stages counted once a chunk); conv1's scales and biases read from
+//   device memory in the quantizing epilogue (now in shared memory); and
+//   2-byte y stores (the stage's mid channels now come in the order that
+//   gives a lane 4 bytes of a pixel's 16-byte chunk). Neither the weight
+//   copies nor the fold's products were the limit (removing either left the
+//   fold's cycles within ~10%).
+// Per step, in two launches: the 0.5x branch (`half_branch_kernel`,
+// mma.sync in bf16 with the dequantised weights, no quantization in it)
+// first writes e = ku(conv2(y5) + b2) + bu per 8 x 8 tile of the 0.5x
+// image to device memory; the walk then runs per step the prologue (xq,
+// us), and per chunk of 64 mid channels conv1 at 2x and 1x, its quantizing
+// epilogue into the chunk's y windows, the chunk's fold and conv2 (int32
+// partial sums in shared memory); then the epilogue (kd, up2(e), x).
+// conv1 runs in window coordinates with both operands in shared memory:
+// the int8 windows keep each pixel's 16-byte channel chunk in a plane of
+// its own, which the swizzle-free K-major descriptor reads as a tile from
+// any pixel (the 64-byte rows of 64 int8 channels fit neither
+// fused_block2.cu's 128-byte swizzle nor, without relying on how the
+// swizzle meets an unaligned start, the 64-byte one); pixels are A (m64),
+// the stage's 64 mid channels B. The fold and conv2 take A from the y windows by ldmatrix
+// into registers (the fold's stride 2 is no tile), B the stage's 32 output
+// channels of the warpgroup, a group of stages loading while the one
+// before it is in flight. Every int8 weight (per chunk conv1's 9 taps, the
+// fold's 16 and conv2's 9: 136 stages of 4 KB a step) streams through a
+// ring of 24 on mbarriers, packed once on the host (ops/fused_block2_q.py::
+// stage_weights_q). Both warpgroups take every wgmma on one code path.
+// float32 (the twin for the float32 checks) keeps the first design below.
 
-#include "conv3x3_tile.cuh"
+#include <climits>
 
-// Phase marks (`phase_clocks.cuh`) of each step of a strip's walk, summed
-// over its steps.
+#include "wgmma_tile.cuh"
+
+// Phase marks (`phase_clocks.cuh`) of the bfloat16 route's second pass
+// (one CTA per step).
 #include "phase_clocks.cuh"
 
 namespace {
@@ -124,6 +154,8 @@ __device__ void block_reduce(float (&v)[N], const bool (&is_max)[N], float* red)
   __syncthreads();
 }
 
+// ---- float32: the first design, one CTA walking a strip ------------------
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float* __restrict__ s1,
@@ -190,7 +222,6 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
   auto all = [](int) { return true; };
   auto nothing = [](float, float) {};
 
-  PHASE_START
   float run1 = 0.f, run2 = 0.f;     // largest y1 / y2 amax of the steps so far
   float clip1 = 0.f, clip2 = 0.f;   // this thread's clipped y1 / y2 values
   const int nsteps = (h + S - 1) / S;
@@ -202,7 +233,6 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
     // ---- prologue: xs, z = ku x + bu, the amaxes of z and xm --------------
     load_window(xs, xb, h, wd, r0 - 2, c0 - 2, X1, X1, true);
     __syncthreads();
-    PHASE(0)
     float st[4] = {0.f, 0.f, 0.f, 0.f};   // amax z, amax xm, sum z^2, sum xm^2
     conv1x1(xs, X1, wtu, bup, zs, all, [&](float f0, float f1) {
       st[0] = fmaxf(st[0], fmaxf(fabsf(f0), fabsf(f1)));
@@ -223,7 +253,6 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
       const bool is_max[4] = {true, true, false, false};
       block_reduce(st, is_max, red);
     }
-    PHASE(1)
     const int vr = max(min(r0 + S + 2, h) - max(r0 - 2, 0), 0);
     const int vc = max(min(c0 + S + 2, wd) - max(c0 - 2, 0), 0);
     const float z_rms = sqrtf(st[2] / static_cast<float>(X1 * X1 * C));
@@ -277,7 +306,6 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
       *reinterpret_cast<uint2*>(us + pix * PQ + c) = make_uint2(pack4(v), pack4(v + 4));
     }
     __syncthreads();
-    PHASE(2)
     // dm = down2(x): 2x2 means of x at the 0.5x window, zero outside
     for (int i = threadIdx.x; i < D * D * (C / 8); i += blockDim.x) {
       const int pix = i / (C / 8), c = 8 * (i % (C / 8));
@@ -301,7 +329,6 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
             [&](int p) { return inside(q0 - 3 + p / D, s0 - 3 + p % D, hh, wh); }, nothing);
     __syncthreads();
 
-    PHASE(3)
     // ---- the 4 mid-channel chunks -----------------------------------------
     constexpr int N2 = (Y2 * Y2 + 15) / 16, N1 = (Y1 * Y1 + 15) / 16, NQ = N2 + N1;
     constexpr int MT1 = 4;
@@ -407,7 +434,6 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
             }
           }
         }
-        PHASE(4)
         if (busy) {
           float2 bias[8], sw[8];
 #pragma unroll
@@ -428,7 +454,6 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
           }
         }
       }
-      PHASE(5)
       {
         // y5 = lrelu(conv1 ds + b1) in T: m-tile warp / 2, 32 channels each
         const int mt = warp >> 1, n0 = (warp & 1) * 32;
@@ -442,7 +467,6 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
           store2(y5 + p * P + n, in ? lrelu(v0 + bb.x) : 0.f, in ? lrelu(v1 + bb.y) : 0.f);
         });
       }
-      PHASE(6)
       __syncthreads();
       // conv2 phase: warps 0-3 a pair of fold m-tiles x 32 channels, warps
       // 4-5 a pair of body m-tiles, warps 6-7 a pair of 0.5x m-tiles (x 64
@@ -481,7 +505,6 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
         sums(acc, sum_5, mts, 0, E * E, false);
       }
       __syncthreads();
-      PHASE(7)
     }
 
     // ---- epilogue -----------------------------------------------------------
@@ -503,7 +526,6 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
     __syncthreads();
     conv1x1(bs, E, wtu, bup, es, all, nothing);
     __syncthreads();
-    PHASE(8)
     // out = ((conv2(y1) + b2) + (kd fs + bd) + up2(es)) + x: warp w takes
     // m-tile w / 2 and 32 channels
     {
@@ -544,7 +566,6 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
         });
       }
     }
-    PHASE(9)
     // the step's y amaxes join the running ones; its two barriers also end
     // the step (the next one overwrites xs and the partial sums)
     {
@@ -554,9 +575,7 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
       run1 = fmaxf(run1, am[0]);
       run2 = fmaxf(run2, am[1]);
     }
-    PHASE(10)
   }
-  PHASE_END
   if (counts != nullptr) {
     float cl[2] = {clip1, clip2};
     const bool is_max[2] = {false, false};
@@ -569,9 +588,691 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
   }
 }
 
+// ---- bfloat16 (the main path): a walk down each strip on s8 wgmma --------------
+
+// The windows of one step, image origin in brackets; the int8 ones keep
+// each pixel's 16-byte channel chunk c in plane c (`wgmma_desc_plain`), the
+// planes sized for the conv1 taps' reads past the window's last pixel:
+//   xs  bf16 12^2 (pitch)        x, clamped at the image border  [r0-2]
+//   xq  s8   12^2 -> 160 pixels  quantized xm (x zeroed outside) [r0-2]
+//   us  s8   20^2 -> 432 pixels  quantized up2(ku x + bu)        [2r0-2]
+//   y2  s8   18^2 x 64 channels  quantized lrelu(conv1 us), a chunk [2r0-1]
+//   y1  s8   10^2 x 64 channels  quantized lrelu(conv1 xq), a chunk [r0-1]
+// (z = ku x + bu lives in y2, fold + b2 in us), and the int32 partial sums
+// of the fold and conv2 over the chunks so far.
+constexpr int XQP = 160, USP = 432, Y1P = Y1 * Y1, Y2P = Y2 * Y2;
+constexpr int PB = Pitch<bf16>::value;
+constexpr int QRING = 24;                // weight stages in flight
+constexpr int QSTAGE = C * C;            // bytes a stage: 64 n x 64 k
+constexpr int SPC = 9 + 16 + 9;          // stages a chunk: conv1's taps, the fold's, conv2's
+constexpr int STAGES_Q = 4 * SPC;        // stages a step
+constexpr int SUMP = C + 8;              // partial sums: words a pixel
+
+struct QGeo {
+  static constexpr int RING = QRING * QSTAGE;
+  static constexpr int XS = X1 * X1 * PB * 2, ZS = XS;
+  static constexpr int XQ = 4 * XQP * 16, US = 4 * USP * 16;
+  static constexpr int Y2B = 4 * Y2P * 16, Y1B = 4 * Y1P * 16;
+  static constexpr int SUMS = 2 * S * S * SUMP * 4;
+  static constexpr int BARS = QRING * 8 + QRING * 4 + 4 * WARPS * 4 + 2 * CM * 4;
+  static constexpr int BYTES = RING + XS + XQ + US + Y2B + Y1B + SUMS + BARS;
+  static_assert(ZS <= Y2B && S * S * PB * 2 <= US, "z lives in y2, fold + b2 in us");
+  static_assert(X1 * X1 <= XQP && 5 * 64 + 63 + 2 * U + 2 < USP && 64 + 63 + 2 * X1 + 2 < XQP,
+                "the conv1 taps' reads stay in their planes");
+  static_assert(BYTES <= 232448, "one block's shared memory");
+};
+
+// a 1x1 conv (64 -> 64) + bias over an n x n bfloat16 window (pitch
+// layout), two m-tiles per warp; each(v0, v1) sees every value once, in
+// fp32, before the store
+template <typename Keep, typename Each>
+__device__ void conv1x1_pitch(const bf16* in, int n, const Weights<bf16>& wt, const bf16* bias,
+                              bf16* dst, Keep&& keep, Each&& each) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int np = n * n, mts = (np + 15) / 16;
+  for (int mt = 2 * warp; mt < mts; mt += 2 * WARPS) {
+    const int mt1 = min(mt + 1, mts - 1);
+    const ATile<bf16> a[2] = {a_tile<1>(in, n, n, np, mt, lane),
+                              a_tile<1>(in, n, n, np, mt1, lane)};
+    float acc[2][8][4];
+    zero(acc);
+    conv_tiles<1, 1, 2, 8>(acc, a, wt, 0, 0, lane);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      if (m == 1 && mt1 == mt) continue;
+      for_each_pair(acc[m], m ? mt1 : mt, 0, np, lane, [&](int p, int c, float v0, float v1) {
+        const float2 bb = load2(bias + c);
+        const bool k = keep(p);
+        const float f0 = k ? __fadd_rn(v0, bb.x) : 0.f, f1 = k ? __fadd_rn(v1, bb.y) : 0.f;
+        each(f0, f1);
+        store2(dst + p * PB + c, f0, f1);
+      });
+    }
+  }
+}
+
+// The 0.5x branch, which no quantization touches: e = ku(conv2(y5) + b2)
+// + bu with y5 = lrelu(conv1 d + b1), d = kd down2(x) + bd, in bf16 with
+// the dequantised weights, one CTA per 8 x 8 tile of the 0.5x image, on
+// mma.sync (conv3x3_tile.cuh), into device memory for the second pass.
+constexpr int HT = 8, HD = HT + 4, HY = HT + 2;   // e tile; d [q0-2], y5 [q0-1] windows
+constexpr int HALF_BYTES = (2 * HD * HD + HY * HY) * PB * 2;
+
+__global__ void __launch_bounds__(THREADS)
+half_branch_kernel(const bf16* __restrict__ x, const bf16* __restrict__ b1,
+                   const bf16* __restrict__ b2, const bf16* __restrict__ w1b,
+                   const bf16* __restrict__ w2b, const bf16* __restrict__ wdn,
+                   const bf16* __restrict__ bdn, const bf16* __restrict__ wup,
+                   const bf16* __restrict__ bup, bf16* __restrict__ e, int h, int wd) {
+  extern __shared__ uint4 cdfo_smem[];
+  bf16* dm = reinterpret_cast<bf16*>(cdfo_smem);   // down2(x), then conv2(y5) + b2
+  bf16* ds = dm + HD * HD * PB;                     // d
+  bf16* y5 = ds + HD * HD * PB;                     // one 64-channel chunk of y5
+  const int hh = h / 2, wh = wd / 2;
+  const int q0 = blockIdx.y * HT, s0 = blockIdx.x * HT;
+  const bf16* xb = x + static_cast<long long>(blockIdx.z) * h * wd * C;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const Weights<bf16> wt1b{w1b, CM, C}, wt2b{w2b, C, CM};
+  // dm = down2(x): 2x2 means of x, zero outside the 0.5x image
+  for (int i = threadIdx.x; i < HD * HD * (C / 8); i += blockDim.x) {
+    const int pix = i / (C / 8), c = 8 * (i % (C / 8));
+    const int j = q0 - 2 + pix / HD, k = s0 - 2 + pix % HD;
+    float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (inside(j, k, hh, wh)) {
+      const bf16* p = xb + (static_cast<long long>(2 * j) * wd + 2 * k) * C + c;
+      float a[8], bq[8], cq[8], dq[8];
+      load8(p, a);
+      load8(p + C, bq);
+      load8(p + static_cast<long long>(wd) * C, cq);
+      load8(p + static_cast<long long>(wd) * C + C, dq);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) v[jj] = 0.25f * (a[jj] + bq[jj] + cq[jj] + dq[jj]);
+    }
+    store8(dm + pix * PB + c, v);
+  }
+  __syncthreads();
+  conv1x1_pitch(dm, HD, Weights<bf16>{wdn, C, C}, bdn, ds,
+                [&](int p) { return inside(q0 - 2 + p / HD, s0 - 2 + p % HD, hh, wh); },
+                [](float, float) {});
+  __syncthreads();
+  // conv2(y5) accumulates over the 4 chunks in registers: warp w takes
+  // m-tile w % 4 of the 8 x 8 output, channels 32 (w / 4) ..
+  const int mt2 = warp & 3, n2 = 32 * (warp >> 2);
+  float acc2[1][4][4];
+  zero(acc2);
+#pragma unroll 1
+  for (int ch = 0; ch < 4; ++ch) {
+    if (warp < (HY * HY + 15) / 16) {
+      const ATile<bf16> a[1] = {a_tile<1>(ds, HD, HY, HY * HY, warp, lane)};
+      float acc[1][8][4];
+      zero(acc);
+      conv_tiles<3, 3, 1, 8>(acc, a, wt1b, ch * C, 0, lane);
+      for_each_pair(acc[0], warp, 0, HY * HY, lane, [&](int p, int n, float v0, float v1) {
+        const bool in = inside(q0 - 1 + p / HY, s0 - 1 + p % HY, hh, wh);
+        const float2 bb = load2(b1 + ch * C + n);
+        store2(y5 + p * PB + n, in ? lrelu(v0 + bb.x) : 0.f, in ? lrelu(v1 + bb.y) : 0.f);
+      });
+    }
+    __syncthreads();
+    const ATile<bf16> a[1] = {a_tile<1>(y5, HY, HT, HT * HT, mt2, lane)};
+    conv_tiles<3, 3, 1, 4>(acc2, a, wt2b, n2, ch * C, lane);
+    __syncthreads();
+  }
+  bf16* ss = dm;
+  for_each_pair(acc2[0], mt2, n2, HT * HT, lane, [&](int p, int n, float v0, float v1) {
+    const float2 bb = load2(b2 + n);
+    store2(ss + p * PB + n, v0 + bb.x, v1 + bb.y);
+  });
+  __syncthreads();
+  const ATile<bf16> a[1] = {a_tile<1>(ss, HT, HT, HT * HT, mt2, lane)};
+  float acc[1][4][4];
+  zero(acc);
+  conv_tiles<1, 1, 1, 4>(acc, a, Weights<bf16>{wup, C, C}, n2, 0, lane);
+  bf16* eb = e + static_cast<long long>(blockIdx.z) * hh * wh * C;
+  for_each_pair(acc[0], mt2, n2, HT * HT, lane, [&](int p, int n, float v0, float v1) {
+    const int j = q0 + p / HT, k = s0 + p % HT;
+    if (j >= hh || k >= wh) return;
+    const float2 bb = load2(bup + n);
+    store2(eb + (static_cast<long long>(j) * wh + k) * C + n, v0 + bb.x, v1 + bb.y);
+  });
+}
+
+// round(f * inv), clamped to +-128 first (any value past +-127.5 clips
+// either way), by the 1.5 x 2^23 trick: round to nearest even, as
+// __float2int_rn, without a conversion
+__device__ __forceinline__ int quant_rn(float f, float inv) {
+  const float v = fminf(fmaxf(__fmul_rn(f, inv), -128.f), 128.f);
+  return __float_as_int(__fadd_rn(v, 12582912.f)) - 0x4B400000;
+}
+
+// f(integral_constant<int, I>) for I = B .. E - 1
+template <int B, int E, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (B < E) {
+    f(std::integral_constant<int, B>{});
+    static_for<B + 1, E>(f);
+  }
+}
+
+// One CTA walks the 8 x 8 steps of the 8-pixel column strip at c0 = 8
+// blockIdx.x of image blockIdx.z from the top, carrying the two running
+// amaxes; COUNT: also counts the clipped y1 / y2 values into `counts`.
+template <bool COUNT>
+__global__ void __launch_bounds__(THREADS, 1)
+block_q_walk(const bf16* __restrict__ x, const s8* __restrict__ stages,
+             const float* __restrict__ s1, const bf16* __restrict__ b1,
+             const float* __restrict__ s2, const bf16* __restrict__ b2,
+             const float* __restrict__ sf, const bf16* __restrict__ wdn,
+             const bf16* __restrict__ bdn, const bf16* __restrict__ wup,
+             const bf16* __restrict__ bup, const float* __restrict__ bnd,
+             const bf16* __restrict__ e, bf16* __restrict__ out, float* __restrict__ counts,
+             int h, int wd) {
+  using G = QGeo;
+  extern __shared__ uint4 cdfo_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(cdfo_smem);
+  s8* ring = reinterpret_cast<s8*>(base);
+  bf16* xs = reinterpret_cast<bf16*>(base + G::RING);
+  s8* xq = reinterpret_cast<s8*>(xs) + G::XS;
+  s8* us = xq + G::XQ;
+  s8* y2 = us + G::US;
+  s8* y1 = y2 + G::Y2B;
+  int* sums = reinterpret_cast<int*>(y1 + G::Y1B);   // fold, then conv2: S x S x SUMP
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sums + 2 * S * S * SUMP);
+  unsigned* used = reinterpret_cast<unsigned*>(bars + QRING);
+  float* red = reinterpret_cast<float*>(used + QRING);
+  float* s1s = red + 4 * WARPS;   // conv1's weight scales and biases, float32
+  float* b1s = s1s + CM;
+  bf16* zs = reinterpret_cast<bf16*>(y2);   // prologue: ku x + bu, window of xs
+  bf16* fs = reinterpret_cast<bf16*>(us);   // epilogue: fold + b2, S x S
+
+  const int strips = (wd + S - 1) / S, nsteps = (h + S - 1) / S;
+  const int c0 = blockIdx.x * S, b = blockIdx.z;
+  const long long strip_id = static_cast<long long>(b) * strips + blockIdx.x;
+  const long long img = static_cast<long long>(b) * h * wd * C;
+  const bf16* xb = x + img;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int nst = STAGES_Q * nsteps;
+
+  // the weight stages (ops/fused_block2_q.py::stage_weights_q, once per
+  // step, chunk by chunk) through the ring, as fused_block2.cu streams its
+  // own
+  auto load_stage = [&](int js) {
+    const int slot = js % QRING;
+    mbar_expect_tx(bars + slot, QSTAGE);
+    bulk_copy(ring + slot * QSTAGE, stages + static_cast<long long>(js % STAGES_Q) * QSTAGE,
+              QSTAGE, bars + slot);
+  };
+  if (threadIdx.x == 0) {
+    for (int slot = 0; slot < QRING; ++slot) {
+      mbar_init(bars + slot, 1);
+      used[slot] = 0;
+    }
+    mbar_init_fence();
+    for (int js = 0; js < QRING && js < nst; ++js) load_stage(js);
+  }
+  for (int i = threadIdx.x; i < CM; i += blockDim.x) {
+    s1s[i] = s1[i];
+    b1s[i] = to_f(b1[i]);
+  }
+  __syncthreads();
+  // stages js .. js + n - 1, which every warp releases together: the last
+  // warp done with them (one count, in the first one's slot) refills their
+  // slots
+  // slots; `count` takes the warp's count, `refill` acts on it, so that a
+  // caller can put work between the two
+  auto count = [&](int js) {
+    __syncwarp();
+    return lane == 0 ? atomicAdd(used + js % QRING, 1u) : 0u;
+  };
+  auto refill = [&](int js, int n, unsigned counted) {
+    if (lane == 0 && counted == WARPS - 1) {
+      used[js % QRING] = 0;
+      for (int i = 0; i < n; ++i) {
+        if (js + i + QRING < nst) load_stage(js + i + QRING);
+      }
+    }
+  };
+  auto release = [&](int js, int n) { refill(js, n, count(js)); };
+  auto ready = [&](int js) {
+    const int slot = js % QRING;
+    mbar_wait(bars + slot, (js / QRING) & 1);
+    return ring + slot * QSTAGE;
+  };
+
+  // conv1's m-tiles: m = 0, 1, 2 of y2 (tile 3 wg + m), m = 3 of y1 (tile
+  // wg), the same kinds in both warpgroups; their A descriptors at tap (0,
+  // 0), k step 0; and this thread's 8 accumulator rows (m-tile i / 2, row
+  // 16 wl + g + 8 (i % 2)): the byte offset of its y pixel in its window's
+  // first plane, its (row, column) there, and bits i of `keep_rows`
+  // (inside the y window) and `own` (a pixel of the step's own, whose
+  // clipped values count); `in_rows` (inside the image too) is the step's
+  uint64_t jdesc[4];
+  int yoff[8], ypix[8];
+  unsigned keep_rows = 0, own = 0;
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const bool is2 = m < 3;
+    const int q0 = is2 ? 64 * (3 * wg + m) : 64 * wg, in_w = is2 ? U : X1, W_ = is2 ? Y2 : Y1;
+    jdesc[m] = wgmma_desc_plain((is2 ? us : xq) + 16 * q0, is2 ? USP * 16 : XQP * 16, 128);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = 2 * m + half;
+      const int q = q0 + 16 * wl + g + 8 * half, oy = q / in_w, ox = q - oy * in_w;
+      const bool kept = oy < W_ && ox < W_;
+      yoff[i] = (oy * W_ + ox) * 16;
+      ypix[i] = (oy << 8) | ox;
+      keep_rows |= static_cast<unsigned>(kept) << i;
+      own |= static_cast<unsigned>(kept && oy >= 1 && oy <= W_ - 2 && ox >= 1 && ox <= W_ - 2) << i;
+    }
+  }
+  const float rs1 = bnd[0], b1max = bnd[1], rn1 = bnd[2];
+  float run1 = 0.f, run2 = 0.f;   // the largest y1 / y2 amax of the steps so far
+  int clip1 = 0, clip2 = 0;       // this thread's clipped y1 / y2 values
+
+  PHASE_START
+#pragma unroll 1
+  for (int step = 0; step < nsteps; ++step) {
+    const int r0 = step * S, js0 = step * STAGES_Q;
+    // ---- prologue: the float32 kernel's arithmetic -----------------------------
+    load_window(xs, xb, h, wd, r0 - 2, c0 - 2, X1, X1, true);
+    __syncthreads();
+    float st[4] = {0.f, 0.f, 0.f, 0.f};   // amax z, amax xm, sum z^2, sum xm^2
+    conv1x1_pitch(xs, X1, Weights<bf16>{wup, C, C}, bup, zs, [](int) { return true; },
+                  [&](float f0, float f1) {
+                    st[0] = fmaxf(st[0], fmaxf(fabsf(f0), fabsf(f1)));
+                    st[2] += f0 * f0 + f1 * f1;
+                  });
+    for (int i = threadIdx.x; i < X1 * X1 * (C / 8); i += blockDim.x) {
+      const int pix = i / (C / 8), c = 8 * (i % (C / 8));
+      if (!inside(r0 - 2 + pix / X1, c0 - 2 + pix % X1, h, wd)) continue;
+      float v[8];
+      load8(xs + pix * PB + c, v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        st[1] = fmaxf(st[1], fabsf(v[j]));
+        st[3] += v[j] * v[j];
+      }
+    }
+    {
+      const bool is_max[4] = {true, true, false, false};
+      block_reduce(st, is_max, red);
+    }
+    float s_u, inv_u, s_xm, inv_xm, s_y1, inv_y1, s_y2, inv_y2;
+    scale_of(st[0], s_u, inv_u);
+    scale_of(st[1], s_xm, inv_xm);
+    {
+      // lagged y scales: 1.25 x the largest amax of the strip's earlier
+      // steps; step 0 from min(hard bound, 5 sigma) + max|b1|
+      const int vr = max(min(r0 + S + 2, h) - max(r0 - 2, 0), 0);
+      const int vc = max(min(c0 + S + 2, wd) - max(c0 - 2, 0), 0);
+      const float z_rms = sqrtf(st[2] / static_cast<float>(X1 * X1 * C));
+      const float x_rms = sqrtf(st[3] / fmaxf(static_cast<float>(vr * vc * C), 1.f));
+      auto boot = [&](float in_max, float in_rms) {
+        return __fadd_rn(fminf(__fmul_rn(rs1, in_max), __fmul_rn(__fmul_rn(5.f, rn1), in_rms)),
+                         b1max);
+      };
+      scale_of(step == 0 ? boot(st[0], z_rms) : __fmul_rn(LAG_MARGIN, run2), s_y2, inv_y2);
+      scale_of(step == 0 ? boot(st[1], x_rms) : __fmul_rn(LAG_MARGIN, run1), s_y1, inv_y1);
+    }
+    // xq = quantized xm, us = quantized up2(z) (z's window holds clamped rows
+    // and columns, the bilinear border rule; 2x row 2r0-2+qy blends z rows
+    // a = qy/2 + (qy&1) and a+1 with weights 0.25/0.75 or 0.75/0.25, H first)
+    for (int i = threadIdx.x; i < X1 * X1 * (C / 8); i += blockDim.x) {
+      const int pix = i / (C / 8), c = 8 * (i % (C / 8));
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (inside(r0 - 2 + pix / X1, c0 - 2 + pix % X1, h, wd)) {
+        load8(xs + pix * PB + c, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) v[j] = clip127(scaled(v[j], inv_xm));
+      }
+      *reinterpret_cast<uint2*>(xq + (c >> 4) * XQP * 16 + pix * 16 + (c & 15)) =
+          make_uint2(pack4(v), pack4(v + 4));
+    }
+    for (int i = threadIdx.x; i < U * U * (C / 8); i += blockDim.x) {
+      const int pix = i / (C / 8), c = 8 * (i % (C / 8));
+      const int qy = pix / U, qx = pix % U;
+      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (inside(2 * r0 - 2 + qy, 2 * c0 - 2 + qx, 2 * h, 2 * wd)) {
+        const int a = (qy >> 1) + (qy & 1), bcol = (qx >> 1) + (qx & 1);
+        const float wa = (qy & 1) ? 0.75f : 0.25f, wb = (qx & 1) ? 0.75f : 0.25f;
+        const bf16* z = zs + (a * X1 + bcol) * PB + c;
+        float z00[8], z01[8], z10[8], z11[8];
+        load8(z, z00);
+        load8(z + PB, z01);
+        load8(z + X1 * PB, z10);
+        load8(z + X1 * PB + PB, z11);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float h0 = __fadd_rn(__fmul_rn(wa, z00[j]), __fmul_rn(1.f - wa, z10[j]));
+          const float h1 = __fadd_rn(__fmul_rn(wa, z01[j]), __fmul_rn(1.f - wa, z11[j]));
+          const float u = __fadd_rn(__fmul_rn(wb, h0), __fmul_rn(1.f - wb, h1));
+          v[j] = clip127(scaled(u, inv_u));
+        }
+      }
+      *reinterpret_cast<uint2*>(us + (c >> 4) * USP * 16 + pix * 16 + (c & 15)) =
+          make_uint2(pack4(v), pack4(v + 4));
+    }
+    async_fence();
+    __syncthreads();
+    PHASE(0)
+
+    // ---- conv1 at 2x and 1x, s8 x s8 -> s32 on wgmma ---------------------------
+    // In window coordinates: output position q = y * Win + x of an input
+    // window Win wide reads input pixel q + ky Win + kx at tap (ky, kx), so
+    // 64 consecutive positions are a K-major A tile from any pixel (the
+    // planes' descriptor). Eight m64 tiles per chunk: y2's 18 x 20 positions
+    // over us (6 tiles) and y1's 10 x 12 over xq (2), four a warpgroup on
+    // one code path; B is the stage, the chunk's 64 mid channels x 64 in.
+    // The columns past the y window and the positions past its last row are
+    // computed and dropped.
+    unsigned in_rows = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int oy = ypix[i] >> 8, ox = ypix[i] & 255;
+      const bool in = i < 6 ? inside(2 * r0 - 1 + oy, 2 * c0 - 1 + ox, 2 * h, 2 * wd)
+                            : inside(r0 - 1 + oy, c0 - 1 + ox, h, wd);
+      in_rows |= static_cast<unsigned>(in && ((keep_rows >> i) & 1u)) << i;
+    }
+    float amax1 = 0.f, amax2 = 0.f;   // this thread's y1 / y2 amax of the step
+    int accf[4][4], accb[4][4];       // the fold's and conv2's sums: pixels 16 wl + g, + 8
+    // acc <-> partial sums (this lane's pixels, channels 32 wg + 8j + 2t, + 1)
+    auto sum_io = [&](int (&acc)[4][4], int* buf, bool load_) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          int2* q = reinterpret_cast<int2*>(buf + (16 * wl + g + 8 * half) * SUMP + 32 * wg + 8 * j +
+                                            t2);
+          if (load_) {
+            const int2 v = *q;
+            acc[j][2 * half] = v.x;
+            acc[j][2 * half + 1] = v.y;
+          } else {
+            *q = make_int2(acc[j][2 * half], acc[j][2 * half + 1]);
+          }
+        }
+    };
+#pragma unroll 1
+    for (int ch = 0; ch < 4; ++ch) {
+      int acc[4][8][4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][j][i] = 0;
+      keep(acc);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int js = js0 + ch * SPC + tap;
+        const uint64_t bd = wgmma_desc_plain(ready(js), 1024, 128);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int in_w = m < 3 ? U : X1, lead = m < 3 ? USP * 16 : XQP * 16;
+            wgmma_ss_s8_64x64(acc[m], jdesc[m] + (tap / 3) * in_w + tap % 3 + k * (lead >> 3),
+                              bd + 128 * k);
+          }
+        wgmma_commit();
+        wgmma_wait<1>();
+      }
+      wgmma_wait<0>();
+      keep(acc);
+      release(js0 + ch * SPC, 9);   // refilled under the epilogue
+      PHASE(1)
+      if (ch > 0) __syncthreads();   // the last chunk's fold and conv2 read the y windows
+      PHASE(6)
+      // y = lrelu(dequantised conv1 + b1), zeroed outside the image at the
+      // window's scale, quantized with the lagged scale into the y window;
+      // values past +-127 are counted where the step owns the pixel, then
+      // clipped. The stage's mid channels come in the order that gives this
+      // lane (t = lane % 4) bytes 4t .. 4t + 3 of each 16-byte chunk kc of
+      // a pixel: accumulator column 8j + 2t + e is channel 16 (j / 2) + 4t +
+      // 2 (j % 2) + e (ops/fused_block2_q.py::stage_weights_q), so a lane
+      // stores 4 bytes at a time.
+#pragma unroll
+      for (int kc = 0; kc < 4; ++kc) {
+        float cu[4], cx[4], bs[4];   // per byte: the 2x and 1x dequantization, the bias
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int n = ch * C + 16 * kc + 2 * t2 + 2 * jj;
+          const float2 sw = *reinterpret_cast<const float2*>(s1s + n);
+          const float2 bias = *reinterpret_cast<const float2*>(b1s + n);
+          cu[2 * jj] = __fmul_rn(sw.x, s_u);
+          cu[2 * jj + 1] = __fmul_rn(sw.y, s_u);
+          cx[2 * jj] = __fmul_rn(sw.x, s_xm);
+          cx[2 * jj + 1] = __fmul_rn(sw.y, s_xm);
+          bs[2 * jj] = bias.x;
+          bs[2 * jj + 1] = bias.y;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const bool is2 = i < 6, in = (in_rows >> i) & 1u;
+          uint32_t word = 0;
+          int over = 0;
+          float big = 0.f;
+#pragma unroll
+          for (int bb = 0; bb < 4; ++bb) {
+            const int a = acc[i >> 1][2 * kc + (bb >> 1)][2 * (i & 1) + (bb & 1)];
+            const float y =
+                lrelu(__fadd_rn(__fmul_rn(__int2float_rn(a), is2 ? cu[bb] : cx[bb]), bs[bb]));
+            const float f = in ? y : 0.f;
+            const int q = quant_rn(f, is2 ? inv_y2 : inv_y1);
+            const int k = min(max(q, -127), 127);
+            over += k != q;
+            big = fmaxf(big, fabsf(f));
+            word |= static_cast<uint32_t>(k & 0xff) << (8 * bb);
+          }
+          if (is2) {
+            amax2 = fmaxf(amax2, big);
+          } else {
+            amax1 = fmaxf(amax1, big);
+          }
+          if (COUNT && ((own >> i) & 1u)) {
+            if (is2) {
+              clip2 += over;
+            } else {
+              clip1 += over;
+            }
+          }
+          if ((keep_rows >> i) & 1u) {
+            *reinterpret_cast<uint32_t*>((is2 ? y2 + kc * 16 * Y2P : y1 + kc * 16 * Y1P) + yoff[i] +
+                                         2 * t2) = word;
+          }
+        }
+      }
+      PHASE(2)
+      __syncthreads();
+      PHASE(6)
+
+      // ---- the chunk's fold (y2, 16 taps) and conv2 (y1, 9 taps), s8 on wgmma --
+      // A: this warp's 16 output pixels of the 8 x 8 step by ldmatrix from
+      // the y windows into registers (stride 2 for the fold); B: the stage's
+      // output channels 32 wg .. 32 wg + 31, so both warpgroups take one
+      // code path. The stages go in 7 groups, the fold's taps 4 at a time
+      // and conv2's 4, 4 and 1; a group's A fragments are loaded while the
+      // group before it is in flight (two register buffers), then its
+      // products issue, and the group before it is waited for. The int32
+      // sums carry from chunk to chunk in shared memory.
+      if (ch > 0) {
+        sum_io(accf, sums, true);
+        sum_io(accb, sums + S * S * SUMP, true);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) accf[j][i] = accb[j][i] = 0;
+      }
+      keep(accf);
+      keep(accb);
+      {
+        const int p = 16 * wl + (lane & 7) + 8 * ((lane >> 3) & 1), py = p >> 3, px = p & 7;
+        const int kc = lane >> 4;
+        uint32_t af[2][4][2][4];
+        uint64_t bd[2][4];
+        // group k < 4: the fold's taps 4k ..; else conv2's 4 (k - 4) .. (the
+        // last one alone)
+        auto first = [&](auto k) {
+          constexpr int K = decltype(k)::value;
+          return js0 + ch * SPC + 9 + (K < 4 ? 4 * K : 16 + 4 * (K - 4));
+        };
+        auto load = [&](auto k) {
+          constexpr int K = decltype(k)::value, ns = K == 6 ? 1 : 4;
+#pragma unroll
+          for (int s = 0; s < ns; ++s) {
+            bd[K & 1][s] = wgmma_desc_plain(ready(first(k) + s), 1024, 128) + 32 * wg;
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk) {
+              const int plane = 2 * kk + kc;
+              const s8* at;
+              if constexpr (K < 4) {
+                const int tap = 4 * K + s;
+                at = y2 + plane * Y2P * 16 + ((2 * py + (tap >> 2)) * Y2 + 2 * px + (tap & 3)) * 16;
+              } else {
+                const int tap = 4 * (K - 4) + s;
+                at = y1 + plane * Y1P * 16 + ((py + tap / 3) * Y1 + px + tap % 3) * 16;
+              }
+              ldsm_x4(af[K & 1][s][kk], at);
+            }
+          }
+        };
+        auto issue = [&](auto k) {
+          constexpr int K = decltype(k)::value, ns = K == 6 ? 1 : 4;
+          wgmma_fence();
+#pragma unroll
+          for (int s = 0; s < ns; ++s)
+#pragma unroll
+            for (int kk = 0; kk < 2; ++kk) {
+              if constexpr (K < 4) {
+                wgmma_s8_64x32(accf, af[K & 1][s][kk], bd[K & 1][s] + 128 * kk);
+              } else {
+                wgmma_s8_64x32(accb, af[K & 1][s][kk], bd[K & 1][s] + 128 * kk);
+              }
+            }
+          wgmma_commit();
+        };
+        // group k - 1's stages are counted released before group k + 1's
+        // fragments load, and refilled after, so that the count's round
+        // trip hides under the loads
+        load(std::integral_constant<int, 0>{});
+        issue(std::integral_constant<int, 0>{});
+        load(std::integral_constant<int, 1>{});
+        static_for<1, 7>([&](auto k) {
+          constexpr int K = decltype(k)::value;
+          issue(k);
+          wgmma_wait<1>();
+          keep(af[(K - 1) & 1]);
+          const int js = first(std::integral_constant<int, K - 1>{});
+          const unsigned counted = count(js);
+          if constexpr (K + 1 < 7) load(std::integral_constant<int, K + 1>{});
+          refill(js, 4, counted);
+        });
+        wgmma_wait<0>();
+        keep(af);
+        keep(accf);
+        keep(accb);
+        release(first(std::integral_constant<int, 6>{}), 1);
+      }
+      if (ch < 3) {
+        sum_io(accf, sums, false);
+        sum_io(accb, sums + S * S * SUMP, false);
+      }
+      PHASE(3)
+    }
+
+    // ---- epilogue --------------------------------------------------------------
+    // fs = dequantised fold + b2, rounded; this lane: pixels 16 wl + g and
+    // + 8, channels 32 wg + 8j + 2t and + 1
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 32 * wg + 8 * j + t2;
+      const float2 bb = load2(b2 + n);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        store2(fs + (16 * wl + g + 8 * half) * PB + n,
+               __fadd_rn(__fmul_rn(__int2float_rn(accf[j][2 * half]),
+                                   __fmul_rn(__ldg(sf + n), s_y2)),
+                         bb.x),
+               __fadd_rn(__fmul_rn(__int2float_rn(accf[j][2 * half + 1]),
+                                   __fmul_rn(__ldg(sf + n + 1), s_y2)),
+                         bb.y));
+      }
+    }
+    __syncthreads();
+    // out = ((conv2(y1) + b2) + (kd fs + bd) + up2(e)) + x, kd's tile laid
+    // out as conv2's accumulators: m-tile wl, channels 32 wg ..
+    {
+      const ATile<bf16> a[1] = {a_tile<1>(fs, S, S, S * S, wl, lane)};
+      float acck[1][4][4];
+      zero(acck);
+      conv_tiles<1, 1, 1, 4>(acck, a, Weights<bf16>{wdn, C, C}, 32 * wg, 0, lane);
+      const int hh = h / 2, wh = wd / 2;
+      const bf16* eb = e + static_cast<long long>(b) * hh * wh * C;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = 32 * wg + 8 * j + t2;
+        const float2 bb2 = load2(b2 + n), bbd = load2(bdn + n);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int pp = 16 * wl + g + 8 * half, qy = pp / S, qx = pp % S;
+          const int y = r0 + qy, xx = c0 + qx;
+          if (y >= h || xx >= wd) continue;
+          // 0.5x -> 1x: rows ja (weight wa) and jb of e, clamped; columns likewise
+          const int pyr = y & 1, pxr = xx & 1;
+          const float wa = pyr ? 0.75f : 0.25f, wb = pxr ? 0.75f : 0.25f;
+          const int ja = min(max((y >> 1) - 1 + pyr, 0), hh - 1);
+          const int jb = min(max((y >> 1) + pyr, 0), hh - 1);
+          const int ka = min(max((xx >> 1) - 1 + pxr, 0), wh - 1);
+          const int kb = min(max((xx >> 1) + pxr, 0), wh - 1);
+          auto at = [&](int jj, int kk) {
+            return load2(eb + (static_cast<long long>(jj) * wh + kk) * C + n);
+          };
+          const float2 eaa = at(ja, ka), eab = at(ja, kb), eba = at(jb, ka), ebb = at(jb, kb);
+          const float ha0 = wa * eaa.x + (1.f - wa) * eba.x, ha1 = wa * eaa.y + (1.f - wa) * eba.y;
+          const float hb0 = wa * eab.x + (1.f - wa) * ebb.x, hb1 = wa * eab.y + (1.f - wa) * ebb.y;
+          const float body0 = __fadd_rn(
+              __fmul_rn(__int2float_rn(accb[j][2 * half]), __fmul_rn(__ldg(s2 + n), s_y1)), bb2.x);
+          const float body1 = __fadd_rn(
+              __fmul_rn(__int2float_rn(accb[j][2 * half + 1]), __fmul_rn(__ldg(s2 + n + 1), s_y1)),
+              bb2.y);
+          const float2 xv = load2(xs + ((qy + 2) * X1 + qx + 2) * PB + n);
+          const long long o = (static_cast<long long>(y) * wd + xx) * C + n;
+          store2(out + img + o,
+                 body0 + (acck[0][j][2 * half] + bbd.x) + (wb * ha0 + (1.f - wb) * hb0) + xv.x,
+                 body1 + (acck[0][j][2 * half + 1] + bbd.y) + (wb * ha1 + (1.f - wb) * hb1) + xv.y);
+        }
+      }
+    }
+    PHASE(4)
+    // the step's amaxes join the running ones; the reduction's barriers also
+    // end the step (the next one overwrites xs, fs and the windows)
+    {
+      float am[2] = {amax1, amax2};
+      const bool is_max[2] = {true, true};
+      block_reduce(am, is_max, red);
+      run1 = fmaxf(run1, am[0]);
+      run2 = fmaxf(run2, am[1]);
+    }
+    PHASE(5)
+  }
+  PHASE_END
+  if constexpr (COUNT) {
+    float cl[2] = {static_cast<float>(clip1), static_cast<float>(clip2)};
+    const bool is_max[2] = {false, false};
+    block_reduce(cl, is_max, red);
+    if (threadIdx.x == 0) {
+      counts[strip_id * 2] = cl[0];
+      counts[strip_id * 2 + 1] = cl[1];
+    }
+  }
+}
+
 template <typename T>
-cudaError_t launch(const void* const* p, void* out, float* counts, int batch, int h, int wd,
-                   cudaStream_t stream) {
+cudaError_t launch_f32(const void* const* p, void* out, float* counts, int batch, int h, int wd,
+                       cudaStream_t stream) {
   const cudaError_t err = allow_smem(block_q_kernel<T>, Geo<T>::BYTES);
   if (err != cudaSuccess) return err;
   const int strips = (wd + S - 1) / S;
@@ -585,32 +1286,69 @@ cudaError_t launch(const void* const* p, void* out, float* counts, int batch, in
   return cudaGetLastError();
 }
 
+// parts: which launches run (1: the 0.5x branch, 2: the walk), so that
+// each can be timed alone; a call computes the block with both
+cudaError_t launch_bf16(const void* const* p, void* out, float* counts, bf16* e, int batch, int h,
+                        int wd, int parts, cudaStream_t stream) {
+  const auto t = [p](int i) { return static_cast<const bf16*>(p[i]); };
+  const auto f = [p](int i) { return static_cast<const float*>(p[i]); };
+  const s8* stages = static_cast<const s8*>(p[1]);
+  cudaError_t err = cudaSuccess;
+  if (parts & 1) {
+    err = allow_smem(half_branch_kernel, HALF_BYTES);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((wd / 2 + HT - 1) / HT, (h / 2 + HT - 1) / HT, batch);
+    CDFO_LAUNCH(half_branch_kernel, grid, HALF_BYTES, stream, t(0), t(3), t(6), t(9), t(10),
+                t(11), t(12), t(13), t(14), e, h, wd);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  if (parts & 2) {
+    auto walk = counts != nullptr ? block_q_walk<true> : block_q_walk<false>;
+    err = allow_smem(walk, QGeo::BYTES);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((wd + S - 1) / S, 1, batch);
+    CDFO_LAUNCH(walk, grid, QGeo::BYTES, stream, t(0), stages, f(2), t(3), f(5), t(6), f(8),
+                t(11), t(12), t(13), t(14), f(15), e, static_cast<bf16*>(out), counts, h, wd);
+    err = cudaGetLastError();
+  }
+  return err;
+}
+
 }  // namespace
 
 // x, out: (batch, h, wd, 64) NHWC of the working type (is_bf16: 1 for
-// bfloat16, 0 for float32), h and wd even. int8 weights in the s8 Weights
-// layout of conv3x3_tile.cuh: w1q [9][2][32][32][8], w2q [9][8][8][32][8],
-// wfq [16][8][8][32][8] (the folded down2 . conv2, tap 4*ey + ex), with
-// float32 scales per output channel s1 [256], s2 [64], sf [64]; biases b1
-// [256], b2 [64] and the dequantised conv1 / conv2 (w1b, w2b) and the 1x1
-// convs wdn + bdn (down_0), wup + bup (up_0) of the working type in its
-// Weights layout; bnd float32 [3]: max row sum of |W1|, max |b1|, max row
-// 2-norm of W1. counts: null, or float32 [batch * ceil(wd / 8)][2] that
-// receives each strip's clipped y1 and y2 values. All device pointers.
-// Returns a cudaError_t.
+// bfloat16, 0 for float32), h and wd even. Float32: int8 weights in the s8
+// Weights layout of conv3x3_tile.cuh: w1q [9][2][32][32][8], w2q
+// [9][8][8][32][8], wfq [16][8][8][32][8] (the folded down2 . conv2, tap
+// 4*ey + ex). Bfloat16: w1q holds the 136 weight stages of
+// ops/fused_block2_q.py::stage_weights_q (conv1, then the fold and conv2,
+// planes of 16-byte chunks) and w2q and wfq are NULL. Both: float32 scales
+// per output channel s1 [256], s2 [64], sf [64]; biases b1 [256], b2 [64]
+// and the dequantised conv1 / conv2 (w1b, w2b) and the 1x1 convs wdn + bdn
+// (down_0), wup + bup (up_0) of the working type in its Weights layout; bnd
+// float32 [3]: max row sum of |W1|, max |b1|, max row 2-norm of W1.
+// counts: null, or float32 [batch * ceil(wd / 8)][2], zeroed, that
+// receives each strip's clipped y1 and y2 values. Bfloat16 only (else
+// NULL): e, the 0.5x branch's output, workspace of [batch][h / 2][wd / 2]
+// [64] bfloat16; parts: see launch_bf16 (3 for a whole call). All device
+// pointers. Returns a cudaError_t.
 extern "C" int cdfo_fused_block2_q(const void* x, const void* w1q, const void* s1, const void* b1,
                                    const void* w2q, const void* s2, const void* b2,
                                    const void* wfq, const void* sf, const void* w1b,
                                    const void* w2b, const void* wdn, const void* bdn,
                                    const void* wup, const void* bup, const void* bnd, void* out,
-                                   void* counts, int is_bf16, int batch, int h, int wd,
-                                   void* stream) {
+                                   void* counts, void* e, int is_bf16, int batch, int h, int wd,
+                                   int parts, void* stream) {
   if (batch <= 0 || batch > 65535 || h <= 0 || wd <= 0 || h % 2 != 0 || wd % 2 != 0) {
     return cudaErrorInvalidValue;
   }
   const void* p[16] = {x, w1q, s1, b1, w2q, s2, b2, wfq, sf, w1b, w2b, wdn, bdn, wup, bup, bnd};
   const auto s = static_cast<cudaStream_t>(stream);
   float* cnt = static_cast<float*>(counts);
-  return is_bf16 ? launch<bf16>(p, out, cnt, batch, h, wd, s)
-                 : launch<float>(p, out, cnt, batch, h, wd, s);
+  if (is_bf16) {
+    if (e == nullptr) return cudaErrorInvalidValue;
+    return launch_bf16(p, out, cnt, static_cast<bf16*>(e), batch, h, wd, parts, s);
+  }
+  return launch_f32<float>(p, out, cnt, batch, h, wd, s);
 }

@@ -1,11 +1,15 @@
 // Hopper's warpgroup products and bulk copies, for the bfloat16 routes of
-// fused_block2.cu (weights staged through shared memory) and
-// fused_attention.cu (the token resident). Only those two include this
-// header; conv3x3_tile.cuh is unchanged for the rest.
+// fused_block2.cu (weights staged through shared memory), fused_attention.cu
+// (the token resident), fused_tail.cu (the four convs) and fused_block2_q.cu
+// (its s8 products). Only those include this header; conv3x3_tile.cuh is
+// unchanged for the rest.
 //
 // The wgmma forms used: m64nNk16, bf16 x bf16 -> fp32, A from registers (or,
 // wgmma_ss_*, a K-major tile in shared memory like B) and B from shared
-// memory (K-major, or MN-major in wgmma_64x64_tb).
+// memory (K-major, or MN-major in wgmma_64x64_tb); m64nNk32, s8 x s8 -> s32
+// (`wgmma_*s8*`), both operands K-major (8-bit types take no transpose),
+// either as the swizzle-free tiles of `wgmma_desc_plain` or, for A, in
+// registers in the mma.sync.m16n8k32 A-fragment layout.
 // - A: each warp of the warpgroup holds 16 of the 64 rows (warp w of the
 //   warpgroup rows 16w .. 16w + 15) in the mma.sync.m16n8k16 A-fragment
 //   layout, so an `ldmatrix` of any 16 pixels of a window feeds it (a
@@ -49,6 +53,23 @@ __device__ __forceinline__ uint32_t shared_address(const void* p) {
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+// 16 bytes global -> shared by cp.async, or 16 zero bytes where !valid (src
+// then unread); completion by cp_async_wait_n
+__device__ __forceinline__ void cp_async16_or_zero(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_address(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// waits until at most N of this thread's cp.async groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_n() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// orders this thread's ordinary shared-memory stores before reads by the
+// async proxy (wgmma's descriptor operands); then a barrier
+__device__ __forceinline__ void async_fence() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -187,6 +208,63 @@ __device__ __forceinline__ void wgmma_64x64_tb(float (&d)[8][4], const uint32_t 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
+// d (64 x 64) += A (descriptor) . B (descriptor), both K-major: the
+// alignment tail's convs, pixels as A and a weight tap as B
+__device__ __forceinline__ void wgmma_ss_64x64(float (&d)[8][4], uint64_t desc_a,
+                                               uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// The s8 forms (s8 x s8 -> s32, K = 32 bytes a step; both operands
+// K-major, the only layout PTX allows for 8-bit types): d (64 x 64) +=
+// A (descriptor) . B (descriptor) ...
+__device__ __forceinline__ void wgmma_ss_s8_64x64(int (&d)[8][4], uint64_t desc_a,
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]), "+r"(d[1][0]),
+        "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]), "+r"(d[2][0]), "+r"(d[2][1]),
+        "+r"(d[2][2]), "+r"(d[2][3]), "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]),
+        "+r"(d[3][3]), "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]), "+r"(d[6][0]),
+        "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]), "+r"(d[7][0]), "+r"(d[7][1]),
+        "+r"(d[7][2]), "+r"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// ... and d (64 x 32) += A (registers: warp w of the warpgroup rows 16w ..
+// 16w + 15 in the mma.sync.m16n8k32 A-fragment layout) . B (descriptor)
+__device__ __forceinline__ void wgmma_s8_64x32(int (&d)[4][4], const uint32_t (&a)[4],
+                                               uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]), "+r"(d[1][0]),
+        "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]), "+r"(d[2][0]), "+r"(d[2][1]),
+        "+r"(d[2][2]), "+r"(d[2][3]), "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]),
+        "+r"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(shared_address(bar)),
                "r"(count)
@@ -252,6 +330,7 @@ __device__ __forceinline__ void stsm_x2_trans(void* row, uint32_t r0, uint32_t r
 // pins registers in place (see above)
 __device__ __forceinline__ void keep(float& x) { asm volatile("" : "+f"(x)::"memory"); }
 __device__ __forceinline__ void keep(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
+__device__ __forceinline__ void keep(int& x) { asm volatile("" : "+r"(x)::"memory"); }
 template <typename A, int N>
 __device__ __forceinline__ void keep(A (&r)[N]) {
 #pragma unroll
@@ -267,6 +346,19 @@ __device__ __forceinline__ void keep(A (&r)[N]) {
 __device__ __forceinline__ uint64_t wgmma_desc(const void* tile, uint32_t lead_bytes = 16) {
   return static_cast<uint64_t>((shared_address(tile) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lead_bytes >> 4) << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// the descriptor of a K-major tile without swizzle (the s8 routes): 8-row
+// core matrices of 16-byte rows, 128 contiguous bytes each; `lead` bytes
+// from one core matrix to the next along K, `stride` bytes from one 8-row
+// group to the next along M or N; swizzle mode 0. A tile of this form can
+// start at any 16-byte row, so a window whose pixels keep their 16-byte
+// channel chunk c in plane c (`lead` = the plane's bytes, `stride` = 128)
+// is a tile from any pixel.
+__device__ __forceinline__ uint64_t wgmma_desc_plain(const void* tile, uint32_t lead,
+                                                     uint32_t stride) {
+  return static_cast<uint64_t>((shared_address(tile) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lead >> 4) << 16) | (static_cast<uint64_t>(stride >> 4) << 32);
 }
 
 }  // namespace cdfo

@@ -12,7 +12,10 @@ residual blocks. The MSA's parameters live flat on the module
 
 With ``center`` given (the ``fused_trunk`` path), the tail after the
 CALayer gate is one ``ops/fused_tail.resblock_pair`` call, which applies the
-gate and adds ``center[b // nbr]`` itself (JAX ``_fast_tail``).
+gate and adds ``center[b // nbr]`` itself (JAX ``_fast_tail``); its
+weights are packed once for the kernel and kept until a parameter changes
+(new storage or an in-place update); parameters made under
+``torch.inference_mode`` are packed at every call.
 ``fused_msa`` (the ``fused_align`` path) runs the whole dual MSA as the two
 passes of ``ops/fused_align`` and then that tail (JAX ``_fused_msa``).
 """
@@ -23,7 +26,7 @@ from torch import nn
 
 from ..ops.fused_align import msa_stage1, msa_stage2
 from ..ops.fused_mdta import attention_matrix
-from ..ops.fused_tail import resblock_pair
+from ..ops.fused_tail import pack_tail_weights, resblock_pair
 from ..ops.warp import flow_warp
 from .attention import _channel_attention
 from .layers import CALayer, Conv2d, ResidualBlockNoBN
@@ -63,14 +66,35 @@ class DualAttAlignment(nn.Module):
         return self.project_out(_channel_attention(
             q_in, k_in, v_sum, self.temperature, self.num_heads))
 
+    def _tail_params(self):
+        rb1, rb2 = self.ResidualBlock, self.ResidualBlock1
+        return (rb1.conv1.weight, rb1.conv1.bias, rb1.conv2.weight,
+                rb1.conv2.bias, rb2.conv1.weight, rb2.conv1.bias,
+                rb2.conv2.weight, rb2.conv2.bias)
+
+    def _tail_packed(self, x, params):
+        """The kernel's packed tail weights for x's dtype, kept until a
+        parameter changes (the rule of ``trunk_fast._BlockFast._packed``);
+        None on the CPU, where the plain version runs."""
+        if x.device.type != "cuda":
+            return None
+        ws, bs = params[0::2], params[1::2]
+        if any(p.is_inference() for p in params):
+            # parameters made under inference_mode keep no version counter,
+            # so nothing tells a cached pack from a stale one
+            return pack_tail_weights(ws, bs, x.dtype)
+        key = (x.dtype,) + tuple((p.data_ptr(), p._version) for p in params)
+        if getattr(self, "_tail_key", None) != key:
+            self._tail_pack = pack_tail_weights(ws, bs, x.dtype)
+            self._tail_key = key
+        return self._tail_pack
+
     def _tail(self, out, center, gate):
         """RB2(RB1(gate * out)) + center[b // nbr], one kernel call."""
-        rb1, rb2 = self.ResidualBlock, self.ResidualBlock1
+        params = self._tail_params()
         return resblock_pair(
             out.contiguous(), center.contiguous(), gate.contiguous(),
-            rb1.conv1.weight, rb1.conv1.bias, rb1.conv2.weight,
-            rb1.conv2.bias, rb2.conv1.weight, rb2.conv1.bias,
-            rb2.conv2.weight, rb2.conv2.bias)
+            *params, packed=self._tail_packed(out, params))
 
     def fused_msa(self, warped, pred, center):
         """The aligned features of ``forward`` with ``center`` given, by the

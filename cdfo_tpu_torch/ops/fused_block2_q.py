@@ -30,8 +30,10 @@ int8 ``Block_`` is the scheme at ``KERNEL_GEOMETRY`` on every device:
 
 * ``scale_block_q``: the wrapper the int8 trunk calls. A CPU tensor takes
   the plain version, a CUDA tensor launches the kernel or raises. Launches
-  are counted in ``scale_block_q.launches``; ``clip_counts=True`` also
-  returns how many ``y1`` and ``y2`` values clipped.
+  are counted in ``scale_block_q.launches`` (one per call; in bfloat16 a
+  call is two launches of the kernel's library: the 0.5x branch, then the
+  walk down the strips); ``clip_counts=True`` also returns how many ``y1``
+  and ``y2`` values clipped.
 """
 from __future__ import annotations
 
@@ -43,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build as cb
-from .fused_block2 import CHANNELS, fold_down_conv2
+from .fused_block2 import CHANNELS, fold_down_conv2, pointers
 from .resize import interpolate_bilinear
 
 # headroom on the lagged y1/y2 scales: modest growth from one step to the
@@ -72,7 +74,7 @@ class StepGeometry:
     edge: int | None = None
 
 
-# csrc/fused_block2_q.cu: one CTA per 8-pixel column strip, 8 x 8 steps
+# csrc/fused_block2_q.cu: 8 x 8 steps down 8-pixel column strips
 KERNEL_GEOMETRY = StepGeometry(8, 8)
 
 
@@ -305,28 +307,67 @@ def kernel_weights_s8(wq: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 3, 1, 2, 5, 4, 6).contiguous()
 
 
+@functools.lru_cache(maxsize=None)
+def _conv1_order(c: int, device: torch.device) -> torch.Tensor:
+    """The mid channel of a chunk at each conv1 stage row n = 8j + 2t + e:
+    16 (j // 2) + 4t + 2 (j % 2) + e, so that the kernel's accumulator lane
+    t holds bytes 4t .. 4t + 3 of each 16-byte chunk of a y pixel."""
+    n = torch.arange(c)
+    j, t, e = n // 8, (n % 8) // 2, n % 2
+    return (16 * (j // 2) + 4 * t + 2 * (j % 2) + e).to(device)
+
+
+def stage_weights_q(w1q, w2q, wfq) -> torch.Tensor:
+    """conv1, the folded conv2 and conv2 (int8, torch layout) as the
+    bfloat16 kernel streams them for each step: 136 stages of 64 n x 64 k,
+    per chunk of 64 mid channels conv1's 9 taps (B[n][k]: mid channel 64 ch
+    + ``_conv1_order``[n], input channel k), the fold's 16 and conv2's 9 (B[n][k]: output
+    channel n, mid channel 64 ch + k); each stage in planes of 16-byte k
+    chunks, [k // 16][n][k % 16], the swizzle-free K-major tile of
+    ``csrc/wgmma_tile.cuh::wgmma_desc_plain``."""
+    c = w2q.shape[0]
+    conv1 = w1q.permute(2, 3, 0, 1).reshape(9, 4, c, c).transpose(0, 1)
+    conv1 = conv1[:, :, _conv1_order(c, w1q.device)]
+    fold = wfq.permute(2, 3, 0, 1).reshape(16, c, 4, c).permute(2, 0, 1, 3)
+    conv2 = w2q.permute(2, 3, 0, 1).reshape(9, c, 4, c).permute(2, 0, 1, 3)
+    stages = torch.cat([conv1, fold, conv2], dim=1).reshape(136, c, c)
+    return stages.reshape(136, c, c // 16, 16).permute(0, 2, 1, 3) \
+        .contiguous()
+
+
 def pack_weights_q(w1, b1, w2, b2, wd, bd, wu, bu, dtype):
     """The kernel's operands after x, in its argument order: int8 conv1,
-    conv2 and folded conv2 in fragment order with their float32 scales, the
-    biases, the dequantised conv1 / conv2 and the 1x1 convs in ``dtype``
-    in ``cuda_build.kernel_weights``' layout, and the float32 step-0
-    bounds. Callers cache it."""
+    conv2 and folded conv2 with their float32 scales, the biases, the
+    dequantised conv1 / conv2 and the 1x1 convs in ``dtype`` in
+    ``cuda_build.kernel_weights``' layout, and the float32 step-0 bounds.
+    The int8 weights: in float32 each in fragment order
+    (``kernel_weights_s8``); in bfloat16 all three as ``stage_weights_q``
+    in conv1's place, None in the others'. Callers cache it."""
     w1q, s1, w2q, s2, wfq, sf, bnd, w1b, w2b = quantize_block(w1, b1, w2,
                                                               dtype)
 
     def kw(wt):
         return cb.kernel_weights(wt, dtype)
 
-    return (kernel_weights_s8(w1q), s1.contiguous(), b1.to(dtype),
-            kernel_weights_s8(w2q), s2.contiguous(), b2.to(dtype),
-            kernel_weights_s8(wfq), sf.contiguous(), kw(w1b), kw(w2b),
-            kw(wd), bd.to(dtype), kw(wu), bu.to(dtype), bnd.contiguous())
+    if dtype == torch.bfloat16:
+        q1, q2, qf = stage_weights_q(w1q, w2q, wfq), None, None
+    else:
+        q1, q2, qf = (kernel_weights_s8(w1q), kernel_weights_s8(w2q),
+                      kernel_weights_s8(wfq))
+    return (q1, s1.contiguous(), b1.to(dtype), q2, s2.contiguous(),
+            b2.to(dtype), qf, sf.contiguous(), kw(w1b), kw(w2b), kw(wd),
+            bd.to(dtype), kw(wu), bu.to(dtype), bnd.contiguous())
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return cb.kernel_function("fused_block2_q", "cdfo_fused_block2_q",
-                              [_P] * 18 + [_I] * 4 + [_P])
+                              [_P] * 19 + [_I] * 5 + [_P])
+
+
+# the launches of a bfloat16 call: the 0.5x branch (1), the walk down the
+# strips (2); ``chip_smoke.py --phases`` times them one by one
+ALL_PARTS = 3
 
 
 def scale_block_q(x, w1, b1, w2, b2, wd, bd, wu, bu, packed=None,
@@ -364,10 +405,12 @@ def scale_block_q(x, w1, b1, w2, b2, wd, bd, wu, bu, packed=None,
     strips = -(-wdt // KERNEL_GEOMETRY.cols)
     counts = (torch.zeros(bsz * strips, 2, dtype=torch.float32,
                           device=x.device) if clip_counts else None)
+    e = (torch.empty(bsz, h // 2, wdt // 2, c, dtype=x.dtype,
+                     device=x.device)
+         if x.dtype == torch.bfloat16 else None)   # the 0.5x branch's output
     cb.launch(_kernel(), "fused_block2_q", x.device, x.data_ptr(),
-              *(t.data_ptr() for t in packed), out.data_ptr(),
-              counts.data_ptr() if clip_counts else None,
-              cb.DTYPE_CODES[x.dtype], bsz, h, wdt)
+              *pointers(packed), out.data_ptr(), *pointers((counts, e)),
+              cb.DTYPE_CODES[x.dtype], bsz, h, wdt, ALL_PARTS)
     scale_block_q.launches += 1
     if clip_counts:
         return out, counts.double().sum(dim=0)

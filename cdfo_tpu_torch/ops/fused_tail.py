@@ -9,6 +9,10 @@ NHWC, with ``RB(t) = t + conv3x3(relu(conv3x3(t)))``
   ``resblock_pair_hcw``) or raises. The CALayer gate is multiplied into the
   input inside the kernel and the centre is read as ``center[b // nbr]``,
   never broadcast. Launches are counted in ``resblock_pair.launches``.
+* ``pack_tail_weights``: the kernel's weight and bias operands
+  (``stage_tail_weights`` in bfloat16, whose kernel streams them through
+  shared memory for ``wgmma``); ``resblock_pair(..., packed=)`` takes them
+  from a caller that keeps them.
 
 Weights are the torch ``(C, C, 3, 3)`` convs and ``(C,)`` biases of
 ``ResidualBlock.conv1``, ``.conv2``, ``ResidualBlock1.conv1``, ``.conv2``.
@@ -22,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build as cb
+from .fused_block2 import pointers, swizzle128
 
 CHANNELS = 64
 _P = ctypes.c_void_p
@@ -45,15 +50,39 @@ def resblock_pair_plain(x, center, gate, w11, b11, w12, b12, w21, b21, w22,
         .reshape(t.shape)
 
 
+def stage_tail_weights(ws, dtype=torch.bfloat16) -> torch.Tensor:
+    """The four (C, C, 3, 3) convs as the bfloat16 kernel streams them:
+    (36, 64 n, 64 k), conv by conv and tap by tap (ky, kx), B[n][k] = the
+    tap's weight from input channel k to output channel n, 128-byte
+    swizzled (``fused_block2.swizzle128``)."""
+    c = ws[0].shape[0]
+    taps = torch.stack([w.permute(2, 3, 0, 1).reshape(9, c, c) for w in ws])
+    return swizzle128(taps.reshape(36, c, c).to(dtype))
+
+
+def pack_tail_weights(ws, bs, dtype):
+    """(weights, biases) of the kernel in ``dtype``: in bfloat16 the weight
+    stages of ``stage_tail_weights``, in float32 the four convs in
+    ``cuda_build.kernel_weights``' layout; the biases (4, C). Callers may
+    keep it."""
+    if dtype == torch.bfloat16:
+        wk = stage_tail_weights(ws, dtype)
+    else:
+        wk = torch.stack([cb.kernel_weights(w, dtype) for w in ws])
+    return wk, torch.stack([b.to(dtype) for b in bs]).contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return cb.kernel_function("fused_tail", "cdfo_fused_tail",
                               [_P] * 6 + [_I] * 5 + [_P])
 
 
-
-def resblock_pair(x, center, gate, w11, b11, w12, b12, w21, b21, w22, b22):
-    """RB2(RB1(gate[b] * x)) + center[b // nbr], nbr = B / center's batch."""
+def resblock_pair(x, center, gate, w11, b11, w12, b12, w21, b21, w22, b22,
+                  packed=None):
+    """RB2(RB1(gate[b] * x)) + center[b // nbr], nbr = B / center's batch;
+    ``packed``: ``pack_tail_weights`` of these weights in x's dtype, if the
+    caller keeps it."""
     ws = (w11, w12, w21, w22)
     bs = (b11, b12, b21, b22)
     cb.forbid_grad("fused_tail", x, center, gate, *ws, *bs)
@@ -71,13 +100,13 @@ def resblock_pair(x, center, gate, w11, b11, w12, b12, w21, b21, w22, b22):
         raise ValueError(f"fused_tail: gate {tuple(gate.shape)}, weights "
                          f"{[tuple(w.shape) for w in ws]}")
     bsz, h, wd, _ = x.shape
-    wk = torch.stack([cb.kernel_weights(w, x.dtype) for w in ws])
-    bk = torch.stack(bs).contiguous()
+    if packed is None:
+        packed = pack_tail_weights(ws, bs, x.dtype)
     out = torch.empty_like(x)
     cb.launch(_kernel(), "fused_tail", x.device, x.data_ptr(),
-              center.data_ptr(), gate.data_ptr(), wk.data_ptr(),
-              bk.data_ptr(), out.data_ptr(), cb.DTYPE_CODES[x.dtype], bsz, h,
-              wd, bsz // center.shape[0])
+              center.data_ptr(), gate.data_ptr(), *pointers(packed),
+              out.data_ptr(), cb.DTYPE_CODES[x.dtype], bsz, h, wd,
+              bsz // center.shape[0])
     resblock_pair.launches += 1
     return out
 

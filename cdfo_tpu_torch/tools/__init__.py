@@ -1,7 +1,8 @@
 """The trunk's microbenchmarks on the GPU, ports of the TPU tools in the
 repository's ``tools/`` (``microbench_trunk``, ``microbench_dots``,
-``microbench_dma``), and ``compare_block``, the exact ``Block_`` against
-another checkout's. Each runs as ``python -m
+``microbench_dma``), and ``compare_block``, a kernel (the exact or int8
+``Block_``, the alignment tail) against another checkout's. Each runs as
+``python -m
 cdfo_tpu_torch.tools.<name>`` (the ports with their TPU tools' arguments
 and defaults), on the card only: without CUDA it raises."""
 from __future__ import annotations

@@ -1,24 +1,27 @@
-"""The exact ``Block_`` kernel of this checkout against another checkout's
-(for example the parent commit, unpacked with ``git archive``), in turns on
-one card, in bfloat16.
+"""A kernel of this checkout against another checkout's (for example the
+parent commit, unpacked with ``git archive``), in turns on one card, in
+bfloat16: the exact ``Block_`` (``--kernel block``), the int8 ``Block_``
+(``blockq``) or the alignment tail (``tail``, 6 neighbours per image).
 
-Each side is its own ``ops/fused_block2`` module, built by its own
-``cuda_build`` from its own ``csrc/``, and is first held against this
-checkout's plain version (``ops/kernel_cases.py``'s tolerance). Then, in
-the order other, this, this, other, each side is timed (median of
-``--reps`` calls, CUDA events) three ways: the call with its weights
-packed in it (``scale_block`` without ``packed``: what a caller that keeps
-no pack pays), the call with the pack kept (what the fused trunk pays),
-and the pack alone. Times are per call, in ms, with the card's name.
+Each side is its own ``ops`` module, built by its own ``cuda_build`` from
+its own ``csrc/``, and is first held against this checkout's plain version
+(``ops/kernel_cases.py``'s tolerance). Then, in the order other, this,
+this, other, each side is timed (median of ``--reps`` calls, CUDA events)
+three ways: the call with its weights packed in it (the wrapper without
+``packed``: what a caller that keeps no pack pays), the call with the pack
+kept (what the model pays) and the pack alone; a side whose wrapper takes
+no pack (the tail before it had one) has only the first. Times are per
+call, in ms, with the card's name.
 
     python -m cdfo_tpu_torch.tools.compare_block --other DIR
-        [--b 4 --h 272 --w 480 --reps 15]
+        [--kernel block|blockq|tail --b 4 --h 272 --w 480 --reps 15]
 """
 from __future__ import annotations
 
 import argparse
 import importlib
 import importlib.util
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -27,32 +30,56 @@ import numpy as np
 import torch
 
 from ..ops import fused_block2 as fb
+from ..ops import fused_block2_q as fq
+from ..ops import fused_tail as ft
 from ..ops import kernel_cases as kc
 from . import event_ms, require_card
 
 WAYS = ("packed in the call", "pack kept", "pack alone")
+# kind: (module, wrapper, pack, plain version, what it is)
+KERNELS = {
+    "block": (fb, "scale_block", "pack_weights", fb.scale_block_plain,
+              "exact Block_"),
+    "blockq": (fq, "scale_block_q", "pack_weights_q", fq.scale_block_q_plain,
+               "int8 Block_"),
+    "tail": (ft, "resblock_pair", "pack_tail_weights", ft.resblock_pair_plain,
+             "alignment tail"),
+}
 
 
-def other_block(root: Path):
-    """``ops.fused_block2`` of the checkout at ``root``, imported as a
-    package of its own so that it builds and loads its own kernel."""
+def other_module(root: Path, module: str):
+    """``ops.<module>`` of the checkout at ``root``, imported as a package
+    of its own so that it builds and loads its own kernel."""
     name = "cdfo_tpu_torch_other"
-    init = root / "cdfo_tpu_torch" / "__init__.py"
-    spec = importlib.util.spec_from_file_location(
-        name, init, submodule_search_locations=[str(init.parent)])
-    package = importlib.util.module_from_spec(spec)
-    sys.modules[name] = package
-    spec.loader.exec_module(package)
-    return importlib.import_module(f"{name}.ops.fused_block2")
+    if name not in sys.modules:
+        init = root / "cdfo_tpu_torch" / "__init__.py"
+        spec = importlib.util.spec_from_file_location(
+            name, init, submodule_search_locations=[str(init.parent)])
+        package = importlib.util.module_from_spec(spec)
+        sys.modules[name] = package
+        spec.loader.exec_module(package)
+    return importlib.import_module(f"{name}.ops.{module}")
 
 
-def ways(module, args):
-    """{way: fn()} of ``WAYS`` for one side."""
-    x, *params = args
-    packed = module.pack_weights(*params, x.dtype)
-    return {WAYS[0]: lambda: module.scale_block(*args),
-            WAYS[1]: lambda: module.scale_block(*args, packed=packed),
-            WAYS[2]: lambda: module.pack_weights(*params, x.dtype)}
+def ways(kind, module, args):
+    """{way: fn()} of ``WAYS`` for one side (the first only where its
+    wrapper takes no pack)."""
+    _, wrapper, pack_name, _, _ = KERNELS[kind]
+    fn = getattr(module, wrapper)
+    found = {WAYS[0]: lambda: fn(*args)}
+    if "packed" not in inspect.signature(fn).parameters:
+        return found
+    x = args[0]
+    if kind == "tail":
+        def pack():
+            return module.pack_tail_weights(args[3::2], args[4::2], x.dtype)
+    else:
+        def pack():
+            return getattr(module, pack_name)(*args[1:], x.dtype)
+    packed = pack()
+    found[WAYS[1]] = lambda: fn(*args, packed=packed)
+    found[WAYS[2]] = pack
+    return found
 
 
 @torch.no_grad()
@@ -61,37 +88,51 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--other", type=Path, required=True,
                    help="root of the other checkout")
+    p.add_argument("--kernel", choices=list(KERNELS), default="block")
     p.add_argument("--b", type=int, default=4)
     p.add_argument("--h", type=int, default=272)
     p.add_argument("--w", type=int, default=480)
     p.add_argument("--reps", type=int, default=15)
     a = p.parse_args(argv)
+    kind = a.kernel
+    module, _, _, plain, what = KERNELS[kind]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     g = torch.Generator(device="cuda").manual_seed(1)
-    args = kc.trunk_args("block", torch.bfloat16, g, (a.b, a.h, a.w, 64))
-    sides = {"other": ways(other_block(a.other.resolve()), args),
-             "this": ways(fb, args)}
-    ref = fb.scale_block_plain(*args)
+    args = kc.trunk_args(kind, torch.bfloat16, g, (a.b, a.h, a.w, 64), nbr=6)
+    sides = {"other": ways(kind, other_module(a.other.resolve(),
+                                              module.__name__.split(".")[-1]),
+                           args),
+             "this": ways(kind, module, args)}
+    ref = plain(*args)
+    tol = kc.tolerance(torch.bfloat16, kind)
     for side, fns in sides.items():
         for way in WAYS[:2]:
-            err, scale = kc.worst_error(fns[way](), ref, "block")
+            if way not in fns:
+                continue
+            err, scale = kc.worst_error(fns[way](), ref, kind)
             print(f"{side}, {way}: against plain rel {err / scale:.3e} "
-                  f"(tolerance {kc.tolerance(torch.bfloat16, 'block'):.1e})",
-                  flush=True)
-            if not err <= kc.tolerance(torch.bfloat16, "block") * scale:
+                  f"(tolerance {tol:.1e})", flush=True)
+            if not err <= tol * scale:
                 raise AssertionError(f"{side} disagrees with plain")
-    ms = {(side, way): [] for side in sides for way in WAYS}
+    ms = {(side, way): [] for side in sides for way in sides[side]}
     for side in ("other", "this", "this", "other"):
         for way, fn in sides[side].items():
             ms[side, way].append(
                 float(np.median(event_ms(fn, a.reps, warmup=3))))
-    print(f"exact Block_ {(a.b, a.h, a.w, 64)} bf16, ms a call in turns "
-          f"(other, this, this, other) [{card}]:")
+    shape = (a.b, a.h, a.w, 64) if kind != "tail" else (6 * a.b, a.h, a.w, 64)
+    print(f"{what} {shape} bf16, ms a call in turns (other, this, this, "
+          f"other) [{card}]:")
     for way in WAYS:
-        o, t = ms["other", way], ms["this", way]
+        o, t = ms.get(("other", way)), ms.get(("this", way))
+        if t is None:
+            continue
+        if o is None:
+            print(f"  {way:20s} other -, this {t[0]:.3f} {t[1]:.3f}",
+                  flush=True)
+            continue
         print(f"  {way:20s} other {o[0]:.3f} {o[1]:.3f}, this {t[0]:.3f} "
               f"{t[1]:.3f}: this / other {np.mean(t) / np.mean(o):.4f}",
               flush=True)

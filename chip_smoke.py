@@ -9,7 +9,8 @@ CUDA device the script exits non-zero before printing any result):
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. build of every hand-written CUDA kernel from ``cdfo_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once, with each library's ``ptxas``
-   register and spill lines;
+   register, spill and C75xx (``wgmma``) lines; a library whose ``wgmma``
+   products ``ptxas`` serializes fails the run;
 3. each kernel against its plain PyTorch version on the card, in float32
    and bfloat16, with kernel and plain times (CUDA events, median of 15) at
    the main path's shapes: the attention kernel at its row and column
@@ -25,7 +26,8 @@ CUDA device the script exits non-zero before printing any result):
    must refuse H = 20); the int8 ``Block_`` at the trunk's two shapes (an
    odd extent must be refused), its clipped values counted alike by kernel
    and plain version, timed in turns with the exact ``Block_`` (exact,
-   int8, int8, exact), the two ordered by launches x (time - bound) a run;
+   int8, int8, exact), both with their weights packed once; the alignment
+   tail also with its pack kept;
    the block-gather ring warp at 24 neighbour images of
    a ring of 8 272x480 frames and at (5 of 3, 20, 36), on flows constant
    over 4x4 blocks, on those with a mixed bottom band and single moved
@@ -93,6 +95,10 @@ one-hot (``kernel_cases.excite_egla_mask``; under random weights it is all
 zero, which would zero the fused EGLA's q projection), and each slice
 prints the mask's set bits per frame of one ``compensate_frames`` call.
 
+After phase 6 one line orders every kernel on a model path by launches x
+(time - bound) per 12-frame run, its launches from the run of its own path:
+the order in which a redesign gains most.
+
 The line before the last is a JSON object with one entry per kernel
 wrapper (launches from the four-flag run; the int8 ``Block_``'s from path
 A's, the warp's from path B's, and those of the body pair and the probes,
@@ -108,9 +114,11 @@ to the four (``--profile trunk_int8 block_warp``).
 
     python3 chip_smoke.py --phases
 
-builds the int8 and the exact ``Block_`` with their phase clocks compiled in
-and prints, at the main shape in bfloat16, the cycles a CTA spends in each
-phase, averaged over the launch's CTAs (the int8 kernel's also per step).
+builds the int8 ``Block_``, the exact one and the alignment tail with their
+phase clocks compiled in and prints, at the main shape in bfloat16, the
+cycles a CTA spends in each phase, averaged over the launch's CTAs (the
+int8 kernel's second pass; the tail's per step of its walk), and the int8
+``Block_``'s three launches (0.5x branch, pass 1, pass 2) timed one by one.
 """
 from __future__ import annotations
 
@@ -420,13 +428,26 @@ def check_kernel_table(card: str, table: dict, cases, seed: int,
 
 def check_trunk_kernels(card: str) -> dict:
     """Phase 3, fused-trunk part: ``check_kernel_table`` at the trunk
-    shapes, then an odd extent the ``Block_`` must refuse."""
+    shapes (the table's times per call, with each wrapper's weight
+    packing), the alignment tail also with its pack kept, as
+    ``DualAttAlignment`` keeps it (the JSON line's ``ms``), then an odd
+    extent the ``Block_`` must refuse."""
     fields = check_kernel_table(card, TRUNK_KERNELS, [
         (shape, shape == TRUNK_MAIN,
          lambda kind, dtype, g, shape=shape: kc.trunk_args(
              kind, dtype, g, shape, nbr=6 if shape == TRUNK_MAIN else 3))
         for shape in TRUNK_SHAPES], seed=1)
     g = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        args = kc.trunk_args("tail", torch.bfloat16, g, TRUNK_MAIN, nbr=6)
+        packed = ft.pack_tail_weights(args[3::2], args[4::2], torch.bfloat16)
+        kept = median_ms(lambda: ft.resblock_pair(*args, packed=packed))
+    print(f"kernel fused_tail.resblock_pair {TRUNK_MAIN} (24 neighbours) "
+          f"bfloat16: {kept:.3f} ms with the pack kept, "
+          f"{fields['tail']['ms']:.3f} per call with the packing [{card}]",
+          flush=True)
+    fields["tail"]["ms"] = kept
+    del args, packed
     odd = kc.trunk_args("block", torch.bfloat16, g, (1, 16, 23, 64))
     try:
         with torch.no_grad():
@@ -522,18 +543,6 @@ def check_int8_kernel(card: str) -> dict:
                       f"{ms['int8'][0]:.3f} and {ms['int8'][1]:.3f} ms; the "
                       f"exact Block_ before and after it {ms['exact'][0]:.3f} "
                       f"and {ms['exact'][1]:.3f} ms [{card}]", flush=True)
-                # the redesign order: launches x (time - bound) per 12-frame
-                # run, each on its own path (63 Block_ either way)
-                n = TRUNK_LAUNCHES["block"] * 3
-                loss = {name: n * (float(np.mean(ms[name]))
-                                   - bound(kind, args, out, x.dtype)[0])
-                        for name, kind in (("exact", "block"),
-                                           ("int8", "blockq"))}
-                first = max(loss, key=loss.get)
-                print(f"Block_ order by launches x (time - bound), {n} "
-                      f"launches a 12-frame run: exact {loss['exact']:.1f} "
-                      f"ms, int8 {loss['int8']:.1f} ms; {first} first "
-                      f"[{card}]", flush=True)
         odd = kc.trunk_args("blockq", torch.bfloat16, g, (1, 16, 23, 64))
         try:
             fq.scale_block_q(*odd)
@@ -1107,12 +1116,21 @@ def profile_main_path(card: str, extra=(), top: int = 15):
               f"{name[:110]}", flush=True)
 
 
-# the PHASE marks of csrc/fused_block2_q.cu, in order
-INT8_PHASES = ("load x window", "z = ku x + bu and the amaxes",
-               "quantize xq and us", "0.5x window d",
-               "int8 conv1 taps (as dispatched)", "quantizing epilogue of y1 / y2",
-               "y5 = conv1 at 0.5x", "conv2 phase: fold, body, 0.5x",
-               "fold / 0.5x sums and e", "output", "y amax reduction")
+# the PHASE marks of csrc/fused_block2_q.cu's steps (bf16), in order
+INT8_PHASES = ("prologue: x window, z, amaxes, lagged scales, xq and us",
+               "conv1 s8 products (4 chunks)",
+               "conv1 quantizing epilogue (4 chunks)",
+               "fold and conv2 s8 products (4 chunks)",
+               "epilogue: fold + b2, kd, up2(e), output",
+               "the step's amax reduction",
+               "waits at the chunks' two barriers")
+# the bf16 route's launches (fused_block2_q.ALL_PARTS bits)
+INT8_PARTS = {1: "0.5x branch", 2: "walk"}
+# the PHASE marks of csrc/fused_tail.cu's bf16 walk, per step, in order
+TAIL_PHASES = ("xm = x * gate (and a warm-up's zeroed windows)",
+               "y1 = relu(conv11 xm)", "r1 = xm + conv12 y1",
+               "y2 = relu(conv21 r1)", "out = r1 + conv22 y2 + centre",
+               "the windows' last two rows to the top")
 # the PHASE marks of csrc/fused_block2.cu's bf16 route, in order
 EXACT_PHASES = ("prologue", "conv1 and the y stores (4 chunks)",
                 "fold and conv2 with the sums (4 chunks)", "epilogue")
@@ -1156,29 +1174,60 @@ def phase_clocks(card: str, label: str, source: str, symbol: str, nargs: int,
         raise RuntimeError("could not read the phase clocks")
     per = clocks[15] * steps
     total = sum(clocks[:len(names)])
-    print(f"{label} with phase clocks bf16: {ms:.3f} ms a launch; cycles per "
-          f"{'step of a CTA' if steps > 1 else 'CTA'}, averaged over "
-          f"{clocks[15]} CTAs{f' x {steps} steps' if steps > 1 else ''} "
+    print(f"{label} with phase clocks bf16: {ms:.3f} ms a call; cycles per "
+          f"{'step of a CTA' if steps != 1 else 'CTA'}, averaged over "
+          f"{clocks[15]} CTAs{f' x {steps:.2f} steps' if steps != 1 else ''} "
           f"({total / per:.0f} in all) [{card}]", flush=True)
     for name, c in zip(names, clocks):
         print(f"  {c / per:9.0f} {100 * c / total:5.1f}%  {name}", flush=True)
 
 
+def tail_steps_per_cta(batch: int, h: int, w: int) -> float:
+    """The steps a CTA of the bf16 tail's walk runs on average, its
+    warm-ups included (csrc/fused_tail.cu: 24-column strips, 8-row steps,
+    one CTA per SM)."""
+    steps, strips = -(-h // 8), -(-w // 24)
+    total = batch * strips * steps
+    ctas = min(total, torch.cuda.get_device_properties(0).multi_processor_count)
+    run = 0
+    for b in range(ctas):
+        g0, g1 = b * total // ctas, (b + 1) * total // ctas
+        run += g1 - g0 + (1 + (g1 - 1) // steps - g0 // steps if g1 > g0 else 0)
+    return run / ctas
+
+
 def run_phase_clocks(card: str):
-    """``--phases`` for the int8 and the exact ``Block_`` at the main shape
-    in bfloat16, their weights packed once."""
+    """``--phases`` for the int8 ``Block_``, the exact one and the
+    alignment tail at the main shape in bfloat16, their weights packed
+    once; the int8 ``Block_``'s three launches also timed one by one."""
     g = torch.Generator(device="cuda").manual_seed(4)
     x, *params = kc.trunk_args("blockq", torch.bfloat16, g, TRUNK_MAIN)
     packed = fq.pack_weights_q(*params, torch.bfloat16)
     res = torch.empty_like(x)
+    b, h, w, c = x.shape
+    e = torch.empty(b, h // 2, w // 2, c, dtype=x.dtype, device="cuda")
+    qargs = [x.data_ptr(), *fb.pointers(packed), res.data_ptr(), None,
+             e.data_ptr(), 1, b, h, w]
     phase_clocks(
-        card, f"int8 Block_ {tuple(x.shape)}", "fused_block2_q",
-        "cdfo_fused_block2_q", 18,
-        [x.data_ptr(), *(t.data_ptr() for t in packed), res.data_ptr(), None,
-         1, *x.shape[:3]], res,
+        card, f"int8 Block_ {tuple(x.shape)} (the walk)", "fused_block2_q",
+        "cdfo_fused_block2_q", 19, qargs + [fq.ALL_PARTS], res,
         lambda r: kc.assert_outputs_close(
             r, fq.scale_block_q_plain(x, *params), torch.bfloat16, "blockq"),
-        INT8_PHASES, steps=-(-x.shape[1] // fq.KERNEL_GEOMETRY.rows))
+        INT8_PHASES, steps=-(-h // fq.KERNEL_GEOMETRY.rows))
+    kernel, _ = fq._kernel()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def part(bit):
+        err = kernel(*qargs, bit, stream)
+        if err != 0:
+            raise RuntimeError(f"int8 Block_ launch {bit} failed: CUDA error "
+                               f"{err}")
+
+    parts = {name: median_ms(lambda bit=bit: part(bit))
+             for bit, name in INT8_PARTS.items()}
+    print(f"int8 Block_ {tuple(x.shape)} bf16, each launch alone: "
+          + ", ".join(f"{n} {t:.3f} ms" for n, t in parts.items())
+          + f" [{card}]", flush=True)
     g = torch.Generator(device="cuda").manual_seed(1)
     x, *params = kc.trunk_args("block", torch.bfloat16, g, TRUNK_MAIN)
     packed = fb.pack_weights(*params, torch.bfloat16)
@@ -1191,6 +1240,33 @@ def run_phase_clocks(card: str):
         lambda r: kc.assert_outputs_close(
             r, fb.scale_block_plain(x, *params), torch.bfloat16, "block"),
         EXACT_PHASES)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    args = kc.trunk_args("tail", torch.bfloat16, g, TRUNK_MAIN, nbr=6)
+    packed = ft.pack_tail_weights(args[3::2], args[4::2], torch.bfloat16)
+    res = torch.empty_like(args[0])
+    b, h, w, _ = args[0].shape
+    phase_clocks(
+        card, f"alignment tail {tuple(args[0].shape)}", "fused_tail",
+        "cdfo_fused_tail", 6,
+        [*(t.data_ptr() for t in args[:3]), *fb.pointers(packed),
+         res.data_ptr(), 1, b, h, w, b // args[1].shape[0]], res,
+        lambda r: kc.assert_outputs_close(
+            r, ft.resblock_pair_plain(*args), torch.bfloat16, "tail"),
+        TAIL_PHASES, steps=tail_steps_per_cta(b, h, w))
+
+
+def redesign_order(card: str, fields: dict, launches: dict) -> None:
+    """The kernels on a model path by launches x (time - bound) per
+    12-frame run (each kernel's launches from the run of its own path,
+    its time as phase 3 measured it for the JSON line): the order in which
+    a redesign gains most."""
+    loss = {kind: launches[kind] * (fields[kind]["ms"] - fields[kind]["bound_ms"])
+            for kind in ("token", "column", *ALL_KERNELS)}
+    print("redesign order, launches x (time - bound) per 12-frame run: "
+          + ", ".join(f"{kind} {launches[kind]} x ({fields[kind]['ms']:.3f} - "
+                      f"{fields[kind]['bound_ms']:.3f}) = {v:.1f} ms"
+                      for kind, v in sorted(loss.items(), key=lambda kv: -kv[1]))
+          + f" [{card}]", flush=True)
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -1209,6 +1285,7 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
+    serialized = []
     try:
         cuda_build.build(*LIBRARIES)
     finally:
@@ -1217,11 +1294,16 @@ def main():
             if not log.exists():
                 continue
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line or "rror" in line:
+                if any(k in line for k in ("registers", "spill", "rror", "C75")):
                     line = line.replace("ptxas info    :", "ptxas:").strip()
                     print(f"  {name}: {line}", flush=True)
+                if "wgmma.mma_async instructions are serialized" in line:
+                    serialized.append(name)
     print(f"built {len(LIBRARIES)} libraries in parallel in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if serialized:
+        raise AssertionError(f"ptxas serializes the wgmma products of "
+                             f"{sorted(set(serialized))}")
     if sys.argv[1:2] == ["--profile"]:
         profile_main_path(card, sys.argv[2:])
         return
@@ -1276,6 +1358,7 @@ def main():
             elif flags == PATH_B:
                 launches["warp"] = counted["warp"]
     launches.update(run_tools(card))
+    redesign_order(card, fields, launches)
 
     # launches: the four-flag run's; the int8 Block_'s from path A's run and
     # the warp's from path B's

@@ -144,6 +144,48 @@ def test_block_at_a_ragged_even_shape(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,nbr", [((1, 12, 54, 64), 3), ((1, 70, 100, 64), 3),
+                                       ((2, 8, 24, 64), 1), ((1, 5, 26, 64), 2)])
+def test_tail_walk_matches_plain(cuda, shape, nbr):
+    """The bfloat16 tail's walk: 24-column strips of 8-row steps, ragged in
+    both; 135 steps of 3 neighbours over the card's SMs, so that runs start
+    inside strips; a single step; an image shorter than a step."""
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(6)
+    args = kc.trunk_args("tail", torch.bfloat16, g, shape, nbr=nbr,
+                         device=cuda)
+    before = ft.resblock_pair.launches
+    with torch.no_grad():
+        packed = ft.pack_tail_weights(args[3::2], args[4::2], torch.bfloat16)
+        out = ft.resblock_pair(*args)
+        kept = ft.resblock_pair(*args, packed=packed)
+        ref = ft.resblock_pair_plain(*args)
+    torch.cuda.synchronize()
+    assert ft.resblock_pair.launches == before + 2
+    assert torch.equal(out, kept)
+    kc.assert_outputs_close(out, ref, torch.bfloat16, "tail")
+
+
+@pytest.mark.cuda
+def test_alignment_caches_its_tail_pack(cuda):
+    from cdfo_tpu_torch.models.alignment import DualAttAlignment
+    from cdfo_tpu_torch.models.layers import init_weights
+    align = init_weights(DualAttAlignment(64), torch.Generator().manual_seed(0)
+                         ).to(cuda).bfloat16()
+    x = torch.randn(3, 8, 16, 64, device=cuda).bfloat16()
+    center = torch.randn(1, 8, 16, 64, device=cuda).bfloat16()
+    gate = torch.rand(3, 64, device=cuda).bfloat16()
+    with torch.no_grad():
+        a = align._tail(x, center, gate)
+        pack = align._tail_pack
+        b = align._tail(x, center, gate)
+        assert align._tail_pack is pack and torch.equal(a, b)
+        align.ResidualBlock.conv1.weight.mul_(0.5)
+        align._tail(x, center, gate)
+    assert align._tail_pack is not pack
+
+
+@pytest.mark.cuda
 def test_fused_trunk_built_under_inference_mode(cuda):
     """Parameters made under inference_mode keep no version counter; the
     fused Block_ then packs its weights at every call instead of caching."""
@@ -354,9 +396,11 @@ def test_fused_egla_launches_and_matches_unfused(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 16, 24, 64), (2, 18, 34, 64),
-                                   (1, 10, 6, 64), (1, 72, 16, 64)])
+                                   (1, 10, 6, 64), (1, 72, 16, 64),
+                                   (1, 8, 8, 64), (3, 26, 42, 64)])
 def test_int8_block_matches_plain(cuda, shape, dtype):
-    """One to nine serial steps per strip, ragged rows and columns; the
+    """One to nine serial steps per strip (one step: no first pass),
+    ragged rows and columns, an odd strip count over several images; the
     clipped values are counted alike."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -385,6 +429,30 @@ def test_int8_block_counts_clipped_values(cuda):
         _, want = fq.scale_block_q_plain(x, *ws, clip_counts=True)
     assert clips.min().item() > 0
     assert (clips - want).abs().max().item() <= 0.01 * want.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_block_keeps_the_running_max(cuda, dtype):
+    """The first step's rows 40x brighter than the rest, out of every later
+    step's windows: the lagged scales of the third and later steps come
+    from the bright first step (the running max of the strip), so each
+    dim step matches the plain version on its own scale, and the clipped
+    values are counted alike."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x, *ws = kc.trunk_args("blockq", dtype, g, (2, 40, 20, 64), device=cuda)
+    x[:, :6] *= 40.0
+    with torch.no_grad():
+        out, clips = fq.scale_block_q(x, *ws, clip_counts=True)
+        ref, want = fq.scale_block_q_plain(x, *ws, clip_counts=True)
+    torch.cuda.synchronize()
+    kc.assert_outputs_close(out, ref, dtype, "blockq")
+    for r0 in range(16, 40, 8):
+        kc.assert_outputs_close(out[:, r0:r0 + 8], ref[:, r0:r0 + 8], dtype,
+                                "blockq")
+    assert (clips - want).abs().max().item() <= 2 + 0.01 * want.max().item()
 
 
 @pytest.mark.cuda

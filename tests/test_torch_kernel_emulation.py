@@ -12,9 +12,11 @@ subset they use (``_SHIM`` below): blocks run one after another with 256
 threads each (or the count a launch names), ``__syncthreads`` is a
 barrier, ``mma.sync`` / ``ldmatrix`` / ``stmatrix`` (plain and transposed)
 and the warp shuffles exchange their values through per-warp memory, a
-warpgroup's ``wgmma`` through per-warpgroup memory, reading its shared
-tiles through their descriptors, and a bulk copy is a copy that completes
-its mbarrier's phase. The wrappers then take their kernel route
+warpgroup's ``wgmma`` (bf16 and s8) through per-warpgroup memory, reading
+its shared tiles through their descriptors (128-byte swizzled, or without
+swizzle as the s8 routes keep them), a bulk copy is a copy that completes
+its mbarrier's phase and a ``cp.async`` a plain copy (or zero fill). The
+wrappers then take their kernel route
 on CPU tensors and are held against their plain versions at small ragged
 shapes, in float32 and bfloat16, with the tolerances of
 ``ops/kernel_cases.py``. It checks the kernels' indexing, borders,
@@ -85,10 +87,12 @@ PROBES = {
 _SHIM = r"""
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstdint>
 #include <cstring>
 #include <math.h>
+#include <mutex>
 #include <thread>
 #include <vector>
 using std::max;
@@ -109,9 +113,12 @@ struct emu_uint3 { unsigned x, y, z; };
 inline thread_local emu_uint3 threadIdx;
 inline emu_uint3 blockIdx;
 inline dim3 blockDim(256);
+inline dim3 gridDim;
 struct alignas(8) float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) uint2 { unsigned x, y; };
+struct alignas(8) int2 { int x, y; };
+inline int2 make_int2(int a, int b) { return {a, b}; }
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
@@ -126,6 +133,8 @@ inline int __float2int_rn(float v) {   // saturates, as the card's does
 }
 template <class T> T __ldg(const T* p) { return *p; }
 inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
+inline float __int_as_float(int u) { float f; memcpy(&f, &u, 4); return f; }
+inline int __float_as_int(float f) { int u; memcpy(&u, &f, 4); return u; }
 struct __nv_bfloat16 { uint16_t v; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
 inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
@@ -255,6 +264,7 @@ inline float __shfl_xor_sync(unsigned m, float v, int lane_mask) {
 }
 template <class F> void emu_launch(dim3 grid, F&& body, unsigned threads = 256) {
   blockDim = dim3(threads);
+  gridDim = grid;
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
@@ -288,15 +298,18 @@ inline void wgmma_fence() {}
 inline void wgmma_commit() {}
 template <int N> void wgmma_wait() {}
 template <class T> void keep(T&) {}
-inline void mbar_init(uint64_t* bar, int) { __atomic_store_n(bar, 0, __ATOMIC_SEQ_CST); }
+inline void mbar_init(uint64_t* bar, int) { std::atomic_ref<uint64_t>(*bar).store(0); }
 inline void mbar_init_fence() {}
 inline void mbar_expect_tx(uint64_t*, uint32_t) {}
-inline void mbar_wait(uint64_t* bar, uint32_t parity) {
-  while ((__atomic_load_n(bar, __ATOMIC_SEQ_CST) & 1) == parity) std::this_thread::yield();
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {   // sleeps until the copy lands
+  std::atomic_ref<uint64_t> phases(*bar);
+  for (uint64_t v = phases.load(); (v & 1) == parity; v = phases.load()) phases.wait(v);
 }
 inline void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
   memcpy(dst, src, bytes);
-  __atomic_fetch_add(bar, 1, __ATOMIC_SEQ_CST);
+  std::atomic_ref<uint64_t> phases(*bar);
+  phases.fetch_add(1);
+  phases.notify_all();
 }
 // stmatrix.trans: matrix j stored transposed, lane 4g + t's pair to bytes
 // 2g .. 2g+1 of rows 2t and 2t + 1 (x2: matrices 0 and 1)
@@ -324,25 +337,58 @@ inline void stsm_x2_trans(void* row, uint32_t r0, uint32_t r1) {
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline float atomicAdd(float* p, float v) {
+  static std::mutex m;
+  std::lock_guard<std::mutex> lock(m);
+  const float old = *p;
+  *p = old + v;
+  return old;
+}
+inline void async_fence() {}
+inline void cp_async16_or_zero(void* dst, const void* src, bool valid) {
+  if (valid) memcpy(dst, src, 16); else memset(dst, 0, 16);
+}
+template <int N> void cp_async_wait_n() {}
 inline void __syncwarp() {}
 // wgmma m64nNk16 bf16 -> f32. A from registers (warp w of the warpgroup:
 // rows 16w .. 16w+15 in the m16n8k16 A-fragment layout) or, with a_desc,
-// a K-major tile like B. B a 128-byte swizzled tile read through its
-// descriptor: K-major, element (k, n) at start + (n / 8) * SBO + (n % 8) *
-// 128 + 2k; MN-major (trans_b), element (k, n) at start + (k / 8) * SBO +
-// (k % 8) * 128 + 2n; each address with its bits 4-6 XORed with its bits
-// 7-9
+// a K-major tile like B. B a K-major tile read through its descriptor
+// (element (k, n) at row n, byte 2k), or MN-major (trans_b: row k, byte
+// 2n). A descriptor tile is 128-byte swizzled (mode 1, 8-row groups 1024
+// bytes apart, byte b of row r at start + (r / 8) * 1024 + (r % 8) * 128 +
+// b with its bits 4-6 XORed with its bits 7-9) or without swizzle (mode 0,
+// 8-row groups 128 bytes apart: core matrices of 8 rows of 16 bytes, byte b
+// of row r at start + (r / 8) * 128 + (r % 8) * 16 + (b / 16) * LBO + b %
+// 16); any other form reads as NaN (bf16) or -128 (s8), which the
+// comparisons catch
 inline uint32_t emu_wg_a[2][128][4];
-inline float emu_tile(uint64_t desc, int row, int col) {   // 128-byte row `row`, element `col`
-  const unsigned char* smem = reinterpret_cast<const unsigned char*>(cdfo_smem);
+inline bool emu_addr(uint64_t desc, int row, int byte, uint32_t& addr) {
   const uint32_t start = uint32_t(desc & 0x3FFF) << 4;
+  const uint32_t lbo = uint32_t((desc >> 16) & 0x3FFF) << 4;
   const uint32_t sbo = uint32_t((desc >> 32) & 0x3FFF) << 4;
-  if (int(desc >> 62) != 1 || sbo != 1024) return NAN;   // the one form the kernels use
-  uint32_t addr = start + (row / 8) * sbo + (row % 8) * 128 + 2 * col;
-  addr ^= ((addr >> 7) & 7) << 4;
+  const int mode = int(desc >> 62);
+  if (mode == 1 && sbo == 1024) {
+    addr = start + (row / 8) * sbo + (row % 8) * 128 + byte;
+    addr ^= ((addr >> 7) & 7) << 4;
+    return true;
+  }
+  if (mode == 0 && sbo == 128 && ((desc >> 49) & 7) == 0) {
+    addr = start + (row / 8) * sbo + (row % 8) * 16 + (byte / 16) * lbo + byte % 16;
+    return true;
+  }
+  return false;
+}
+inline float emu_tile(uint64_t desc, int row, int col) {   // bf16 element `col` of row `row`
+  uint32_t addr;
+  if (!emu_addr(desc, row, 2 * col, addr)) return NAN;
   uint16_t v;
-  memcpy(&v, smem + addr, 2);
+  memcpy(&v, reinterpret_cast<const unsigned char*>(cdfo_smem) + addr, 2);
   return __uint_as_float(uint32_t(v) << 16);
+}
+inline int emu_tile_s8(uint64_t desc, int row, int k) {   // s8 element k of row `row`
+  uint32_t addr;
+  if (!emu_addr(desc, row, k, addr)) return -128;
+  return int(reinterpret_cast<const int8_t*>(cdfo_smem)[addr]);
 }
 template <int N>
 void emu_wgmma(float (&d)[N / 8][4], const uint32_t* a, uint64_t a_desc, uint64_t desc,
@@ -382,6 +428,35 @@ template <int N> void emu_wgmma_ss(float (&d)[N / 8][4], uint64_t a_desc, uint64
 inline void wgmma_ss_64x80(float (&d)[10][4], uint64_t a, uint64_t b) { emu_wgmma_ss<80>(d, a, b); }
 inline void wgmma_ss_64x120(float (&d)[15][4], uint64_t a, uint64_t b) { emu_wgmma_ss<120>(d, a, b); }
 inline void wgmma_ss_64x136(float (&d)[17][4], uint64_t a, uint64_t b) { emu_wgmma_ss<136>(d, a, b); }
+inline void wgmma_ss_64x64(float (&d)[8][4], uint64_t a, uint64_t b) { emu_wgmma_ss<64>(d, a, b); }
+// wgmma m64nNk32 s8 -> s32: A from registers (warp w: rows 16w .. 16w+15 in
+// the m16n8k32 A-fragment layout) or a K-major tile; B a K-major tile
+template <int N>
+void emu_wgmma_s8(int (&d)[N / 8][4], const uint32_t* a, uint64_t a_desc, uint64_t desc) {
+  const int tid = threadIdx.x, wg = tid / 128, r = tid % 128;
+  if (a) memcpy(emu_wg_a[wg][r], a, 16);
+  emu_wg_bar[wg]->arrive_and_wait();
+  const int l = r % 32, g = l >> 2, t = l & 3, w = r / 32;
+  auto A = [&](int row, int k) {   // row of this warp's 16
+    if (!a) return emu_tile_s8(a_desc, 16 * w + row, k);
+    const uint32_t* lane_regs = emu_wg_a[wg][w * 32 + (row % 8) * 4 + (k % 16) / 4];
+    return int(int8_t((lane_regs[(row >= 8) + 2 * (k >= 16)] >> (8 * (k % 4))) & 0xffu));
+  };
+  for (int j = 0; j < N / 8; ++j)
+    for (int i = 0; i < 4; ++i) {
+      const int row = g + 8 * (i >= 2), col = 8 * j + 2 * t + (i & 1);
+      int sum = 0;
+      for (int k = 0; k < 32; ++k) sum += A(row, k) * emu_tile_s8(desc, col, k);
+      d[j][i] += sum;
+    }
+  emu_wg_bar[wg]->arrive_and_wait();
+}
+inline void wgmma_ss_s8_64x64(int (&d)[8][4], uint64_t a, uint64_t b) {
+  emu_wgmma_s8<64>(d, nullptr, a, b);
+}
+inline void wgmma_s8_64x32(int (&d)[4][4], const uint32_t (&a)[4], uint64_t b) {
+  emu_wgmma_s8<32>(d, a, 0, b);
+}
 
 """
 
@@ -417,17 +492,24 @@ def emulated(tmp_path_factory):
     return {kind: ctypes.CDLL(str(paths[k[3]])) for kind, k in table.items()}
 
 
-# NHWC shapes (the tail: 2 neighbours of one image) that span several
-# tiles of each kernel; the MDTA and MSA passes take (images or centres, H,
-# W) with 3 neighbours per centre: 2 x 2 MDTA tiles of 8 x 16 with ragged
-# edges, MSA tiles of 128 pixels ending inside a row. The int8 Block_: two
-# column strips of two serial steps each, the second ragged. eg1: two query tiles
-# and three key tiles a row, the last ragged, and an H-band that reaches
-# past both image edges; eg2: a last tile whose second window is outside
-SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 10, 12, 64),
+# NHWC shapes that span several tiles of each kernel; the MDTA and MSA
+# passes take (images or centres, H, W) with 3 neighbours per centre: 2 x 2
+# MDTA tiles of 8 x 16 with ragged edges, MSA tiles of 128 pixels ending
+# inside a row. The int8 Block_: two column strips of three serial steps
+# each, the second strip ragged, the first step's rows 40x brighter than
+# the later ones (``_case``). The tail: 3 neighbours of one image, three
+# 24-column strips (the last ragged) of two 8-row steps (the second
+# ragged), which the emulated card's 2 SMs split inside a strip. eg1: two
+# query tiles and three key tiles a row, the last ragged, and an H-band
+# that reaches past both image edges; eg2: a last tile whose second window
+# is outside
+SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 24, 12, 64),
           "body": (1, 10, 20, 64),
           "group": (1, 9, 35, 64),
-          "head": (2, 9, 5, 64), "tail": (1, 6, 18, 64)}
+          "head": (2, 9, 5, 64), "tail": (1, 12, 54, 64)}
+# the int8 Block_'s bright rows: the top step's own, out of every later
+# step's windows (their xm, z and y windows start at row 6 and below)
+BRIGHT_ROWS, BRIGHT = 6, 40.0
 EGLA_SHAPES = {"eg1": (2, 5, 140, 64), "eg2": (2, 8, 24, 64)}
 # the attention (bfloat16: its three routes): columns of a ragged H read in
 # place from NHWC (H <= 272: one warpgroup on wgmma, three 64-query tiles,
@@ -444,9 +526,14 @@ def _case(kind, dtype):
     g = torch.Generator().manual_seed(5)
     if kind == "body":
         return kc.body_args(dtype, g, SHAPES[kind], device="cpu")
+    if kind == "blockq":
+        x, *params = kc.trunk_args(kind, dtype, g, SHAPES[kind],
+                                   device="cpu")
+        x[:, :BRIGHT_ROWS] *= BRIGHT
+        return (x, *params)
     if kind in SHAPES:
-        return kc.trunk_args(kind, dtype, g, SHAPES[kind], nbr=2,
-                             device="cpu")
+        return kc.trunk_args(kind, dtype, g, SHAPES[kind],
+                             nbr=3 if kind == "tail" else 2, device="cpu")
     if kind in ATTENTION_SHAPES:
         return kc.attention_args(dtype, g, ATTENTION_SHAPES[kind],
                                  device="cpu")
@@ -494,6 +581,10 @@ def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
         module._kernel.cache_clear()
     assert wrapper.launches == before + 1
     kc.assert_outputs_close(out, ref, dtype, kind)
+    if kind == "blockq":
+        # the third step on its own scale: its lagged y scales come from the
+        # bright first step (the running max), not from the dim second one
+        kc.assert_outputs_close(out[:, 16:], ref[:, 16:], dtype, kind)
 
 
 def _unnormalised_rounding(q, v):

@@ -167,16 +167,20 @@ def test_tools_raise_without_a_card(monkeypatch, tool):
 
 
 def test_compare_block_loads_another_checkout():
-    """``tools/compare_block`` imports another checkout's ``Block_`` module
-    as a package of its own (here this checkout's): a module apart from the
-    port's, whose CPU route and weight packs are this checkout's."""
+    """``tools/compare_block`` imports another checkout's kernel modules
+    (``--kernel block|blockq|tail``) as a package of its own (here this
+    checkout's): modules apart from the port's, whose CPU route and weight
+    packs are this checkout's."""
     from cdfo_tpu_torch.ops import fused_block2 as fb
     from cdfo_tpu_torch.tools import compare_block
 
-    other = compare_block.other_block(pathlib.Path(__file__).resolve()
-                                      .parents[1])
-    assert other is not fb and other.__name__.startswith(
-        "cdfo_tpu_torch_other.")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    for module, *_ in compare_block.KERNELS.values():
+        name = module.__name__.split(".")[-1]
+        other = compare_block.other_module(root, name)
+        assert other is not module and other.__name__ == (
+            f"cdfo_tpu_torch_other.ops.{name}")
+    other = compare_block.other_module(root, "fused_block2")
     g = torch.Generator().manual_seed(3)
     x, *params = kc.trunk_args("block", torch.float32, g, (1, 6, 8, 64),
                                device="cpu")
