@@ -147,14 +147,6 @@ __device__ void mask_window_sw(bf16* buf, int h, int w, int y0, int x0, int rows
   }
 }
 
-template <int NT>
-__device__ __forceinline__ void zero1(float (&acc)[NT][4]) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
 block_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
@@ -197,7 +189,7 @@ block_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restr
   // element c of window pixel p (the wgmma route's swizzled rows)
   auto win = [&](T* buf, int p, int c) -> T* {
     if constexpr (G::TC) {
-      return buf + p * C + ((((c >> 3) ^ p) & 7) << 3) + (c & 7);
+      return swizzled(buf, p, c);
     } else {
       return buf + p * P + c;
     }
@@ -432,45 +424,11 @@ block_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restr
         if (js + G::RING < NSTAGES) load_stage(js + G::RING);
       }
     };
-    // a y window's conv1 outputs (an accumulator set of one warpgroup: its
-    // window positions q0 .. q0 + 8 NT - 1, chunk channels 16 wl + g and +8)
-    // as lrelu(acc + b1), zeroed outside the image, by transposing
-    // stmatrix stores: a position in a column x >= Wout goes to `trash`
+    // a y window's conv1 outputs (an accumulator set of one warpgroup)
+    // as lrelu(acc + b1), zeroed outside the image
     auto store_y = [&](auto& acc, const auto& job, float2 bias) {
-      constexpr int NT = std::extent<std::remove_reference_t<decltype(acc)>>::value;
-      const int t2 = 2 * (lane & 3);
-      const int q0w = job.q, win_w = job.in_w, out_w = job.out_w, rows = job.out_w;
-      const int y0 = job.y0, x0 = job.x0, hs = job.hs, ws = job.ws;
-      T* ybuf = job.y;
-      // q / win_w as a multiply (exact for q < 1024, win_w <= 20)
-      const int inv = (65536 + win_w - 1) / win_w;
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t r[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          if (j + u >= NT) continue;
-          float v[2][2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int q = q0w + 8 * (j + u) + t2 + e, oy = (q * inv) >> 16, ox = q - oy * win_w;
-            const bool in = ox < out_w && oy < rows && inside(y0 + oy, x0 + ox, hs, ws);
-            v[0][e] = in ? lrelu(acc[j + u][e] + bias.x) : 0.f;
-            v[1][e] = in ? lrelu(acc[j + u][2 + e] + bias.y) : 0.f;
-          }
-          r[2 * u] = pack_bf16x2(v[0][0], v[0][1]);
-          r[2 * u + 1] = pack_bf16x2(v[1][0], v[1][1]);
-        }
-        const int q = q0w + 8 * (j + ((lane >> 4) & 1)) + (lane & 7);
-        const int oy = (q * inv) >> 16, ox = q - oy * win_w;
-        const int c = 16 * wl + 8 * ((lane >> 3) & 1);
-        T* row = ox < out_w && oy < rows ? win(ybuf, oy * out_w + ox, c) : trash + c;
-        if (j + 1 < NT) {
-          stsm_x4_trans(row, r[0], r[1], r[2], r[3]);
-        } else {
-          stsm_x2_trans(row, r[0], r[1]);
-        }
-      }
+      store_lrelu_window(acc, job.q, job.in_w, job.out_w, job.y, job.y0, job.x0, job.hs, job.ws,
+                         bias, trash);
     };
     // the fold's and conv2's stages js (and js + 1 with `two`): every A
     // fragment loaded by ldmatrix first, then the products in one commit

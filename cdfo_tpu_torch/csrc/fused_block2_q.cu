@@ -22,13 +22,15 @@
 // wgmma reaches: through mma.sync int8 runs no faster per multiply-add
 // than bf16).
 //
-// bfloat16 (the main path): a walk down each strip on s8 wgmma
-// (`wgmma_tile.cuh`: wgmma_ss_s8_64x64, wgmma_s8_64x32, the swizzle-free
-// descriptor wgmma_desc_plain, the bulk-copy ring on mbarriers,
-// async_fence). The first design (one CTA of 8 warps walking an 8-pixel
-// column strip, mma.sync, conv2's and the fold's weights read as fragments
-// from L1/L2 by every warp, three block reductions a step) ran at 10.3x its
-// bound. What was measured (PERF.md, the int8 `Block_`'s redesign):
+// bfloat16 (the main path): a walk down each strip on s8 wgmma, after the
+// 0.5x branch on bf16 wgmma (from `wgmma_tile.cuh`: wgmma_ss_s8_64x64,
+// wgmma_s8_64x32 and the swizzle-free descriptor wgmma_desc_plain for the
+// walk; wgmma_ss_64x120, wgmma_ss_64x80, wgmma_64x64, the 128-byte swizzled
+// wgmma_desc and the transposing stmatrix stores for the 0.5x branch; for
+// both the bulk-copy ring on mbarriers and async_fence). The first design
+// (one CTA of 8 warps walking an 8-pixel column strip, mma.sync, conv2's
+// and the fold's weights read as fragments from L1/L2 by every warp, three
+// block reductions a step) ran at 10.3x its bound. What was measured (PERF.md, the int8 `Block_`'s redesign):
 // - Two passes, every step its own CTA: the lag makes the steps of a strip
 //   a chain only through two scalars (a step's y1 and y2 before
 //   quantization depend on x alone), so pass 1 computed every step's
@@ -51,23 +53,26 @@
 //   gives a lane 4 bytes of a pixel's 16-byte chunk). Neither the weight
 //   copies nor the fold's products were the limit (removing either left the
 //   fold's cycles within ~10%).
-// Per step, in two launches: the 0.5x branch (`half_branch_kernel`,
-// mma.sync in bf16 with the dequantised weights, no quantization in it)
-// first writes e = ku(conv2(y5) + b2) + bu per 8 x 8 tile of the 0.5x
-// image to device memory; the walk then runs per step the prologue (xq,
-// us), and per chunk of 64 mid channels conv1 at 2x and 1x, its quantizing
-// epilogue into the chunk's y windows, the chunk's fold and conv2 (int32
-// partial sums in shared memory); then the epilogue (kd, up2(e), x).
+// A call is two launches. The 0.5x branch (`half_branch_kernel`: no
+// quantization in it, bf16 wgmma with the dequantised conv1 and conv2
+// streamed through a bulk-copy ring, one CTA per 16 x 16 tile of the 0.5x
+// image) writes e = ku(conv2(y5) + b2) + bu to device memory (on an
+// H100, PERF.md: 0.51 ms of a 4.42 ms call as a launch on mma.sync with its
+// weights read as fragments from L1/L2, ~0.28 ms on wgmma). The walk then
+// runs per step the prologue (xq, us), and per chunk of 64 mid channels
+// conv1 at 2x and 1x, its quantizing epilogue into the chunk's y windows,
+// the chunk's fold and conv2 (int32 partial sums in shared memory); then
+// the epilogue (kd, up2(e), x).
 // conv1 runs in window coordinates with both operands in shared memory:
 // the int8 windows keep each pixel's 16-byte channel chunk in a plane of
 // its own, which the swizzle-free K-major descriptor reads as a tile from
 // any pixel (the 64-byte rows of 64 int8 channels fit neither
 // fused_block2.cu's 128-byte swizzle nor, without relying on how the
 // swizzle meets an unaligned start, the 64-byte one); pixels are A (m64),
-// the stage's 64 mid channels B. The fold and conv2 take A from the y windows by ldmatrix
-// into registers (the fold's stride 2 is no tile), B the stage's 32 output
-// channels of the warpgroup, a group of stages loading while the one
-// before it is in flight. Every int8 weight (per chunk conv1's 9 taps, the
+// the stage's 64 mid channels B. The fold and conv2 take A from the y
+// windows by ldmatrix into registers (the fold's stride 2 is no tile), B
+// the stage's 32 output channels of the warpgroup, a group of stages
+// loading while the one before it is in flight. Every int8 weight (per chunk conv1's 9 taps, the
 // fold's 16 and conv2's 9: 136 stages of 4 KB a step) streams through a
 // ring of 24 on mbarriers, packed once on the host (ops/fused_block2_q.py::
 // stage_weights_q). Both warpgroups take every wgmma on one code path.
@@ -77,8 +82,8 @@
 
 #include "wgmma_tile.cuh"
 
-// Phase marks (`phase_clocks.cuh`) of the bfloat16 route's second pass
-// (one CTA per step).
+// Phase marks (`phase_clocks.cuh`) of the bfloat16 walk, summed over its
+// steps (PHASE_STEP counts them).
 #include "phase_clocks.cuh"
 
 namespace {
@@ -623,11 +628,11 @@ struct QGeo {
 };
 
 // a 1x1 conv (64 -> 64) + bias over an n x n bfloat16 window (pitch
-// layout), two m-tiles per warp; each(v0, v1) sees every value once, in
-// fp32, before the store
-template <typename Keep, typename Each>
-__device__ void conv1x1_pitch(const bf16* in, int n, const Weights<bf16>& wt, const bf16* bias,
-                              bf16* dst, Keep&& keep, Each&& each) {
+// layout), two m-tiles per warp; keep(p): the pixel's value, else 0;
+// each(v0, v1) sees every value once, in fp32, before the store to dst(p, c)
+template <typename Dst, typename Keep, typename Each>
+__device__ void conv1x1_bf16(const bf16* in, int n, const Weights<bf16>& wt, const bf16* bias,
+                             Dst&& dst, Keep&& keep, Each&& each) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int np = n * n, mts = (np + 15) / 16;
   for (int mt = 2 * warp; mt < mts; mt += 2 * WARPS) {
@@ -645,7 +650,7 @@ __device__ void conv1x1_pitch(const bf16* in, int n, const Weights<bf16>& wt, co
         const bool k = keep(p);
         const float f0 = k ? __fadd_rn(v0, bb.x) : 0.f, f1 = k ? __fadd_rn(v1, bb.y) : 0.f;
         each(f0, f1);
-        store2(dst + p * PB + c, f0, f1);
+        store2(dst(p, c), f0, f1);
       });
     }
   }
@@ -653,26 +658,88 @@ __device__ void conv1x1_pitch(const bf16* in, int n, const Weights<bf16>& wt, co
 
 // The 0.5x branch, which no quantization touches: e = ku(conv2(y5) + b2)
 // + bu with y5 = lrelu(conv1 d + b1), d = kd down2(x) + bd, in bf16 with
-// the dequantised weights, one CTA per 8 x 8 tile of the 0.5x image, on
-// mma.sync (conv3x3_tile.cuh), into device memory for the second pass.
-constexpr int HT = 8, HD = HT + 4, HY = HT + 2;   // e tile; d [q0-2], y5 [q0-1] windows
-constexpr int HALF_BYTES = (2 * HD * HD + HY * HY) * PB * 2;
+// the dequantised conv1 and conv2, one CTA per HT x HT tile of the 0.5x
+// image, into device memory for the walk. A launch of its own: it needs
+// no scale, so its 540 CTAs (at 4 x 272 x 480) fill the card, where the
+// walk's strips run their steps in order. Both 3x3 convs on bf16 wgmma,
+// as fused_block2.cu runs its own, their weights (per chunk of 64 mid
+// channels conv1's 9 taps and conv2's 9, 8 KB each: ops/fused_block2_q.py::
+// stage_half_weights) streamed by bulk copies through a ring of HRING
+// stages on mbarriers, the last warp done with a stage refilling its slot:
+// - conv1 in window coordinates over the swizzled d window (HD wide):
+//   weights as A (m64: the chunk's mid channels), positions as B, the 400
+//   positions from the window's first 200 a warpgroup (N = 120 + 80, one
+//   code path); the positions past y5's 18 columns and rows (1.23x y5's
+//   324) are computed and dropped. The y5 stores are transposing stmatrix.
+// - conv2: warpgroup wg takes output pixels 128 wg .. 128 wg + 127 (two
+//   m64 tiles, A by ldmatrix from y5), the stage's 64 output channels as
+//   B; its sums stay in registers across the chunks.
+// The 1x1 convs kd and ku run on mma.sync (conv3x3_tile.cuh).
+constexpr int HT = 16, HD = HT + 4, HY = HT + 2;   // e tile; d [q0-2], y5 [q0-1] windows
+constexpr int HRING = 8;                           // stages in flight
+constexpr int HSPC = 18;                           // stages a chunk
+constexpr int HQ = 200;                            // conv1 positions a warpgroup
+struct HGeo {
+  static constexpr int RING = HRING * C * C * 2;
+  static constexpr int DS = HD * HD * C * 2, Y5 = HY * HY * C * 2, DM = HD * HD * PB * 2;
+  // 1024 bytes for the alignment; mbarriers and counts; a row that takes
+  // the stores of dropped positions
+  static constexpr int BYTES = 1024 + RING + DS + Y5 + DM + HRING * 12 + C * 2;
+  static_assert(RING % 1024 == 0 && DS % 1024 == 0, "ring and d 1024-byte aligned");
+  static_assert((HY - 1) * HD + HY <= 2 * HQ && 2 * HQ + 2 * HD + 2 <= HD * HD + HY * HY,
+                "conv1's positions cover y5, their reads stay in d and y5");
+  static_assert((RING + DS + Y5 + DM + HRING * 12) % 16 == 0, "16-byte aligned trash row");
+  static_assert(BYTES <= 232448, "one block's shared memory");
+};
 
-__global__ void __launch_bounds__(THREADS)
-half_branch_kernel(const bf16* __restrict__ x, const bf16* __restrict__ b1,
-                   const bf16* __restrict__ b2, const bf16* __restrict__ w1b,
-                   const bf16* __restrict__ w2b, const bf16* __restrict__ wdn,
-                   const bf16* __restrict__ bdn, const bf16* __restrict__ wup,
-                   const bf16* __restrict__ bup, bf16* __restrict__ e, int h, int wd) {
+__global__ void __launch_bounds__(THREADS, 1)
+half_branch_kernel(const bf16* __restrict__ x, const bf16* __restrict__ stages,
+                   const bf16* __restrict__ b1, const bf16* __restrict__ b2,
+                   const bf16* __restrict__ wdn, const bf16* __restrict__ bdn,
+                   const bf16* __restrict__ wup, const bf16* __restrict__ bup,
+                   bf16* __restrict__ e, int h, int wd) {
   extern __shared__ uint4 cdfo_smem[];
-  bf16* dm = reinterpret_cast<bf16*>(cdfo_smem);   // down2(x), then conv2(y5) + b2
-  bf16* ds = dm + HD * HD * PB;                     // d
-  bf16* y5 = ds + HD * HD * PB;                     // one 64-channel chunk of y5
+  unsigned char* base = reinterpret_cast<unsigned char*>(cdfo_smem);
+  base += (1024u - (shared_address(base) & 1023u)) & 1023u;
+  bf16* ring = reinterpret_cast<bf16*>(base);
+  bf16* ds = ring + HRING * C * C;   // d, swizzled
+  bf16* y5 = ds + HD * HD * C;       // one chunk of y5, swizzled
+  bf16* dm = y5 + HY * HY * C;       // down2(x) (pitch), then conv2(y5) + b2
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dm + HD * HD * PB);
+  unsigned* used = reinterpret_cast<unsigned*>(bars + HRING);
+  bf16* trash = reinterpret_cast<bf16*>(used + HRING);
   const int hh = h / 2, wh = wd / 2;
   const int q0 = blockIdx.y * HT, s0 = blockIdx.x * HT;
   const bf16* xb = x + static_cast<long long>(blockIdx.z) * h * wd * C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const Weights<bf16> wt1b{w1b, CM, C}, wt2b{w2b, C, CM};
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2, wl = warp & 3;
+  constexpr int NST = 4 * HSPC;
+
+  auto load_stage = [&](int js) {
+    const int slot = js % HRING;
+    mbar_expect_tx(bars + slot, C * C * 2);
+    bulk_copy(ring + slot * C * C, stages + static_cast<long long>(js) * C * C, C * C * 2,
+              bars + slot);
+  };
+  if (threadIdx.x == 0) {
+    for (int slot = 0; slot < HRING; ++slot) {
+      mbar_init(bars + slot, 1);
+      used[slot] = 0;
+    }
+    mbar_init_fence();
+    for (int js = 0; js < HRING; ++js) load_stage(js);
+  }
+  auto ready = [&](int js) {
+    mbar_wait(bars + js % HRING, (js / HRING) & 1);
+    return ring + (js % HRING) * C * C;
+  };
+  auto release = [&](int js) {
+    __syncwarp();
+    if (lane == 0 && atomicAdd(used + js % HRING, 1u) == WARPS - 1) {
+      used[js % HRING] = 0;
+      if (js + HRING < NST) load_stage(js + HRING);
+    }
+  };
+
   // dm = down2(x): 2x2 means of x, zero outside the 0.5x image
   for (int i = threadIdx.x; i < HD * HD * (C / 8); i += blockDim.x) {
     const int pix = i / (C / 8), c = 8 * (i % (C / 8));
@@ -691,50 +758,134 @@ half_branch_kernel(const bf16* __restrict__ x, const bf16* __restrict__ b1,
     store8(dm + pix * PB + c, v);
   }
   __syncthreads();
-  conv1x1_pitch(dm, HD, Weights<bf16>{wdn, C, C}, bdn, ds,
-                [&](int p) { return inside(q0 - 2 + p / HD, s0 - 2 + p % HD, hh, wh); },
-                [](float, float) {});
+  // d = kd dm + bd, zero outside the 0.5x image, into the swizzled window
+  conv1x1_bf16(
+      dm, HD, Weights<bf16>{wdn, C, C}, bdn, [&](int p, int c) { return swizzled(ds, p, c); },
+      [&](int p) { return inside(q0 - 2 + p / HD, s0 - 2 + p % HD, hh, wh); }, [](float, float) {});
+  async_fence();
   __syncthreads();
-  // conv2(y5) accumulates over the 4 chunks in registers: warp w takes
-  // m-tile w % 4 of the 8 x 8 output, channels 32 (w / 4) ..
-  const int mt2 = warp & 3, n2 = 32 * (warp >> 2);
-  float acc2[1][4][4];
-  zero(acc2);
+
+  // conv1's positions: this warpgroup's qa .. qa + 119 and qb .. qb + 79;
+  // conv2's A rows (ldmatrix): output pixel 128 wg + 64 m + 16 wl + row as
+  // a y5 pixel, and the 8-channel half of a k16 step
+  const int qa = HQ * wg, qb = qa + 120;
+  int apix[2];
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int p = 128 * wg + 64 * m + 16 * wl + (lane & 7) + 8 * ((lane >> 3) & 1);
+    apix[m] = (p / HT) * HY + p % HT;
+  }
+  const int akc = 8 * (lane >> 4);
+  float acc5[2][8][4];   // conv2's sums: this warpgroup's two m64 tiles
+#pragma unroll
+  for (int m = 0; m < 2; ++m) zero1(acc5[m]);
 #pragma unroll 1
   for (int ch = 0; ch < 4; ++ch) {
-    if (warp < (HY * HY + 15) / 16) {
-      const ATile<bf16> a[1] = {a_tile<1>(ds, HD, HY, HY * HY, warp, lane)};
-      float acc[1][8][4];
-      zero(acc);
-      conv_tiles<3, 3, 1, 8>(acc, a, wt1b, ch * C, 0, lane);
-      for_each_pair(acc[0], warp, 0, HY * HY, lane, [&](int p, int n, float v0, float v1) {
-        const bool in = inside(q0 - 1 + p / HY, s0 - 1 + p % HY, hh, wh);
-        const float2 bb = load2(b1 + ch * C + n);
-        store2(y5 + p * PB + n, in ? lrelu(v0 + bb.x) : 0.f, in ? lrelu(v1 + bb.y) : 0.f);
-      });
+    const int j0 = ch * HSPC;
+    {
+      float acc0[15][4], acc1[10][4];
+      zero1(acc0);
+      zero1(acc1);
+      keep(acc0);
+      keep(acc1);
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap) {
+        const int off = (tap / 3) * HD + tap % 3;
+        const uint64_t bd0 = wgmma_desc(ds + (qa + off) * C), bd1 = wgmma_desc(ds + (qb + off) * C);
+        const uint64_t ad = wgmma_desc(ready(j0 + tap));
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          wgmma_ss_64x120(acc0, ad + 2 * k, bd0 + 2 * k);
+          wgmma_ss_64x80(acc1, ad + 2 * k, bd1 + 2 * k);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+        if (tap > 0) release(j0 + tap - 1);
+      }
+      wgmma_wait<0>();
+      keep(acc0);
+      keep(acc1);
+      release(j0 + 8);
+      if (ch > 0) __syncthreads();   // the last chunk's conv2 has read y5
+      const float2 bias = make_float2(to_f(b1[ch * C + 16 * wl + (lane >> 2)]),
+                                      to_f(b1[ch * C + 16 * wl + (lane >> 2) + 8]));
+      store_lrelu_window(acc0, qa, HD, HY, y5, q0 - 1, s0 - 1, hh, wh, bias, trash);
+      store_lrelu_window(acc1, qb, HD, HY, y5, q0 - 1, s0 - 1, hh, wh, bias, trash);
     }
     __syncthreads();
-    const ATile<bf16> a[1] = {a_tile<1>(y5, HY, HT, HT * HT, mt2, lane)};
-    conv_tiles<3, 3, 1, 4>(acc2, a, wt2b, n2, ch * C, lane);
-    __syncthreads();
+    // conv2 over the chunk: stages j0 + 9 + tap, two at a time (the last
+    // alone), every A fragment loaded before the products issue
+    auto conv2 = [&](int tap0, auto two) {
+      constexpr int NS = decltype(two)::value ? 2 : 1;
+      uint32_t af[NS][2][C / 16][4];
+      uint64_t bd[NS];
+#pragma unroll
+      for (int st = 0; st < NS; ++st) {
+        const int tap = tap0 + st, off = (tap / 3) * HY + tap % 3;
+        bd[st] = wgmma_desc(ready(j0 + 9 + tap));
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int kt = 0; kt < C / 16; ++kt) {
+            ldsm_x4(af[st][m][kt], swizzled(y5, apix[m] + off, 16 * kt + akc));
+          }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int st = 0; st < NS; ++st)
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int kt = 0; kt < C / 16; ++kt) wgmma_64x64(acc5[m], af[st][m][kt], bd[st] + 2 * kt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(af);
+      keep(acc5);
+#pragma unroll
+      for (int st = 0; st < NS; ++st) release(j0 + 9 + tap0 + st);
+    };
+#pragma unroll 1
+    for (int tp = 0; tp < 8; tp += 2) conv2(tp, std::true_type{});
+    conv2(8, std::false_type{});
   }
+
+  // ss = conv2(y5) + b2, rounded, in dm's place (pitch layout); this lane:
+  // pixels 128 wg + 64 m + 16 wl + g and + 8, channels 8j + 2t and + 1
   bf16* ss = dm;
-  for_each_pair(acc2[0], mt2, n2, HT * HT, lane, [&](int p, int n, float v0, float v1) {
-    const float2 bb = load2(b2 + n);
-    store2(ss + p * PB + n, v0 + bb.x, v1 + bb.y);
-  });
+  const int g = lane >> 2, t2 = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 bb = load2(b2 + 8 * j + t2);
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        store2(ss + (128 * wg + 64 * m + 16 * wl + g + 8 * half) * PB + 8 * j + t2,
+               acc5[m][j][2 * half] + bb.x, acc5[m][j][2 * half + 1] + bb.y);
+      }
+  }
   __syncthreads();
-  const ATile<bf16> a[1] = {a_tile<1>(ss, HT, HT, HT * HT, mt2, lane)};
-  float acc[1][4][4];
-  zero(acc);
-  conv_tiles<1, 1, 1, 4>(acc, a, Weights<bf16>{wup, C, C}, n2, 0, lane);
-  bf16* eb = e + static_cast<long long>(blockIdx.z) * hh * wh * C;
-  for_each_pair(acc[0], mt2, n2, HT * HT, lane, [&](int p, int n, float v0, float v1) {
-    const int j = q0 + p / HT, k = s0 + p % HT;
-    if (j >= hh || k >= wh) return;
-    const float2 bb = load2(bup + n);
-    store2(eb + (static_cast<long long>(j) * wh + k) * C + n, v0 + bb.x, v1 + bb.y);
-  });
+  // e = ku ss + bu: warp w takes m-tiles 2w, 2w + 1 of the 16 x 16 tile
+  {
+    static_assert(HT * HT == 32 * WARPS, "two m-tiles a warp");
+    const int mt = 2 * warp;
+    const ATile<bf16> a[2] = {a_tile<1>(ss, HT, HT, HT * HT, mt, lane),
+                              a_tile<1>(ss, HT, HT, HT * HT, mt + 1, lane)};
+    float acc[2][8][4];
+    zero(acc);
+    conv_tiles<1, 1, 2, 8>(acc, a, Weights<bf16>{wup, C, C}, 0, 0, lane);
+    bf16* eb = e + static_cast<long long>(blockIdx.z) * hh * wh * C;
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      for_each_pair(acc[m], mt + m, 0, HT * HT, lane, [&](int p, int n, float v0, float v1) {
+        const int j = q0 + p / HT, k = s0 + p % HT;
+        if (j >= hh || k >= wh) return;
+        const float2 bb = load2(bup + n);
+        store2(eb + (static_cast<long long>(j) * wh + k) * C + n, v0 + bb.x, v1 + bb.y);
+      });
+    }
+  }
 }
 
 // round(f * inv), clamped to +-128 first (any value past +-127.5 clips
@@ -878,11 +1029,12 @@ block_q_walk(const bf16* __restrict__ x, const s8* __restrict__ stages,
     load_window(xs, xb, h, wd, r0 - 2, c0 - 2, X1, X1, true);
     __syncthreads();
     float st[4] = {0.f, 0.f, 0.f, 0.f};   // amax z, amax xm, sum z^2, sum xm^2
-    conv1x1_pitch(xs, X1, Weights<bf16>{wup, C, C}, bup, zs, [](int) { return true; },
-                  [&](float f0, float f1) {
-                    st[0] = fmaxf(st[0], fmaxf(fabsf(f0), fabsf(f1)));
-                    st[2] += f0 * f0 + f1 * f1;
-                  });
+    conv1x1_bf16(xs, X1, Weights<bf16>{wup, C, C}, bup,
+                 [&](int p, int c) { return zs + p * PB + c; }, [](int) { return true; },
+                 [&](float f0, float f1) {
+                   st[0] = fmaxf(st[0], fmaxf(fabsf(f0), fabsf(f1)));
+                   st[2] += f0 * f0 + f1 * f1;
+                 });
     for (int i = threadIdx.x; i < X1 * X1 * (C / 8); i += blockDim.x) {
       const int pix = i / (C / 8), c = 8 * (i % (C / 8));
       if (!inside(r0 - 2 + pix / X1, c0 - 2 + pix % X1, h, wd)) continue;
@@ -1257,6 +1409,7 @@ block_q_walk(const bf16* __restrict__ x, const s8* __restrict__ stages,
       run2 = fmaxf(run2, am[1]);
     }
     PHASE(5)
+    PHASE_STEP
   }
   PHASE_END
   if constexpr (COUNT) {
@@ -1286,33 +1439,26 @@ cudaError_t launch_f32(const void* const* p, void* out, float* counts, int batch
   return cudaGetLastError();
 }
 
-// parts: which launches run (1: the 0.5x branch, 2: the walk), so that
-// each can be timed alone; a call computes the block with both
+// the 0.5x branch into e, then the walk
 cudaError_t launch_bf16(const void* const* p, void* out, float* counts, bf16* e, int batch, int h,
-                        int wd, int parts, cudaStream_t stream) {
+                        int wd, cudaStream_t stream) {
   const auto t = [p](int i) { return static_cast<const bf16*>(p[i]); };
   const auto f = [p](int i) { return static_cast<const float*>(p[i]); };
   const s8* stages = static_cast<const s8*>(p[1]);
-  cudaError_t err = cudaSuccess;
-  if (parts & 1) {
-    err = allow_smem(half_branch_kernel, HALF_BYTES);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((wd / 2 + HT - 1) / HT, (h / 2 + HT - 1) / HT, batch);
-    CDFO_LAUNCH(half_branch_kernel, grid, HALF_BYTES, stream, t(0), t(3), t(6), t(9), t(10),
-                t(11), t(12), t(13), t(14), e, h, wd);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (parts & 2) {
-    auto walk = counts != nullptr ? block_q_walk<true> : block_q_walk<false>;
-    err = allow_smem(walk, QGeo::BYTES);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((wd + S - 1) / S, 1, batch);
-    CDFO_LAUNCH(walk, grid, QGeo::BYTES, stream, t(0), stages, f(2), t(3), f(5), t(6), f(8),
-                t(11), t(12), t(13), t(14), f(15), e, static_cast<bf16*>(out), counts, h, wd);
-    err = cudaGetLastError();
-  }
-  return err;
+  cudaError_t err = allow_smem(half_branch_kernel, HGeo::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 hgrid((wd / 2 + HT - 1) / HT, (h / 2 + HT - 1) / HT, batch);
+  CDFO_LAUNCH(half_branch_kernel, hgrid, HGeo::BYTES, stream, t(0), t(9), t(3), t(6), t(11),
+              t(12), t(13), t(14), e, h, wd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto walk = counts != nullptr ? block_q_walk<true> : block_q_walk<false>;
+  err = allow_smem(walk, QGeo::BYTES);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((wd + S - 1) / S, 1, batch);
+  CDFO_LAUNCH(walk, grid, QGeo::BYTES, stream, t(0), stages, f(2), t(3), f(5), t(6), f(8),
+              t(11), t(12), t(13), t(14), f(15), e, static_cast<bf16*>(out), counts, h, wd);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1323,23 +1469,24 @@ cudaError_t launch_bf16(const void* const* p, void* out, float* counts, bf16* e,
 // [9][8][8][32][8], wfq [16][8][8][32][8] (the folded down2 . conv2, tap
 // 4*ey + ex). Bfloat16: w1q holds the 136 weight stages of
 // ops/fused_block2_q.py::stage_weights_q (conv1, then the fold and conv2,
-// planes of 16-byte chunks) and w2q and wfq are NULL. Both: float32 scales
-// per output channel s1 [256], s2 [64], sf [64]; biases b1 [256], b2 [64]
-// and the dequantised conv1 / conv2 (w1b, w2b) and the 1x1 convs wdn + bdn
-// (down_0), wup + bup (up_0) of the working type in its Weights layout; bnd
+// planes of 16-byte chunks) and w2q and wfq are NULL; w1b holds the 72
+// stages of the dequantised conv1 and conv2 of ops/fused_block2_q.py::
+// stage_half_weights and w2b is NULL (float32: w1b, w2b in the Weights
+// layout). Both: float32 scales per output channel s1 [256], s2 [64], sf
+// [64]; biases b1 [256], b2 [64] and the 1x1 convs wdn + bdn (down_0),
+// wup + bup (up_0) of the working type in its Weights layout; bnd
 // float32 [3]: max row sum of |W1|, max |b1|, max row 2-norm of W1.
 // counts: null, or float32 [batch * ceil(wd / 8)][2], zeroed, that
 // receives each strip's clipped y1 and y2 values. Bfloat16 only (else
 // NULL): e, the 0.5x branch's output, workspace of [batch][h / 2][wd / 2]
-// [64] bfloat16; parts: see launch_bf16 (3 for a whole call). All device
-// pointers. Returns a cudaError_t.
+// [64] bfloat16. All device pointers. Returns a cudaError_t.
 extern "C" int cdfo_fused_block2_q(const void* x, const void* w1q, const void* s1, const void* b1,
                                    const void* w2q, const void* s2, const void* b2,
                                    const void* wfq, const void* sf, const void* w1b,
                                    const void* w2b, const void* wdn, const void* bdn,
                                    const void* wup, const void* bup, const void* bnd, void* out,
                                    void* counts, void* e, int is_bf16, int batch, int h, int wd,
-                                   int parts, void* stream) {
+                                   void* stream) {
   if (batch <= 0 || batch > 65535 || h <= 0 || wd <= 0 || h % 2 != 0 || wd % 2 != 0) {
     return cudaErrorInvalidValue;
   }
@@ -1348,7 +1495,7 @@ extern "C" int cdfo_fused_block2_q(const void* x, const void* w1q, const void* s
   float* cnt = static_cast<float*>(counts);
   if (is_bf16) {
     if (e == nullptr) return cudaErrorInvalidValue;
-    return launch_bf16(p, out, cnt, static_cast<bf16*>(e), batch, h, wd, parts, s);
+    return launch_bf16(p, out, cnt, static_cast<bf16*>(e), batch, h, wd, s);
   }
   return launch_f32<float>(p, out, cnt, batch, h, wd, s);
 }

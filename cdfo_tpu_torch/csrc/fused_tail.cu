@@ -407,6 +407,7 @@ tail_wgmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ center,
     }
     __syncthreads();
     PHASE(5)
+    PHASE_STEP
   };
 
 #pragma unroll 1

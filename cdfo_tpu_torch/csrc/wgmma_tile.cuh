@@ -1,8 +1,8 @@
 // Hopper's warpgroup products and bulk copies, for the bfloat16 routes of
 // fused_block2.cu (weights staged through shared memory), fused_attention.cu
 // (the token resident), fused_tail.cu (the four convs) and fused_block2_q.cu
-// (its s8 products). Only those include this header; conv3x3_tile.cuh is
-// unchanged for the rest.
+// (its s8 products and its 0.5x branch's bf16 convs). Only those include
+// this header; conv3x3_tile.cuh is unchanged for the rest.
 //
 // The wgmma forms used: m64nNk16, bf16 x bf16 -> fp32, A from registers (or,
 // wgmma_ss_*, a K-major tile in shared memory like B) and B from shared
@@ -359,6 +359,64 @@ __device__ __forceinline__ uint64_t wgmma_desc_plain(const void* tile, uint32_t 
                                                      uint32_t stride) {
   return static_cast<uint64_t>((shared_address(tile) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lead >> 4) << 16) | (static_cast<uint64_t>(stride >> 4) << 32);
+}
+
+template <int NT>
+__device__ __forceinline__ void zero1(float (&acc)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+}
+
+// element c of pixel p of a window of 128-byte pixel rows (64 bf16
+// channels), 128-byte swizzled: its 16-byte chunk c / 8 at chunk
+// (c / 8) ^ (p % 8)
+__device__ __forceinline__ bf16* swizzled(bf16* buf, int p, int c) {
+  return buf + p * C + ((((c >> 3) ^ p) & 7) << 3) + (c & 7);
+}
+
+// The outputs of a conv computed in window coordinates with the weights as
+// A (this lane: channels 16 w + g and + 8 of the 64, w the warp of the
+// warpgroup) and positions q0 .. q0 + 8 NT - 1 of an input window in_w
+// wide as B, as lrelu(acc + bias) rounded to bf16, into the swizzled y
+// window (out_w x out_w, image origin (y0, x0) of an hs x ws image, zeroed
+// outside it), by transposing stmatrix stores; a position in a column or
+// row past out_w goes to `trash`, a 128-byte row.
+template <int NT>
+__device__ void store_lrelu_window(const float (&acc)[NT][4], int q0, int in_w, int out_w,
+                                   bf16* y, int y0, int x0, int hs, int ws, float2 bias,
+                                   bf16* trash) {
+  const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3, t2 = 2 * (lane & 3);
+  // q / in_w as a multiply (exact for q < 1024, in_w <= 20)
+  const int inv = (65536 + in_w - 1) / in_w;
+#pragma unroll
+  for (int j = 0; j < NT; j += 2) {
+    uint32_t r[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      if (j + u >= NT) continue;
+      float v[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int q = q0 + 8 * (j + u) + t2 + e, oy = (q * inv) >> 16, ox = q - oy * in_w;
+        const bool in = ox < out_w && oy < out_w && inside(y0 + oy, x0 + ox, hs, ws);
+        v[0][e] = in ? lrelu(acc[j + u][e] + bias.x) : 0.f;
+        v[1][e] = in ? lrelu(acc[j + u][2 + e] + bias.y) : 0.f;
+      }
+      r[2 * u] = pack_bf16x2(v[0][0], v[0][1]);
+      r[2 * u + 1] = pack_bf16x2(v[1][0], v[1][1]);
+    }
+    const int q = q0 + 8 * (j + ((lane >> 4) & 1)) + (lane & 7);
+    const int oy = (q * inv) >> 16, ox = q - oy * in_w;
+    const int c = 16 * wl + 8 * ((lane >> 3) & 1);
+    bf16* row = ox < out_w && oy < out_w ? swizzled(y, oy * out_w + ox, c) : trash + c;
+    if (j + 1 < NT) {
+      stsm_x4_trans(row, r[0], r[1], r[2], r[3]);
+    } else {
+      stsm_x2_trans(row, r[0], r[1]);
+    }
+  }
 }
 
 }  // namespace cdfo

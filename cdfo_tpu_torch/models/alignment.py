@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.cuda_build import cached_pack
 from ..ops.fused_align import msa_stage1, msa_stage2
 from ..ops.fused_mdta import attention_matrix
 from ..ops.fused_tail import pack_tail_weights, resblock_pair
@@ -72,29 +73,14 @@ class DualAttAlignment(nn.Module):
                 rb1.conv2.bias, rb2.conv1.weight, rb2.conv1.bias,
                 rb2.conv2.weight, rb2.conv2.bias)
 
-    def _tail_packed(self, x, params):
-        """The kernel's packed tail weights for x's dtype, kept until a
-        parameter changes (the rule of ``trunk_fast._BlockFast._packed``);
-        None on the CPU, where the plain version runs."""
-        if x.device.type != "cuda":
-            return None
-        ws, bs = params[0::2], params[1::2]
-        if any(p.is_inference() for p in params):
-            # parameters made under inference_mode keep no version counter,
-            # so nothing tells a cached pack from a stale one
-            return pack_tail_weights(ws, bs, x.dtype)
-        key = (x.dtype,) + tuple((p.data_ptr(), p._version) for p in params)
-        if getattr(self, "_tail_key", None) != key:
-            self._tail_pack = pack_tail_weights(ws, bs, x.dtype)
-            self._tail_key = key
-        return self._tail_pack
-
     def _tail(self, out, center, gate):
         """RB2(RB1(gate * out)) + center[b // nbr], one kernel call."""
         params = self._tail_params()
         return resblock_pair(
             out.contiguous(), center.contiguous(), gate.contiguous(),
-            *params, packed=self._tail_packed(out, params))
+            *params, packed=cached_pack(
+                self, "_tail_pack", out, params,
+                lambda dt: pack_tail_weights(params[0::2], params[1::2], dt)))
 
     def fused_msa(self, warped, pred, center):
         """The aligned features of ``forward`` with ``center`` given, by the

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.cuda_build import cached_pack
 from ..ops.fused_block2 import pack_weights, scale_block
 from ..ops.fused_block2_q import pack_weights_q, scale_block_q
 from ..ops.fused_groupconv import grouptail
@@ -47,19 +48,9 @@ class _BlockFast(BlockS):
                 self.up[0].weight, self.up[0].bias)
 
     def _packed(self, x, params):
-        if x.device.type != "cuda":
-            return None
         pack = pack_weights_q if self.use_int8 else pack_weights
-        if any(p.is_inference() for p in params):
-            # parameters made under inference_mode keep no version counter,
-            # so nothing tells a cached pack from a stale one
-            return pack(*params, x.dtype)
-        key = (x.dtype, self.use_int8) + tuple((p.data_ptr(), p._version)
-                                               for p in params)
-        if getattr(self, "_pack_key", None) != key:
-            self._pack = pack(*params, x.dtype)
-            self._pack_key = key
-        return self._pack
+        return cached_pack(self, "_pack", x, params,
+                           lambda dt: pack(*params, dt), self.use_int8)
 
     def forward(self, x):
         params = self._params()

@@ -148,6 +148,25 @@ def forbid_grad(what: str, *tensors: torch.Tensor) -> None:
             " call it under torch.no_grad() or torch.inference_mode()")
 
 
+def cached_pack(owner, attr: str, x: torch.Tensor, params, pack, *tag):
+    """``pack(x.dtype)``, a module's packed kernel weights, kept on
+    ``owner`` as ``attr`` until one of ``params`` changes (new storage or
+    an in-place update: keyed on their ``data_ptr`` and ``_version``, with
+    x's dtype and ``tag``); None on the CPU, where the plain version runs.
+    Parameters made under ``torch.inference_mode`` keep no version counter,
+    so nothing tells a kept pack from a stale one: those are packed at
+    every call."""
+    if x.device.type != "cuda":
+        return None
+    if any(p.is_inference() for p in params):
+        return pack(x.dtype)
+    key = (x.dtype, *tag) + tuple((p.data_ptr(), p._version) for p in params)
+    if getattr(owner, attr + "_key", None) != key:
+        setattr(owner, attr, pack(x.dtype))
+        setattr(owner, attr + "_key", key)
+    return getattr(owner, attr)
+
+
 def on_card(t: torch.Tensor, what: str) -> bool:
     """True: launch the kernel (CUDA tensor). False: CPU tensor, plain
     version. Any other device raises."""

@@ -45,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build as cb
-from .fused_block2 import CHANNELS, fold_down_conv2, pointers
+from .fused_block2 import CHANNELS, fold_down_conv2, pointers, swizzle128
 from .resize import interpolate_bilinear
 
 # headroom on the lagged y1/y2 scales: modest growth from one step to the
@@ -335,6 +335,20 @@ def stage_weights_q(w1q, w2q, wfq) -> torch.Tensor:
         .contiguous()
 
 
+def stage_half_weights(w1b, w2b) -> torch.Tensor:
+    """The dequantised conv1 and conv2 (bfloat16, torch layout) as the
+    bfloat16 kernel's 0.5x branch streams them: (4 chunks, 18 stages, 64,
+    64), per chunk of 64 mid channels conv1's 9 taps (A[m][k]: mid channel
+    64 ch + m, input channel k) and conv2's 9 (B[n][k]: output channel n,
+    mid channel 64 ch + k), 128-byte swizzled: ``fused_block2.stage_weights``
+    without the fold."""
+    c = w2b.shape[0]
+    conv1 = w1b.permute(2, 3, 0, 1).reshape(9, 4, c, c)
+    conv2 = w2b.permute(2, 3, 0, 1).reshape(9, c, 4, c).permute(0, 2, 1, 3)
+    return swizzle128(torch.cat([conv1, conv2]).transpose(0, 1)
+                      .contiguous())
+
+
 def pack_weights_q(w1, b1, w2, b2, wd, bd, wu, bu, dtype):
     """The kernel's operands after x, in its argument order: int8 conv1,
     conv2 and folded conv2 with their float32 scales, the biases, the
@@ -342,7 +356,9 @@ def pack_weights_q(w1, b1, w2, b2, wd, bd, wu, bu, dtype):
     ``cuda_build.kernel_weights``' layout, and the float32 step-0 bounds.
     The int8 weights: in float32 each in fragment order
     (``kernel_weights_s8``); in bfloat16 all three as ``stage_weights_q``
-    in conv1's place, None in the others'. Callers cache it."""
+    in conv1's place, None in the others', and the dequantised conv1 and
+    conv2 as ``stage_half_weights`` in w1b's place, None in w2b's. Callers
+    cache it."""
     w1q, s1, w2q, s2, wfq, sf, bnd, w1b, w2b = quantize_block(w1, b1, w2,
                                                               dtype)
 
@@ -351,23 +367,20 @@ def pack_weights_q(w1, b1, w2, b2, wd, bd, wu, bu, dtype):
 
     if dtype == torch.bfloat16:
         q1, q2, qf = stage_weights_q(w1q, w2q, wfq), None, None
+        h1, h2 = stage_half_weights(w1b, w2b), None
     else:
         q1, q2, qf = (kernel_weights_s8(w1q), kernel_weights_s8(w2q),
                       kernel_weights_s8(wfq))
+        h1, h2 = kw(w1b), kw(w2b)
     return (q1, s1.contiguous(), b1.to(dtype), q2, s2.contiguous(),
-            b2.to(dtype), qf, sf.contiguous(), kw(w1b), kw(w2b), kw(wd),
+            b2.to(dtype), qf, sf.contiguous(), h1, h2, kw(wd),
             bd.to(dtype), kw(wu), bu.to(dtype), bnd.contiguous())
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return cb.kernel_function("fused_block2_q", "cdfo_fused_block2_q",
-                              [_P] * 19 + [_I] * 5 + [_P])
-
-
-# the launches of a bfloat16 call: the 0.5x branch (1), the walk down the
-# strips (2); ``chip_smoke.py --phases`` times them one by one
-ALL_PARTS = 3
+                              [_P] * 19 + [_I] * 4 + [_P])
 
 
 def scale_block_q(x, w1, b1, w2, b2, wd, bd, wu, bu, packed=None,
@@ -410,7 +423,7 @@ def scale_block_q(x, w1, b1, w2, b2, wd, bd, wu, bu, packed=None,
          if x.dtype == torch.bfloat16 else None)   # the 0.5x branch's output
     cb.launch(_kernel(), "fused_block2_q", x.device, x.data_ptr(),
               *pointers(packed), out.data_ptr(), *pointers((counts, e)),
-              cb.DTYPE_CODES[x.dtype], bsz, h, wdt, ALL_PARTS)
+              cb.DTYPE_CODES[x.dtype], bsz, h, wdt)
     scale_block_q.launches += 1
     if clip_counts:
         return out, counts.double().sum(dim=0)

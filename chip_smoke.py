@@ -116,9 +116,10 @@ to the four (``--profile trunk_int8 block_warp``).
 
 builds the int8 ``Block_``, the exact one and the alignment tail with their
 phase clocks compiled in and prints, at the main shape in bfloat16, the
-cycles a CTA spends in each phase, averaged over the launch's CTAs (the
-int8 kernel's second pass; the tail's per step of its walk), and the int8
-``Block_``'s three launches (0.5x branch, pass 1, pass 2) timed one by one.
+cycles spent in each phase: per step for the walks (the int8 kernel's walk
+down its strips, the tail's), as the kernels count their steps, and per CTA
+for the exact ``Block_``. The int8 ``Block_``'s other launch, its 0.5x
+branch, has no marks: ``--profile`` gives its device time.
 """
 from __future__ import annotations
 
@@ -1124,8 +1125,6 @@ INT8_PHASES = ("prologue: x window, z, amaxes, lagged scales, xq and us",
                "epilogue: fold + b2, kd, up2(e), output",
                "the step's amax reduction",
                "waits at the chunks' two barriers")
-# the bf16 route's launches (fused_block2_q.ALL_PARTS bits)
-INT8_PARTS = {1: "0.5x branch", 2: "walk"}
 # the PHASE marks of csrc/fused_tail.cu's bf16 walk, per step, in order
 TAIL_PHASES = ("xm = x * gate (and a warm-up's zeroed windows)",
                "y1 = relu(conv11 xm)", "r1 = xm + conv12 y1",
@@ -1138,15 +1137,15 @@ EXACT_PHASES = ("prologue", "conv1 and the y stores (4 chunks)",
 
 @torch.no_grad()
 def phase_clocks(card: str, label: str, source: str, symbol: str, nargs: int,
-                 args, res, check, names, steps: int = 1):
+                 args, res, check, names):
     """``--phases``: compiles ``csrc/<source>.cu`` once more with
     ``-DCDFO_PHASE_CLOCKS``, launches ``symbol(*args, stream)`` (``nargs``
     pointers, then ints, as ``args`` gives them; ``res`` its output, which
     ``check(res)`` holds against the plain version), and prints the cycles
     thread 0 of a CTA spends between the kernel's phase marks
-    (``csrc/phase_clocks.cuh``), averaged over every CTA of the launch and
-    over ``steps`` steps of a CTA (a warp's own view: its waits at
-    barriers count where it waits)."""
+    (``csrc/phase_clocks.cuh``), averaged over the steps the launch's CTAs
+    ran, as the kernel counts them, or over its CTAs where it counts none
+    (a warp's own view: its waits at barriers count where it waits)."""
     out = cuda_build.BUILD_DIR / f"{source}-phase-clocks.so"
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
@@ -1172,62 +1171,35 @@ def phase_clocks(card: str, label: str, source: str, symbol: str, nargs: int,
     torch.cuda.synchronize()
     if lib.cdfo_phase_clocks_read(clocks) != 0 or clocks[15] == 0:
         raise RuntimeError("could not read the phase clocks")
-    per = clocks[15] * steps
+    steps, ctas = clocks[14], clocks[15]
+    per = steps or ctas
     total = sum(clocks[:len(names)])
     print(f"{label} with phase clocks bf16: {ms:.3f} ms a call; cycles per "
-          f"{'step of a CTA' if steps != 1 else 'CTA'}, averaged over "
-          f"{clocks[15]} CTAs{f' x {steps:.2f} steps' if steps != 1 else ''} "
+          f"{'step' if steps else 'CTA'}, averaged over "
+          f"{f'{steps} steps of ' if steps else ''}{ctas} CTAs "
           f"({total / per:.0f} in all) [{card}]", flush=True)
     for name, c in zip(names, clocks):
         print(f"  {c / per:9.0f} {100 * c / total:5.1f}%  {name}", flush=True)
 
 
-def tail_steps_per_cta(batch: int, h: int, w: int) -> float:
-    """The steps a CTA of the bf16 tail's walk runs on average, its
-    warm-ups included (csrc/fused_tail.cu: 24-column strips, 8-row steps,
-    one CTA per SM)."""
-    steps, strips = -(-h // 8), -(-w // 24)
-    total = batch * strips * steps
-    ctas = min(total, torch.cuda.get_device_properties(0).multi_processor_count)
-    run = 0
-    for b in range(ctas):
-        g0, g1 = b * total // ctas, (b + 1) * total // ctas
-        run += g1 - g0 + (1 + (g1 - 1) // steps - g0 // steps if g1 > g0 else 0)
-    return run / ctas
-
-
 def run_phase_clocks(card: str):
     """``--phases`` for the int8 ``Block_``, the exact one and the
     alignment tail at the main shape in bfloat16, their weights packed
-    once; the int8 ``Block_``'s three launches also timed one by one."""
+    once."""
     g = torch.Generator(device="cuda").manual_seed(4)
     x, *params = kc.trunk_args("blockq", torch.bfloat16, g, TRUNK_MAIN)
     packed = fq.pack_weights_q(*params, torch.bfloat16)
     res = torch.empty_like(x)
     b, h, w, c = x.shape
     e = torch.empty(b, h // 2, w // 2, c, dtype=x.dtype, device="cuda")
-    qargs = [x.data_ptr(), *fb.pointers(packed), res.data_ptr(), None,
-             e.data_ptr(), 1, b, h, w]
     phase_clocks(
         card, f"int8 Block_ {tuple(x.shape)} (the walk)", "fused_block2_q",
-        "cdfo_fused_block2_q", 19, qargs + [fq.ALL_PARTS], res,
+        "cdfo_fused_block2_q", 19,
+        [x.data_ptr(), *fb.pointers(packed), res.data_ptr(), None,
+         e.data_ptr(), 1, b, h, w], res,
         lambda r: kc.assert_outputs_close(
             r, fq.scale_block_q_plain(x, *params), torch.bfloat16, "blockq"),
-        INT8_PHASES, steps=-(-h // fq.KERNEL_GEOMETRY.rows))
-    kernel, _ = fq._kernel()
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def part(bit):
-        err = kernel(*qargs, bit, stream)
-        if err != 0:
-            raise RuntimeError(f"int8 Block_ launch {bit} failed: CUDA error "
-                               f"{err}")
-
-    parts = {name: median_ms(lambda bit=bit: part(bit))
-             for bit, name in INT8_PARTS.items()}
-    print(f"int8 Block_ {tuple(x.shape)} bf16, each launch alone: "
-          + ", ".join(f"{n} {t:.3f} ms" for n, t in parts.items())
-          + f" [{card}]", flush=True)
+        INT8_PHASES)
     g = torch.Generator(device="cuda").manual_seed(1)
     x, *params = kc.trunk_args("block", torch.bfloat16, g, TRUNK_MAIN)
     packed = fb.pack_weights(*params, torch.bfloat16)
@@ -1252,7 +1224,7 @@ def run_phase_clocks(card: str):
          res.data_ptr(), 1, b, h, w, b // args[1].shape[0]], res,
         lambda r: kc.assert_outputs_close(
             r, ft.resblock_pair_plain(*args), torch.bfloat16, "tail"),
-        TAIL_PHASES, steps=tail_steps_per_cta(b, h, w))
+        TAIL_PHASES)
 
 
 def redesign_order(card: str, fields: dict, launches: dict) -> None:

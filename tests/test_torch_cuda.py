@@ -399,8 +399,9 @@ def test_fused_egla_launches_and_matches_unfused(cuda):
                                    (1, 10, 6, 64), (1, 72, 16, 64),
                                    (1, 8, 8, 64), (3, 26, 42, 64)])
 def test_int8_block_matches_plain(cuda, shape, dtype):
-    """One to nine serial steps per strip (one step: no first pass),
-    ragged rows and columns, an odd strip count over several images; the
+    """One to nine serial steps per strip, ragged rows and columns (of the
+    walk's strips and steps, and of the 0.5x branch's 16 x 16 tiles: one
+    to three tiles a side), an odd strip count over several images; the
     clipped values are counted alike."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False

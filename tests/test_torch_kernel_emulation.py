@@ -694,3 +694,17 @@ def test_block_stage_weights_layout():
         for i in (0, 5, 8):
             ref = w2[:, 64 * ch:64 * ch + 64, i // 3, i % 3]
             assert torch.equal(at[ch, 25 + i], ref.bfloat16())
+
+
+def test_int8_half_branch_stage_layout():
+    """The int8 Block_'s 0.5x branch streams the exact Block_'s conv1 and
+    conv2 stages of its dequantised weights, per chunk in that order, and
+    no fold."""
+    g = torch.Generator().manual_seed(8)
+    w1 = torch.randn(256, 64, 3, 3, generator=g).bfloat16()
+    w2 = torch.randn(64, 256, 3, 3, generator=g).bfloat16()
+    st = fq.stage_half_weights(w1, w2)
+    assert st.shape == (4, 18, 64, 64) and st.dtype == torch.bfloat16
+    assert st.is_contiguous()
+    exact = fb.stage_weights(w1, w2)
+    assert torch.equal(st, torch.cat([exact[:, :9], exact[:, 25:]], dim=1))
