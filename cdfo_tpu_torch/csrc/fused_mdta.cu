@@ -13,24 +13,61 @@
 // (~50 KFLOP) against 256 B of x in and v out in bf16 (~190 FLOP/B) and
 // stage 2 2x64x64 + 64x64x9 MACs (~90 KFLOP) against 512 B (x, v, x2 in,
 // out), both under the card's ~295 FLOP/B bf16 balance point, so on paper
-// memory-bound; the eager round writes and re-reads ~15 full-resolution
-// tensors (LN, qkv, depthwise, the head split, attention, projection, LN2,
-// the conv and its skips). Each stage here reads its inputs once (plus a
-// one-pixel halo) and writes its outputs once; qkv, LN2(t) and t never
-// leave shared memory.
+// memory-bound (stage 1: 0.040 ms at (4, 272, 480, 64)); the eager round
+// writes and re-reads ~15 full-resolution tensors (LN, qkv, depthwise, the
+// head split, attention, projection, LN2, the conv and its skips). Each
+// stage here reads its inputs once (plus a halo) and writes its outputs
+// once; qkv, LN2(t) and t never leave the SM. Rounding follows the TPU
+// kernels: LN1(x), qkv, q, k, v, A v, t (for the residual) and LN2(t) to
+// the working type, everything else in fp32. Stage 1's statistics need
+// every pixel: each block keeps its gram sums in registers and writes one
+// partial, and a second launch adds the partials in a fixed order
+// (gram_tile.cuh), so a result repeats bit for bit.
 //
-// Design: one CTA of 8 warps per TH x TW output tile with a one-pixel halo
-// window in shared memory. The 1x1 convolutions run as implicit GEMMs over
-// the window on conv3x3_tile.cuh's tile routine (bf16 mma.sync, fp32
-// CUDA-core twin); the depthwise 3x3 and the LayerNorms in fp32 on the
-// CUDA cores, one pixel per thread. Stage 1's statistics need every pixel:
-// a block walks every `parts`-th tile of its image, keeps its gram sums in
-// registers (gram_tile.cuh) and writes one partial; a second launch adds
-// the partials in a fixed order. Rounding follows the TPU kernels: LN1(x),
-// qkv, q, k, v, A v, t (for the residual) and LN2(t) to the working type,
-// everything else in fp32.
+// Stage 1 in bfloat16 (the main path) is a walk on wgmma (`wgmma_tile.cuh`).
+// The first design (one 8 x 16 tile at a time, six barrier phases in
+// series, LN1 one pixel a thread over 180 of 256 threads at an 8-way bank
+// conflict, qkv on mma.sync over the 10 x 18 halo window, 1.41x the
+// interior) ran at 24x its bound. Now:
+// - A persistent walk down column strips. A strip is 62 output columns, so
+//   a window row with its halo is 64 pixels, one m64 tile. Each block
+//   walks a contiguous run of rows of one image (sms / batch blocks an
+//   image, so one block an SM), one window row a step: LN1 of the new x
+//   row (8 lanes a pixel, 16-byte chunks, shuffle sums), its qkv on wgmma
+//   (each warpgroup m64n96, W_qkv resident) rounded into a ring of three
+//   qkv rows (float32 values, so the depthwise reads them without
+//   unpacking), then the depthwise 3x3 of the output row between them.
+//   The vertical halo is computed once per walk (two rows), the horizontal
+//   one 64 / 62.
+// - The depthwise is the bulk of a step (36 fp32 FMAs a pixel and channel
+//   quadruple). Read tap by tap from shared memory it cost ~14k
+//   wavefronts a step; each thread instead keeps its four channels' taps
+//   in registers and slides along a run of ~12 pixels, reading one new
+//   window column (3 x 16 bytes) a pixel.
+// - The grams on wgmma with the pixels as K: the output row's q and k go
+//   to two 128-byte swizzled tiles (zero on the halo and outside the
+//   image), read MN-major as A (q or k, one per warpgroup: a select, one
+//   code path) and B ([k | q], two 64-column blocks): warpgroup 0 sums q^T
+//   k and q^T q, warpgroup 1 k^T k (and k^T q, dropped). The accumulators
+//   stay in registers for the whole walk; the products of a row run in
+//   the wgmma group of the next row's qkv.
+// - The next x row arrives by cp.async during the step.
+// Stage 2, and stage 1 in float32 (the twin for the float32 checks), keep
+// the first design: one CTA of 8 warps per TH x TW output tile with a
+// one-pixel halo window in shared memory, the 1x1 convolutions as implicit
+// GEMMs over the window on conv3x3_tile.cuh's tile routine (bf16 mma.sync,
+// fp32 CUDA-core twin), the depthwise 3x3 and the LayerNorms in fp32 on the
+// CUDA cores, one pixel per thread; stage 1's float32 blocks walk every
+// `parts`-th tile of their image.
 
 #include "gram_tile.cuh"
+#include "wgmma_tile.cuh"
+
+// Phase marks (`phase_clocks.cuh`) of stage 1's bf16 walk, summed over a
+// CTA's steps: the wait for x's row at the step's barrier, LN1, the
+// products (qkv and the last row's grams) with the ring stores, the
+// depthwise with the q, k and v stores, the fence and barrier after LN1.
+#include "phase_clocks.cuh"
 
 namespace {
 
@@ -44,7 +81,6 @@ constexpr int C3 = 3 * C;
 // qkv: 192 channels plus padding per window pixel
 template <typename T> struct QkvPitch;
 template <> struct QkvPitch<float> { static constexpr int value = 196; };
-template <> struct QkvPitch<bf16> { static constexpr int value = 200; };
 
 __device__ __forceinline__ float round_to(float x, float) { return x; }
 __device__ __forceinline__ float round_to(float x, bf16) {
@@ -226,19 +262,317 @@ mdta2_kernel(const T* __restrict__ x, const T* __restrict__ v, const T* __restri
   });
 }
 
+// ---- stage 1, bfloat16: the walk on wgmma ----------------------------------
+
+constexpr int SW = 62;                  // output columns of a strip
+constexpr int WIN = SW + 2;             // window pixels of a row: one m64 tile
+constexpr int QP = 200;                 // floats per pixel of a qkv ring row (conflict-free pairs)
+constexpr int WQ_BYTES = C3 * C * 2;    // W_qkv, resident
+constexpr int TILE = WIN * C;           // bf16 of a window row of 64 channels
+constexpr int SMEM1_BF16 =
+    1024 + WQ_BYTES + 4 * TILE * 2 + 3 * WIN * QP * 4 + 16;
+// the depthwise: 48 four-channel chunks x 5 runs of output pixels
+constexpr int RUNS = 5;
+static_assert(RUNS * C3 / 4 < THREADS, "threads left for the halo pixels");
+static_assert(WQ_BYTES % 1024 == 0 && (TILE * 2) % 1024 == 0, "1024-byte aligned tiles");
+static_assert(SMEM1_BF16 <= 232448, "one block's shared memory");
+
+__global__ void __launch_bounds__(THREADS, 1)
+mdta1_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
+                   const float* __restrict__ lnb, const bf16* __restrict__ wq,
+                   const float* __restrict__ taps, bf16* __restrict__ v, float* __restrict__ ws,
+                   int h, int wd, int parts) {
+  extern __shared__ uint4 cdfo_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(cdfo_smem);
+  base += (1024u - (shared_address(base) & 1023u)) & 1023u;
+  bf16* wqs = reinterpret_cast<bf16*>(base);   // W_qkv [192 n][64 k], swizzled
+  bf16* ln = wqs + C3 * C;                      // LN1(x) of a window row, swizzled
+  bf16* kt = ln + TILE;                         // k of an output row, swizzled
+  bf16* qt = kt + TILE;                         // q, TILE after k: B's second block
+  bf16* xs = qt + TILE;                         // x of a window row, pixel-major
+  float* ring = reinterpret_cast<float*>(xs + TILE);   // qkv of 3 window rows
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ring + 3 * WIN * QP);
+
+  const int img = blockIdx.y, part = blockIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int strips = (wd + SW - 1) / SW;
+  const long long units = static_cast<long long>(strips) * h;
+  const long long u0 = part * units / parts, u1 = (part + 1) * units / parts;
+  const bf16* xb = x + static_cast<long long>(img) * h * wd * C;
+  bf16* vb = v + static_cast<long long>(img) * h * wd * C;
+  // this warpgroup's grams, over the whole walk: A^T [k | q] with A = q
+  // (warpgroup 0: q^T k, q^T q) or k (warpgroup 1: k^T k, then k^T q,
+  // which is dropped)
+  float gacc[16][4];
+  zero1(gacc);
+
+  if (u0 < u1) {
+    if (threadIdx.x == 0) {
+      mbar_init(bar, 1);
+      mbar_init_fence();
+      mbar_expect_tx(bar, WQ_BYTES);
+      bulk_copy(wqs, wq, WQ_BYTES, bar);
+    }
+    auto zero_qk = [&] {
+      for (int i = threadIdx.x; i < 2 * TILE / 8; i += THREADS) {
+        reinterpret_cast<uint4*>(kt)[i] = make_uint4(0u, 0u, 0u, 0u);
+      }
+    };
+    zero_qk();
+    // LayerNorm: 8 lanes a pixel, this lane's channels 8 cc .. 8 cc + 7
+    const int cc = threadIdx.x & 7;
+    float lw[8], lb[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      lw[i] = __ldg(lnw + 8 * cc + i);
+      lb[i] = __ldg(lnb + 8 * cc + i);
+    }
+    __syncthreads();
+
+    // A walk: output rows [a, e) of the strip at column c0; it runs the
+    // window rows a - 1 .. e (LN1, qkv) and the output rows' depthwise
+    struct Walk {
+      int c0, a, e;
+    };
+    auto walk_at = [&](long long u) {
+      const int i = static_cast<int>(u % h);
+      Walk wk;
+      wk.c0 = static_cast<int>(u / h) * SW;
+      wk.a = i;
+      wk.e = static_cast<int>(u1 - u < h - i ? i + (u1 - u) : h);
+      return wk;
+    };
+    // x of window row j (columns c0 - 1 .. c0 + 62), zero outside the image
+    auto fetch = [&](const Walk& wk, int j) {
+      for (int i = threadIdx.x; i < WIN * 8; i += THREADS) {
+        const int c8 = i & 7, m = i >> 3, xx = wk.c0 - 1 + m;
+        const bool in = j >= 0 && j < h && xx >= 0 && xx < wd;
+        cp_async16_or_zero(xs + m * C + 8 * c8,
+                           xb + (in ? (static_cast<long long>(j) * wd + xx) * C + 8 * c8 : 0), in);
+      }
+      cp_async_commit();
+    };
+    auto ring_row = [&](int j) { return ring + ((j + 3) % 3) * WIN * QP; };
+    // LN1(x) of the window row in xs, E[x^2] - mu^2, rounded, to `ln`
+    auto layer_norm1 = [&] {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = (threadIdx.x >> 3) + 32 * r;
+        float f[8];
+        load8(xs + p * C + 8 * cc, f);
+        float s = 0.f, q = 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s += f[i];
+          q += f[i] * f[i];
+        }
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) {
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+          q += __shfl_xor_sync(0xffffffffu, q, o);
+        }
+        const float mu = s * (1.f / C);
+        const float rs = rsqrtf(q * (1.f / C) - mu * mu + 1e-5f);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) f[i] = (f[i] - mu) * rs * lw[i] + lb[i];
+        store8(ln + p * C + ((cc ^ p) & 7) * 8, f);
+      }
+    };
+    // the grams of the q, k tiles (both warpgroups on one code path: the
+    // A tile is a select)
+    const uint64_t gad = wgmma_desc(wg ? kt : qt, 1024), gbd = wgmma_desc(kt, TILE * 2);
+    auto grams = [&] {
+#pragma unroll
+      for (int kk = 0; kk < WIN / 16; ++kk) {
+        wgmma_ss_64x128_tt(gacc, gad + 128 * kk, gbd + 128 * kk);
+      }
+    };
+    // qkv of window row j = LN1(x) W_qkv^T (this warpgroup's 96 channels),
+    // after the grams of the tiles the last depthwise left; rounded, zero
+    // outside the image, into the ring
+    auto products = [&](const Walk& wk, int j) {
+      float acc[12][4];   // the first k-step overwrites it
+      keep(gacc);
+      const uint64_t ad = wgmma_desc(ln), bd = wgmma_desc(wqs + 96 * wg * C);
+      wgmma_fence();
+      grams();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x96(acc, ad + 2 * kk, bd + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(acc);
+      keep(gacc);
+      const int m0 = 16 * wl + g, x0 = wk.c0 - 1 + m0;
+      const bool row_in = j >= 0 && j < h;
+      const bool in0 = row_in && x0 >= 0 && x0 < wd, in8 = row_in && x0 + 8 < wd;
+      float* rr = ring_row(j) + m0 * QP + 96 * wg + t2;
+#pragma unroll
+      for (int jj = 0; jj < 12; ++jj) {
+        *reinterpret_cast<float2*>(rr + 8 * jj) =
+            in0 ? make_float2(round_to(acc[jj][0], bf16()), round_to(acc[jj][1], bf16()))
+                : make_float2(0.f, 0.f);
+        *reinterpret_cast<float2*>(rr + 8 * QP + 8 * jj) =
+            in8 ? make_float2(round_to(acc[jj][2], bf16()), round_to(acc[jj][3], bf16()))
+                : make_float2(0.f, 0.f);
+      }
+    };
+    // the depthwise 3x3 of output row k in fp32: q and k rounded into their
+    // tiles (zero on the halo pixels and outside the image), v rounded to
+    // device memory. Thread (run, c4) < RUNS * 48 slides along its run of
+    // output pixels with its four channels' taps in registers, reading one
+    // new window column (3 rows) a pixel; the last 16 threads zero the
+    // halo pixels' q and k.
+    const int c4 = threadIdx.x % (C3 / 4), run = threadIdx.x / (C3 / 4);
+    float tw[9][4];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tw[tap][e] = run < RUNS ? __ldg(taps + tap * C3 + 4 * c4 + e) : 0.f;
+      }
+    auto depthwise = [&](const Walk& wk, int k) {
+      if (run >= RUNS) {
+        for (int i = threadIdx.x - RUNS * (C3 / 4); i < 32; i += THREADS - RUNS * (C3 / 4)) {
+          const int m = i & 16 ? WIN - 1 : 0;
+          reinterpret_cast<uint4*>(i & 8 ? kt : qt)[m * 8 + (i & 7)] = make_uint4(0u, 0u, 0u, 0u);
+        }
+        return;
+      }
+      const float* rows[3] = {ring_row(k - 1), ring_row(k), ring_row(k + 1)};
+      const int m0 = 1 + run * SW / RUNS, m1 = 1 + (run + 1) * SW / RUNS;
+      float col[3][3][4];   // window columns, [column % 3][row][channel]
+      auto load_col = [&](float (&cl)[3][4], int m) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const float4 u = *reinterpret_cast<const float4*>(rows[dy] + m * QP + 4 * c4);
+          cl[dy][0] = u.x;
+          cl[dy][1] = u.y;
+          cl[dy][2] = u.z;
+          cl[dy][3] = u.w;
+        }
+      };
+      load_col(col[0], m0 - 1);
+      load_col(col[1], m0);
+      // unrolled over the longest run, so that the columns rotate by index
+#pragma unroll
+      for (int u = 0; u < (SW + RUNS - 1) / RUNS; ++u) {
+        const int m = m0 + u;
+        if (m >= m1) break;
+        load_col(col[(u + 2) % 3], m + 1);
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[e] = fmaf(tw[3 * dy + dx][e], col[(u + dx) % 3][dy][e], s[e]);
+            }
+        const int xx = wk.c0 - 1 + m;
+        const bool valid = xx < wd;
+        const uint2 r = make_uint2(valid ? pack_bf16x2(s[0], s[1]) : 0u,
+                                   valid ? pack_bf16x2(s[2], s[3]) : 0u);
+        if (c4 < 32) {
+          bf16* tile = c4 < 16 ? qt : kt;
+          *reinterpret_cast<uint2*>(tile + m * C + ((((c4 & 15) >> 1) ^ m) & 7) * 8 +
+                                    4 * (c4 & 1)) = r;
+        } else if (valid) {
+          *reinterpret_cast<uint2*>(vb + (static_cast<long long>(k) * wd + xx) * C +
+                                    4 * (c4 - 32)) = r;
+        }
+      }
+    };
+
+    Walk wk = walk_at(u0);
+    long long u = u0;   // the walk's first unit
+    int j = wk.a - 1;
+    fetch(wk, j);
+    mbar_wait(bar, 0);
+    PHASE_START
+#pragma unroll 1
+    while (true) {
+      cp_async_wait_n<0>();
+      __syncthreads();
+      PHASE(0)
+      layer_norm1();
+      PHASE(1)
+      async_fence();
+      __syncthreads();
+      PHASE(4)
+      // the next row: this walk's, or the first of the next walk
+      const bool last = j == wk.e;
+      const long long nu = u + (wk.e - wk.a);
+      Walk nw = wk;
+      int nj = j + 1;
+      if (last && nu < u1) {
+        nw = walk_at(nu);
+        nj = nw.a - 1;
+      }
+      if (!last || nu < u1) fetch(nw, nj);
+      products(wk, j);
+      __syncthreads();
+      PHASE(2)
+      if (j - 1 >= wk.a) depthwise(wk, j - 1);
+      PHASE(3)
+      if (last) {
+        // the grams of the walk's last row, then clean tiles for the next
+        async_fence();
+        __syncthreads();
+        keep(gacc);
+        wgmma_fence();
+        grams();
+        wgmma_commit();
+        wgmma_wait<0>();
+        keep(gacc);
+        __syncthreads();
+        zero_qk();
+        PHASE(2)
+        if (nu >= u1) break;
+        u = nu;
+      }
+      wk = nw;
+      j = nj;
+      PHASE_STEP
+    }
+    PHASE_END
+  }
+  // this CTA's partial: warpgroup 0 holds q^T k and q^T q, 1 k^T k
+  float* dst = ws + (static_cast<long long>(img) * parts + part) * 3 * GRAM;
+  const int c = 16 * wl + g;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    const int gram = wg == 0 ? jj / 8 : 2;
+    if (wg == 1 && jj >= 8) continue;
+    float* o = dst + gram * GRAM + c * C + 8 * (jj % 8) + t2;
+    store2(o, gacc[jj][0], gacc[jj][1]);
+    store2(o + 8 * C, gacc[jj][2], gacc[jj][3]);
+  }
+}
+
 int tiles_of(int h, int wd) { return ((h + TH - 1) / TH) * ((wd + TW - 1) / TW); }
 
-template <typename T>
 cudaError_t launch1(const void* x, const void* lnw, const void* lnb, const void* wqkv,
-                    const void* taps, void* v, void* ws, void* stats, int batch, int h, int wd,
-                    int parts, cudaStream_t stream) {
-  const cudaError_t err = allow_smem(mdta1_kernel<T>, s1_smem<T>());
-  if (err != cudaSuccess) return err;
-  CDFO_LAUNCH(mdta1_kernel<T>, dim3(parts, batch), s1_smem<T>(), stream,
-              static_cast<const T*>(x), static_cast<const float*>(lnw),
-              static_cast<const float*>(lnb), static_cast<const T*>(wqkv),
-              static_cast<const float*>(taps), static_cast<T*>(v), static_cast<float*>(ws), h,
-              wd, parts);
+                    const void* taps, void* v, void* ws, void* stats, int is_bf16, int batch,
+                    int h, int wd, int parts, cudaStream_t stream) {
+  if (is_bf16) {
+    const cudaError_t err = allow_smem(mdta1_wgmma_kernel, SMEM1_BF16);
+    if (err != cudaSuccess) return err;
+    CDFO_LAUNCH(mdta1_wgmma_kernel, dim3(parts, batch), SMEM1_BF16, stream,
+                static_cast<const bf16*>(x), static_cast<const float*>(lnw),
+                static_cast<const float*>(lnb), static_cast<const bf16*>(wqkv),
+                static_cast<const float*>(taps), static_cast<bf16*>(v), static_cast<float*>(ws),
+                h, wd, parts);
+  } else {
+    using T = float;
+    const cudaError_t err = allow_smem(mdta1_kernel<T>, s1_smem<T>());
+    if (err != cudaSuccess) return err;
+    CDFO_LAUNCH(mdta1_kernel<T>, dim3(parts, batch), s1_smem<T>(), stream,
+                static_cast<const T*>(x), static_cast<const float*>(lnw),
+                static_cast<const float*>(lnb), static_cast<const T*>(wqkv),
+                static_cast<const float*>(taps), static_cast<T*>(v), static_cast<float*>(ws), h,
+                wd, parts);
+  }
   const cudaError_t e1 = cudaGetLastError();
   if (e1 != cudaSuccess) return e1;
   return launch_reduce(static_cast<const float*>(ws), parts, 3 * GRAM, 3 * GRAM,
@@ -263,19 +597,29 @@ cudaError_t launch2(const void* x, const void* v, const void* x2, const void* am
 }  // namespace
 
 // The float32 scratch cdfo_mdta_stage1 needs for `batch` images of h x wd
-// on the current device, in floats; -1 if there is none.
-extern "C" int cdfo_mdta_stage1_workspace(int batch, int h, int wd) {
+// of the dtype is_bf16 names on the current device, in floats; -1 if there
+// is none. bfloat16: one walk per SM, sms / batch of them an image (at
+// least 1, at most one per strip row); float32: workspace_floats' two
+// blocks an SM over the 8 x 16 tiles.
+extern "C" int cdfo_mdta_stage1_workspace(int batch, int h, int wd, int is_bf16) {
   if (batch <= 0 || h <= 0 || wd <= 0) return -1;
-  return workspace_floats(tiles_of(h, wd), batch, batch, 3 * GRAM);
+  if (!is_bf16) return workspace_floats(tiles_of(h, wd), batch, batch, 3 * GRAM);
+  const int sms = sm_count();
+  if (sms <= 0) return -1;
+  const long long units = static_cast<long long>((wd + SW - 1) / SW) * h;
+  long long parts = sms / batch;
+  parts = parts < 1 ? 1 : parts > units ? units : parts > 65535 ? 65535 : parts;
+  const long long n = parts * batch * 3 * GRAM;
+  return n > 0x7fffffff ? -1 : static_cast<int>(n);
 }
 
 // x, v: (batch, h, wd, 64) NHWC of one dtype (is_bf16: 1 bfloat16, 0
-// float32); lnw, lnb: [64] float32; wqkv: the qkv 1x1 (192 out, 64 in) in
-// ops/cuda_build.py::kernel_weights' layout; taps: [192][9] float32
-// (3*dy + dx); ws: ws_floats of float32 scratch, as
+// float32); lnw, lnb: [64] float32; ws: ws_floats of float32 scratch, as
 // cdfo_mdta_stage1_workspace sizes it ([batch][parts][3][64][64]); stats:
-// [batch][3][64][64] float32 out. Two launches (partials, reduction).
-// Returns a cudaError_t.
+// [batch][3][64][64] float32 out. float32: wqkv the qkv 1x1 (192 out, 64
+// in) in ops/cuda_build.py::kernel_weights' layout, taps [192][9] float32
+// (3*dy + dx); bfloat16: wqkv the (192 n, 64 k) 128-byte swizzled tile of
+// ops/fused_mdta.py::pack_stage1_weights, taps [9][192] float32. Two launches (partials, reduction). Returns a cudaError_t.
 extern "C" int cdfo_mdta_stage1(const void* x, const void* lnw, const void* lnb, const void* wqkv,
                                 const void* taps, void* v, void* ws, int ws_floats, void* stats,
                                 int is_bf16, int batch, int h, int wd, void* stream) {
@@ -283,9 +627,8 @@ extern "C" int cdfo_mdta_stage1(const void* x, const void* lnw, const void* lnb,
   if (batch <= 0 || batch > 65535 || h <= 0 || wd <= 0 || parts <= 0) {
     return cudaErrorInvalidValue;
   }
-  const auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch1<bf16>(x, lnw, lnb, wqkv, taps, v, ws, stats, batch, h, wd, parts, s)
-                 : launch1<float>(x, lnw, lnb, wqkv, taps, v, ws, stats, batch, h, wd, parts, s);
+  return launch1(x, lnw, lnb, wqkv, taps, v, ws, stats, is_bf16, batch, h, wd, parts,
+                 static_cast<cudaStream_t>(stream));
 }
 
 // x, v, x2, out: (batch, h, wd, 64) NHWC; amat: [batch] per-image 64 x 64

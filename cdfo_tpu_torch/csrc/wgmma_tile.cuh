@@ -1,12 +1,14 @@
 // Hopper's warpgroup products and bulk copies, for the bfloat16 routes of
 // fused_block2.cu (weights staged through shared memory), fused_attention.cu
-// (the token resident), fused_tail.cu (the four convs) and fused_block2_q.cu
-// (its s8 products and its 0.5x branch's bf16 convs). Only those include
-// this header; conv3x3_tile.cuh is unchanged for the rest.
+// (the token resident), fused_tail.cu (the four convs), fused_block2_q.cu
+// (its s8 products and its 0.5x branch's bf16 convs), fused_head.cu (its
+// three chained products) and fused_mdta.cu (stage 1's qkv and grams). Only
+// those include this header; conv3x3_tile.cuh is unchanged for the rest.
 //
 // The wgmma forms used: m64nNk16, bf16 x bf16 -> fp32, A from registers (or,
 // wgmma_ss_*, a K-major tile in shared memory like B) and B from shared
-// memory (K-major, or MN-major in wgmma_64x64_tb); m64nNk32, s8 x s8 -> s32
+// memory (K-major, or MN-major in wgmma_64x64_tb and, with A MN-major too,
+// wgmma_ss_64x128_tt); m64nNk32, s8 x s8 -> s32
 // (`wgmma_*s8*`), both operands K-major (8-bit types take no transpose),
 // either as the swizzle-free tiles of `wgmma_desc_plain` or, for A, in
 // registers in the mma.sync.m16n8k32 A-fragment layout.
@@ -23,6 +25,9 @@
 // - D: the accumulators in the C-fragment order of conv3x3_tile.cuh: lane
 //   4g + t of warp w holds rows 16w + g and 16w + g + 8, channels
 //   8j + 2t, 8j + 2t + 1 of n-tile j, as acc[j][0..3].
+// With scale_d = 0 (wgmma_64x64, wgmma_64x16, wgmma_ss_64x64, _64x96) a product
+// overwrites d instead of adding to it: the first k-step of a sum needs no
+// zeroed accumulators.
 // The products are asynchronous: `wgmma_fence` before a batch that reads
 // registers written since the last one, `wgmma_commit` closes a group and
 // `wgmma_wait<n>` waits until at most n groups are in flight. Until then
@@ -81,7 +86,7 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // d (64 x 64 over the warpgroup) += A (registers) . B (descriptor)
 __device__ __forceinline__ void wgmma_64x64(float (&d)[8][4], const uint32_t (&a)[4],
-                                            uint64_t desc) {
+                                            uint64_t desc, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -95,7 +100,7 @@ __device__ __forceinline__ void wgmma_64x64(float (&d)[8][4], const uint32_t (&a
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
         "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
         "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
 // d (64 x 32 over the warpgroup) += A (registers) . B (descriptor)
@@ -111,6 +116,74 @@ __device__ __forceinline__ void wgmma_64x32(float (&d)[4][4], const uint32_t (&a
         "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
         "+f"(d[3][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// d (64 x 16 over the warpgroup) += A (registers) . B (descriptor): the
+// head's conv_last taps (N = 9 padded to 16)
+__device__ __forceinline__ void wgmma_64x16(float (&d)[2][4], const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d (64 x 96) += A (descriptor) . B (descriptor), both K-major: half of
+// the MDTA qkv projection
+__device__ __forceinline__ void wgmma_ss_64x96(float (&d)[12][4], uint64_t desc_a,
+                                               uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
+        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]),
+        "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 128) += A (descriptor) . B (descriptor), both MN-major: each
+// tile's 128-byte rows run along M (or N) and its 8-row groups along K,
+// B's two 64-column blocks `lead` bytes apart (wgmma_desc(tile, lead)):
+// the MDTA grams, pixels as K
+__device__ __forceinline__ void wgmma_ss_64x128_tt(float (&d)[16][4], uint64_t desc_a,
+                                                   uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]),
+        "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]),
+        "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]),
+        "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]),
+        "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
 // d (64 x N over the warpgroup) += A (descriptor) . B (descriptor), both
@@ -211,7 +284,7 @@ __device__ __forceinline__ void wgmma_64x64_tb(float (&d)[8][4], const uint32_t 
 // d (64 x 64) += A (descriptor) . B (descriptor), both K-major: the
 // alignment tail's convs, pixels as A and a weight tap as B
 __device__ __forceinline__ void wgmma_ss_64x64(float (&d)[8][4], uint64_t desc_a,
-                                               uint64_t desc_b) {
+                                               uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -225,7 +298,7 @@ __device__ __forceinline__ void wgmma_ss_64x64(float (&d)[8][4], uint64_t desc_a
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
         "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
         "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // The s8 forms (s8 x s8 -> s32, K = 32 bytes a step; both operands
@@ -340,9 +413,10 @@ __device__ __forceinline__ void keep(A (&r)[N]) {
 
 // the descriptor of a 1024-byte aligned, 128-byte swizzled tile at `tile`:
 // start address (16-byte units), the leading offset (16 bytes: unused by the
-// swizzled K-major form; an MN-major tile of 64 columns has one 128-byte
-// row per K index and no second column block, and takes 1024), 8-row
-// groups 1024 bytes apart, swizzle mode 1
+// swizzled K-major form; an MN-major tile has one 128-byte row of 64
+// columns per K index, and `lead` is the distance from its first 64-column
+// block to its second, unused at 64 columns), 8-row groups 1024 bytes
+// apart, swizzle mode 1
 __device__ __forceinline__ uint64_t wgmma_desc(const void* tile, uint32_t lead_bytes = 16) {
   return static_cast<uint64_t>((shared_address(tile) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lead_bytes >> 4) << 16) | (64ull << 32) | (1ull << 62);

@@ -39,7 +39,8 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
-from ..ops.fused_head import fused_head
+from ..ops.cuda_build import cached_pack
+from ..ops.fused_head import fused_head, pack_head_weights
 from ..ops.resize import interpolate_bilinear, pixel_shuffle
 from ..ops.warp import flow_warp_ring
 from ..ops.warp_block import flow_warp_ring_block
@@ -135,10 +136,14 @@ class CVSRV8(nn.Module):
         bilinear x``scale`` upsample of the centre LR frame."""
         dt = self.cfg.compute_dtype
         if self.cfg.fused_trunk:
+            params = (self.upconv1.weight, self.upconv1.bias,
+                      self.upconv2.weight, self.upconv2.bias,
+                      self.conv_last.weight)
             return fused_head(out.contiguous(), center_lr.to(dt).contiguous(),
-                              self.upconv1.weight, self.upconv1.bias,
-                              self.upconv2.weight, self.upconv2.bias,
-                              self.conv_last.weight, self.conv_last.bias)
+                              *params, self.conv_last.bias,
+                              packed=cached_pack(
+                                  self, "_head_pack", out, params,
+                                  lambda d: pack_head_weights(*params, d)))
         out = lrelu(pixel_shuffle(self.upconv1(out), 2))
         out = lrelu(pixel_shuffle(self.upconv2(out), 2))
         out = self.conv_last(out)

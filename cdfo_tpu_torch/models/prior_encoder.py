@@ -5,7 +5,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..ops.fused_mdta import attention_matrix, mdta_stage1, mdta_stage2
+from ..ops.cuda_build import cached_pack
+from ..ops.fused_mdta import (attention_matrix, mdta_stage1, mdta_stage2,
+                              pack_stage1_weights)
 from .attention import MDTA
 from .layers import Conv2d, ConvTranspose2d, SpatialAttention
 from .norms import ChannelLayerNorm
@@ -75,10 +77,13 @@ class PartitionTransformerSA2Fast(PartitionTransformerSA2):
         attn = self.attn
         n1, n2 = self.norm1.body, self.norm2.body
         x1, x2n = x1.contiguous(), x2
+        wq, wdw = attn.qkv.weight, attn.qkv_dwconv.weight
+        packed = cached_pack(self, "_stage1_pack", x1, (wq, wdw),
+                             lambda dt: pack_stage1_weights(wq, wdw, dt))
         for r in range(3):
             x2n = self.side_to_feaoneUDSA(x2n) + (x1 if r == 0 else x2n)
-            v, stats = mdta_stage1(x1, n1["weight"], n1["bias"],
-                                   attn.qkv.weight, attn.qkv_dwconv.weight)
+            v, stats = mdta_stage1(x1, n1["weight"], n1["bias"], wq, wdw,
+                                   packed=packed)
             amat = attention_matrix(stats, attn.temperature, attn.num_heads)
             x1 = mdta_stage2(x1, v, x2n.contiguous(), amat.to(x1.dtype),
                              attn.project_out.weight, n2["weight"],

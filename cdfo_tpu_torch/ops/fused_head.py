@@ -9,6 +9,10 @@ out (``cdfo_tpu/ops/fused_head.py``).
   hand-written kernel in ``csrc/fused_head.cu`` (the port of
   ``fused_head_hcw``), which never writes the 2x or 4x intermediates, or
   raises. Launches are counted in ``fused_head.launches``.
+* ``pack_head_weights``: the kernel's weight and bias operands (in
+  bfloat16 ``stage_head_weights``, which the kernel keeps resident in
+  shared memory for ``wgmma``); ``fused_head(..., packed=)`` takes them
+  from a caller that keeps them (``CVSRV8``).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build as cb
+from .fused_block2 import pointers, swizzle128
 from .resize import interpolate_bilinear, pixel_shuffle
 
 CHANNELS = 64
@@ -47,14 +52,44 @@ def fused_head_plain(t, lr, w1, b1, w2, b2, wl, bl):
     return (y + base).float()
 
 
-def _phase_major(w, b):
-    """(4C, C, 1, 1), (4C,) with torch's PixelShuffle order c*4 + p ->
-    the kernel's weights (``cuda_build.kernel_weights``) and bias with
-    output channel p*C + c."""
+def _phase_rows(w):
+    """(4C, C, 1, 1) with torch's PixelShuffle order c*4 + p -> (4C out,
+    C in) with output channel p*C + c."""
     c = w.shape[1]
-    wp = w.reshape(c, 4, c, 1, 1).transpose(0, 1).reshape(4 * c, c, 1, 1)
-    return (cb.kernel_weights(wp, w.dtype),
-            b.reshape(c, 4).t().contiguous().reshape(4 * c))
+    return w.reshape(c, 4, c).transpose(0, 1).reshape(4 * c, c)
+
+
+def _phase_bias(b):
+    """(4C,) likewise: entry p*C + c is b[c*4 + p]."""
+    return b.reshape(-1, 4).t().contiguous().reshape(-1)
+
+
+def stage_head_weights(w1, w2, wl, dtype=torch.bfloat16) -> torch.Tensor:
+    """The bfloat16 kernel's resident weights, (8 * 64 + 16, 64): upconv1's
+    four phase blocks (rows 64p .. 64p + 63: B[n][k] = w1[4n + p, k]), then
+    upconv2's, then conv_last as the tap matrix (row 3ky + kx: B[tap][c] =
+    wl[0, c, ky, kx], rows 9 .. 15 zero), 128-byte swizzled
+    (``fused_block2.swizzle128``)."""
+    c = w1.shape[1]
+    taps = wl.new_zeros(16, c)
+    taps[:9] = wl[0].permute(1, 2, 0).reshape(9, c)
+    rows = torch.cat([_phase_rows(w1), _phase_rows(w2), taps])
+    return swizzle128(rows.to(dtype))
+
+
+def pack_head_weights(w1, b1, w2, b2, wl, dtype):
+    """The kernel's (w1, b1, w2, b2, wl) operands in ``dtype``, the biases
+    phase-major: in bfloat16 w1's place holds ``stage_head_weights`` and
+    w2, wl are None; in float32 the phase-major upconvs in
+    ``cuda_build.kernel_weights``' layout and conv_last as [9 taps][C].
+    Callers may keep it."""
+    c = w1.shape[1]
+    b1p, b2p = _phase_bias(b1).to(dtype), _phase_bias(b2).to(dtype)
+    if dtype == torch.bfloat16:
+        return stage_head_weights(w1, w2, wl, dtype), b1p, None, b2p, None
+    return (cb.kernel_weights(_phase_rows(w1)[..., None, None], dtype), b1p,
+            cb.kernel_weights(_phase_rows(w2)[..., None, None], dtype), b2p,
+            wl[0].permute(1, 2, 0).reshape(9, c).to(dtype).contiguous())
 
 
 @functools.lru_cache(maxsize=None)
@@ -63,9 +98,10 @@ def _kernel():
                               [_P] * 9 + [_I] * 4 + [_P])
 
 
-
-def fused_head(t, lr, w1, b1, w2, b2, wl, bl):
-    """The upsample head + bilinear x4 base; see ``fused_head_plain``."""
+def fused_head(t, lr, w1, b1, w2, b2, wl, bl, packed=None):
+    """The upsample head + bilinear x4 base; see ``fused_head_plain``.
+    ``packed``: ``pack_head_weights`` of these weights in t's dtype, if the
+    caller keeps it."""
     cb.forbid_grad("fused_head", t, lr, w1, b1, w2, b2, wl, bl)
     if not cb.on_card(t, "fused_head"):
         return fused_head_plain(t, lr, w1, b1, w2, b2, wl, bl)
@@ -77,14 +113,12 @@ def fused_head(t, lr, w1, b1, w2, b2, wl, bl):
         raise ValueError(f"fused_head: t {tuple(t.shape)}, lr "
                          f"{tuple(lr.shape)}, upconvs {tuple(w1.shape)} "
                          f"{tuple(w2.shape)}, conv_last {tuple(wl.shape)}")
-    w1p, b1p = _phase_major(w1, b1)
-    w2p, b2p = _phase_major(w2, b2)
-    wlp = wl[0].permute(1, 2, 0).reshape(9, CHANNELS).contiguous()
+    if packed is None:
+        packed = pack_head_weights(w1, b1, w2, b2, wl, t.dtype)
     out = torch.empty((bsz, 4 * h, 4 * wd, 1), device=t.device,
                       dtype=torch.float32)
     cb.launch(_kernel(), "fused_head", t.device, t.data_ptr(), lr.data_ptr(),
-              w1p.data_ptr(), b1p.data_ptr(), w2p.data_ptr(), b2p.data_ptr(),
-              wlp.data_ptr(), bl.data_ptr(), out.data_ptr(),
+              *pointers(packed), bl.data_ptr(), out.data_ptr(),
               cb.DTYPE_CODES[t.dtype], bsz, h, wd)
     fused_head.launches += 1
     return out

@@ -17,7 +17,11 @@ CPU tensor; a CUDA tensor launches the hand-written kernels in
 ``csrc/fused_mdta.cu`` (the ports of the TPU kernels ``mdta_stage1`` and
 ``mdta_stage2``) or raises. Launches are counted in each wrapper's
 ``launches``; stage 1's call is two launches (the per-block partial sums,
-then their fixed-order reduction) and counts once.
+then their fixed-order reduction) and counts once. ``pack_stage1_weights``
+gives stage 1's weight operands (in bfloat16 the swizzled qkv, which the
+kernel keeps resident in shared memory for ``wgmma``);
+``mdta_stage1(..., packed=)`` takes them from a caller that keeps them
+(``PartitionTransformerSA2Fast``).
 
 Tensors are NHWC; weights are the torch layouts of ``MDTA.qkv``,
 ``.qkv_dwconv``, ``.project_out`` and ``PartitionTransformerSA2.conv``;
@@ -35,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build as cb
+from .fused_block2 import swizzle128
 
 CHANNELS = 64
 _P = ctypes.c_void_p
@@ -100,16 +105,31 @@ def mdta_stage2_plain(x, v, x2, amat, w_proj, ln_w, ln_b, w_conv, b_conv):
     return (conv + t.to(dt).float() + x2.float()).to(dt)
 
 
+def pack_stage1_weights(w_qkv, w_dw, dtype):
+    """Stage 1's (qkv weights, depthwise taps) operands: bfloat16 the qkv
+    1x1 as the kernel keeps it resident, (3C n, C k), B[n][k] = w_qkv[n,
+    k], 128-byte swizzled (``fused_block2.swizzle128``), and the taps
+    float32 [9][3C] (tap 3dy + dx); float32 the qkv in
+    ``cuda_build.kernel_weights``' layout and the taps [3C][9]. Callers may
+    keep it."""
+    taps = w_dw.float().reshape(w_dw.shape[0], 9)
+    if dtype == torch.bfloat16:
+        return swizzle128(w_qkv[:, :, 0, 0].to(dtype)), taps.t().contiguous()
+    return cb.kernel_weights(w_qkv, dtype), taps.contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol):
-    argtypes = {"cdfo_mdta_stage1_workspace": [_I] * 3,
+    argtypes = {"cdfo_mdta_stage1_workspace": [_I] * 4,
                 "cdfo_mdta_stage1": [_P] * 7 + [_I, _P] + [_I] * 4 + [_P],
                 "cdfo_mdta_stage2": [_P] * 10 + [_I] * 4 + [_P]}[symbol]
     return cb.kernel_function("fused_mdta", symbol, argtypes)
 
 
-def mdta_stage1(x, ln_w, ln_b, w_qkv, w_dw):
-    """(v, stats) of ``mdta_stage1_plain``."""
+def mdta_stage1(x, ln_w, ln_b, w_qkv, w_dw, packed=None):
+    """(v, stats) of ``mdta_stage1_plain``; ``packed``:
+    ``pack_stage1_weights`` of these weights in x's dtype, if the caller
+    keeps it."""
     cb.forbid_grad("fused_mdta stage 1", x, ln_w, ln_b, w_qkv, w_dw)
     if not cb.on_card(x, "fused_mdta stage 1"):
         return mdta_stage1_plain(x, ln_w, ln_b, w_qkv, w_dw)
@@ -124,9 +144,10 @@ def mdta_stage1(x, ln_w, ln_b, w_qkv, w_dw):
     v = torch.empty_like(x)
     stats = x.new_empty((m, 3, c, c), dtype=torch.float32)
     ws = cb.workspace(_kernel("cdfo_mdta_stage1_workspace"), what, x.device,
-                      m, h, wd)
-    wk = cb.kernel_weights(w_qkv, x.dtype)
-    taps = w_dw.float().reshape(3 * c, 9).contiguous()
+                      m, h, wd, cb.DTYPE_CODES[x.dtype])
+    if packed is None:
+        packed = pack_stage1_weights(w_qkv, w_dw, x.dtype)
+    wk, taps = packed
     cb.launch(_kernel("cdfo_mdta_stage1"), what, x.device, x.data_ptr(),
               ln_w.data_ptr(), ln_b.data_ptr(), wk.data_ptr(),
               taps.data_ptr(), v.data_ptr(), ws.data_ptr(), ws.numel(),

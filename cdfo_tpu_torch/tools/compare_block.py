@@ -1,7 +1,8 @@
 """A kernel of this checkout against another checkout's (for example the
 parent commit, unpacked with ``git archive``), in turns on one card, in
 bfloat16: the exact ``Block_`` (``--kernel block``), the int8 ``Block_``
-(``blockq``) or the alignment tail (``tail``, 6 neighbours per image).
+(``blockq``), the alignment tail (``tail``, 6 neighbours per image), the
+upsample head (``head``) or MDTA stage 1 (``mdta1``).
 
 Each side is its own ``ops`` module, built by its own ``cuda_build`` from
 its own ``csrc/``, and is first held against this checkout's plain version
@@ -10,11 +11,13 @@ this, other, each side is timed (median of ``--reps`` calls, CUDA events)
 three ways: the call with its weights packed in it (the wrapper without
 ``packed``: what a caller that keeps no pack pays), the call with the pack
 kept (what the model pays) and the pack alone; a side whose wrapper takes
-no pack (the tail before it had one) has only the first. Times are per
-call, in ms, with the card's name.
+no pack (the tail before it had one, the head and MDTA stage 1 before they
+had one) has only the first. Times are per call, in ms, with the card's
+name.
 
     python -m cdfo_tpu_torch.tools.compare_block --other DIR
-        [--kernel block|blockq|tail --b 4 --h 272 --w 480 --reps 15]
+        [--kernel block|blockq|tail|head|mdta1 --b 4 --h 272 --w 480
+         --reps 15]
 """
 from __future__ import annotations
 
@@ -31,19 +34,30 @@ import torch
 
 from ..ops import fused_block2 as fb
 from ..ops import fused_block2_q as fq
+from ..ops import fused_head as fh
+from ..ops import fused_mdta as fm
 from ..ops import fused_tail as ft
 from ..ops import kernel_cases as kc
 from . import event_ms, require_card
 
 WAYS = ("packed in the call", "pack kept", "pack alone")
-# kind: (module, wrapper, pack, plain version, what it is)
+# kind: (module, wrapper, pack(module, args), plain version, what it is)
 KERNELS = {
-    "block": (fb, "scale_block", "pack_weights", fb.scale_block_plain,
-              "exact Block_"),
-    "blockq": (fq, "scale_block_q", "pack_weights_q", fq.scale_block_q_plain,
-               "int8 Block_"),
-    "tail": (ft, "resblock_pair", "pack_tail_weights", ft.resblock_pair_plain,
-             "alignment tail"),
+    "block": (fb, "scale_block",
+              lambda m, a: m.pack_weights(*a[1:], a[0].dtype),
+              fb.scale_block_plain, "exact Block_"),
+    "blockq": (fq, "scale_block_q",
+               lambda m, a: m.pack_weights_q(*a[1:], a[0].dtype),
+               fq.scale_block_q_plain, "int8 Block_"),
+    "tail": (ft, "resblock_pair",
+             lambda m, a: m.pack_tail_weights(a[3::2], a[4::2], a[0].dtype),
+             ft.resblock_pair_plain, "alignment tail"),
+    "head": (fh, "fused_head",
+             lambda m, a: m.pack_head_weights(*a[2:7], a[0].dtype),
+             fh.fused_head_plain, "upsample head"),
+    "mdta1": (fm, "mdta_stage1",
+              lambda m, a: m.pack_stage1_weights(a[3], a[4], a[0].dtype),
+              fm.mdta_stage1_plain, "MDTA stage 1"),
 }
 
 
@@ -64,21 +78,14 @@ def other_module(root: Path, module: str):
 def ways(kind, module, args):
     """{way: fn()} of ``WAYS`` for one side (the first only where its
     wrapper takes no pack)."""
-    _, wrapper, pack_name, _, _ = KERNELS[kind]
+    _, wrapper, pack_of, _, _ = KERNELS[kind]
     fn = getattr(module, wrapper)
     found = {WAYS[0]: lambda: fn(*args)}
     if "packed" not in inspect.signature(fn).parameters:
         return found
-    x = args[0]
-    if kind == "tail":
-        def pack():
-            return module.pack_tail_weights(args[3::2], args[4::2], x.dtype)
-    else:
-        def pack():
-            return getattr(module, pack_name)(*args[1:], x.dtype)
-    packed = pack()
+    packed = pack_of(module, args)
     found[WAYS[1]] = lambda: fn(*args, packed=packed)
-    found[WAYS[2]] = pack
+    found[WAYS[2]] = lambda: pack_of(module, args)
     return found
 
 
@@ -101,7 +108,12 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     g = torch.Generator(device="cuda").manual_seed(1)
-    args = kc.trunk_args(kind, torch.bfloat16, g, (a.b, a.h, a.w, 64), nbr=6)
+    if kind == "mdta1":
+        args = kc.align_embed_args(kind, torch.bfloat16, g, (a.b, a.h, a.w),
+                                   6)
+    else:
+        args = kc.trunk_args(kind, torch.bfloat16, g, (a.b, a.h, a.w, 64),
+                             nbr=6)
     sides = {"other": ways(kind, other_module(a.other.resolve(),
                                               module.__name__.split(".")[-1]),
                            args),

@@ -114,12 +114,12 @@ to the four (``--profile trunk_int8 block_warp``).
 
     python3 chip_smoke.py --phases
 
-builds the int8 ``Block_``, the exact one and the alignment tail with their
-phase clocks compiled in and prints, at the main shape in bfloat16, the
-cycles spent in each phase: per step for the walks (the int8 kernel's walk
-down its strips, the tail's), as the kernels count their steps, and per CTA
-for the exact ``Block_``. The int8 ``Block_``'s other launch, its 0.5x
-branch, has no marks: ``--profile`` gives its device time.
+builds the int8 ``Block_``, the exact one, the alignment tail, the head and
+MDTA stage 1 with their phase clocks compiled in and prints, at the main shapes in bfloat16, the cycles spent in each phase:
+per step for the walks (the int8 kernel's walk down its strips, the
+tail's, the head's and stage 1's row by row), as the kernels count their
+steps, and per CTA for the exact ``Block_``. The int8 ``Block_``'s other
+launch, its 0.5x branch, has no marks: ``--profile`` gives its device time.
 """
 from __future__ import annotations
 
@@ -427,28 +427,39 @@ def check_kernel_table(card: str, table: dict, cases, seed: int,
     return fields
 
 
+@torch.no_grad()
+def pack_kept_ms(card: str, fields: dict, kind: str, args, pack, label: str):
+    """A wrapper's bfloat16 time at ``args`` with its weights packed once
+    (``pack(args)``), as the model keeps them: the JSON line's ``ms``, the
+    time per call with the packing beside it."""
+    name, wrapper = ALL_KERNELS[kind][:2]
+    packed = pack(args)
+    kept = median_ms(lambda: wrapper(*args, packed=packed))
+    print(f"kernel {name} {label} bfloat16: {kept:.3f} ms with the pack "
+          f"kept, {fields[kind]['ms']:.3f} per call with the packing "
+          f"[{card}]", flush=True)
+    fields[kind]["ms"] = kept
+
+
 def check_trunk_kernels(card: str) -> dict:
     """Phase 3, fused-trunk part: ``check_kernel_table`` at the trunk
     shapes (the table's times per call, with each wrapper's weight
-    packing), the alignment tail also with its pack kept, as
-    ``DualAttAlignment`` keeps it (the JSON line's ``ms``), then an odd
-    extent the ``Block_`` must refuse."""
+    packing), the head and the alignment tail also with their packs kept,
+    as ``CVSRV8`` and ``DualAttAlignment`` keep them (the JSON line's
+    ``ms``), then an odd extent the ``Block_`` must refuse."""
     fields = check_kernel_table(card, TRUNK_KERNELS, [
         (shape, shape == TRUNK_MAIN,
          lambda kind, dtype, g, shape=shape: kc.trunk_args(
              kind, dtype, g, shape, nbr=6 if shape == TRUNK_MAIN else 3))
         for shape in TRUNK_SHAPES], seed=1)
     g = torch.Generator(device="cuda").manual_seed(1)
-    with torch.no_grad():
-        args = kc.trunk_args("tail", torch.bfloat16, g, TRUNK_MAIN, nbr=6)
-        packed = ft.pack_tail_weights(args[3::2], args[4::2], torch.bfloat16)
-        kept = median_ms(lambda: ft.resblock_pair(*args, packed=packed))
-    print(f"kernel fused_tail.resblock_pair {TRUNK_MAIN} (24 neighbours) "
-          f"bfloat16: {kept:.3f} ms with the pack kept, "
-          f"{fields['tail']['ms']:.3f} per call with the packing [{card}]",
-          flush=True)
-    fields["tail"]["ms"] = kept
-    del args, packed
+    args = kc.trunk_args("tail", torch.bfloat16, g, TRUNK_MAIN, nbr=6)
+    pack_kept_ms(card, fields, "tail", args, lambda a: ft.pack_tail_weights(
+        a[3::2], a[4::2], torch.bfloat16), f"{TRUNK_MAIN} (24 neighbours)")
+    args = kc.trunk_args("head", torch.bfloat16, g, TRUNK_MAIN)
+    pack_kept_ms(card, fields, "head", args, lambda a: fh.pack_head_weights(
+        *a[2:7], torch.bfloat16), f"{TRUNK_MAIN}")
+    del args
     odd = kc.trunk_args("block", torch.bfloat16, g, (1, 16, 23, 64))
     try:
         with torch.no_grad():
@@ -463,13 +474,20 @@ def check_trunk_kernels(card: str) -> dict:
 def check_align_embed_kernels(card: str) -> dict:
     """Phase 3, fused embed and alignment part: ``check_kernel_table`` at
     the MDTA images, or centres with their neighbours, of
-    ``ALIGN_EMBED_SHAPES``."""
-    return check_kernel_table(card, ALIGN_EMBED_KERNELS, [
+    ``ALIGN_EMBED_SHAPES``, then MDTA stage 1 with its pack kept, as
+    ``PartitionTransformerSA2Fast`` keeps it (the JSON line's ``ms``)."""
+    fields = check_kernel_table(card, ALIGN_EMBED_KERNELS, [
         (f"{shape} (MSA: {nbr} neighbours per centre)",
          (shape, nbr) == ALIGN_EMBED_SHAPES[0],
          lambda kind, dtype, g, shape=shape, nbr=nbr: kc.align_embed_args(
              kind, dtype, g, shape, nbr))
         for shape, nbr in ALIGN_EMBED_SHAPES], seed=2)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    shape = ALIGN_EMBED_SHAPES[0][0]
+    args = kc.align_embed_args("mdta1", torch.bfloat16, g, shape, 6)
+    pack_kept_ms(card, fields, "mdta1", args, lambda a: fm.pack_stage1_weights(
+        a[3], a[4], torch.bfloat16), f"{shape}")
+    return fields
 
 
 def check_egla_kernels(card: str) -> dict:
@@ -1130,18 +1148,28 @@ TAIL_PHASES = ("xm = x * gate (and a warm-up's zeroed windows)",
                "y1 = relu(conv11 xm)", "r1 = xm + conv12 y1",
                "y2 = relu(conv21 r1)", "out = r1 + conv22 y2 + centre",
                "the windows' last two rows to the top")
+# the PHASE marks of csrc/fused_head.cu's bf16 walk, per step, in order
+HEAD_PHASES = ("the wait for t's row at the step's barrier",
+               "shift-add, x4 base and stores of the rows finished (half)",
+               "stage 1 -> stage 2 -> taps on wgmma, z stores")
+# the PHASE marks of csrc/fused_mdta.cu's bf16 stage-1 walk, per step
+MDTA1_PHASES = ("the wait for x's row at the step's barrier", "LN1",
+                "qkv and the last row's grams on wgmma, ring stores",
+                "depthwise 3x3, q, k, v stores",
+                "the proxy fence and barrier after LN1")
 # the PHASE marks of csrc/fused_block2.cu's bf16 route, in order
 EXACT_PHASES = ("prologue", "conv1 and the y stores (4 chunks)",
                 "fold and conv2 with the sums (4 chunks)", "epilogue")
 
 
 @torch.no_grad()
-def phase_clocks(card: str, label: str, source: str, symbol: str, nargs: int,
+def phase_clocks(card: str, label: str, source: str, symbol: str, nargs,
                  args, res, check, names):
     """``--phases``: compiles ``csrc/<source>.cu`` once more with
     ``-DCDFO_PHASE_CLOCKS``, launches ``symbol(*args, stream)`` (``nargs``
-    pointers, then ints, as ``args`` gives them; ``res`` its output, which
-    ``check(res)`` holds against the plain version), and prints the cycles
+    pointers, then ints, as ``args`` gives them, or ``nargs`` the ctypes
+    argument types; ``res`` its output, which ``check(res)`` holds against
+    the plain version), and prints the cycles
     thread 0 of a CTA spends between the kernel's phase marks
     (``csrc/phase_clocks.cuh``), averaged over the steps the launch's CTAs
     ran, as the kernel counts them, or over its CTAs where it counts none
@@ -1154,9 +1182,10 @@ def phase_clocks(card: str, label: str, source: str, symbol: str, nargs: int,
                    check=True, capture_output=True, timeout=900)
     lib = ctypes.CDLL(str(out))
     kernel = getattr(lib, symbol)
-    kernel.argtypes = ([ctypes.c_void_p] * nargs
-                       + [ctypes.c_int] * (len(args) - nargs)
-                       + [ctypes.c_void_p])
+    if isinstance(nargs, int):
+        nargs = ([ctypes.c_void_p] * nargs
+                 + [ctypes.c_int] * (len(args) - nargs))
+    kernel.argtypes = [*nargs, ctypes.c_void_p]
     clocks = (ctypes.c_longlong * 16)()
 
     def launch():
@@ -1183,9 +1212,9 @@ def phase_clocks(card: str, label: str, source: str, symbol: str, nargs: int,
 
 
 def run_phase_clocks(card: str):
-    """``--phases`` for the int8 ``Block_``, the exact one and the
-    alignment tail at the main shape in bfloat16, their weights packed
-    once."""
+    """``--phases`` for the int8 ``Block_``, the exact one, the alignment
+    tail, the head and MDTA stage 1 at the main shapes in bfloat16, their
+    weights packed once."""
     g = torch.Generator(device="cuda").manual_seed(4)
     x, *params = kc.trunk_args("blockq", torch.bfloat16, g, TRUNK_MAIN)
     packed = fq.pack_weights_q(*params, torch.bfloat16)
@@ -1225,6 +1254,37 @@ def run_phase_clocks(card: str):
         lambda r: kc.assert_outputs_close(
             r, ft.resblock_pair_plain(*args), torch.bfloat16, "tail"),
         TAIL_PHASES)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    args = kc.trunk_args("head", torch.bfloat16, g, TRUNK_MAIN)
+    packed = fh.pack_head_weights(*args[2:7], torch.bfloat16)
+    b, h, w, _ = args[0].shape
+    res = torch.empty(b, 4 * h, 4 * w, 1, device="cuda")
+    phase_clocks(
+        card, f"head {tuple(args[0].shape)}", "fused_head", "cdfo_fused_head",
+        9, [args[0].data_ptr(), args[1].data_ptr(), *fb.pointers(packed),
+            args[7].data_ptr(), res.data_ptr(), 1, b, h, w], res,
+        lambda r: kc.assert_outputs_close(
+            r, fh.fused_head_plain(*args), torch.bfloat16, "head"),
+        HEAD_PHASES)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    shape = ALIGN_EMBED_SHAPES[0][0]
+    x, lnw, lnb, wq, wdw = kc.align_embed_args("mdta1", torch.bfloat16, g,
+                                               shape, 6)
+    wk, taps = fm.pack_stage1_weights(wq, wdw, torch.bfloat16)
+    v = torch.empty_like(x)
+    stats = torch.empty(shape[0], 3, 64, 64, device="cuda")
+    ws = cuda_build.workspace(fm._kernel("cdfo_mdta_stage1_workspace"),
+                              "mdta1", x.device, *shape, 1)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    phase_clocks(
+        card, f"MDTA stage 1 {tuple(x.shape)}", "fused_mdta",
+        "cdfo_mdta_stage1", [ptr] * 7 + [i32, ptr] + [i32] * 4,
+        [*(t.data_ptr() for t in (x, lnw, lnb, wk, taps, v, ws)), ws.numel(),
+         stats.data_ptr(), 1, *shape], (v, stats),
+        lambda r: kc.assert_outputs_close(
+            r, fm.mdta_stage1_plain(x, lnw, lnb, wq, wdw), torch.bfloat16,
+            "mdta1"),
+        MDTA1_PHASES)
 
 
 def redesign_order(card: str, fields: dict, launches: dict) -> None:
@@ -1239,6 +1299,31 @@ def redesign_order(card: str, fields: dict, launches: dict) -> None:
                       f"{fields[kind]['bound_ms']:.3f}) = {v:.1f} ms"
                       for kind, v in sorted(loss.items(), key=lambda kv: -kv[1]))
           + f" [{card}]", flush=True)
+
+
+def entry_name(line: str) -> str:
+    """The kernel a ptxas "Compiling entry function '<mangled>'" line
+    names: the last identifier of its (nested) name, with its template
+    argument where it is float, bf16 or a bool, else the mangled name."""
+    mangled = line.split("'")[1] if "'" in line else line
+    nested = mangled.startswith("_ZN")
+    i = 3 if nested else 2
+    name, rest = None, ""
+    while mangled.startswith("_Z") and i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+        rest = mangled[i:]
+        if not nested:
+            break
+    if not name:
+        return f"entry {mangled}"
+    args = {"IfE": "<float>", "I13__nv_bfloat16E": "<bf16>", "ILb0E": "<false>",
+            "ILb1E": "<true>"}
+    return "entry " + name + next(
+        (v for k, v in args.items() if rest.startswith(k)), "")
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -1266,6 +1351,8 @@ def main():
             if not log.exists():
                 continue
             for line in log.read_text().splitlines():
+                if "Compiling entry function" in line:
+                    print(f"  {name}: {entry_name(line)}", flush=True)
                 if any(k in line for k in ("registers", "spill", "rror", "C75")):
                     line = line.replace("ptxas info    :", "ptxas:").strip()
                     print(f"  {name}: {line}", flush=True)

@@ -167,6 +167,72 @@ def test_tail_walk_matches_plain(cuda, shape, nbr):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape", [
+    ("head", (2, 40, 127, 64)), ("head", (1, 300, 127, 64)),
+    ("mdta1", (1, 40, 127)), ("mdta1", (3, 33, 127)), ("mdta1", (1, 300, 127))])
+def test_strip_walk_matches_plain(cuda, kind, shape):
+    """The bfloat16 head's and MDTA stage 1's walks: 62-column strips, the
+    last 3 columns wide, a row a step, split over the card's SMs so that
+    walks start and end inside strips (one row each, or several across a
+    strip boundary); the pack kept gives the same result."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(7)
+    if kind == "head":
+        wrapper, plain = fh.fused_head, fh.fused_head_plain
+        args = kc.trunk_args(kind, torch.bfloat16, g, shape, device=cuda)
+        packed = fh.pack_head_weights(*args[2:7], torch.bfloat16)
+    else:
+        wrapper, plain = fm.mdta_stage1, fm.mdta_stage1_plain
+        args = kc.align_embed_args(kind, torch.bfloat16, g, shape, 3,
+                                   device=cuda)
+        packed = fm.pack_stage1_weights(args[3], args[4], torch.bfloat16)
+    before = wrapper.launches
+    with torch.no_grad():
+        out = wrapper(*args)
+        kept = wrapper(*args, packed=packed)
+        ref = plain(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 2
+    for o, k in zip(*(t if isinstance(t, tuple) else (t,) for t in (out, kept))):
+        assert torch.equal(o, k)
+    kc.assert_outputs_close(out, ref, torch.bfloat16, kind)
+
+
+@pytest.mark.cuda
+def test_models_cache_head_and_stage1_packs(cuda):
+    """CVSRV8 keeps the head's pack and PartitionTransformerSA2Fast MDTA
+    stage 1's until a parameter changes."""
+    from cdfo_tpu_torch.config import ModelConfig
+    from cdfo_tpu_torch.models.cvsr import CVSRV8
+    from cdfo_tpu_torch.models.layers import init_weights
+    from cdfo_tpu_torch.models.prior_encoder import PartitionTransformerSA2Fast
+    cfg = ModelConfig(fused_trunk=True, compute_dtype=torch.bfloat16)
+    model = CVSRV8(cfg, torch.Generator().manual_seed(0), device=cuda)
+    t = torch.randn(1, 8, 16, 64, device=cuda).bfloat16()
+    lr = torch.rand(1, 8, 16, 1, device=cuda)
+    with torch.no_grad():
+        a = model.head_from_trunk(t, lr)
+        pack = model._head_pack
+        assert torch.equal(a, model.head_from_trunk(t, lr))
+        assert model._head_pack is pack
+        model.upconv2.weight.mul_(0.5)
+        model.head_from_trunk(t, lr)
+    assert model._head_pack is not pack
+    embed = init_weights(PartitionTransformerSA2Fast(64, dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(1)).to(cuda)
+    x1 = torch.randn(1, 8, 16, 64, device=cuda).bfloat16()
+    x2 = torch.randn(1, 8, 16, 64, device=cuda).bfloat16()
+    with torch.no_grad():
+        a = embed(x1, x2)
+        pack = embed._stage1_pack
+        assert torch.equal(a, embed(x1, x2)) and embed._stage1_pack is pack
+        embed.attn.qkv.weight.mul_(0.5)
+        embed(x1, x2)
+    assert embed._stage1_pack is not pack
+
+
+@pytest.mark.cuda
 def test_alignment_caches_its_tail_pack(cuda):
     from cdfo_tpu_torch.models.alignment import DualAttAlignment
     from cdfo_tpu_torch.models.layers import init_weights

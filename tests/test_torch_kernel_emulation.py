@@ -31,6 +31,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from cdfo_tpu_torch.ops import cuda_build as cb
 from cdfo_tpu_torch.ops import fused_align as fal
@@ -132,6 +133,7 @@ inline int __float2int_rn(float v) {   // saturates, as the card's does
   return static_cast<int>(rintf(fminf(fmaxf(v, -2147483520.f), 2147483520.f)));
 }
 template <class T> T __ldg(const T* p) { return *p; }
+inline float rsqrtf(float x) { return 1.f / sqrtf(x); }
 inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
 inline float __int_as_float(int u) { float f; memcpy(&f, &u, 4); return f; }
 inline int __float_as_int(float f) { int u; memcpy(&u, &f, 4); return u; }
@@ -352,9 +354,10 @@ template <int N> void cp_async_wait_n() {}
 inline void __syncwarp() {}
 // wgmma m64nNk16 bf16 -> f32. A from registers (warp w of the warpgroup:
 // rows 16w .. 16w+15 in the m16n8k16 A-fragment layout) or, with a_desc,
-// a K-major tile like B. B a K-major tile read through its descriptor
-// (element (k, n) at row n, byte 2k), or MN-major (trans_b: row k, byte
-// 2n). A descriptor tile is 128-byte swizzled (mode 1, 8-row groups 1024
+// a K-major tile like B (or MN-major, trans_a). B a K-major tile read
+// through its descriptor (element (k, n) at row n, byte 2k), or MN-major
+// (trans_b: row k, byte 2 (n % 64) of the 64-column block n / 64, blocks
+// LBO bytes apart). A descriptor tile is 128-byte swizzled (mode 1, 8-row groups 1024
 // bytes apart, byte b of row r at start + (r / 8) * 1024 + (r % 8) * 128 +
 // b with its bits 4-6 XORed with its bits 7-9) or without swizzle (mode 0,
 // 8-row groups 128 bytes apart: core matrices of 8 rows of 16 bytes, byte b
@@ -390,15 +393,21 @@ inline int emu_tile_s8(uint64_t desc, int row, int k) {   // s8 element k of row
   if (!emu_addr(desc, row, k, addr)) return -128;
   return int(reinterpret_cast<const int8_t*>(cdfo_smem)[addr]);
 }
+// an MN-major (transposed) tile, 128-byte swizzled: element (k, mn) at
+// row k of its 64-column block mn / 64, blocks LBO bytes apart
+inline float emu_tile_mn(uint64_t desc, int k, int mn) {
+  const uint64_t lbo = ((desc >> 16) & 0x3FFF) << 4;
+  return emu_tile(desc + ((mn / 64) * lbo >> 4), k, mn % 64);
+}
 template <int N>
 void emu_wgmma(float (&d)[N / 8][4], const uint32_t* a, uint64_t a_desc, uint64_t desc,
-               bool trans_b) {
+               bool trans_b, bool trans_a = false, int scale_d = 1) {
   const int tid = threadIdx.x, wg = tid / 128, r = tid % 128;
   if (a) memcpy(emu_wg_a[wg][r], a, 16);
   emu_wg_bar[wg]->arrive_and_wait();
   const int l = r % 32, g = l >> 2, t = l & 3, w = r / 32;
   auto A = [&](int row, int k) {   // row of this warp's 16
-    if (!a) return emu_tile(a_desc, 16 * w + row, k);
+    if (!a) return trans_a ? emu_tile_mn(a_desc, k, 16 * w + row) : emu_tile(a_desc, 16 * w + row, k);
     const uint32_t* lane_regs = emu_wg_a[wg][w * 32 + (row % 8) * 4 + (k % 8) / 2];
     return emu_half(lane_regs[(row >= 8) + 2 * (k >= 8)], k & 1);
   };
@@ -407,28 +416,42 @@ void emu_wgmma(float (&d)[N / 8][4], const uint32_t* a, uint64_t a_desc, uint64_
       const int row = g + 8 * (i >= 2), col = 8 * j + 2 * t + (i & 1);
       float sum = 0.f;
       for (int k = 0; k < 16; ++k) {
-        sum += A(row, k) * (trans_b ? emu_tile(desc, k, col) : emu_tile(desc, col, k));
+        sum += A(row, k) * (trans_b ? emu_tile_mn(desc, k, col) : emu_tile(desc, col, k));
       }
-      d[j][i] += sum;
+      d[j][i] = scale_d ? d[j][i] + sum : sum;
     }
   emu_wg_bar[wg]->arrive_and_wait();
 }
-inline void wgmma_64x64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc) {
-  emu_wgmma<64>(d, a, 0, desc, false);
+inline void wgmma_64x64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc,
+                        int scale_d = 1) {
+  emu_wgmma<64>(d, a, 0, desc, false, false, scale_d);
 }
 inline void wgmma_64x32(float (&d)[4][4], const uint32_t (&a)[4], uint64_t desc) {
   emu_wgmma<32>(d, a, 0, desc, false);
 }
+inline void wgmma_64x16(float (&d)[2][4], const uint32_t (&a)[4], uint64_t desc,
+                        int scale_d = 1) {
+  emu_wgmma<16>(d, a, 0, desc, false, false, scale_d);
+}
 inline void wgmma_64x64_tb(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc) {
   emu_wgmma<64>(d, a, 0, desc, true);
 }
-template <int N> void emu_wgmma_ss(float (&d)[N / 8][4], uint64_t a_desc, uint64_t desc) {
-  emu_wgmma<N>(d, nullptr, a_desc, desc, false);
+template <int N>
+void emu_wgmma_ss(float (&d)[N / 8][4], uint64_t a_desc, uint64_t desc, int scale_d = 1) {
+  emu_wgmma<N>(d, nullptr, a_desc, desc, false, false, scale_d);
 }
 inline void wgmma_ss_64x80(float (&d)[10][4], uint64_t a, uint64_t b) { emu_wgmma_ss<80>(d, a, b); }
 inline void wgmma_ss_64x120(float (&d)[15][4], uint64_t a, uint64_t b) { emu_wgmma_ss<120>(d, a, b); }
 inline void wgmma_ss_64x136(float (&d)[17][4], uint64_t a, uint64_t b) { emu_wgmma_ss<136>(d, a, b); }
-inline void wgmma_ss_64x64(float (&d)[8][4], uint64_t a, uint64_t b) { emu_wgmma_ss<64>(d, a, b); }
+inline void wgmma_ss_64x64(float (&d)[8][4], uint64_t a, uint64_t b, int scale_d = 1) {
+  emu_wgmma_ss<64>(d, a, b, scale_d);
+}
+inline void wgmma_ss_64x96(float (&d)[12][4], uint64_t a, uint64_t b, int scale_d = 1) {
+  emu_wgmma_ss<96>(d, a, b, scale_d);
+}
+inline void wgmma_ss_64x128_tt(float (&d)[16][4], uint64_t a, uint64_t b) {
+  emu_wgmma<128>(d, nullptr, a, b, true, true);
+}
 // wgmma m64nNk32 s8 -> s32: A from registers (warp w: rows 16w .. 16w+15 in
 // the m16n8k32 A-fragment layout) or a K-major tile; B a K-major tile
 template <int N>
@@ -494,23 +517,27 @@ def emulated(tmp_path_factory):
 
 # NHWC shapes that span several tiles of each kernel; the MDTA and MSA
 # passes take (images or centres, H, W) with 3 neighbours per centre: 2 x 2
-# MDTA tiles of 8 x 16 with ragged edges, MSA tiles of 128 pixels ending
-# inside a row. The int8 Block_: two column strips of three serial steps
-# each, the second strip ragged, the first step's rows 40x brighter than
-# the later ones (``_case``). The tail: 3 neighbours of one image, three
-# 24-column strips (the last ragged) of two 8-row steps (the second
-# ragged), which the emulated card's 2 SMs split inside a strip. eg1: two
-# query tiles and three key tiles a row, the last ragged, and an H-band
-# that reaches past both image edges; eg2: a last tile whose second window
-# is outside
+# MDTA stage-2 tiles of 8 x 16 with ragged edges, MSA tiles of 128 pixels
+# ending inside a row. The int8 Block_: two column strips of three serial
+# steps each, the second strip ragged, the first step's rows 40x brighter
+# than the later ones (``_case``). The tail: 3 neighbours of one image,
+# three 24-column strips (the last ragged) of two 8-row steps (the second
+# ragged), which the emulated card's 2 SMs split inside a strip. The head
+# (3 images) and MDTA stage 1 (one image, ``ALIGN_EMBED_SHAPES``): three
+# 62-column strips, the last 5 wide, walked a row a step, which the 2 SMs
+# split inside the second strip (the head's after an image boundary). eg1:
+# two query tiles and three key tiles a row, the last ragged, and an
+# H-band that reaches past both image edges; eg2: a last tile whose second
+# window is outside
 SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 24, 12, 64),
           "body": (1, 10, 20, 64),
           "group": (1, 9, 35, 64),
-          "head": (2, 9, 5, 64), "tail": (1, 12, 54, 64)}
+          "head": (3, 5, 129, 64), "tail": (1, 12, 54, 64)}
 # the int8 Block_'s bright rows: the top step's own, out of every later
 # step's windows (their xm, z and y windows start at row 6 and below)
 BRIGHT_ROWS, BRIGHT = 6, 40.0
 EGLA_SHAPES = {"eg1": (2, 5, 140, 64), "eg2": (2, 8, 24, 64)}
+ALIGN_EMBED_SHAPES = {"mdta1": (1, 5, 129)}
 # the attention (bfloat16: its three routes): columns of a ragged H read in
 # place from NHWC (H <= 272: one warpgroup on wgmma, three 64-query tiles,
 # the last moved back); tokens past 272 positions (two passes over the keys
@@ -541,7 +568,9 @@ def _case(kind, dtype):
         return kc.egla_args(kind, dtype, g, EGLA_SHAPES[kind], device="cpu")
     if kind.startswith("warp_"):
         return kc.warp_args(kind[5:], dtype, g, (3, 2, 16, 32), device="cpu")
-    return kc.align_embed_args(kind, dtype, g, (2, 10, 19), 3, device="cpu")
+    return kc.align_embed_args(kind, dtype, g,
+                               ALIGN_EMBED_SHAPES.get(kind, (2, 10, 19)), 3,
+                               device="cpu")
 
 
 def _route_through(monkeypatch, lib):
@@ -708,3 +737,78 @@ def test_int8_half_branch_stage_layout():
     assert st.is_contiguous()
     exact = fb.stage_weights(w1, w2)
     assert torch.equal(st, torch.cat([exact[:, :9], exact[:, 25:]], dim=1))
+
+
+def _unswizzle(st):
+    """(..., rows, 64) -> the rows before ``fused_block2.swizzle128``."""
+    rows = st.shape[-2]
+    n, k = torch.meshgrid(torch.arange(rows), torch.arange(64), indexing="ij")
+    return st[..., n, ((k // 8) ^ (n % 8)) * 8 + k % 8]
+
+
+def test_head_stage_weights_layout():
+    """The bfloat16 head's resident weights: upconv1's and upconv2's phase
+    blocks (row 64p + n of a block set: torch output channel 4n + p), then
+    conv_last's 9 taps as rows of the tap matrix, padded to 16 with zeros;
+    the biases phase-major."""
+    g = torch.Generator().manual_seed(9)
+    w1, w2 = (torch.randn(256, 64, 1, 1, generator=g) for _ in range(2))
+    b1, b2 = torch.randn(256, generator=g), torch.randn(256, generator=g)
+    wl = torch.randn(1, 64, 3, 3, generator=g)
+    st, b1p, none2, b2p, nonel = fh.pack_head_weights(w1, b1, w2, b2, wl,
+                                                      torch.bfloat16)
+    assert none2 is None and nonel is None
+    assert st.shape == (528, 64) and st.dtype == torch.bfloat16
+    rows = _unswizzle(st)
+    for p in range(4):
+        for n in (0, 17, 63):
+            assert torch.equal(rows[64 * p + n], w1[4 * n + p, :, 0, 0].bfloat16())
+            assert torch.equal(rows[256 + 64 * p + n], w2[4 * n + p, :, 0, 0].bfloat16())
+            assert b1p[64 * p + n] == b1[4 * n + p].bfloat16()
+            assert b2p[64 * p + n] == b2[4 * n + p].bfloat16()
+    for tap in range(9):
+        assert torch.equal(rows[512 + tap], wl[0, :, tap // 3, tap % 3].bfloat16())
+    assert not rows[521:].any()
+
+
+def test_head_conv_last_as_tap_partials():
+    """conv_last (64 -> 1, 3x3, zero padding) at 4x is the bfloat16 head's
+    9 tap partials z_tap = f . wl[tap] (the tap matrix of its pack) added
+    at their shifts: sum over taps of z_tap(q + d_tap) + bl equals conv2d
+    of the 4x feature, in float32, at a 4x feature that is zero outside
+    the image as the kernel's is."""
+    g = torch.Generator().manual_seed(10)
+    f = torch.randn(2, 64, 20, 28, generator=g)
+    wl = torch.randn(1, 64, 3, 3, generator=g) * 0.1
+    bl = torch.randn(1, generator=g)
+    taps = _unswizzle(fh.stage_head_weights(wl.new_zeros(256, 64, 1, 1),
+                                            wl.new_zeros(256, 64, 1, 1), wl,
+                                            torch.float32))[512:]
+    z = torch.einsum("bchw,tc->bthw", f, taps)          # (B, 16, H, W)
+    assert not z[:, 9:].any()
+    zp = F.pad(z, (1, 1, 1, 1))
+    h, w = f.shape[2:]
+    out = bl + sum(zp[:, 3 * ky + kx, ky:ky + h, kx:kx + w]
+                   for ky in range(3) for kx in range(3))
+    ref = F.conv2d(f, wl, bl, padding=1)[:, 0]
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_mdta_stage1_weights_layout():
+    """MDTA stage 1's bfloat16 pack: W_qkv as B[n][k] = w_qkv[n, k],
+    128-byte swizzled, and the depthwise taps [9][3C] (tap 3 dy + dx)
+    float32; float32 keeps kernel_weights and [3C][9]."""
+    g = torch.Generator().manual_seed(11)
+    w_qkv = torch.randn(192, 64, 1, 1, generator=g)
+    w_dw = torch.randn(192, 1, 3, 3, generator=g)
+    st, taps = fm.pack_stage1_weights(w_qkv, w_dw, torch.bfloat16)
+    assert st.shape == (192, 64) and st.dtype == torch.bfloat16
+    assert torch.equal(_unswizzle(st), w_qkv[:, :, 0, 0].bfloat16())
+    assert taps.shape == (9, 192) and taps.dtype == torch.float32
+    for ch in (0, 70, 191):
+        for dy in range(3):
+            for dx in range(3):
+                assert taps[3 * dy + dx, ch] == w_dw[ch, 0, dy, dx]
+    wk, taps32 = fm.pack_stage1_weights(w_qkv, w_dw, torch.float32)
+    assert torch.equal(wk, cb.kernel_weights(w_qkv, torch.float32))
+    assert torch.equal(taps32, w_dw.reshape(192, 9))
