@@ -52,21 +52,51 @@
 //   stay in registers for the whole walk; the products of a row run in
 //   the wgmma group of the next row's qkv.
 // - The next x row arrives by cp.async during the step.
-// Stage 2, and stage 1 in float32 (the twin for the float32 checks), keep
+// Stage 2 in bfloat16 is a walk on wgmma too. The first design (one CTA of
+// 8 warps per 8 x 16 tile over a 10 x 18 window, so both 1x1s ran over
+// 1.41x the pixels the outputs need, four barrier phases in series, all
+// three products on mma.sync with every weight fragment from device memory
+// in every warp, LN2 one pixel a thread from an fp32 t window) ran at 8x
+// its bound. Now the 62-column strip walk of `wgmma_tile.cuh`
+// (`StripStep`, one CTA an SM over every image), two window rows a step,
+// one per warpgroup:
+// - o = v A^T on SS wgmma m64n64 (this image's A resident, 8 KB, fetched
+//   with the first rows of each walk), rounded into register A after its
+//   wait, then the projection as RS wgmma m64n64 (W_proj resident); t = x
+//   + proj is formed in fp32 in the accumulators (zero outside the image,
+//   as v and x are there).
+// - LN2 straight from the accumulators: a pixel's 64 channels sit in the 4
+//   lanes of a quad, so two shfl_xor steps give mu and E[x^2]. LN2(t) is
+//   rounded (zero outside the image: the conv's padding) into a ring of 4
+//   swizzled window rows, t rounded into a ring of 3 for the residual.
+// - The output row's 3x3 is `conv3x3_row` over the LN2 ring (the 72 KB of
+//   conv weights resident); its epilogue adds b + t (rounded) + x2 in fp32
+//   and stores bf16 once. The vertical halo is computed once per walk (its
+//   warm-up step runs the 1x1s and LN2 of its two rows and no conv).
+// - The rows arrive by the TMA unit (`tma_load_row`, zero outside the
+//   image): x2's a step ahead, v's and x's (one buffer) once the step
+//   before is done with them, before its conv. (Fetched by cp.async, a
+//   step's 3072 16-byte copies took ~2.5k cycles to issue.) The output
+//   row, rounded in place of x2's, leaves by the TMA unit too
+//   (`tma_store_row`).
+// Stage 1 and stage 2 in float32 (the twins for the float32 checks) keep
 // the first design: one CTA of 8 warps per TH x TW output tile with a
 // one-pixel halo window in shared memory, the 1x1 convolutions as implicit
-// GEMMs over the window on conv3x3_tile.cuh's tile routine (bf16 mma.sync,
-// fp32 CUDA-core twin), the depthwise 3x3 and the LayerNorms in fp32 on the
-// CUDA cores, one pixel per thread; stage 1's float32 blocks walk every
-// `parts`-th tile of their image.
+// GEMMs over the window on conv3x3_tile.cuh's tile routine (fp32 on the
+// CUDA cores), the depthwise 3x3 and the LayerNorms in fp32, one pixel per
+// thread; stage 1's float32 blocks walk every `parts`-th tile of their
+// image.
 
 #include "gram_tile.cuh"
 #include "wgmma_tile.cuh"
 
-// Phase marks (`phase_clocks.cuh`) of stage 1's bf16 walk, summed over a
-// CTA's steps: the wait for x's row at the step's barrier, LN1, the
+// Phase marks (`phase_clocks.cuh`) of the bf16 walks, summed over a CTA's
+// steps. Stage 1: the wait for x's row at the step's barrier, LN1, the
 // products (qkv and the last row's grams) with the ring stores, the
 // depthwise with the q, k and v stores, the fence and barrier after LN1.
+// Stage 2: the wait for the step's rows at its barrier, o and the
+// projection, t and LN2 with the ring stores, the fence and barrier before
+// the conv, the conv's products, its epilogue and the store's issue.
 #include "phase_clocks.cuh"
 
 namespace {
@@ -550,6 +580,220 @@ mdta1_wgmma_kernel(const bf16* __restrict__ x, const float* __restrict__ lnw,
   }
 }
 
+// ---- stage 2, bfloat16: the walk on wgmma ----------------------------------
+
+constexpr int CONV_BYTES = 9 * C * C * 2;   // the conv's 9 taps, resident
+constexpr int MAT_BYTES = C * C * 2;        // a 64 x 64 matrix (W_proj, A)
+constexpr int ROW_BYTES = TILE * 2;         // a 64-pixel window row
+// conv taps | W_proj | A of the walk's image | LN2(t) ring (+ 8 pixel rows:
+// the taps' overread, alignment) | t ring | v, x rows of a step | x2 rows,
+// then the output rows in their place, [2 steps][2 rows] | mbarriers: the
+// conv's, W_proj's, v and x's, x2's two
+constexpr int SMEM2_BF16 = 1024 + CONV_BYTES + 2 * MAT_BYTES + (4 * TILE + 8 * C) * 2 +
+                           3 * ROW_BYTES + 4 * ROW_BYTES + 4 * ROW_BYTES + 40;
+static_assert(CONV_BYTES % 1024 == 0 && MAT_BYTES % 1024 == 0, "1024-byte aligned tiles");
+static_assert(SMEM2_BF16 <= 232448, "one block's shared memory");
+
+__global__ void __launch_bounds__(THREADS, 1)
+mdta2_wgmma_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tx2,
+                   const __grid_constant__ CUtensorMap tamat,
+                   const __grid_constant__ CUtensorMap tout, const bf16* __restrict__ wproj,
+                   const float* __restrict__ lnw, const float* __restrict__ lnb,
+                   const bf16* __restrict__ wconv, const bf16* __restrict__ bconv, int batch,
+                   int h, int wd) {
+  extern __shared__ uint4 cdfo_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(cdfo_smem);
+  base += (1024u - (shared_address(base) & 1023u)) & 1023u;
+  bf16* wc = reinterpret_cast<bf16*>(base);   // conv [9 taps][64 n][64 k], swizzled
+  bf16* wp = wc + 9 * C * C;                   // W_proj [64 n][64 k], swizzled
+  bf16* am = wp + C * C;                       // A of the walk's image [64 n][64 k], swizzled
+  bf16* ln = am + C * C;                       // LN2(t) of 4 window rows, swizzled
+  bf16* tr = ln + 4 * TILE + 8 * C;            // t, rounded, of 3 window rows, swizzled
+  bf16* vx = tr + 3 * TILE;                    // v rows j, j + 1, then x rows j, j + 1
+  bf16* x2s = vx + 4 * TILE;                   // x2 rows, then the output rows [2 steps][2]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(x2s + 4 * TILE);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int strips = (wd + STRIP - 1) / STRIP;
+  const long long total = static_cast<long long>(batch) * strips * h;
+  const long long g0 = blockIdx.x * total / gridDim.x, g1 = (blockIdx.x + 1) * total / gridDim.x;
+  if (g0 >= g1) return;
+
+  // v's and x's window rows j, j + 1 of step s and, at a walk's warm-up,
+  // its image's A, by the TMA unit on mbarrier 2
+  auto fetch_vx = [&](const StripStep& s) {
+    const bool warm = s.j < s.a;
+    mbar_expect_tx(bars + 2, 4 * ROW_BYTES + (warm ? MAT_BYTES : 0));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tma_load_row(vx + r * TILE, &tv, s.c0 - 1, s.j + r, s.b, bars + 2);
+      tma_load_row(vx + (2 + r) * TILE, &tx, s.c0 - 1, s.j + r, s.b, bars + 2);
+    }
+    if (warm) tma_load_row(am, &tamat, 0, 0, s.b, bars + 2);
+  };
+  // x2's rows of step t's output rows j - 1, j (a warm-up's are not used)
+  // into set t % 2, on mbarrier 3 + t % 2
+  auto fetch_x2 = [&](const StripStep& s, int t) {
+    uint64_t* bar = bars + 3 + (t & 1);
+    mbar_expect_tx(bar, 2 * ROW_BYTES);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tma_load_row(x2s + (2 * (t & 1) + r) * TILE, &tx2, s.c0, s.j - 1 + r, s.b, bar);
+    }
+  };
+
+  StripStep s = strip_walk_at(g0, g1, h, strips), n;
+  bool more = strip_next(s, g1, h, strips, n);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bars, CONV_BYTES);
+    bulk_copy(wc, wconv, CONV_BYTES, bars);
+    mbar_expect_tx(bars + 1, MAT_BYTES);
+    bulk_copy(wp, wproj, MAT_BYTES, bars + 1);
+    fetch_vx(s);
+    fetch_x2(s, 0);
+  }
+  // LN2's weight and bias and the conv's bias on this lane's channels
+  // 8 jj + t2, + 1
+  float2 lw[8], lb[8], bc[8];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    lw[jj] = load2(lnw + 8 * jj + t2);
+    lb[jj] = load2(lnb + 8 * jj + t2);
+    bc[jj] = load2(bconv + 8 * jj + t2);
+  }
+  __syncthreads();
+  mbar_wait(bars, 0);
+  mbar_wait(bars + 1, 0);
+
+  int t = 0;   // the CTA's step count: window row j + r is LN2 ring row 2t + r
+  PHASE_START
+#pragma unroll 1
+  while (true) {
+    mbar_wait(bars + 2, static_cast<uint32_t>(t & 1));
+    mbar_wait(bars + 3 + (t & 1), static_cast<uint32_t>((t >> 1) & 1));
+    bulk_wait_read();   // the last step's output rows have left shared memory
+    __syncthreads();
+    PHASE(0)
+    if (threadIdx.x == 0 && more) fetch_x2(n, t + 1);
+    {
+      // window row j + wg: o = v A^T, rounded into register A, then proj
+      float acc[8][4];
+      const uint64_t vd = wgmma_desc(vx + wg * TILE), ad = wgmma_desc(am);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64(acc, vd + 2 * kk, ad + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(acc);
+      uint32_t oa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          oa[kk][2 * u] = pack_bf16x2(acc[2 * kk + u][0], acc[2 * kk + u][1]);
+          oa[kk][2 * u + 1] = pack_bf16x2(acc[2 * kk + u][2], acc[2 * kk + u][3]);
+        }
+      const uint64_t pd = wgmma_desc(wp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_64x64(acc, oa[kk], pd + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(acc);
+      keep(oa);
+      PHASE(1)
+      // t = x + proj(o) in fp32 (zero outside the image, as v and x are);
+      // LN2(t) with E[x^2] - mu^2 over the quad's 64 channels, rounded,
+      // zero outside the image, and t rounded, into their rings
+      const int jr = s.j + wg;
+      const bool row_in = jr >= 0 && jr < h;
+      bf16* xr = vx + (2 + wg) * TILE;
+      bf16* lnr = ln + ((2 * t + wg) & 3) * TILE;
+      bf16* trr = tr + ((2 * t + wg) % 3) * TILE;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = 16 * wl + g + 8 * half, xx = s.c0 - 1 + m;
+        const bool in = row_in && xx >= 0 && xx < wd;
+        float sum = 0.f, sq = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float2 xv = load2(swizzled(xr, m, 8 * jj + t2));
+          acc[jj][2 * half] += xv.x;
+          acc[jj][2 * half + 1] += xv.y;
+          const float a0 = acc[jj][2 * half], a1 = acc[jj][2 * half + 1];
+          sum += a0 + a1;
+          sq += a0 * a0 + a1 * a1;
+        }
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+          sq += __shfl_xor_sync(0xffffffffu, sq, o);
+        }
+        const float mu = sum * (1.f / C);
+        const float rs = rsqrtf(sq * (1.f / C) - mu * mu + 1e-5f);
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const float a0 = acc[jj][2 * half], a1 = acc[jj][2 * half + 1];
+          store2(swizzled(trr, m, 8 * jj + t2), a0, a1);
+          store2(swizzled(lnr, m, 8 * jj + t2), in ? (a0 - mu) * rs * lw[jj].x + lb[jj].x : 0.f,
+                 in ? (a1 - mu) * rs * lw[jj].y + lb[jj].y : 0.f);
+        }
+      }
+      PHASE(2)
+    }
+    async_fence();
+    __syncthreads();
+    PHASE(3)
+    // the 1x1s are done with v, x and A: the next step's
+    if (threadIdx.x == 0 && more) fetch_vx(n);
+    if (s.j >= s.a) {   // past the walk's warm-up (the same branch for the whole CTA)
+      // this warpgroup's output row y = j - 1 + wg, from LN2 rows y - 1 .. y + 1
+      float acc[8][4];
+      conv3x3_row(acc, ln + ((2 * t - 2 + wg) & 3) * TILE, ln + ((2 * t - 1 + wg) & 3) * TILE,
+                  ln + ((2 * t + wg) & 3) * TILE, wc);
+      wgmma_wait<0>();
+      keep(acc);
+      PHASE(4)
+      // out = acc + b + t (rounded) + x2, rounded once, in place of the x2
+      // row; then one thread of the warpgroup stores the row's 62 pixels by
+      // the TMA unit (those past the image are skipped)
+      const int y = s.j - 1 + wg;
+      bf16* trr = tr + ((2 * t - 1 + wg) % 3) * TILE;
+      bf16* row = x2s + (2 * (t & 1) + wg) * TILE;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int q = 16 * wl + g + 8 * half;
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          bf16* p = swizzled(row, q, 8 * jj + t2);
+          const float2 tv = load2(swizzled(trr, q + 1, 8 * jj + t2));
+          const float2 sv = load2(p);
+          store2(p, acc[jj][2 * half] + bc[jj].x + tv.x + sv.x,
+                 acc[jj][2 * half + 1] + bc[jj].y + tv.y + sv.y);
+        }
+      }
+      async_fence();
+      warpgroup_sync(wg);
+      if ((threadIdx.x & 127) == 0 && y < s.e) {
+        tma_store_row(&tout, row, s.c0, y, s.b);
+        bulk_commit();
+      }
+      PHASE(5)
+    }
+    if (!more) break;
+    s = n;
+    more = strip_next(s, g1, h, strips, n);
+    ++t;
+    PHASE_STEP
+  }
+  bulk_wait_read();
+  PHASE_END
+}
+
 int tiles_of(int h, int wd) { return ((h + TH - 1) / TH) * ((wd + TW - 1) / TW); }
 
 cudaError_t launch1(const void* x, const void* lnw, const void* lnb, const void* wqkv,
@@ -579,10 +823,32 @@ cudaError_t launch1(const void* x, const void* lnw, const void* lnb, const void*
                        static_cast<float*>(stats), nullptr, batch, stream);
 }
 
-template <typename T>
 cudaError_t launch2(const void* x, const void* v, const void* x2, const void* amat,
                     const void* wproj, const void* lnw, const void* lnb, const void* wconv,
-                    const void* bconv, void* out, int batch, int h, int wd, cudaStream_t stream) {
+                    const void* bconv, void* out, int is_bf16, int batch, int h, int wd,
+                    cudaStream_t stream) {
+  if (is_bf16) {
+    cudaError_t err = allow_smem(mdta2_wgmma_kernel, SMEM2_BF16);
+    if (err != cudaSuccess) return err;
+    const int sms = sm_count();
+    if (sms <= 0) return cudaErrorInvalidValue;
+    CUtensorMap tx, tv, tx2, tamat, tout;
+    if ((err = nhwc_tensor_map(&tx, x, batch, h, wd, STRIP_WIN)) != cudaSuccess ||
+        (err = nhwc_tensor_map(&tv, v, batch, h, wd, STRIP_WIN)) != cudaSuccess ||
+        (err = nhwc_tensor_map(&tx2, x2, batch, h, wd, STRIP_WIN)) != cudaSuccess ||
+        (err = nhwc_tensor_map(&tamat, amat, batch, 1, C, C)) != cudaSuccess ||
+        (err = nhwc_tensor_map(&tout, out, batch, h, wd, STRIP)) != cudaSuccess) {
+      return err;
+    }
+    const long long units = static_cast<long long>(batch) * ((wd + STRIP - 1) / STRIP) * h;
+    const dim3 grid(static_cast<unsigned>(units < sms ? units : sms));
+    CDFO_LAUNCH(mdta2_wgmma_kernel, grid, SMEM2_BF16, stream, tx, tv, tx2, tamat, tout,
+                static_cast<const bf16*>(wproj), static_cast<const float*>(lnw),
+                static_cast<const float*>(lnb), static_cast<const bf16*>(wconv),
+                static_cast<const bf16*>(bconv), batch, h, wd);
+    return cudaGetLastError();
+  }
+  using T = float;
   const cudaError_t err = allow_smem(mdta2_kernel<T>, s2_smem<T>());
   if (err != cudaSuccess) return err;
   const dim3 grid((wd + TW - 1) / TW, (h + TH - 1) / TH, batch);
@@ -631,18 +897,18 @@ extern "C" int cdfo_mdta_stage1(const void* x, const void* lnw, const void* lnb,
                  static_cast<cudaStream_t>(stream));
 }
 
-// x, v, x2, out: (batch, h, wd, 64) NHWC; amat: [batch] per-image 64 x 64
-// attention matrices (out, in) in kernel_weights' layout, one image per
-// tap; wproj: the 1x1 projection, wconv: the 3x3 conv in that layout; bconv:
-// [64]; all of one dtype. lnw, lnb: [64] float32. Returns a cudaError_t.
+// x, v, x2, out: (batch, h, wd, 64) NHWC (bfloat16: 16-byte aligned);
+// bconv: [64]; all of one dtype (is_bf16: 1 bfloat16, 0 float32). lnw, lnb: [64] float32. float32: amat
+// the [batch] per-image 64 x 64 attention matrices (out, in) in
+// kernel_weights' layout, one image per tap, wproj the 1x1 projection and
+// wconv the 3x3 conv in that layout; bfloat16: amat (batch, 64 out, 64 in)
+// as it is, wproj and wconv the swizzled tiles of
+// ops/fused_mdta.py::pack_stage2_weights. Returns a cudaError_t.
 extern "C" int cdfo_mdta_stage2(const void* x, const void* v, const void* x2, const void* amat,
                                 const void* wproj, const void* lnw, const void* lnb,
                                 const void* wconv, const void* bconv, void* out, int is_bf16,
                                 int batch, int h, int wd, void* stream) {
   if (batch <= 0 || batch > 65535 || h <= 0 || wd <= 0) return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch2<bf16>(x, v, x2, amat, wproj, lnw, lnb, wconv, bconv, out, batch, h, wd,
-                                 s)
-                 : launch2<float>(x, v, x2, amat, wproj, lnw, lnb, wconv, bconv, out, batch, h,
-                                  wd, s);
+  return launch2(x, v, x2, amat, wproj, lnw, lnb, wconv, bconv, out, is_bf16, batch, h, wd,
+                 static_cast<cudaStream_t>(stream));
 }

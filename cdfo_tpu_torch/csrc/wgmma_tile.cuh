@@ -2,7 +2,8 @@
 // fused_block2.cu (weights staged through shared memory), fused_attention.cu
 // (the token resident), fused_tail.cu (the four convs), fused_block2_q.cu
 // (its s8 products and its 0.5x branch's bf16 convs), fused_head.cu (its
-// three chained products) and fused_mdta.cu (stage 1's qkv and grams). Only
+// three chained products), fused_mdta.cu (stage 1's qkv and grams, stage
+// 2's three products) and fused_groupconv.cu (the group tail's conv). Only
 // those include this header; conv3x3_tile.cuh is unchanged for the rest.
 //
 // The wgmma forms used: m64nNk16, bf16 x bf16 -> fp32, A from registers (or,
@@ -39,13 +40,20 @@
 // The weights arrive by `cp.async.bulk` (a 1-D bulk copy through the TMA
 // unit, one thread issuing it) into a ring of stages, each completing on
 // its own mbarrier (`mbar_expect_tx`, then the copy; `mbar_wait` with the
-// stage's phase parity).
+// stage's phase parity). The 62-column strip walks (the group tail, MDTA
+// stage 2) move their 64-pixel rows by the TMA unit's tensor copies
+// (`tma_load_row`, `tma_store_row` on a `nhwc_tensor_map`), which swizzle
+// and zero-fill as wgmma's tiles need; several loads may complete on one
+// mbarrier that expects their bytes.
 //
 // tests/test_torch_kernel_emulation.py runs these through its host
 // emulation (CDFO_HOST_MMA): the products synchronously, by the layouts
-// above, and the bulk copies as plain copies.
+// above, and the bulk and tensor copies as plain copies that count their
+// bytes off their mbarrier.
 
 #pragma once
+
+#include <cuda.h>
 
 #include "conv3x3_tile.cuh"
 
@@ -381,6 +389,81 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// The TMA unit's tensor copies of 64-pixel rows of a bf16 NHWC tensor
+// (`nhwc_tensor_map`): box pixels x0 .. x0 + box_w - 1 of row y of image b,
+// 64 channels a pixel, one 128-byte pixel row each in shared memory,
+// 128-byte swizzled (as `fetch_row64` and wgmma's K-major tiles lay them
+// out; the tile 1024-byte aligned). A load zero-fills what lies outside the
+// tensor and completes its box's bytes on bar; a store skips it, one bulk
+// group (`bulk_commit`, `bulk_wait_read` before the rows are written
+// again). One thread issues each copy.
+__device__ __forceinline__ void tma_load_row(void* dst, const CUtensorMap* map, int x0, int y,
+                                             int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(shared_address(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(x0), "r"(y), "r"(b),
+      "r"(shared_address(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_row(const CUtensorMap* map, const void* src, int x0,
+                                              int y, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(0), "r"(x0), "r"(y), "r"(b), "r"(shared_address(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// waits until this thread's bulk groups have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// a barrier of the 128 threads of warpgroup wg (named barrier 1 + wg)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// The TMA map of a bf16 NHWC tensor (batch, h, wd, 64) at base, for
+// `tma_load_row` and `tma_store_row` with boxes of box_w pixels (host
+// code; the driver's encoder is looked up once through the runtime).
+inline cudaError_t nhwc_tensor_map(CUtensorMap* map, const void* base, int batch, int h, int wd,
+                                   int box_w) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(wd),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
+                                 static_cast<cuuint64_t>(wd) * C * 2,
+                                 static_cast<cuuint64_t>(h) * wd * C * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C), static_cast<cuuint32_t>(box_w), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // stmatrix: the four 8x8 b16 matrices of r0 .. r3 (lane 4g + t holding
 // row g, elements 2t, 2t + 1 of each, as an mma C fragment rounded to
 // pairs) to the rows lanes 0-7, 8-15, 16-23, 24-31 point at, each matrix
@@ -491,6 +574,80 @@ __device__ void store_lrelu_window(const float (&acc)[NT][4], int q0, int in_w, 
       stsm_x2_trans(row, r[0], r[1]);
     }
   }
+}
+
+// ---- the 62-column strip walk of the group tail and MDTA stage 2 ---------
+//
+// A strip is 62 output columns, so that a window row with its one-pixel
+// halo is 64 pixels, one m64 tile. The units (image, strip, output row),
+// numbered (image * strips + strip) * h + row, are handed out evenly: each
+// CTA (one an SM) walks a contiguous run of them, as walks (the output rows
+// [a, e) of one strip). A step takes two window rows j, j + 1, one per
+// warpgroup. The first step of a walk (j = a - 1) is its warm-up: its rows
+// are the vertical halo, and it computes no output. Every later step
+// computes output rows j - 1 and j, one per warpgroup; a row at e (a walk
+// of an odd length) is computed and dropped, so that both warpgroups stay
+// on one code path.
+constexpr int STRIP = 62;                // output columns of a strip
+constexpr int STRIP_WIN = STRIP + 2;     // window pixels of a row: one m64 tile
+
+struct StripStep {
+  long long u;      // the walk's first unit
+  int b, c0, a, e;  // image, the strip's first column, the walk's output rows [a, e)
+  int j;            // the step's first window row
+};
+
+// the warm-up step of the walk that starts at unit u (< g1, the end of the
+// CTA's run)
+__device__ __forceinline__ StripStep strip_walk_at(long long u, long long g1, int h,
+                                                   int strips) {
+  const long long sb = u / h;
+  StripStep s;
+  s.u = u;
+  s.b = static_cast<int>(sb / strips);
+  s.c0 = static_cast<int>(sb % strips) * STRIP;
+  s.a = static_cast<int>(u % h);
+  s.e = static_cast<int>(g1 - u < h - s.a ? s.a + (g1 - u) : h);
+  s.j = s.a - 1;
+  return s;
+}
+
+// the step after s: the walk's next two rows, or the warm-up of the next
+// walk; false where s is the CTA's last
+__device__ __forceinline__ bool strip_next(const StripStep& s, long long g1, int h, int strips,
+                                           StripStep& n) {
+  if (s.j + 1 < s.e) {
+    n = s;
+    n.j += 2;
+    return true;
+  }
+  const long long nu = s.u + (s.e - s.a);
+  if (nu >= g1) return false;
+  n = strip_walk_at(nu, g1, h, strips);
+  return true;
+}
+
+// The 3x3 conv (64 -> 64 channels) of one output row of a strip on wgmma,
+// in window coordinates: output position q (0 .. 63) reads window
+// positions q + kx of row ky of (r0, r1, r2), three 64-pixel tiles of
+// 128-byte swizzled pixel rows, 1024-byte aligned, each followed by two
+// readable pixel rows (positions 62 and 63 read past their row: their
+// outputs are dropped). w: the 9 taps (3 ky + kx) as 64 x 64 K-major
+// stages B[n][k], 128-byte swizzled, 1024-byte aligned. acc (64 positions
+// x 64 channels in the C-fragment order) is overwritten; the 36 products
+// are one wgmma group, committed and not waited for.
+__device__ __forceinline__ void conv3x3_row(float (&acc)[8][4], const bf16* r0, const bf16* r1,
+                                            const bf16* r2, const bf16* w) {
+  const bf16* rows[3] = {r0, r1, r2};
+  wgmma_fence();
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const uint64_t a = wgmma_desc(rows[tap / 3] + (tap % 3) * C);
+    const uint64_t b = wgmma_desc(w + tap * C * C);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64(acc, a + 2 * kk, b + 2 * kk, tap + kk);
+  }
+  wgmma_commit();
 }
 
 }  // namespace cdfo

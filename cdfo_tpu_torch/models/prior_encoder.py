@@ -7,7 +7,7 @@ from torch import nn
 
 from ..ops.cuda_build import cached_pack
 from ..ops.fused_mdta import (attention_matrix, mdta_stage1, mdta_stage2,
-                              pack_stage1_weights)
+                              pack_stage1_weights, pack_stage2_weights)
 from .attention import MDTA
 from .layers import Conv2d, ConvTranspose2d, SpatialAttention
 from .norms import ChannelLayerNorm
@@ -71,21 +71,26 @@ class PartitionTransformerSA2Fast(PartitionTransformerSA2):
     two passes of ``ops/fused_mdta`` (``mdta_stage1``, the per-head
     ``attention_matrix``, ``mdta_stage2``), as JAX's
     ``PartitionTransformerSA2Fast``. Same parameters and ``state_dict``
-    keys; the 16-channel side U-Net stays eager."""
+    keys; the 16-channel side U-Net stays eager. The packed weights of
+    both passes are kept until a parameter changes
+    (``cuda_build.cached_pack``)."""
 
     def forward(self, x1, x2):
         attn = self.attn
         n1, n2 = self.norm1.body, self.norm2.body
         x1, x2n = x1.contiguous(), x2
         wq, wdw = attn.qkv.weight, attn.qkv_dwconv.weight
+        wp, wc = attn.project_out.weight, self.conv.weight
         packed = cached_pack(self, "_stage1_pack", x1, (wq, wdw),
                              lambda dt: pack_stage1_weights(wq, wdw, dt))
+        packed2 = cached_pack(self, "_stage2_pack", x1, (wp, wc),
+                              lambda dt: pack_stage2_weights(wp, wc, dt))
         for r in range(3):
             x2n = self.side_to_feaoneUDSA(x2n) + (x1 if r == 0 else x2n)
             v, stats = mdta_stage1(x1, n1["weight"], n1["bias"], wq, wdw,
                                    packed=packed)
             amat = attention_matrix(stats, attn.temperature, attn.num_heads)
-            x1 = mdta_stage2(x1, v, x2n.contiguous(), amat.to(x1.dtype),
-                             attn.project_out.weight, n2["weight"],
-                             n2["bias"], self.conv.weight, self.conv.bias)
+            x1 = mdta_stage2(x1, v, x2n.contiguous(), amat.to(x1.dtype), wp,
+                             n2["weight"], n2["bias"], wc, self.conv.bias,
+                             packed=packed2)
         return x1

@@ -21,7 +21,7 @@ from torch import nn
 from ..ops.cuda_build import cached_pack
 from ..ops.fused_block2 import pack_weights, scale_block
 from ..ops.fused_block2_q import pack_weights_q, scale_block_q
-from ..ops.fused_groupconv import grouptail
+from ..ops.fused_groupconv import grouptail, pack_grouptail_weights
 from .layers import Conv2d
 from .trunk import BlockS
 
@@ -62,6 +62,10 @@ class _BlockFast(BlockS):
 
 
 class _GroupFast(nn.Module):
+    """``SCGroupS``: the Block_s, then the group tail through
+    ``grouptail``, whose packed conv weights are kept as the Block_s'
+    are."""
+
     def __init__(self, nf: int = 64, back_rbs: int = 3,
                  dtype: torch.dtype = torch.float32, use_int8: bool = False):
         super().__init__()
@@ -71,7 +75,10 @@ class _GroupFast(nn.Module):
         self.conv = Conv2d(nf, nf, 3, 1, 1, dtype=dtype)
 
     def forward(self, x):
-        return grouptail(self.body(x), x, self.conv.weight, self.conv.bias)
+        w = self.conv.weight
+        packed = cached_pack(self, "_pack", x, (w,),
+                             lambda dt: pack_grouptail_weights(w, dt))
+        return grouptail(self.body(x), x, w, self.conv.bias, packed=packed)
 
 
 class SCNetFast(nn.Module):

@@ -7,6 +7,10 @@
   plain version; a CUDA tensor launches the hand-written kernel in
   ``csrc/fused_groupconv.cu`` (the port of ``conv3x3_residual_hcw``) or
   raises. Launches are counted in ``grouptail.launches``.
+* ``pack_grouptail_weights``: the kernel's weight operand (in bfloat16 the
+  9 taps as swizzled ``wgmma`` stages, which the kernel keeps resident in
+  shared memory); ``grouptail(..., packed=)`` takes it from a caller that
+  keeps it (``models/trunk_fast.py::_GroupFast``).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build as cb
+from .fused_block2 import swizzle128
 
 CHANNELS = 64
 _P = ctypes.c_void_p
@@ -30,15 +35,28 @@ def grouptail_plain(x, skip, w, b):
     return skip + y.permute(0, 2, 3, 1)
 
 
+def pack_grouptail_weights(w, dtype):
+    """The kernel's weight operand for the (C, C, 3, 3) conv ``w`` in
+    ``dtype``: bfloat16 the 9 taps as the kernel keeps them resident,
+    (9, C n, C k) with tap 3 ky + kx holding B[n][k] = w[n, k, ky, kx],
+    128-byte swizzled (``fused_block2.swizzle128``); float32
+    ``cuda_build.kernel_weights``. Callers may keep it."""
+    if dtype == torch.bfloat16:
+        c = w.shape[0]
+        return swizzle128(w.permute(2, 3, 0, 1).reshape(9, c, c).to(dtype))
+    return cb.kernel_weights(w, dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return cb.kernel_function("fused_groupconv", "cdfo_grouptail",
                               [_P] * 5 + [_I] * 4 + [_P])
 
 
-
-def grouptail(x, skip, w, b):
-    """skip + conv3x3(x) + b, zero-padded; NHWC, C = 64 on the card."""
+def grouptail(x, skip, w, b, packed=None):
+    """skip + conv3x3(x) + b, zero-padded; NHWC, C = 64 on the card.
+    ``packed``: ``pack_grouptail_weights(w, x.dtype)``, if the caller keeps
+    it."""
     cb.forbid_grad("fused_groupconv", x, skip, w, b)
     if not cb.on_card(x, "fused_groupconv"):
         return grouptail_plain(x, skip, w, b)
@@ -47,7 +65,7 @@ def grouptail(x, skip, w, b):
         raise ValueError(f"fused_groupconv: x {tuple(x.shape)}, skip "
                          f"{tuple(skip.shape)}, w {tuple(w.shape)}")
     bsz, h, wd, _ = x.shape
-    wk = cb.kernel_weights(w, x.dtype)
+    wk = pack_grouptail_weights(w, x.dtype) if packed is None else packed
     out = torch.empty_like(x)
     cb.launch(_kernel(), "fused_groupconv", x.device, x.data_ptr(),
               skip.data_ptr(), wk.data_ptr(), b.data_ptr(), out.data_ptr(),

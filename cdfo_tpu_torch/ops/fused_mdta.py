@@ -21,7 +21,9 @@ then their fixed-order reduction) and counts once. ``pack_stage1_weights``
 gives stage 1's weight operands (in bfloat16 the swizzled qkv, which the
 kernel keeps resident in shared memory for ``wgmma``);
 ``mdta_stage1(..., packed=)`` takes them from a caller that keeps them
-(``PartitionTransformerSA2Fast``).
+(``PartitionTransformerSA2Fast``); ``pack_stage2_weights`` and
+``mdta_stage2(..., packed=)`` likewise for stage 2's projection and conv
+(the attention matrices are per call).
 
 Tensors are NHWC; weights are the torch layouts of ``MDTA.qkv``,
 ``.qkv_dwconv``, ``.project_out`` and ``PartitionTransformerSA2.conv``;
@@ -118,6 +120,20 @@ def pack_stage1_weights(w_qkv, w_dw, dtype):
     return cb.kernel_weights(w_qkv, dtype), taps.contiguous()
 
 
+def pack_stage2_weights(w_proj, w_conv, dtype):
+    """Stage 2's (projection, conv) operands: bfloat16 the 1x1 projection
+    as B[n][k] = w_proj[n, k] and the 3x3 conv's 9 taps (3 ky + kx) as
+    B[n][k] = w_conv[n, k, ky, kx], (C, C) and (9, C, C), 128-byte swizzled
+    (``fused_block2.swizzle128``), which the kernel keeps resident; float32
+    both in ``cuda_build.kernel_weights``' layout. Callers may keep it."""
+    if dtype == torch.bfloat16:
+        c = w_conv.shape[0]
+        taps = w_conv.permute(2, 3, 0, 1).reshape(9, c, c)
+        return (swizzle128(w_proj[:, :, 0, 0].to(dtype)),
+                swizzle128(taps.to(dtype)))
+    return cb.kernel_weights(w_proj, dtype), cb.kernel_weights(w_conv, dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol):
     argtypes = {"cdfo_mdta_stage1_workspace": [_I] * 4,
@@ -156,9 +172,11 @@ def mdta_stage1(x, ln_w, ln_b, w_qkv, w_dw, packed=None):
     return v, stats
 
 
-def mdta_stage2(x, v, x2, amat, w_proj, ln_w, ln_b, w_conv, b_conv):
+def mdta_stage2(x, v, x2, amat, w_proj, ln_w, ln_b, w_conv, b_conv,
+                packed=None):
     """``mdta_stage2_plain``: t + conv3x3(LN2 t) + b + x2 with t = x +
-    proj(A v)."""
+    proj(A v). ``packed``: ``pack_stage2_weights`` of these weights in x's
+    dtype, if the caller keeps it."""
     args = (x, v, x2, amat, w_proj, ln_w, ln_b, w_conv, b_conv)
     what = "fused_mdta stage 2"
     cb.forbid_grad(what, *args)
@@ -176,9 +194,11 @@ def mdta_stage2(x, v, x2, amat, w_proj, ln_w, ln_b, w_conv, b_conv):
                            "w_conv": (w_conv, (c, c, 3, 3)),
                            "b_conv": (b_conv, (c,))})
     out = torch.empty_like(x)
-    ak = cb.matrix_weights(amat, x.dtype)
-    pk = cb.kernel_weights(w_proj, x.dtype)
-    ck = cb.kernel_weights(w_conv, x.dtype)
+    # bfloat16: the matrices as they are (the kernel swizzles each image's)
+    ak = amat if x.dtype == torch.bfloat16 else cb.matrix_weights(amat, x.dtype)
+    if packed is None:
+        packed = pack_stage2_weights(w_proj, w_conv, x.dtype)
+    pk, ck = packed
     cb.launch(_kernel("cdfo_mdta_stage2"), what, x.device, x.data_ptr(),
               v.data_ptr(), x2.data_ptr(), ak.data_ptr(), pk.data_ptr(),
               ln_w.data_ptr(), ln_b.data_ptr(), ck.data_ptr(),

@@ -2,7 +2,8 @@
 parent commit, unpacked with ``git archive``), in turns on one card, in
 bfloat16: the exact ``Block_`` (``--kernel block``), the int8 ``Block_``
 (``blockq``), the alignment tail (``tail``, 6 neighbours per image), the
-upsample head (``head``) or MDTA stage 1 (``mdta1``).
+upsample head (``head``), the group tail (``group``) or MDTA stage 1 or 2
+(``mdta1``, ``mdta2``).
 
 Each side is its own ``ops`` module, built by its own ``cuda_build`` from
 its own ``csrc/``, and is first held against this checkout's plain version
@@ -11,13 +12,13 @@ this, other, each side is timed (median of ``--reps`` calls, CUDA events)
 three ways: the call with its weights packed in it (the wrapper without
 ``packed``: what a caller that keeps no pack pays), the call with the pack
 kept (what the model pays) and the pack alone; a side whose wrapper takes
-no pack (the tail before it had one, the head and MDTA stage 1 before they
-had one) has only the first. Times are per call, in ms, with the card's
-name.
+no pack (the tail before it had one, the head, the group tail and the MDTA
+passes before they had one) has only the first. Times are per call, in
+ms, with the card's name.
 
     python -m cdfo_tpu_torch.tools.compare_block --other DIR
-        [--kernel block|blockq|tail|head|mdta1 --b 4 --h 272 --w 480
-         --reps 15]
+        [--kernel block|blockq|tail|head|group|mdta1|mdta2 --b 4 --h 272
+         --w 480 --reps 15]
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import torch
 
 from ..ops import fused_block2 as fb
 from ..ops import fused_block2_q as fq
+from ..ops import fused_groupconv as fg
 from ..ops import fused_head as fh
 from ..ops import fused_mdta as fm
 from ..ops import fused_tail as ft
@@ -55,9 +57,15 @@ KERNELS = {
     "head": (fh, "fused_head",
              lambda m, a: m.pack_head_weights(*a[2:7], a[0].dtype),
              fh.fused_head_plain, "upsample head"),
+    "group": (fg, "grouptail",
+              lambda m, a: m.pack_grouptail_weights(a[2], a[0].dtype),
+              fg.grouptail_plain, "group tail"),
     "mdta1": (fm, "mdta_stage1",
               lambda m, a: m.pack_stage1_weights(a[3], a[4], a[0].dtype),
               fm.mdta_stage1_plain, "MDTA stage 1"),
+    "mdta2": (fm, "mdta_stage2",
+              lambda m, a: m.pack_stage2_weights(a[4], a[7], a[0].dtype),
+              fm.mdta_stage2_plain, "MDTA stage 2"),
 }
 
 
@@ -108,7 +116,7 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     g = torch.Generator(device="cuda").manual_seed(1)
-    if kind == "mdta1":
+    if kind in ("mdta1", "mdta2"):
         args = kc.align_embed_args(kind, torch.bfloat16, g, (a.b, a.h, a.w),
                                    6)
     else:

@@ -27,7 +27,9 @@ CUDA device the script exits non-zero before printing any result):
    odd extent must be refused), its clipped values counted alike by kernel
    and plain version, timed in turns with the exact ``Block_`` (exact,
    int8, int8, exact), both with their weights packed once; the alignment
-   tail also with its pack kept;
+   tail, the head, the group tail and both MDTA passes also with their
+   packs kept (the group tail beside cuDNN's ``F.conv2d`` alone, its conv
+   without the skip add);
    the block-gather ring warp at 24 neighbour images of
    a ring of 8 272x480 frames and at (5 of 3, 20, 36), on flows constant
    over 4x4 blocks, on those with a mixed bottom band and single moved
@@ -114,11 +116,13 @@ to the four (``--profile trunk_int8 block_warp``).
 
     python3 chip_smoke.py --phases
 
-builds the int8 ``Block_``, the exact one, the alignment tail, the head and
-MDTA stage 1 with their phase clocks compiled in and prints, at the main shapes in bfloat16, the cycles spent in each phase:
-per step for the walks (the int8 kernel's walk down its strips, the
-tail's, the head's and stage 1's row by row), as the kernels count their
-steps, and per CTA for the exact ``Block_``. The int8 ``Block_``'s other
+builds the int8 ``Block_``, the exact one, the alignment tail, the head,
+the group tail and both MDTA passes with their phase clocks compiled in
+and prints, at the main shapes in bfloat16, the cycles spent in each
+phase: per step for the walks (the int8 kernel's walk down its strips,
+the tail's, the head's and stage 1's row by row, the group tail's and
+stage 2's two rows a step), as the kernels count their steps, and per CTA
+for the exact ``Block_``. The int8 ``Block_``'s other
 launch, its 0.5x branch, has no marks: ``--profile`` gives its device time.
 """
 from __future__ import annotations
@@ -441,12 +445,23 @@ def pack_kept_ms(card: str, fields: dict, kind: str, args, pack, label: str):
     fields[kind]["ms"] = kept
 
 
+@torch.no_grad()
+def cudnn_conv_ms(x, w, b) -> str:
+    """The median ms of one ``F.conv2d`` of NHWC ``x`` (a channels_last
+    view) with ``w`` (channels_last) and bias ``b``, padding 1: cuDNN's
+    conv alone, printed beside the group tail."""
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.contiguous(memory_format=torch.channels_last)
+    return f"{median_ms(lambda: F.conv2d(xc, wc, b, padding=1)):.3f}"
+
+
 def check_trunk_kernels(card: str) -> dict:
     """Phase 3, fused-trunk part: ``check_kernel_table`` at the trunk
     shapes (the table's times per call, with each wrapper's weight
-    packing), the head and the alignment tail also with their packs kept,
-    as ``CVSRV8`` and ``DualAttAlignment`` keep them (the JSON line's
-    ``ms``), then an odd extent the ``Block_`` must refuse."""
+    packing), the head, the alignment tail and the group tail also with
+    their packs kept, as ``CVSRV8``, ``DualAttAlignment`` and ``SCNetFast``
+    keep them (the JSON line's ``ms``; the group tail beside cuDNN's conv
+    alone), then an odd extent the ``Block_`` must refuse."""
     fields = check_kernel_table(card, TRUNK_KERNELS, [
         (shape, shape == TRUNK_MAIN,
          lambda kind, dtype, g, shape=shape: kc.trunk_args(
@@ -459,6 +474,14 @@ def check_trunk_kernels(card: str) -> dict:
     args = kc.trunk_args("head", torch.bfloat16, g, TRUNK_MAIN)
     pack_kept_ms(card, fields, "head", args, lambda a: fh.pack_head_weights(
         *a[2:7], torch.bfloat16), f"{TRUNK_MAIN}")
+    args = kc.trunk_args("group", torch.bfloat16, g, TRUNK_MAIN)
+    pack_kept_ms(card, fields, "group", args,
+                 lambda a: fg.pack_grouptail_weights(a[2], torch.bfloat16),
+                 f"{TRUNK_MAIN}")
+    print(f"cuDNN F.conv2d alone {TRUNK_MAIN} bfloat16 (channels_last, with "
+          f"bias; the group tail's conv without its skip add: a floor for "
+          f"any one-call version, not a library time): "
+          f"{cudnn_conv_ms(*args[:1], *args[2:])} ms [{card}]", flush=True)
     del args
     odd = kc.trunk_args("block", torch.bfloat16, g, (1, 16, 23, 64))
     try:
@@ -474,8 +497,9 @@ def check_trunk_kernels(card: str) -> dict:
 def check_align_embed_kernels(card: str) -> dict:
     """Phase 3, fused embed and alignment part: ``check_kernel_table`` at
     the MDTA images, or centres with their neighbours, of
-    ``ALIGN_EMBED_SHAPES``, then MDTA stage 1 with its pack kept, as
-    ``PartitionTransformerSA2Fast`` keeps it (the JSON line's ``ms``)."""
+    ``ALIGN_EMBED_SHAPES``, then both MDTA passes with their packs kept,
+    as ``PartitionTransformerSA2Fast`` keeps them (the JSON line's
+    ``ms``)."""
     fields = check_kernel_table(card, ALIGN_EMBED_KERNELS, [
         (f"{shape} (MSA: {nbr} neighbours per centre)",
          (shape, nbr) == ALIGN_EMBED_SHAPES[0],
@@ -487,6 +511,9 @@ def check_align_embed_kernels(card: str) -> dict:
     args = kc.align_embed_args("mdta1", torch.bfloat16, g, shape, 6)
     pack_kept_ms(card, fields, "mdta1", args, lambda a: fm.pack_stage1_weights(
         a[3], a[4], torch.bfloat16), f"{shape}")
+    args = kc.align_embed_args("mdta2", torch.bfloat16, g, shape, 6)
+    pack_kept_ms(card, fields, "mdta2", args, lambda a: fm.pack_stage2_weights(
+        a[4], a[7], torch.bfloat16), f"{shape}")
     return fields
 
 
@@ -1157,6 +1184,16 @@ MDTA1_PHASES = ("the wait for x's row at the step's barrier", "LN1",
                 "qkv and the last row's grams on wgmma, ring stores",
                 "depthwise 3x3, q, k, v stores",
                 "the proxy fence and barrier after LN1")
+# the PHASE marks of csrc/fused_groupconv.cu's bf16 walk, per step
+GROUP_PHASES = ("the wait for the step's rows at its barrier",
+                "the conv's products", "epilogue: + b + skip, the store's issue")
+# the PHASE marks of csrc/fused_mdta.cu's bf16 stage-2 walk, per step
+MDTA2_PHASES = ("the wait for the step's rows at its barrier",
+                "o = v A^T and the projection on wgmma",
+                "t, LN2 and the ring stores",
+                "the proxy fence and barrier before the conv",
+                "the conv's products",
+                "epilogue: + b + t + x2, the store's issue")
 # the PHASE marks of csrc/fused_block2.cu's bf16 route, in order
 EXACT_PHASES = ("prologue", "conv1 and the y stores (4 chunks)",
                 "fold and conv2 with the sums (4 chunks)", "epilogue")
@@ -1213,8 +1250,8 @@ def phase_clocks(card: str, label: str, source: str, symbol: str, nargs,
 
 def run_phase_clocks(card: str):
     """``--phases`` for the int8 ``Block_``, the exact one, the alignment
-    tail, the head and MDTA stage 1 at the main shapes in bfloat16, their
-    weights packed once."""
+    tail, the head, the group tail and both MDTA passes at the main shapes
+    in bfloat16, their weights packed once."""
     g = torch.Generator(device="cuda").manual_seed(4)
     x, *params = kc.trunk_args("blockq", torch.bfloat16, g, TRUNK_MAIN)
     packed = fq.pack_weights_q(*params, torch.bfloat16)
@@ -1285,6 +1322,30 @@ def run_phase_clocks(card: str):
             r, fm.mdta_stage1_plain(x, lnw, lnb, wq, wdw), torch.bfloat16,
             "mdta1"),
         MDTA1_PHASES)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    args = kc.trunk_args("group", torch.bfloat16, g, TRUNK_MAIN)
+    wk = fg.pack_grouptail_weights(args[2], torch.bfloat16)
+    res = torch.empty_like(args[0])
+    phase_clocks(
+        card, f"group tail {TRUNK_MAIN}", "fused_groupconv", "cdfo_grouptail",
+        5, [args[0].data_ptr(), args[1].data_ptr(), wk.data_ptr(),
+            args[3].data_ptr(), res.data_ptr(), 1, *TRUNK_MAIN[:3]], res,
+        lambda r: kc.assert_outputs_close(
+            r, fg.grouptail_plain(*args), torch.bfloat16, "group"),
+        GROUP_PHASES)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    args = kc.align_embed_args("mdta2", torch.bfloat16, g, shape, 6)
+    pk, ck = fm.pack_stage2_weights(args[4], args[7], torch.bfloat16)
+    res = torch.empty_like(args[0])
+    phase_clocks(
+        card, f"MDTA stage 2 {tuple(args[0].shape)}", "fused_mdta",
+        "cdfo_mdta_stage2", 10,
+        [*(t.data_ptr() for t in args[:4]), pk.data_ptr(),
+         args[5].data_ptr(), args[6].data_ptr(), ck.data_ptr(),
+         args[8].data_ptr(), res.data_ptr(), 1, *shape], res,
+        lambda r: kc.assert_outputs_close(
+            r, fm.mdta_stage2_plain(*args), torch.bfloat16, "mdta2"),
+        MDTA2_PHASES)
 
 
 def redesign_order(card: str, fields: dict, launches: dict) -> None:

@@ -169,12 +169,17 @@ def test_tail_walk_matches_plain(cuda, shape, nbr):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind,shape", [
     ("head", (2, 40, 127, 64)), ("head", (1, 300, 127, 64)),
-    ("mdta1", (1, 40, 127)), ("mdta1", (3, 33, 127)), ("mdta1", (1, 300, 127))])
+    ("mdta1", (1, 40, 127)), ("mdta1", (3, 33, 127)), ("mdta1", (1, 300, 127)),
+    ("group", (2, 40, 127, 64)), ("group", (1, 300, 127, 64)),
+    ("group", (3, 33, 127, 64)),
+    ("mdta2", (1, 40, 127)), ("mdta2", (3, 33, 127)), ("mdta2", (1, 300, 127))])
 def test_strip_walk_matches_plain(cuda, kind, shape):
-    """The bfloat16 head's and MDTA stage 1's walks: 62-column strips, the
-    last 3 columns wide, a row a step, split over the card's SMs so that
-    walks start and end inside strips (one row each, or several across a
-    strip boundary); the pack kept gives the same result."""
+    """The bfloat16 walks down 62-column strips, the last 3 columns wide:
+    the head's and MDTA stage 1's a row a step, the group tail's and MDTA
+    stage 2's two rows a step (odd row counts: a walk's last step drops a
+    row), split over the card's SMs so that walks start and end inside
+    strips (one row each, or several across a strip or image boundary);
+    the pack kept gives the same result."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=cuda).manual_seed(7)
@@ -182,11 +187,20 @@ def test_strip_walk_matches_plain(cuda, kind, shape):
         wrapper, plain = fh.fused_head, fh.fused_head_plain
         args = kc.trunk_args(kind, torch.bfloat16, g, shape, device=cuda)
         packed = fh.pack_head_weights(*args[2:7], torch.bfloat16)
-    else:
+    elif kind == "group":
+        wrapper, plain = fg.grouptail, fg.grouptail_plain
+        args = kc.trunk_args(kind, torch.bfloat16, g, shape, device=cuda)
+        packed = fg.pack_grouptail_weights(args[2], torch.bfloat16)
+    elif kind == "mdta1":
         wrapper, plain = fm.mdta_stage1, fm.mdta_stage1_plain
         args = kc.align_embed_args(kind, torch.bfloat16, g, shape, 3,
                                    device=cuda)
         packed = fm.pack_stage1_weights(args[3], args[4], torch.bfloat16)
+    else:
+        wrapper, plain = fm.mdta_stage2, fm.mdta_stage2_plain
+        args = kc.align_embed_args(kind, torch.bfloat16, g, shape, 3,
+                                   device=cuda)
+        packed = fm.pack_stage2_weights(args[4], args[7], torch.bfloat16)
     before = wrapper.launches
     with torch.no_grad():
         out = wrapper(*args)
@@ -230,6 +244,42 @@ def test_models_cache_head_and_stage1_packs(cuda):
         embed.attn.qkv.weight.mul_(0.5)
         embed(x1, x2)
     assert embed._stage1_pack is not pack
+
+
+@pytest.mark.cuda
+def test_models_cache_group_tail_and_stage2_packs(cuda):
+    """SCNetFast's groups keep their tail's pack and
+    PartitionTransformerSA2Fast MDTA stage 2's until a parameter
+    changes."""
+    from cdfo_tpu_torch.models.layers import init_weights
+    from cdfo_tpu_torch.models.prior_encoder import PartitionTransformerSA2Fast
+    from cdfo_tpu_torch.models.trunk_fast import SCNetFast
+    trunk = init_weights(SCNetFast(64, num_groups=1, dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(2)).to(cuda)
+    group = trunk.body[0]
+    x = torch.randn(1, 8, 16, 64, device=cuda).bfloat16()
+    with torch.no_grad():
+        a = trunk(x)
+        pack = group._pack
+        assert torch.equal(a, trunk(x)) and group._pack is pack
+        group.conv.weight.mul_(0.5)
+        trunk(x)
+    assert group._pack is not pack
+    embed = init_weights(PartitionTransformerSA2Fast(64, dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(3)).to(cuda)
+    x1 = torch.randn(1, 8, 16, 64, device=cuda).bfloat16()
+    x2 = torch.randn(1, 8, 16, 64, device=cuda).bfloat16()
+    with torch.no_grad():
+        a = embed(x1, x2)
+        pack = embed._stage2_pack
+        assert torch.equal(a, embed(x1, x2)) and embed._stage2_pack is pack
+        embed.attn.project_out.weight.mul_(0.5)
+        embed(x1, x2)
+        pack2 = embed._stage2_pack
+        assert pack2 is not pack
+        embed.conv.weight.mul_(0.5)
+        embed(x1, x2)
+    assert embed._stage2_pack is not pack2
 
 
 @pytest.mark.cuda

@@ -14,8 +14,9 @@ barrier, ``mma.sync`` / ``ldmatrix`` / ``stmatrix`` (plain and transposed)
 and the warp shuffles exchange their values through per-warp memory, a
 warpgroup's ``wgmma`` (bf16 and s8) through per-warpgroup memory, reading
 its shared tiles through their descriptors (128-byte swizzled, or without
-swizzle as the s8 routes keep them), a bulk copy is a copy that completes
-its mbarrier's phase and a ``cp.async`` a plain copy (or zero fill). The
+swizzle as the s8 routes keep them), a bulk copy or a TMA row copy is a
+copy whose bytes count off its mbarrier's expected bytes (the phase
+completes at zero) and a ``cp.async`` a plain copy (or zero fill). The
 wrappers then take their kernel route
 on CPU tensors and are held against their plain versions at small ragged
 shapes, in float32 and bfloat16, with the tolerances of
@@ -105,6 +106,7 @@ using std::min;
 #define __launch_bounds__(...)
 #define __constant__
 #define __shared__
+#define __grid_constant__
 #define CDFO_HOST_MMA 1
 struct dim3 {
   unsigned x, y, z;
@@ -300,19 +302,65 @@ inline void wgmma_fence() {}
 inline void wgmma_commit() {}
 template <int N> void wgmma_wait() {}
 template <class T> void keep(T&) {}
+// (an mbarrier: its completed phases in the low 32 bits, the bytes it
+// still expects in the high 32; a phase completes when they reach 0)
 inline void mbar_init(uint64_t* bar, int) { std::atomic_ref<uint64_t>(*bar).store(0); }
 inline void mbar_init_fence() {}
-inline void mbar_expect_tx(uint64_t*, uint32_t) {}
+inline void emu_complete_tx(uint64_t* bar, uint32_t bytes) {
+  std::atomic_ref<uint64_t> phases(*bar);
+  const uint64_t tx = uint64_t(bytes) << 32;
+  if (((phases.fetch_sub(tx) - tx) >> 32) == 0) {
+    phases.fetch_add(1);
+    phases.notify_all();
+  }
+}
+inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  std::atomic_ref<uint64_t>(*bar).fetch_add(uint64_t(bytes) << 32);
+}
 inline void mbar_wait(uint64_t* bar, uint32_t parity) {   // sleeps until the copy lands
   std::atomic_ref<uint64_t> phases(*bar);
   for (uint64_t v = phases.load(); (v & 1) == parity; v = phases.load()) phases.wait(v);
 }
 inline void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
   memcpy(dst, src, bytes);
-  std::atomic_ref<uint64_t> phases(*bar);
-  phases.fetch_add(1);
-  phases.notify_all();
+  emu_complete_tx(bar, bytes);
 }
+// the TMA unit's row copies of a bf16 NHWC tensor (wgmma_tile.cuh): a box
+// of box_w pixels, 128-byte pixel rows swizzled by their shared address,
+// zero (load) or skipped (store) outside the tensor; a store completes at
+// once
+struct CUtensorMap { const char* base; int batch, h, wd, box_w; };
+inline int nhwc_tensor_map(CUtensorMap* map, const void* base, int batch, int h, int wd,
+                           int box_w) {
+  *map = {static_cast<const char*>(base), batch, h, wd, box_w};
+  return 0;
+}
+template <class F> void emu_tma_rows(const CUtensorMap* m, const void* smem, int x0, int y, int b,
+                                     F&& copy) {
+  for (int p = 0; p < m->box_w; ++p)
+    for (int v = 0; v < 8; ++v) {
+      uint32_t a = shared_address(smem) + p * 128 + v * 16;
+      a ^= ((a >> 7) & 7) << 4;
+      const int xx = x0 + p;
+      const bool in = b >= 0 && b < m->batch && y >= 0 && y < m->h && xx >= 0 && xx < m->wd;
+      copy(reinterpret_cast<char*>(cdfo_smem) + a,
+           in ? m->base + ((static_cast<long long>(b) * m->h + y) * m->wd + xx) * 128 + v * 16
+              : nullptr);
+    }
+}
+inline void tma_load_row(void* dst, const CUtensorMap* m, int x0, int y, int b, uint64_t* bar) {
+  emu_tma_rows(m, dst, x0, y, b, [](char* s, const char* g) {
+    if (g) memcpy(s, g, 16); else memset(s, 0, 16);
+  });
+  emu_complete_tx(bar, m->box_w * 128);
+}
+inline void tma_store_row(const CUtensorMap* m, const void* src, int x0, int y, int b) {
+  emu_tma_rows(m, src, x0, y, b, [](char* s, const char* g) {
+    if (g) memcpy(const_cast<char*>(g), s, 16);
+  });
+}
+inline void bulk_commit() {}
+inline void bulk_wait_read() {}
 // stmatrix.trans: matrix j stored transposed, lane 4g + t's pair to bytes
 // 2g .. 2g+1 of rows 2t and 2t + 1 (x2: matrices 0 and 1)
 inline void emu_stsm_trans(void* row, const uint32_t* r, int n) {
@@ -347,6 +395,7 @@ inline float atomicAdd(float* p, float v) {
   return old;
 }
 inline void async_fence() {}
+inline void warpgroup_sync(int wg) { emu_wg_bar[wg]->arrive_and_wait(); }
 inline void cp_async16_or_zero(void* dst, const void* src, bool valid) {
   if (valid) memcpy(dst, src, 16); else memset(dst, 0, 16);
 }
@@ -494,7 +543,7 @@ def emulated(tmp_path_factory):
     d = tmp_path_factory.mktemp("emulated_kernels")
     (d / "shim.h").write_text(_SHIM)
     (d / "inc").mkdir()
-    for header in ("cuda_bf16.h", "cuda_runtime.h"):
+    for header in ("cuda.h", "cuda_bf16.h", "cuda_runtime.h"):
         (d / "inc" / header).write_text("")
 
     def compile_one(name):
@@ -516,28 +565,31 @@ def emulated(tmp_path_factory):
 
 
 # NHWC shapes that span several tiles of each kernel; the MDTA and MSA
-# passes take (images or centres, H, W) with 3 neighbours per centre: 2 x 2
-# MDTA stage-2 tiles of 8 x 16 with ragged edges, MSA tiles of 128 pixels
-# ending inside a row. The int8 Block_: two column strips of three serial
+# passes take (images or centres, H, W) with 3 neighbours per centre: MSA
+# tiles of 128 pixels ending inside a row. The int8 Block_: two column strips of three serial
 # steps each, the second strip ragged, the first step's rows 40x brighter
 # than the later ones (``_case``). The tail: 3 neighbours of one image,
 # three 24-column strips (the last ragged) of two 8-row steps (the second
 # ragged), which the emulated card's 2 SMs split inside a strip. The head
 # (3 images) and MDTA stage 1 (one image, ``ALIGN_EMBED_SHAPES``): three
 # 62-column strips, the last 5 wide, walked a row a step, which the 2 SMs
-# split inside the second strip (the head's after an image boundary). eg1:
+# split inside the second strip (the head's after an image boundary). The
+# group tail and MDTA stage 2 (one image of 7 rows): three 62-column
+# strips, the last 5 wide, walked two rows a step (an odd row count: each
+# walk's last step drops its second row), which the 2 SMs split inside the
+# second strip (its 4th row). eg1:
 # two query tiles and three key tiles a row, the last ragged, and an
 # H-band that reaches past both image edges; eg2: a last tile whose second
 # window is outside
 SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 24, 12, 64),
           "body": (1, 10, 20, 64),
-          "group": (1, 9, 35, 64),
+          "group": (1, 7, 129, 64),
           "head": (3, 5, 129, 64), "tail": (1, 12, 54, 64)}
 # the int8 Block_'s bright rows: the top step's own, out of every later
 # step's windows (their xm, z and y windows start at row 6 and below)
 BRIGHT_ROWS, BRIGHT = 6, 40.0
 EGLA_SHAPES = {"eg1": (2, 5, 140, 64), "eg2": (2, 8, 24, 64)}
-ALIGN_EMBED_SHAPES = {"mdta1": (1, 5, 129)}
+ALIGN_EMBED_SHAPES = {"mdta1": (1, 5, 129), "mdta2": (1, 7, 129)}
 # the attention (bfloat16: its three routes): columns of a ragged H read in
 # place from NHWC (H <= 272: one warpgroup on wgmma, three 64-query tiles,
 # the last moved back); tokens past 272 positions (two passes over the keys
@@ -812,3 +864,39 @@ def test_mdta_stage1_weights_layout():
     wk, taps32 = fm.pack_stage1_weights(w_qkv, w_dw, torch.float32)
     assert torch.equal(wk, cb.kernel_weights(w_qkv, torch.float32))
     assert torch.equal(taps32, w_dw.reshape(192, 9))
+
+
+def test_grouptail_weights_layout():
+    """The bfloat16 group tail's resident weights: the conv's 9 taps (3 ky
+    + kx) as B[n][k] = w[n, k, ky, kx], 128-byte swizzled; float32 keeps
+    kernel_weights."""
+    g = torch.Generator().manual_seed(12)
+    w = torch.randn(64, 64, 3, 3, generator=g)
+    st = fg.pack_grouptail_weights(w, torch.bfloat16)
+    assert st.shape == (9, 64, 64) and st.dtype == torch.bfloat16
+    assert st.is_contiguous()
+    rows = _unswizzle(st)
+    for tap in range(9):
+        assert torch.equal(rows[tap], w[:, :, tap // 3, tap % 3].bfloat16())
+    assert torch.equal(fg.pack_grouptail_weights(w, torch.float32),
+                       cb.kernel_weights(w, torch.float32))
+
+
+def test_mdta_stage2_weights_layout():
+    """MDTA stage 2's bfloat16 pack: W_proj as B[n][k] = w_proj[n, k] and
+    the conv's 9 taps (3 ky + kx) as B[n][k] = w_conv[n, k, ky, kx], both
+    128-byte swizzled (the attention matrices are per call, not packed);
+    float32 keeps kernel_weights for both."""
+    g = torch.Generator().manual_seed(13)
+    w_proj = torch.randn(64, 64, 1, 1, generator=g)
+    w_conv = torch.randn(64, 64, 3, 3, generator=g)
+    pk, ck = fm.pack_stage2_weights(w_proj, w_conv, torch.bfloat16)
+    assert pk.shape == (64, 64) and ck.shape == (9, 64, 64)
+    assert pk.dtype == ck.dtype == torch.bfloat16
+    assert torch.equal(_unswizzle(pk), w_proj[:, :, 0, 0].bfloat16())
+    rows = _unswizzle(ck)
+    for tap in range(9):
+        assert torch.equal(rows[tap], w_conv[:, :, tap // 3, tap % 3].bfloat16())
+    pk32, ck32 = fm.pack_stage2_weights(w_proj, w_conv, torch.float32)
+    assert torch.equal(pk32, cb.kernel_weights(w_proj, torch.float32))
+    assert torch.equal(ck32, cb.kernel_weights(w_conv, torch.float32))
