@@ -21,7 +21,7 @@ import dataclasses
 import torch
 
 _LATER = {
-    "scan_trunk": "the scan trunk (ROADMAP Queue 1.8, model zoo)",
+    "scan_trunk": "the scan trunk (ROADMAP Queue 1, item 1.6, model zoo)",
 }
 _ABLATIONS = ("use_pab", "use_la", "use_ga", "use_mv", "use_pd", "use_egla")
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -63,17 +63,17 @@ class ModelConfig:
         if self.name != "cvsr_v8":
             raise NotImplementedError(
                 f"model {self.name!r}: only cvsr_v8 is ported; the other "
-                "models wait for the model zoo (ROADMAP Queue 1.8)")
+                "models wait for the model zoo (ROADMAP Queue 1, item 1.6)")
         if self.mask_mode != "expected":
             raise NotImplementedError(
                 f"mask_mode={self.mask_mode!r}: only the noise-free "
                 "'expected' EGLA mask is ported; the gumbel 'sample' mask "
-                "is not ported yet (ROADMAP Queue 1.3)")
+                "is not ported yet (ROADMAP Queue 1, item 1.2)")
         for f in _ABLATIONS:
             if not getattr(self, f):
                 raise NotImplementedError(
                     f"{f}=False: the CVSR_V8 ablations wait for the model "
-                    "zoo (ROADMAP Queue 1.8)")
+                    "zoo (ROADMAP Queue 1, item 1.6)")
         for f, work in _LATER.items():
             if getattr(self, f):
                 raise NotImplementedError(f"{f}=True: waits for {work}")

@@ -18,21 +18,63 @@
 // eager version broadcasts the centre to every neighbour, concatenates,
 // gates and sums v in full resolution and runs the grams in float32
 // (~6 GB of traffic per step). Here each pass reads w, p once and the
-// centre once per group of nbr neighbours; k, o and po never leave shared
-// memory, and the centre is read as center[b / nbr], never broadcast.
+// centre once per group of nbr neighbours; k, o and po never leave the
+// SM, and the centre is read as center[b / nbr], never broadcast.
 //
-// Design: a block takes one centre and every `parts`-th tile of 128
-// consecutive pixels of it, and walks the nbr neighbours of that centre in
-// turn (the centre tile comes from device memory for the first and from
-// L2 for the others). The 1x1 convolutions are implicit GEMMs on
-// conv3x3_tile.cuh's tile routine (bf16 mma.sync, fp32 CUDA-core twin),
-// one 16-pixel m-tile per warp; the grams are gram_tile.cuh's. Each sum a
-// block holds is written as one partial per (neighbour, block), and a
-// second launch adds the partials in a fixed order. Rounding follows the
-// TPU kernels: k, o and po to the working type, the sums in fp32, fo's sum
-// from the fp32 fo before fo is rounded.
+// Stage 1, and stage 2 in float32: a block takes one centre and every
+// `parts`-th tile of 128 consecutive pixels of it, and walks the nbr
+// neighbours of that centre in turn (the centre tile comes from device
+// memory for the first and from L2 for the others). The 1x1 convolutions
+// are implicit GEMMs on conv3x3_tile.cuh's tile routine (bf16 mma.sync,
+// fp32 CUDA-core twin), one 16-pixel m-tile per warp; the grams are
+// gram_tile.cuh's. Each sum a block holds is written as one partial per
+// (neighbour, block), and a second launch adds the partials in a fixed
+// order. Rounding follows the TPU kernels: k, o and po to the working
+// type, the sums in fp32, fo's sum from the fp32 fo before fo is rounded.
+//
+// Stage 2 in bfloat16 (the main path) is a persistent walk on wgmma
+// (`msa2_walk_kernel`). The first design (that tile routine, one 16-pixel
+// m-tile per warp) fetched all three products' weight fragments from
+// device memory in every warp, ~2.5 KB a pixel against the 384 B it must
+// move, its tiles came in by synchronous loads behind four block barriers
+// a tile with nothing in flight during the products, and fo left as
+// 4-byte stores from the fragments: 4.5x its bound. Now:
+// - One CTA an SM walks an even share of the units (centre, 128 pixels),
+//   numbered centre-major; a unit is nbr steps, one per neighbour image b
+//   of the centre, and each warpgroup takes 64 of the unit's pixels in
+//   every step (one code path for both).
+// - Loads by the TMA unit on 2-D maps of the images as (pixels, 64) rows
+//   of 128 bytes, 128-byte swizzled, which is wgmma's K-major tile, zero
+//   past the image (fo is zero there: no bias). A ring of three stages,
+//   each the step's w and p tiles and its image's 128 -> 64 matrix [awt_b;
+//   apt_b] (16 KB, swizzled by the TMA unit too; the matrices stay in L2),
+//   kept two steps ahead on one mbarrier per stage; the centre's q tile
+//   comes with a unit's first step into one of two buffers and stays for
+//   its nbr steps. The matrices ride with the steps instead of staying
+//   resident: the 6 of a centre (96 KB) beside W_proj and W_fuse (24 KB)
+//   left no room for a ring of three.
+// - The products chain through registers: o = [w p] [awt_b; apt_b] (SS,
+//   K = 128 as two 64-channel tiles), rounded to bf16 as register A; po =
+//   o W_proj^T (RS), rounded; fo = po W_fA^T (RS) + q W_fB^T (SS, q by
+//   descriptor); relu. The rounding points are the TPU kernel's.
+// - fo's channel sums from the fp32 values: quad shuffles over a warp's
+//   rows, a [warp][64] exchange, then 64 threads add the 8 warps in order
+//   into the CTA's running sum of each image of its centre, written out
+//   when the walk leaves the centre; a second launch adds the CTAs that
+//   walked a centre in order. Deterministic.
+// - fo, rounded, goes in place of the stage's w tile (the products are done
+//   with it) and leaves by a TMA store; a stage is refilled once its store
+//   has read it.
 
 #include "gram_tile.cuh"
+#include "wgmma_tile.cuh"
+
+// Phase marks (`phase_clocks.cuh`) of the bf16 stage-2 walk, per step:
+// the wait for the step's stage at its mbarrier, o = [w p] A_b, po = o
+// W_proj, fo = po W_fA + q W_fB, the epilogue (sums, rounded fo to shared
+// memory), the barrier with the store's and the next loads' issue and the
+// running sums.
+#include "phase_clocks.cuh"
 
 namespace {
 
@@ -220,6 +262,230 @@ msa2_kernel(const T* __restrict__ w, const T* __restrict__ pr, const T* __restri
   }
 }
 
+
+// ---- stage 2, bfloat16: the walk on wgmma ----------------------------------
+
+constexpr int UNIT = 128;                   // pixels of a unit: 64 per warpgroup
+constexpr int TILE_BYTES = UNIT * C * 2;    // a unit's pixels of one image
+constexpr int MAT_BYTES = C * C * 2;        // a 64 x 64 K-major tile
+constexpr int STAGES = 3;
+constexpr int STAGE_BYTES = 2 * TILE_BYTES + 2 * MAT_BYTES;   // w | p | awt_b^T | apt_b^T
+// W_proj | W_fA | W_fB | q [2] | stages | the [2][warp][64] exchange of fo's
+// sums | mbarriers (weights, stages) | the running sums [nbr][64]
+constexpr int WALK_FIXED = 1024 + 3 * MAT_BYTES + 2 * TILE_BYTES + STAGES * STAGE_BYTES +
+                           2 * WARPS * C * 4 + 8 * (1 + STAGES);
+static_assert(TILE_BYTES % 1024 == 0 && MAT_BYTES % 1024 == 0, "1024-byte aligned tiles");
+
+__host__ __device__ constexpr int walk_smem(int nbr) { return WALK_FIXED + nbr * C * 4; }
+
+// the CTA that walks unit u when `total` units are split evenly over
+// `parts` CTAs (CTA i takes [i total / parts, (i + 1) total / parts))
+__host__ __device__ __forceinline__ int walk_part(long long u, long long total, int parts) {
+  return static_cast<int>(((u + 1) * parts + total - 1) / total - 1);
+}
+
+// acc (64 x 64 fp32 fragments) rounded to bf16 as the register A operand of
+// the next product, k16 step kk taking n-tiles 2kk, 2kk + 1
+__device__ __forceinline__ void round_to_a(const float (&acc)[8][4], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      a[kk][2 * u] = pack_bf16x2(acc[2 * kk + u][0], acc[2 * kk + u][1]);
+      a[kk][2 * u + 1] = pack_bf16x2(acc[2 * kk + u][2], acc[2 * kk + u][3]);
+    }
+}
+
+// Units (centre, 128 pixels) numbered centre * tiles + tile; CTA i walks
+// [i total / G, (i + 1) total / G) of them, nbr steps a unit. ws
+// [batch][G][64]: the CTA's sum of fo over its pixels of each image (only
+// the images of the centres it walks are written).
+__global__ void __launch_bounds__(THREADS, 1)
+msa2_walk_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap tp,
+                 const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tfo,
+                 const __grid_constant__ CUtensorMap tm, const bf16* __restrict__ wproj,
+                 const bf16* __restrict__ wf, float* __restrict__ ws, int npix, int centres,
+                 int nbr) {
+  extern __shared__ uint4 cdfo_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(cdfo_smem);
+  base += (1024u - (shared_address(base) & 1023u)) & 1023u;
+  bf16* wp = reinterpret_cast<bf16*>(base);   // W_proj [64 n][64 k], swizzled
+  bf16* wfa = wp + C * C;                      // W_fA, then W_fB
+  bf16* qs = wfa + 2 * C * C;                  // q of two units [2][128 px][64]
+  unsigned char* stages = reinterpret_cast<unsigned char*>(qs + 2 * UNIT * C);
+  float* red = reinterpret_cast<float*>(stages + STAGES * STAGE_BYTES);   // [2][8][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(red + 2 * WARPS * C);      // weights, stages
+  float* gsum = reinterpret_cast<float*>(bars + 1 + STAGES);              // [nbr][64]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t2 = 2 * (lane & 3);
+  const long long tiles = (npix + UNIT - 1) / UNIT, total = centres * tiles;
+  const long long g0 = blockIdx.x * total / gridDim.x, g1 = (blockIdx.x + 1) * total / gridDim.x;
+  const long long steps = (g1 - g0) * nbr;
+  if (steps <= 0) return;
+  auto stage = [&](long long t) { return stages + (t % STAGES) * STAGE_BYTES; };
+
+  // step t's w, p and matrices (and, at a unit's first step, its q) into
+  // stage t % 3 on its mbarrier
+  auto fetch = [&](long long t) {
+    const long long u = g0 + t / nbr;
+    const int f = static_cast<int>(t % nbr), c = static_cast<int>(u / tiles);
+    const int p0 = static_cast<int>(u % tiles) * UNIT, b = c * nbr + f;
+    unsigned char* st = stage(t);
+    uint64_t* bar = bars + 1 + t % STAGES;
+    mbar_expect_tx(bar, STAGE_BYTES + (f == 0 ? TILE_BYTES : 0));
+    tma_load_row(st, &tw, p0, 0, b, bar);
+    tma_load_row(st + TILE_BYTES, &tp, p0, 0, b, bar);
+    tma_load_row(st + 2 * TILE_BYTES, &tm, 0, 0, 2 * b, bar);
+    tma_load_row(st + 2 * TILE_BYTES + MAT_BYTES, &tm, 0, 0, 2 * b + 1, bar);
+    if (f == 0) tma_load_row(qs + ((u - g0) & 1) * UNIT * C, &tq, p0, 0, c, bar);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + STAGES; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bars, 3 * MAT_BYTES);
+    bulk_copy(wp, wproj, MAT_BYTES, bars);
+    bulk_copy(wfa, wf, 2 * MAT_BYTES, bars);
+    for (long long t = 0; t < STAGES - 1 && t < steps; ++t) fetch(t);
+  }
+  __syncthreads();
+  mbar_wait(bars, 0);
+
+  const uint64_t pd = wgmma_desc(wp), fad = wgmma_desc(wfa), fbd = wgmma_desc(wfa + C * C);
+  PHASE_START
+#pragma unroll 1
+  for (long long t = 0; t < steps; ++t) {
+    const long long u = g0 + t / nbr;
+    const int f = static_cast<int>(t % nbr), c = static_cast<int>(u / tiles);
+    unsigned char* st = stage(t);
+    mbar_wait(bars + 1 + t % STAGES, static_cast<uint32_t>((t / STAGES) & 1));
+    PHASE(0)
+    bf16* wt = reinterpret_cast<bf16*>(st) + wg * 64 * C;   // this warpgroup's 64 pixels
+    const bf16* pt = reinterpret_cast<const bf16*>(st + TILE_BYTES) + wg * 64 * C;
+    const bf16* am = reinterpret_cast<const bf16*>(st + 2 * TILE_BYTES);
+    const bf16* qt = qs + ((u - g0) & 1) * UNIT * C + wg * 64 * C;
+    float acc[8][4];
+    {
+      // o = w awt_b + p apt_b
+      const uint64_t wd = wgmma_desc(wt), ppd = wgmma_desc(pt);
+      const uint64_t awd = wgmma_desc(am), apd = wgmma_desc(am + C * C);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64(acc, wd + 2 * kk, awd + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64(acc, ppd + 2 * kk, apd + 2 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(acc);
+    }
+    PHASE(1)
+    uint32_t oa[4][4];
+    round_to_a(acc, oa);
+    // po = o W_proj^T
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_64x64(acc, oa[kk], pd + 2 * kk, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(acc);
+    keep(oa);
+    PHASE(2)
+    uint32_t pa[4][4];
+    round_to_a(acc, pa);
+    // fo = po W_fA^T + q W_fB^T
+    {
+      const uint64_t qd = wgmma_desc(qt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_64x64(acc, pa[kk], fad + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64(acc, qd + 2 * kk, fbd + 2 * kk, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(acc);
+      keep(pa);
+    }
+    PHASE(3)
+    // relu; this lane's sums of channels 8j + t2, + 1 over its two pixels,
+    // then over the warp's 16 (lanes of one t); fo rounded in place of w
+    float cs[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = fmaxf(acc[j][e], 0.f);
+      cs[j][0] = acc[j][0] + acc[j][2];
+      cs[j][1] = acc[j][1] + acc[j][3];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        store2(swizzled(wt, 16 * wl + g + 8 * half, 8 * j + t2), acc[j][2 * half],
+               acc[j][2 * half + 1]);
+      }
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) cs[j][e] += __shfl_xor_sync(0xffffffffu, cs[j][e], o);
+    float* rd = red + (t & 1) * WARPS * C + warp * C;
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        rd[8 * j + t2] = cs[j][0];
+        rd[8 * j + t2 + 1] = cs[j][1];
+      }
+    }
+    async_fence();
+    PHASE(4)
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      tma_store_row(&tfo, st, static_cast<int>(u % tiles) * UNIT, 0, c * nbr + f);
+      bulk_commit();
+      // step t - 1's store has read its stage: refill it with step t + 2
+      bulk_wait_read<1>();
+      if (t + STAGES - 1 < steps) fetch(t + STAGES - 1);
+    }
+    if (threadIdx.x < C) {
+      // the step's sum, warps in order, into the running sum of image f
+      // (the first unit of a centre in this CTA starts it)
+      const float* rs = red + (t & 1) * WARPS * C + threadIdx.x;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) s += rs[w * C];
+      float& run = gsum[f * C + threadIdx.x];
+      run = (u == g0 || u % tiles == 0) ? s : run + s;
+      // the CTA leaves the centre after this unit: its sums go out
+      if (f == nbr - 1 && (u + 1 == g1 || (u + 1) % tiles == 0)) {
+        for (int i = 0; i < nbr; ++i) {
+          ws[(static_cast<long long>(c * nbr + i) * gridDim.x + blockIdx.x) * C + threadIdx.x] =
+              gsum[i * C + threadIdx.x];
+        }
+      }
+    }
+    PHASE(5)
+    PHASE_STEP
+  }
+  if (threadIdx.x == 0) bulk_wait_read();
+  PHASE_END
+}
+
+// gap[b] = the sum, in CTA order, of the partials of the CTAs that walked
+// image b's centre. Grid (batch), 64 threads used.
+__global__ void __launch_bounds__(THREADS)
+msa2_walk_reduce(const float* __restrict__ ws, float* __restrict__ gap, int npix, int nbr,
+                 int centres, int parts) {
+  const int ch = threadIdx.x;
+  if (ch >= C) return;
+  const int b = blockIdx.x;
+  const long long tiles = (npix + UNIT - 1) / UNIT, total = centres * tiles;
+  const long long c = b / nbr;
+  const int lo = walk_part(c * tiles, total, parts), hi = walk_part((c + 1) * tiles - 1, total, parts);
+  float s = 0.f;
+  for (int p = lo; p <= hi; ++p) s += ws[(static_cast<long long>(b) * parts + p) * C + ch];
+  gap[static_cast<long long>(b) * C + ch] = s;
+}
+
 template <typename T>
 cudaError_t launch1(const void* w, const void* pr, const void* center, const void* wf, void* ws,
                     void* stats, void* gaps, int batch, int npix, int nbr, int parts,
@@ -235,10 +501,32 @@ cudaError_t launch1(const void* w, const void* pr, const void* center, const voi
                        static_cast<float*>(stats), static_cast<float*>(gaps), batch, stream);
 }
 
-template <typename T>
 cudaError_t launch2(const void* w, const void* pr, const void* center, const void* wa,
-                    const void* wproj, const void* wf, void* fo, void* ws, void* gap, int batch,
-                    int npix, int nbr, int parts, cudaStream_t stream) {
+                    const void* wproj, const void* wf, void* fo, void* ws, void* gap, int is_bf16,
+                    int batch, int npix, int nbr, int parts, cudaStream_t stream) {
+  if (is_bf16) {
+    const int smem = walk_smem(nbr);
+    cudaError_t err = allow_smem(msa2_walk_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const int centres = batch / nbr;
+    CUtensorMap tw, tp, tq, tfo, tm;
+    if ((err = nhwc_tensor_map(&tm, wa, 2 * batch, 1, C, C)) != cudaSuccess ||
+        (err = nhwc_tensor_map(&tw, w, batch, 1, npix, UNIT)) != cudaSuccess ||
+        (err = nhwc_tensor_map(&tp, pr, batch, 1, npix, UNIT)) != cudaSuccess ||
+        (err = nhwc_tensor_map(&tq, center, centres, 1, npix, UNIT)) != cudaSuccess ||
+        (err = nhwc_tensor_map(&tfo, fo, batch, 1, npix, UNIT)) != cudaSuccess) {
+      return err;
+    }
+    CDFO_LAUNCH(msa2_walk_kernel, dim3(parts), smem, stream, tw, tp, tq, tfo, tm,
+                static_cast<const bf16*>(wproj),
+                static_cast<const bf16*>(wf), static_cast<float*>(ws), npix, centres, nbr);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    CDFO_LAUNCH(msa2_walk_reduce, dim3(batch), 0, stream, static_cast<const float*>(ws),
+                static_cast<float*>(gap), npix, nbr, centres, parts);
+    return cudaGetLastError();
+  }
+  using T = float;
   const cudaError_t err = allow_smem(msa2_kernel<T>, s2_smem<T>());
   if (err != cudaSuccess) return err;
   CDFO_LAUNCH(msa2_kernel<T>, dim3(parts, batch / nbr), s2_smem<T>(), stream,
@@ -264,6 +552,16 @@ int workspace(int batch, int h, int wd, int nbr, int per_part) {
   return workspace_floats((h * wd + NP - 1) / NP, batch / nbr, batch, per_part);
 }
 
+// bfloat16 stage 2: one partial per (image, walking CTA), a CTA an SM, at
+// most one a unit
+int walk_workspace(int batch, int h, int wd, int nbr) {
+  const int sms = sm_count();
+  if (bad_shape(batch, h, wd, nbr) || sms <= 0) return -1;
+  const long long units = static_cast<long long>(batch / nbr) * ((h * wd + UNIT - 1) / UNIT);
+  const long long n = (units < sms ? units : sms) * static_cast<long long>(batch) * S2_PART;
+  return n > 0x7fffffff ? -1 : static_cast<int>(n);
+}
+
 }  // namespace
 
 // The float32 scratch cdfo_msa_stage1 and cdfo_msa_stage2 need for `batch`
@@ -273,8 +571,10 @@ extern "C" int cdfo_msa_stage1_workspace(int batch, int h, int wd, int nbr) {
   return workspace(batch, h, wd, nbr, S1_PART);
 }
 
-extern "C" int cdfo_msa_stage2_workspace(int batch, int h, int wd, int nbr) {
-  return workspace(batch, h, wd, nbr, S2_PART);
+// bfloat16 (is_bf16) sizes stage 2's workspace for its walk: [batch][CTAs]
+// [64], one CTA an SM.
+extern "C" int cdfo_msa_stage2_workspace(int batch, int h, int wd, int nbr, int is_bf16) {
+  return is_bf16 ? walk_workspace(batch, h, wd, nbr) : workspace(batch, h, wd, nbr, S2_PART);
 }
 
 // w (warped), pr (pred): (batch, h, wd, 64) NHWC; center: (batch / nbr, h,
@@ -295,20 +595,22 @@ extern "C" int cdfo_msa_stage1(const void* w, const void* pr, const void* center
                                   s);
 }
 
-// As stage 1, plus wa: [batch] per-image (64 out, 128 in) matrices [awt;
-// apt]^T in kernel_weights' layout, one image per tap; wproj: the 1x1
-// projection in that layout; fo: (batch, h, wd, 64) out; ws: ws_floats of
-// float32 scratch, as cdfo_msa_stage2_workspace sizes it ([batch][parts]
-// [64]); gap: [batch][64] float32 out. Returns a cudaError_t.
+// As stage 1, plus, in float32: wa the [batch] per-image (64 out, 128 in)
+// matrices [awt; apt]^T in kernel_weights' layout, one image per tap, wproj
+// the 1x1 projection and wf the fusion in that layout; in bfloat16 (all
+// 16-byte aligned): wa (batch, 2, 64 n, 64 k) = [awt_b^T, apt_b^T] as it
+// is (ops/fused_align.py::pack_stage2_images), wproj (64 n, 64 k) and wf
+// (2, 64 n, 64 k) = [W_fA, W_fB], 128-byte swizzled
+// (::pack_stage2_weights); fo: (batch, h, wd, 64) out; ws: ws_floats of
+// float32 scratch, as cdfo_msa_stage2_workspace sizes it for the dtype;
+// gap: [batch][64] float32 out. Two launches (the pass, then the partials'
+// reduction). Returns a cudaError_t.
 extern "C" int cdfo_msa_stage2(const void* w, const void* pr, const void* center, const void* wa,
                                const void* wproj, const void* wf, void* fo, void* ws,
                                int ws_floats, void* gap, int is_bf16, int batch, int h, int wd,
                                int nbr, void* stream) {
   const int parts = parts_of(ws_floats, batch, S2_PART);
   if (bad_shape(batch, h, wd, nbr) || parts <= 0) return cudaErrorInvalidValue;
-  const auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch2<bf16>(w, pr, center, wa, wproj, wf, fo, ws, gap, batch, h * wd, nbr,
-                                 parts, s)
-                 : launch2<float>(w, pr, center, wa, wproj, wf, fo, ws, gap, batch, h * wd, nbr,
-                                  parts, s);
+  return launch2(w, pr, center, wa, wproj, wf, fo, ws, gap, is_bf16, batch, h * wd, nbr, parts,
+                 static_cast<cudaStream_t>(stream));
 }

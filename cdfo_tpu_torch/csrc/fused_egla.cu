@@ -9,7 +9,7 @@
 // eg1, for each frame m and image row g: q_s = x aq[m] + cq[m] and v = x bv
 // + cv, both rounded to the working type; the row attention v_r =
 // softmax(q_s q_sᵀ) v over the row's W positions (no scale; scores and
-// softmax in fp32, p rounded to the working type); and the H-band q_c[g] =
+// softmax in fp32, the normalised p rounded to the working type); and the H-band q_c[g] =
 // sum_{d<9} h9[d] q_s[g + d - 4] + h9[9], rows outside the image zero.
 // eg2, for each 8x8 window: q = (x wq + bq) mask_inv[m] and v = x wv + bv
 // (rounded), the 64-token attention loc = softmax(q qᵀ) v (rounded), then
@@ -22,29 +22,86 @@
 // attention, the 128 -> 64 fusion), ~25 GFLOP, against ~200 MB of x, long in
 // and out: bytes.
 //
-// Design, simple first. eg1 is two launches under one call: a projection
-// pass writes q_s and v in the working type to scratch that the wrapper
-// allocates, and a row pass reads them. Its CTA holds 128 queries of one row
-// (16 per warp) and walks the row's keys in 64-key tiles with an online
-// softmax: a 480 x 480 fp32 score row does not fit in shared memory (the TPU
-// kept it in VMEM). The same CTA computes the H-band of its 128 positions
-// from the 9 rows of q_s in device memory. The scratch costs ~130 MB of
-// traffic (~0.04 ms) but rounds q_s and v exactly where the TPU kernel's VMEM
-// scratch does and keeps each pass a plain tile loop; recomputing each key
-// tile's projection inside the key loop would cost ~8x the projection FLOPs.
+// Design of the first kernels, which the float32 twins keep. eg1 is two
+// launches under one call: a projection pass writes q_s and v in the
+// working type to scratch that the wrapper allocates, and a row pass reads
+// them. Its CTA holds 128 queries of one row (16 per warp) and walks the
+// row's keys in 64-key tiles with an online softmax: a 480 x 480 fp32
+// score row does not fit in shared memory (the TPU kept it in VMEM). The
+// same CTA computes the H-band of its 128 positions from the 9 rows of q_s
+// in device memory. The scratch rounds q_s and v exactly where the TPU
+// kernel's VMEM scratch does and keeps each pass a plain tile loop.
 // eg2 is one launch: a CTA holds two windows (an 8 x 16 pixel tile, one
 // 16-pixel m-tile per warp) and projects q and v on conv3x3_tile.cuh's tile
 // routine; each warp then takes 16 queries of one window against its 64 keys
 // (one tile, so the softmax is exact), and the fusion GEMMs run on the tile
 // routine again. x, long, q, v and loc never leave shared memory.
-// bf16: mma.sync.m16n8k16 with fp32 accumulators. Q Kᵀ reads both factors
-// by ldmatrix (K = q: the keys are the queries' own rows); P V takes P from
-// the score fragments in registers and V by ldmatrix.trans. fp32: the same
-// fragments on the CUDA cores, P passed across the quad by shuffles.
+// bf16 eg2: mma.sync.m16n8k16 with fp32 accumulators. Q Kᵀ reads both
+// factors by ldmatrix (K = q: the keys are the queries' own rows); P V
+// takes P from the score fragments in registers and V by ldmatrix.trans.
+// fp32: the same fragments on the CUDA cores, P passed across the quad by
+// shuffles.
+//
+// eg1 in bfloat16 (the main path) is two walks on wgmma. The first design
+// (above) ran at 13.7x its bound: its projection read the weights per warp
+// m-tile from device memory, its row pass re-read a row's q_s and v for
+// each of its 4 query tiles in 64-key tiles by synchronous loads behind two
+// barriers a tile, its scores ran on mma.sync, the band read 9 rows of q_s
+// from device memory per value, and it rounded exp(s - running max) before
+// P.V and divided by the sum after it, where the TPU kernel rounds the
+// normalised p. Now:
+// - Projection and band (`eg1_walk_kernel`): one CTA an SM walks an even
+//   share of the units (frame, 64-column strip, row), a strip down two
+//   rows a step, one per warpgroup (one code path). x's rows come in by the
+//   TMA unit two steps ahead (zero outside the image), aq[m] (per walk,
+//   two buffers) and bv stay resident as swizzled tiles, and q_s = x aq[m]
+//   + cq, v = x bv + cv run on wgmma (SS), rounded. q_s goes into a ring of
+//   the last 10 rows in shared memory (zero outside the image), from which
+//   each step computes the band of rows j - 4 and j - 3 (fp32 taps in
+//   order, the bias last; each thread both rows of its 16 channels of a
+//   pixel, so that each ring value is converted once for both): the band has no column halo, so a strip needs
+//   none, and a walk's first 4 steps are its warm-up (the 8 rows above its
+//   first; they are not stored). q_s, v and q_c leave by TMA stores.
+// - Row attention (`eg1_attend_kernel`): one CTA an SM walks an even share
+//   of the units (frame row, 64-query tile). The row's K (= q_s) and V stay
+//   resident (2 x NCH x 64 positions each, zero past W), brought in by the
+//   TMA unit in 64-position boxes; the next row's K comes into a second
+//   buffer during the row (where two fit: W <= 512; else once the row's
+//   last query tile has its scores), its V once that tile's P.V is done. The queries are the resident K rows, loaded by ldmatrix as the
+//   register A of Q Kᵀ on wgmma (RS, so only K streams from shared memory).
+//   A 64 x 480 fp32 score tile is 240 registers a thread, too many for one
+//   warpgroup, so the two warpgroups split the keys (NCH 64-key chunks
+//   each, NCH = ceil(W / 128), up to 5: W <= 640) rather than take two
+//   passes: one pass, one exp per score (the exp rate of the card is as
+//   near a limit here as the tensor cores). They exchange each row's max
+//   and sum through shared memory, each rounds the normalised p = e / sum
+//   to bf16 and runs P.V over its keys (V MN-major), and warpgroup 0 adds
+//   warpgroup 1's fp32 half, in that fixed order, rounds v_r once and
+//   stores it by the TMA unit.
+// - A W past 640 keeps the first design's row pass, chosen by shape, in two
+//   passes over the keys (max and sum, then the normalised p, rounded, and
+//   P.V), its band left to the walk.
 
 #include <math.h>
 
 #include "gram_tile.cuh"
+#include "wgmma_tile.cuh"
+
+// Phase marks (`phase_clocks.cuh`) of the bf16 walks, per step: the
+// projection walk's (the wait for x's rows at the step's barrier, q_s and v
+// on wgmma, their epilogue to the ring and staging rows, the band with the
+// stores' issue) by default, the row attention's (the wait for the row's K,
+// Q Kᵀ, the max exchange, exp and the sum exchange, P.V with the wait for
+// V, the cross-warpgroup sum and the store's issue) with
+// -DCDFO_PHASE_ROWS, the two kernels counting into one set of clocks.
+#include "phase_clocks.cuh"
+#ifdef CDFO_PHASE_ROWS
+#define WALK_PHASE(x)
+#define ROWS_PHASE(x) x
+#else
+#define WALK_PHASE(x) x
+#define ROWS_PHASE(x)
+#endif
 
 namespace {
 
@@ -224,11 +281,13 @@ constexpr int rows_smem() {
   return (QROWS + 2 * KT) * Pitch<T>::value * static_cast<int>(sizeof(T));
 }
 
-// Grid (query tiles of 128 along W, H, frames).
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-eg1_rows(const T* __restrict__ qs, const T* __restrict__ vs, const float* __restrict__ h9,
-         T* __restrict__ qc, T* __restrict__ vr, int h, int w) {
+// Grid (query tiles of 128 along W, H, frames). kWide (bfloat16, W past
+// what eg1_attend_kernel keeps resident): no band (the walk computes it)
+// and two passes over the keys, so that the normalised p is rounded.
+template <typename T, bool kWide>
+__device__ __forceinline__ void eg1_rows_body(const T* __restrict__ qs, const T* __restrict__ vs,
+                                              const float* __restrict__ h9, T* __restrict__ qc,
+                                              T* __restrict__ vr, int h, int w) {
   constexpr int P = Pitch<T>::value;
   extern __shared__ uint4 cdfo_smem[];
   T* qt = reinterpret_cast<T*>(cdfo_smem);  // [QROWS][P] this CTA's queries
@@ -241,7 +300,7 @@ eg1_rows(const T* __restrict__ qs, const T* __restrict__ vs, const float* __rest
 
   // q_c of the CTA's positions, 8 channels a thread: the taps in order in
   // fp32, rows outside the image skipped (they are zero), then the bias
-  for (int i = threadIdx.x; i < QROWS * (C / 8); i += THREADS) {
+  for (int i = threadIdx.x; !kWide && i < QROWS * (C / 8); i += THREADS) {
     const int pos = q0 + i / (C / 8), c = (i % (C / 8)) * 8;
     if (pos >= w) continue;
     float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
@@ -266,16 +325,12 @@ eg1_rows(const T* __restrict__ qs, const T* __restrict__ vs, const float* __rest
   auto krow = [&](int j) { return static_cast<const T*>(kt + j * P); };
   auto vrow = [&](int j) { return static_cast<const T*>(vt + j * P); };
   const int t2 = (lane & 3) * 2;
-  float o[NCT][4];
-  clear(o);
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-#pragma unroll 1
-  for (int k0 = 0; k0 < w; k0 += KT) {
+  // the scores of key tile k0 (and, with_v, its v into vt), keys past w -inf
+  auto tile_scores = [&](int k0, float (&s)[NKT][4], bool with_v) {
     __syncthreads();  // the queries are in; the previous tile is read
     load_window(kt, qs + img_base, h, w, g, k0, 1, KT, false);
-    load_window(vt, vs + img_base, h, w, g, k0, 1, KT, false);
+    if (with_v) load_window(vt, vs + img_base, h, w, g, k0, 1, KT, false);
     __syncthreads();
-    float s[NKT][4];
     clear(s);
     scores<T>(s, qrow, krow, lane);
 #pragma unroll
@@ -283,16 +338,21 @@ eg1_rows(const T* __restrict__ qs, const T* __restrict__ vs, const float* __rest
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (k0 + 8 * nt + t2 + (e & 1) >= w) s[nt][e] = -INFINITY;
-    // online softmax, rows g (e = 0, 1) and g + 8 (e = 2, 3): every tile
-    // holds a key of the row, so the tile max is finite and the first
-    // tile's rescale exp(-inf) is 0
+  };
+  float o[NCT][4];
+  clear(o);
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  // online max and sum of rows g (e = 0, 1) and g + 8 (e = 2, 3): every
+  // tile holds a key of the row, so the tile max is finite and the first
+  // tile's rescale exp(-inf) is 0; returns the rescale of each row
+  auto online = [&](float (&s)[NKT][4], float (&alpha)[2]) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float mx = -INFINITY;
 #pragma unroll
       for (int nt = 0; nt < NKT; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
       const float m_new = fmaxf(m_run[r], quad_max(mx));
-      const float alpha = expf(m_run[r] - m_new);
+      alpha[r] = expf(m_run[r] - m_new);
       float sum = 0.f;
 #pragma unroll
       for (int nt = 0; nt < NKT; ++nt)
@@ -301,15 +361,40 @@ eg1_rows(const T* __restrict__ qs, const T* __restrict__ vs, const float* __rest
           s[nt][e] = expf(s[nt][e] - m_new);
           sum += s[nt][e];
         }
-      l_run[r] = l_run[r] * alpha + quad_sum(sum);
+      l_run[r] = l_run[r] * alpha[r] + quad_sum(sum);
       m_run[r] = m_new;
-#pragma unroll
-      for (int nt = 0; nt < NCT; ++nt) {
-        o[nt][2 * r] *= alpha;
-        o[nt][2 * r + 1] *= alpha;
-      }
     }
-    attend<T>(o, s, vrow, lane);
+  };
+  if constexpr (kWide) {
+#pragma unroll 1
+    for (int k0 = 0; k0 < w; k0 += KT) {
+      float s[NKT][4], alpha[2];
+      tile_scores(k0, s, false);
+      online(s, alpha);
+    }
+#pragma unroll 1
+    for (int k0 = 0; k0 < w; k0 += KT) {
+      float s[NKT][4];
+      tile_scores(k0, s, true);
+#pragma unroll
+      for (int nt = 0; nt < NKT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = expf(s[nt][e] - m_run[e >> 1]) / l_run[e >> 1];
+      attend<T>(o, s, vrow, lane);
+    }
+    l_run[0] = l_run[1] = 1.f;
+  } else {
+#pragma unroll 1
+    for (int k0 = 0; k0 < w; k0 += KT) {
+      float s[NKT][4], alpha[2];
+      tile_scores(k0, s, true);
+      online(s, alpha);
+#pragma unroll
+      for (int nt = 0; nt < NCT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] *= alpha[e >> 1];
+      attend<T>(o, s, vrow, lane);
+    }
   }
 
   const int pos = q0 + warp * 16 + (lane >> 2);
@@ -325,6 +410,471 @@ eg1_rows(const T* __restrict__ qs, const T* __restrict__ vs, const float* __rest
              o[nt][3] / l_run[1]);
     }
   }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 2)
+eg1_rows(const T* __restrict__ qs, const T* __restrict__ vs, const float* __restrict__ h9,
+         T* __restrict__ qc, T* __restrict__ vr, int h, int w) {
+  eg1_rows_body<T, false>(qs, vs, h9, qc, vr, h, w);
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
+eg1_rows_wide(const bf16* __restrict__ qs, const bf16* __restrict__ vs,
+              const float* __restrict__ h9, bf16* __restrict__ qc, bf16* __restrict__ vr, int h,
+              int w) {
+  eg1_rows_body<bf16, true>(qs, vs, h9, qc, vr, h, w);
+}
+
+// ---- eg1, bfloat16: the projection and band walk ---------------------------
+
+constexpr int ESTRIP = 64;                    // columns of a strip: one m64 tile a row
+constexpr int ROW_ELEMS = ESTRIP * C;         // bf16 of a strip row
+constexpr int ROW_BYTES = ROW_ELEMS * 2;
+constexpr int MAT_BYTES = C * C * 2;          // a 64 x 64 K-major tile
+constexpr int RING = 10;                      // q_s rows j - 8 .. j + 1 of a step
+constexpr int XSLOTS = 3;                     // x's steps in flight
+// aq of two walks | bv | x rows [3 steps][2] | q_s ring | v rows [2] | q_c
+// rows [2] | mbarriers: bv's, x's three
+constexpr int WALK_SMEM = 1024 + 3 * MAT_BYTES + (2 * XSLOTS + RING + 4) * ROW_BYTES +
+                          8 * (1 + XSLOTS);
+static_assert(WALK_SMEM <= 232448, "one block's shared memory");
+
+// A step of a walk: the rows [a, e) of one strip of frame b are its
+// outputs; step k projects rows j = a - 4 + 2k and j + 1 (one per
+// warpgroup) and computes the band of rows j - 4 and j - 3, so a walk is
+// ceil((e - a) / 2) + 4 steps, its first 4 the warm-up. par: the walk's
+// parity in the CTA (its aq buffer).
+struct EgStep {
+  long long u;      // the walk's first unit
+  int b, c0, a, e;  // frame, the strip's first column, the walk's rows [a, e)
+  int k, par;
+};
+
+__device__ __forceinline__ EgStep eg_walk_at(long long u, long long g1, int h, int strips,
+                                             int par) {
+  const long long sb = u / h;
+  EgStep s;
+  s.u = u;
+  s.b = static_cast<int>(sb / strips);
+  s.c0 = static_cast<int>(sb % strips) * ESTRIP;
+  s.a = static_cast<int>(u % h);
+  s.e = static_cast<int>(g1 - u < h - s.a ? s.a + (g1 - u) : h);
+  s.k = 0;
+  s.par = par;
+  return s;
+}
+
+__device__ __forceinline__ bool eg_next(const EgStep& s, long long g1, int h, int strips,
+                                        EgStep& n) {
+  if (s.k + 1 < (s.e - s.a + 1) / 2 + 4) {
+    n = s;
+    ++n.k;
+    return true;
+  }
+  const long long nu = s.u + (s.e - s.a);
+  if (nu >= g1) return false;
+  n = eg_walk_at(nu, g1, h, strips, s.par ^ 1);
+  return true;
+}
+
+// Units (frame, strip, row) numbered (frame * strips + strip) * h + row;
+// CTA i walks [i total / G, (i + 1) total / G) of them. aq: (m, 64 n, 64
+// k) and bv (64 n, 64 k) by the TMA unit (which swizzles them); cq [m][64], cv [64]; h9 [10].
+__global__ void __launch_bounds__(THREADS, 1)
+eg1_walk_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tqs,
+                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tqc,
+                const __grid_constant__ CUtensorMap taq, const __grid_constant__ CUtensorMap tbv,
+                const bf16* __restrict__ cq, const bf16* __restrict__ cv,
+                const float* __restrict__ h9, int m, int h, int w) {
+  extern __shared__ uint4 cdfo_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(cdfo_smem);
+  base += (1024u - (shared_address(base) & 1023u)) & 1023u;
+  bf16* aqs = reinterpret_cast<bf16*>(base);   // aq of two walks [2][64 n][64 k]
+  bf16* bvs = aqs + 2 * C * C;                  // bv [64 n][64 k]
+  bf16* xs = bvs + C * C;                       // x rows [3 steps][2]
+  bf16* ring = xs + 2 * XSLOTS * ROW_ELEMS;     // q_s rows, by index in the walk % 10
+  bf16* vst = ring + RING * ROW_ELEMS;          // v rows [2]
+  bf16* qcs = vst + 2 * ROW_ELEMS;              // q_c rows [2]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(qcs + 2 * ROW_ELEMS);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int strips = (w + ESTRIP - 1) / ESTRIP;
+  const long long total = static_cast<long long>(m) * strips * h;
+  const long long g0 = blockIdx.x * total / gridDim.x, g1 = (blockIdx.x + 1) * total / gridDim.x;
+  if (g0 >= g1) return;
+
+  // x's rows j, j + 1 of step s (and, at a walk's first step, its frame's
+  // aq) into slot t % 3, on mbarrier 1 + t % 3
+  auto fetch = [&](const EgStep& s, long long t) {
+    uint64_t* bar = bars + 1 + t % XSLOTS;
+    const int j = s.a - 4 + 2 * s.k;
+    mbar_expect_tx(bar, 2 * ROW_BYTES + (s.k == 0 ? MAT_BYTES : 0));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tma_load_row(xs + (2 * (t % XSLOTS) + r) * ROW_ELEMS, &tx, s.c0, j + r, s.b, bar);
+    }
+    if (s.k == 0) tma_load_row(aqs + s.par * C * C, &taq, 0, 0, s.b, bar);
+  };
+
+  EgStep s = eg_walk_at(g0, g1, h, strips, 0), n1, n2;
+  bool has1 = eg_next(s, g1, h, strips, n1);
+  bool has2 = has1 && eg_next(n1, g1, h, strips, n2);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + XSLOTS; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bars, MAT_BYTES);
+    tma_load_row(bvs, &tbv, 0, 0, 0, bars);
+    fetch(s, 0);
+    if (has1) fetch(n1, 1);
+  }
+  float taps[10];
+#pragma unroll
+  for (int d = 0; d < 10; ++d) taps[d] = __ldg(h9 + d);
+  float2 cvb[8];
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) cvb[jj] = load2(cv + 8 * jj + t2);
+  __syncthreads();
+  mbar_wait(bars, 0);
+  const uint64_t bvd = wgmma_desc(bvs);
+
+  WALK_PHASE(PHASE_START)
+#pragma unroll 1
+  for (long long t = 0;; ++t) {
+    mbar_wait(bars + 1 + t % XSLOTS, static_cast<uint32_t>((t / XSLOTS) & 1));
+    bulk_wait_read();   // the last step's rows have left shared memory
+    __syncthreads();    // and the last step's band is done with the ring
+    WALK_PHASE(PHASE(0))
+    if (threadIdx.x == 0 && has2) fetch(n2, t + 2);
+    const int j = s.a - 4 + 2 * s.k, r = j + wg;
+    // q_s = x aq[m] + cq[m] and v = x bv + cv of row r
+    float aqc[8][4], avc[8][4];
+    {
+      const uint64_t xd = wgmma_desc(xs + (2 * (t % XSLOTS) + wg) * ROW_ELEMS);
+      const uint64_t aqd = wgmma_desc(aqs + s.par * C * C);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64(aqc, xd + 2 * kk, aqd + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64(avc, xd + 2 * kk, bvd + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(aqc);
+      keep(avc);
+    }
+    WALK_PHASE(PHASE(1))
+    // rounded: q_s into the ring (zero outside the image: the band's
+    // padding), v into its staging row
+    const bool in = r >= 0 && r < h;
+    bf16* qr = ring + ((2 * s.k + wg) % RING) * ROW_ELEMS;
+    bf16* vrow = vst + wg * ROW_ELEMS;
+    const bf16* cqm = cq + s.b * C;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 cb = load2(cqm + 8 * jj + t2);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int px = 16 * wl + g + 8 * half;
+        store2(swizzled(qr, px, 8 * jj + t2), in ? aqc[jj][2 * half] + cb.x : 0.f,
+               in ? aqc[jj][2 * half + 1] + cb.y : 0.f);
+        store2(swizzled(vrow, px, 8 * jj + t2), avc[jj][2 * half] + cvb[jj].x,
+               avc[jj][2 * half + 1] + cvb[jj].y);
+      }
+    }
+    async_fence();
+    __syncthreads();
+    WALK_PHASE(PHASE(2))
+    // this warpgroup's row r, if the walk's own: q_s and v out
+    if ((threadIdx.x & 127) == 0 && r >= s.a && r < s.e) {
+      tma_store_row(&tqs, qr, s.c0, r, s.b);
+      tma_store_row(&tv, vrow, s.c0, r, s.b);
+      bulk_commit();
+    }
+    // the band of rows y = j - 4 and y + 1 (rows y - 4 .. y + 5 of the
+    // ring), four threads a pixel, 16 channels each, both rows at once (a
+    // ring row converted once serves both); a walk's first 4 steps have
+    // none, a row past e is dropped
+    if (s.k >= 4) {
+      const int y = j - 4, px = threadIdx.x >> 2, c0 = (threadIdx.x & 3) * 16;
+#pragma unroll
+      for (int cc = 0; cc < 2; ++cc) {
+        float a0[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        float a1[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < 10; ++i) {
+          float u[8];
+          load8(swizzled(ring + ((2 * s.k - 8 + i) % RING) * ROW_ELEMS, px, c0 + 8 * cc), u);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            if (i < 9) a0[e] += taps[i] * u[e];
+            if (i > 0) a1[e] += taps[i - 1] * u[e];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          a0[e] += taps[9];
+          a1[e] += taps[9];
+        }
+        store8(swizzled(qcs, px, c0 + 8 * cc), a0);
+        store8(swizzled(qcs + ROW_ELEMS, px, c0 + 8 * cc), a1);
+      }
+      async_fence();
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        tma_store_row(&tqc, qcs, s.c0, y, s.b);
+        if (y + 1 < s.e) tma_store_row(&tqc, qcs + ROW_ELEMS, s.c0, y + 1, s.b);
+        bulk_commit();
+      }
+    }
+    WALK_PHASE(PHASE(3))
+    if (!has1) break;
+    s = n1;
+    n1 = n2;
+    has1 = has2;
+    has2 = has1 && eg_next(n1, g1, h, strips, n2);
+    WALK_PHASE(PHASE_STEP)
+  }
+  bulk_wait_read();
+  WALK_PHASE(PHASE_END)
+}
+
+// ---- eg1, bfloat16: the row attention with the row resident --------------------
+
+constexpr int RESIDENT_W = 640;   // the widest row kept resident (NCH = 5)
+constexpr float LOG2E = 1.4426950408889634f;
+
+#ifndef CDFO_HOST_MMA
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+#endif
+
+// K of a row (two rows, the next one's coming in, where they fit: NCH <= 4)
+// and V, 2 NCH 64-position boxes each
+__host__ __device__ constexpr int attend_kbufs(int nch) { return nch <= 4 ? 2 : 1; }
+// K | V | warpgroup 1's P.V [8][128][4] fp32 | the output tiles of two query
+// tiles | the row max and sum of each warpgroup [2][2][64] | mbarriers:
+// V's, K's (one a buffer)
+__host__ __device__ constexpr int attend_smem(int nch) {
+  return 1024 + (attend_kbufs(nch) + 1) * (2 * nch * ROW_BYTES) + 32 * 128 * 4 +
+         2 * ROW_BYTES + 4 * 64 * 4 + 24;
+}
+static_assert(attend_smem(RESIDENT_W / 128) <= 232448, "one block's shared memory");
+
+// Units (frame row, 64-query tile) numbered row * qtiles + tile; CTA i walks
+// [i total / G, (i + 1) total / G) of them. Warpgroup wg takes keys
+// 64 (wg NCH + c) + .., c < NCH.
+template <int NCH>
+__global__ void __launch_bounds__(THREADS, 1)
+eg1_attend_kernel(const __grid_constant__ CUtensorMap tqs, const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tvr, int m, int h, int w) {
+  constexpr int BOXES = 2 * NCH, KBUFS = attend_kbufs(NCH);
+  extern __shared__ uint4 cdfo_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(cdfo_smem);
+  base += (1024u - (shared_address(base) & 1023u)) & 1023u;
+  bf16* kring = reinterpret_cast<bf16*>(base);   // K = q_s [KBUFS][64 BOXES positions][64]
+  bf16* vsm = kring + KBUFS * BOXES * ROW_ELEMS;  // V, swizzled
+  float* obuf = reinterpret_cast<float*>(vsm + BOXES * ROW_ELEMS);   // [8][128 threads][4]
+  bf16* osts = reinterpret_cast<bf16*>(obuf + 32 * 128);   // v_r tiles [2], swizzled
+  float* mxs = reinterpret_cast<float*>(osts + 2 * ROW_ELEMS);       // [2 wg][64 rows]
+  float* sms = mxs + 2 * 64;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sms + 2 * 64);        // V, then K's
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int rt = threadIdx.x & 127;
+  const int qtiles = (w + 63) / 64;
+  const long long total = static_cast<long long>(m) * h * qtiles;
+  const long long g0 = blockIdx.x * total / gridDim.x, g1 = (blockIdx.x + 1) * total / gridDim.x;
+  if (g0 >= g1) return;
+
+  // row ri's (frame ri / h, row ri % h) K or V, all BOXES boxes, on bar
+  auto fetch = [&](bf16* dst, const CUtensorMap* map, long long ri, uint64_t* bar) {
+    mbar_expect_tx(bar, BOXES * ROW_BYTES);
+    for (int i = 0; i < BOXES; ++i) {
+      tma_load_row(dst + i * ROW_ELEMS, map, 64 * i, static_cast<int>(ri % h),
+                   static_cast<int>(ri / h), bar);
+    }
+  };
+  // the CTA's n-th row's K: its buffer and mbarrier
+  auto kbuf = [&](int n) { return kring + (n % KBUFS) * BOXES * ROW_ELEMS; };
+  auto kbar = [&](int n) { return bars + 1 + n % KBUFS; };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + KBUFS; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+    fetch(kbuf(0), &tqs, g0 / qtiles, kbar(0));
+    fetch(vsm, &tv, g0 / qtiles, bars);
+  }
+  __syncthreads();
+
+  int nrow = 0;   // rows this CTA has finished
+  ROWS_PHASE(PHASE_START)
+#pragma unroll 1
+  for (long long u = g0; u < g1; ++u) {
+    const long long ri = u / qtiles;
+    const int qi = static_cast<int>(u % qtiles);
+    const bool first = u == g0 || qi == 0;
+    const bool last = u + 1 == g1 || qi == qtiles - 1;
+    const bool next_row = (ri + 1) * qtiles < g1;   // the CTA walks a unit of row ri + 1
+    if (first) {
+      mbar_wait(kbar(nrow), static_cast<uint32_t>((nrow / KBUFS) & 1));
+      // two K buffers: the next row's K comes in during this whole row
+      if (KBUFS == 2 && threadIdx.x == 0 && next_row) {
+        fetch(kbuf(nrow + 1), &tqs, ri + 1, kbar(nrow + 1));
+      }
+    }
+    bf16* ks = kbuf(nrow);
+    ROWS_PHASE(PHASE(0))
+    // the 64 queries (rows 64 qi .. of K) as register A: warp wl rows 16 wl ..
+    uint32_t qa[4][4];
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      ldsm_x4(qa[kc], swizzled(ks, 64 * qi + 16 * wl + (lane & 7) + ((lane >> 3) & 1) * 8,
+                               16 * kc + (lane >> 4) * 8));
+    }
+    float sc[NCH][8][4];
+    uint64_t kbase = wgmma_desc(ks + wg * NCH * ROW_ELEMS);
+    keep(kbase);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const uint64_t kd = kbase + c * (ROW_BYTES >> 4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_64x64(sc[c], qa[kk], kd + 2 * kk, kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(sc);
+    keep(qa);
+    ROWS_PHASE(PHASE(1))
+    // keys past w score -inf; this lane's rows 16 wl + g (e = 0, 1) and + 8
+    // (e = 2, 3): their max over the warpgroup's keys, then over both
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+      const int k0 = 64 * (wg * NCH + c);
+      if (k0 + 64 > w) {   // a chunk past the row's end (one warpgroup's branch: no wgmma)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (k0 + 8 * jj + t2 + (e & 1) >= w) sc[c][jj][e] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          mx = fmaxf(mx, fmaxf(sc[c][jj][2 * r], sc[c][jj][2 * r + 1]));
+        }
+      mx = quad_max(mx);
+      if ((lane & 3) == 0) mxs[wg * 64 + 16 * wl + g + 8 * r] = mx;
+    }
+    __syncthreads();
+    // one K buffer: the row's keys have their scores, the next row's K may
+    // come in
+    if (KBUFS == 1 && threadIdx.x == 0 && last && next_row) {
+      fetch(kbuf(nrow + 1), &tqs, ri + 1, kbar(nrow + 1));
+    }
+    ROWS_PHASE(PHASE(2))
+    float ml[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * wl + g + 8 * r;
+      ml[r] = fmaxf(mxs[row], mxs[64 + row]) * LOG2E;   // finite: key 0 is warpgroup 0's
+    }
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[c][jj][e] = ex2(fmaf(sc[c][jj][e], LOG2E, -ml[e >> 1]));
+          sum[e >> 1] += sc[c][jj][e];
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float q = quad_sum(sum[r]);
+      if ((lane & 3) == 0) sms[wg * 64 + 16 * wl + g + 8 * r] = q;
+    }
+    __syncthreads();
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * wl + g + 8 * r;
+      inv[r] = 1.f / (sms[row] + sms[64 + row]);
+    }
+    // p = e / sum rounded to bf16: the A fragments of P.V, k16 step 4c + kk
+    // taking n-tiles 2kk, 2kk + 1 of chunk c
+    uint32_t pa[4 * NCH][4];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int v = 0; v < 2; ++v) {
+          const float* e = sc[c][2 * kk + v];
+          pa[4 * c + kk][2 * v] = pack_bf16x2(e[0] * inv[0], e[1] * inv[0]);
+          pa[4 * c + kk][2 * v + 1] = pack_bf16x2(e[2] * inv[1], e[3] * inv[1]);
+        }
+    ROWS_PHASE(PHASE(3))
+    if (first) mbar_wait(bars, static_cast<uint32_t>(nrow & 1));
+    float o[8][4];
+    zero1(o);
+    keep(o);
+    uint64_t vbase = wgmma_desc(vsm + wg * NCH * ROW_ELEMS, 1024);
+    keep(vbase);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // 16 keys a k16 step: 2 KB
+        wgmma_64x64_tb(o, pa[4 * c + kk], vbase + c * (ROW_BYTES >> 4) + kk * (2048 >> 4));
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(o);
+    keep(pa);
+    ROWS_PHASE(PHASE(4))
+    if (wg == 1) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        *reinterpret_cast<float4*>(obuf + (4 * jj * 128 + 4 * rt)) =
+            make_float4(o[jj][0], o[jj][1], o[jj][2], o[jj][3]);
+      }
+    }
+    bf16* ost = osts + (u & 1) * ROW_ELEMS;
+    if (threadIdx.x == 0) bulk_wait_read<1>();   // the tile before last's v_r has left ost
+    __syncthreads();
+    // the row's P.V is done: the next row's V may come in
+    if (threadIdx.x == 0 && last && next_row) fetch(vsm, &tv, ri + 1, bars);
+    if (wg == 0) {
+      // v_r = the keys of warpgroup 0, then of warpgroup 1, rounded once
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float4 p = *reinterpret_cast<const float4*>(obuf + (4 * jj * 128 + 4 * rt));
+        store2(swizzled(ost, 16 * wl + g, 8 * jj + t2), o[jj][0] + p.x, o[jj][1] + p.y);
+        store2(swizzled(ost, 16 * wl + g + 8, 8 * jj + t2), o[jj][2] + p.z, o[jj][3] + p.w);
+      }
+      async_fence();
+      warpgroup_sync(0);
+      if (threadIdx.x == 0) {
+        tma_store_row(&tvr, ost, 64 * qi, static_cast<int>(ri % h), static_cast<int>(ri / h));
+        bulk_commit();
+      }
+    }
+    if (last) ++nrow;
+    ROWS_PHASE(PHASE(5))
+    ROWS_PHASE(PHASE_STEP)
+  }
+  if (threadIdx.x == 0) bulk_wait_read();
+  ROWS_PHASE(PHASE_END)
 }
 
 // ---- eg2: window attention, fusion, residual -------------------------------------
@@ -432,10 +982,10 @@ eg2_local_fuse(const T* __restrict__ x, const T* __restrict__ lg, const T* __res
   });
 }
 
-template <typename T>
 cudaError_t launch_eg1(const void* x, const void* aq, const void* cq, const void* bv,
                        const void* cv, const void* h9, void* qs, void* vs, void* qc, void* vr,
                        int batch, int h, int w, cudaStream_t stream) {
+  using T = float;
   cudaError_t err = allow_smem(eg1_project<T>, project_smem<T>());
   if (err != cudaSuccess) return err;
   err = allow_smem(eg1_rows<T>, rows_smem<T>());
@@ -450,6 +1000,56 @@ cudaError_t launch_eg1(const void* x, const void* aq, const void* cq, const void
   CDFO_LAUNCH(eg1_rows<T>, dim3((w + QROWS - 1) / QROWS, h, batch), rows_smem<T>(), stream,
               static_cast<const T*>(qs), static_cast<const T*>(vs), static_cast<const float*>(h9),
               static_cast<T*>(qc), static_cast<T*>(vr), h, w);
+  return cudaGetLastError();
+}
+
+template <int NCH>
+cudaError_t launch_attend(const CUtensorMap& tqs, const CUtensorMap& tv, const CUtensorMap& tvr,
+                          int batch, int h, int w, int sms, cudaStream_t stream) {
+  const cudaError_t err = allow_smem(eg1_attend_kernel<NCH>, attend_smem(NCH));
+  if (err != cudaSuccess) return err;
+  const long long units = static_cast<long long>(batch) * h * ((w + 63) / 64);
+  CDFO_LAUNCH(eg1_attend_kernel<NCH>, dim3(static_cast<unsigned>(units < sms ? units : sms)),
+              attend_smem(NCH), stream, tqs, tv, tvr, batch, h, w);
+  return cudaGetLastError();
+}
+
+// bfloat16: the walk, then the resident row attention (W <= RESIDENT_W) or
+// the first design's row pass in two passes
+cudaError_t launch_eg1_bf16(const void* x, const void* aq, const void* cq, const void* bv,
+                            const void* cv, const void* h9, void* qs, void* vs, void* qc,
+                            void* vr, int batch, int h, int w, cudaStream_t stream) {
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidValue;
+  CUtensorMap tx, tqs, tv, tqc, tvr, taq, tbv;
+  cudaError_t err;
+  if ((err = nhwc_tensor_map(&taq, aq, batch, 1, C, C)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&tbv, bv, 1, 1, C, C)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&tx, x, batch, h, w, ESTRIP)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&tqs, qs, batch, h, w, ESTRIP)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&tv, vs, batch, h, w, ESTRIP)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&tqc, qc, batch, h, w, ESTRIP)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&tvr, vr, batch, h, w, ESTRIP)) != cudaSuccess) {
+    return err;
+  }
+  if ((err = allow_smem(eg1_walk_kernel, WALK_SMEM)) != cudaSuccess) return err;
+  const long long units = static_cast<long long>(batch) * ((w + ESTRIP - 1) / ESTRIP) * h;
+  CDFO_LAUNCH(eg1_walk_kernel, dim3(static_cast<unsigned>(units < sms ? units : sms)), WALK_SMEM,
+              stream, tx, tqs, tv, tqc, taq, tbv, static_cast<const bf16*>(cq),
+              static_cast<const bf16*>(cv), static_cast<const float*>(h9), batch, h, w);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  switch ((w + 127) / 128) {
+    case 1: return launch_attend<1>(tqs, tv, tvr, batch, h, w, sms, stream);
+    case 2: return launch_attend<2>(tqs, tv, tvr, batch, h, w, sms, stream);
+    case 3: return launch_attend<3>(tqs, tv, tvr, batch, h, w, sms, stream);
+    case 4: return launch_attend<4>(tqs, tv, tvr, batch, h, w, sms, stream);
+    case 5: return launch_attend<5>(tqs, tv, tvr, batch, h, w, sms, stream);
+    default: break;
+  }
+  if ((err = allow_smem(eg1_rows_wide, rows_smem<bf16>())) != cudaSuccess) return err;
+  CDFO_LAUNCH(eg1_rows_wide, dim3((w + QROWS - 1) / QROWS, h, batch), rows_smem<bf16>(), stream,
+              static_cast<const bf16*>(qs), static_cast<const bf16*>(vs),
+              static_cast<const float*>(h9), static_cast<bf16*>(qc), static_cast<bf16*>(vr), h, w);
   return cudaGetLastError();
 }
 
@@ -472,11 +1072,15 @@ cudaError_t launch_eg2(const void* x, const void* lg, const void* wq, const void
 }  // namespace
 
 // x, qs, vs, qc, vr: (batch, h, w, 64) NHWC of one dtype (is_bf16: 1
-// bfloat16, 0 float32); qs, vs: scratch for the projected q_s and v; aq:
-// [batch] per-frame 64 x 64 matrices (out, in) in ops/cuda_build.py::
-// kernel_weights' layout, one frame per tap; bv: the shared matrix in that
-// layout; cq: [batch][64]; cv: [64]; h9: [10] float32 (9 H-band taps, then
-// its bias). Two launches (projection, rows). Returns a cudaError_t.
+// bfloat16, 0 float32); qs, vs: scratch for the projected q_s and v; cq:
+// [batch][64]; cv: [64]; h9: [10] float32 (9 H-band taps, then its bias).
+// float32: aq the [batch] per-frame 64 x 64 matrices (out, in) in
+// ops/cuda_build.py::kernel_weights' layout, one frame per tap, bv the
+// shared matrix in that layout; bfloat16 (all 16-byte aligned): aq (batch,
+// 64 n, 64 k) and bv (64 n, 64 k) as B[n][k] = aq[b][k][n], bv[k][n]
+// (ops/fused_egla.py::pack_eg1_weights; the walk swizzles them). Two launches
+// (projection, rows; in bfloat16 the projection walk with the band, then
+// the row attention). Returns a cudaError_t.
 extern "C" int cdfo_eg1_rows(const void* x, const void* aq, const void* cq, const void* bv,
                              const void* cv, const void* h9, void* qs, void* vs, void* qc,
                              void* vr, int is_bf16, int batch, int h, int w, void* stream) {
@@ -485,8 +1089,8 @@ extern "C" int cdfo_eg1_rows(const void* x, const void* aq, const void* cq, cons
     return cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_eg1<bf16>(x, aq, cq, bv, cv, h9, qs, vs, qc, vr, batch, h, w, s)
-                 : launch_eg1<float>(x, aq, cq, bv, cv, h9, qs, vs, qc, vr, batch, h, w, s);
+  return is_bf16 ? launch_eg1_bf16(x, aq, cq, bv, cv, h9, qs, vs, qc, vr, batch, h, w, s)
+                 : launch_eg1(x, aq, cq, bv, cv, h9, qs, vs, qc, vr, batch, h, w, s);
 }
 
 // x, lg (the column stage's output), out: (batch, h, w, 64) NHWC, h and w

@@ -3,8 +3,10 @@
 // (the token resident), fused_tail.cu (the four convs), fused_block2_q.cu
 // (its s8 products and its 0.5x branch's bf16 convs), fused_head.cu (its
 // three chained products), fused_mdta.cu (stage 1's qkv and grams, stage
-// 2's three products) and fused_groupconv.cu (the group tail's conv). Only
-// those include this header; conv3x3_tile.cuh is unchanged for the rest.
+// 2's three products), fused_groupconv.cu (the group tail's conv),
+// fused_align.cu (dual-MSA stage 2's three products) and fused_egla.cu
+// (eg1's projection and its row attention). Only those include this
+// header; conv3x3_tile.cuh is unchanged for the rest.
 //
 // The wgmma forms used: m64nNk16, bf16 x bf16 -> fp32, A from registers (or,
 // wgmma_ss_*, a K-major tile in shared memory like B) and B from shared
@@ -417,9 +419,11 @@ __device__ __forceinline__ void tma_store_row(const CUtensorMap* map, const void
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
-// waits until this thread's bulk groups have read their shared memory
+// waits until at most N of this thread's bulk groups have not yet read
+// their shared memory
+template <int N = 0>
 __device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 // a barrier of the 128 threads of warpgroup wg (named barrier 1 + wg)
 __device__ __forceinline__ void warpgroup_sync(int wg) {
@@ -487,6 +491,10 @@ __device__ __forceinline__ void stsm_x2_trans(void* row, uint32_t r0, uint32_t r
 __device__ __forceinline__ void keep(float& x) { asm volatile("" : "+f"(x)::"memory"); }
 __device__ __forceinline__ void keep(uint32_t& x) { asm volatile("" : "+r"(x)::"memory"); }
 __device__ __forceinline__ void keep(int& x) { asm volatile("" : "+r"(x)::"memory"); }
+// (a descriptor kept opaque here, so that the ones derived from it after
+// this point are computed where they are used rather than held in
+// registers from before)
+__device__ __forceinline__ void keep(uint64_t& x) { asm volatile("" : "+l"(x)::"memory"); }
 template <typename A, int N>
 __device__ __forceinline__ void keep(A (&r)[N]) {
 #pragma unroll

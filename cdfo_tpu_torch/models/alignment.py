@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from ..ops.cuda_build import cached_pack
-from ..ops.fused_align import msa_stage1, msa_stage2
+from ..ops.fused_align import msa_stage1, msa_stage2, pack_stage2_weights
 from ..ops.fused_mdta import attention_matrix
 from ..ops.fused_tail import pack_tail_weights, resblock_pair
 from ..ops.warp import flow_warp
@@ -103,8 +103,12 @@ class DualAttAlignment(nn.Module):
         gw, gp = gate(self.conv_du, gaps[:, 0]), gate(self.conv_du, gaps[:, 1])
         awt = (amat * gw[:, None, :]).transpose(1, 2).contiguous()
         apt = (amat * gp[:, None, :]).transpose(1, 2).contiguous()
-        fo, gap2 = msa_stage2(warped, pred, center, awt, apt,
-                              self.project_out.weight, w_fuse)
+        w_proj = self.project_out.weight
+        fo, gap2 = msa_stage2(
+            warped, pred, center, awt, apt, w_proj, w_fuse,
+            packed=cached_pack(
+                self, "_msa2_pack", warped, (w_proj, w_fuse),
+                lambda dt: pack_stage2_weights(w_proj, w_fuse, dt)))
         return self._tail(fo, center, gate(self.CALayer.conv_du, gap2))
 
     def forward(self, x, extra_feat, pred_feat, flow, warped_feat=None,

@@ -20,7 +20,11 @@ for a CPU tensor, and a CUDA tensor launches the hand-written kernels in
 ``csrc/fused_align.cu`` (the ports of the TPU kernels ``msa_stage1`` and
 ``msa_stage2``) or raises. Each call is two launches (per-block partial
 sums, then their fixed-order reduction) and counts once in the wrapper's
-``launches``.
+``launches``. The bfloat16 stage 2 is a walk on ``wgmma`` that reads
+W_proj and W_fuse as 128-byte swizzled tiles (``pack_stage2_weights``,
+which ``DualAttAlignment`` keeps with ``cuda_build.cached_pack``) and the
+per-image matrices, made each call from stage 1's statistics, as
+``pack_stage2_images`` stacks them (its loads swizzle them).
 
 Weights are torch layouts: ``w_fuse`` (C, 2C, 1, 1) the shared
 ``fusion_out`` conv (input channels [w; p], or [po; q]), ``w_proj`` (C, C,
@@ -35,6 +39,7 @@ import functools
 import torch
 
 from . import cuda_build as cb
+from .fused_block2 import swizzle128
 
 CHANNELS = 64
 _P = ctypes.c_void_p
@@ -83,10 +88,36 @@ def msa_stage2_plain(warped, pred, center, awt, apt, w_proj, w_fuse):
     return fu.to(dt), fu.sum(dim=(1, 2))
 
 
+def pack_stage2_weights(w_proj, w_fuse, dtype):
+    """Stage 2's (projection, fusion) operands: bfloat16 W_proj as B[n][k]
+    = w_proj[n, k] (C, C) and W_fuse's two halves as B[h][n][k] =
+    w_fuse[n, h C + k] (2, C, C), 128-byte swizzled
+    (``fused_block2.swizzle128``), which the walk keeps resident; float32
+    both in ``cuda_build.kernel_weights``' layout. Callers may keep it."""
+    if dtype == torch.bfloat16:
+        c = w_proj.shape[0]
+        halves = w_fuse[:, :, 0, 0].reshape(c, 2, c).transpose(0, 1)
+        return (swizzle128(w_proj[:, :, 0, 0].to(dtype)),
+                swizzle128(halves.to(dtype)))
+    return cb.kernel_weights(w_proj, dtype), cb.kernel_weights(w_fuse, dtype)
+
+
+def pack_stage2_images(awt, apt, dtype):
+    """The per-image matrices of o = w awt + p apt: bfloat16 (B, 2, C, C),
+    B[b][0][n][k] = awt[b, k, n] and B[b][1][n][k] = apt[b, k, n] (the walk
+    swizzles them as it loads them); float32 [awt; apt]^T as one (C out, 2C
+    in) matrix an image in ``cuda_build.matrix_weights``' layout."""
+    if dtype == torch.bfloat16:
+        return torch.stack([awt.transpose(1, 2), apt.transpose(1, 2)],
+                           dim=1).to(dtype)
+    return cb.matrix_weights(torch.cat([awt, apt], dim=1).transpose(1, 2),
+                             dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol):
     argtypes = {"cdfo_msa_stage1_workspace": [_I] * 4,
-                "cdfo_msa_stage2_workspace": [_I] * 4,
+                "cdfo_msa_stage2_workspace": [_I] * 5,
                 "cdfo_msa_stage1": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P],
                 "cdfo_msa_stage2": [_P] * 8 + [_I, _P] + [_I] * 5 + [_P]}[symbol]
     return cb.kernel_function("fused_align", symbol, argtypes)
@@ -134,8 +165,10 @@ def msa_stage1(warped, pred, center, w_fuse):
     return stats, gaps
 
 
-def msa_stage2(warped, pred, center, awt, apt, w_proj, w_fuse):
-    """(fo, gap) of ``msa_stage2_plain``."""
+def msa_stage2(warped, pred, center, awt, apt, w_proj, w_fuse, packed=None):
+    """(fo, gap) of ``msa_stage2_plain``. ``packed``:
+    ``pack_stage2_weights`` of these weights in the dtype, if the caller
+    keeps it."""
     what = "fused_align stage 2"
     args = (warped, pred, center, awt, apt, w_proj, w_fuse)
     cb.forbid_grad(what, *args)
@@ -143,21 +176,20 @@ def msa_stage2(warped, pred, center, awt, apt, w_proj, w_fuse):
         return msa_stage2_plain(*args)
     b, h, wd, nbr = _check(what, warped, pred, center, (awt, apt),
                            (w_proj,), w_fuse)
-    c = CHANNELS
+    c, dt = CHANNELS, warped.dtype
     fo = torch.empty_like(warped)
     gap = warped.new_empty((b, c), dtype=torch.float32)
     ws = cb.workspace(_kernel("cdfo_msa_stage2_workspace"), what,
-                      warped.device, b, h, wd, nbr)
-    # image b's o = [w, p] [awt; apt] as one (C out, 2C in) matrix
-    ak = cb.matrix_weights(torch.cat([awt, apt], dim=1).transpose(1, 2),
-                           warped.dtype)
-    pk = cb.kernel_weights(w_proj, warped.dtype)
-    fk = cb.kernel_weights(w_fuse, warped.dtype)
+                      warped.device, b, h, wd, nbr, cb.DTYPE_CODES[dt])
+    ak = pack_stage2_images(awt, apt, dt)
+    if packed is None:
+        packed = pack_stage2_weights(w_proj, w_fuse, dt)
+    pk, fk = packed
     cb.launch(_kernel("cdfo_msa_stage2"), what, warped.device,
               warped.data_ptr(), pred.data_ptr(), center.data_ptr(),
               ak.data_ptr(), pk.data_ptr(), fk.data_ptr(), fo.data_ptr(),
-              ws.data_ptr(), ws.numel(), gap.data_ptr(),
-              cb.DTYPE_CODES[warped.dtype], b, h, wd, nbr)
+              ws.data_ptr(), ws.numel(), gap.data_ptr(), cb.DTYPE_CODES[dt],
+              b, h, wd, nbr)
     msa_stage2.launches += 1
     return fo, gap
 

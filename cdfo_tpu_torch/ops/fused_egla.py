@@ -22,8 +22,12 @@ one final rounding.
 ``eg1_rows_plain`` and ``eg2_local_fuse_plain`` are the plain PyTorch
 versions; the wrappers take them for a CPU tensor. A CUDA tensor launches
 the hand-written kernels in ``csrc/fused_egla.cu`` or raises. eg1's call is
-two launches (the projection into scratch, then the rows) and counts once in
-``eg1_rows.launches``; ``eg2_local_fuse.launches`` counts eg2's.
+two launches (the projection into scratch, then the rows; in bfloat16 the
+projection and band walk, then the row attention with the row resident, or
+past 640 positions the first design's row pass) and counts once in
+``eg1_rows.launches``; ``eg2_local_fuse.launches`` counts eg2's. eg1's
+matrices go to the kernel as ``pack_eg1_weights`` lays them out; aq depends
+on the mask, so they are packed in each call.
 """
 from __future__ import annotations
 
@@ -115,6 +119,17 @@ def _matrix(w, dtype):
     return cb.kernel_weights(w.t()[..., None, None], dtype)
 
 
+def pack_eg1_weights(aq, bv, dtype):
+    """eg1's (aq, bv) operands: bfloat16 aq (M, C n, C k) with B[m][n][k] =
+    aq[m, k, n] and bv (C n, C k) with B[n][k] = bv[k, n] (the walk loads
+    them swizzled); float32 in ``cuda_build.kernel_weights``' layout (aq
+    one frame a tap)."""
+    if dtype == torch.bfloat16:
+        return (aq.transpose(1, 2).to(dtype).contiguous(),
+                bv.t().to(dtype).contiguous())
+    return cb.matrix_weights(aq.transpose(1, 2), dtype), _matrix(bv, dtype)
+
+
 def eg1_rows(x, aq, cq, bv, cv, h9):
     """(q_c, v_r) of ``eg1_rows_plain``."""
     args = (x, aq, cq, bv, cv, h9)
@@ -129,8 +144,7 @@ def eg1_rows(x, aq, cq, bv, cv, h9):
                            "bv": (bv, (c, c)), "cv": (cv, (1, c)),
                            "h9": (h9, (10,))})
     qs, v, qc, vr = (torch.empty_like(x) for _ in range(4))
-    aqk = cb.matrix_weights(aq.transpose(1, 2), x.dtype)
-    bvk = _matrix(bv, x.dtype)
+    aqk, bvk = pack_eg1_weights(aq, bv, x.dtype)
     cb.launch(_kernel("cdfo_eg1_rows"), what, x.device, x.data_ptr(),
               aqk.data_ptr(), cq.data_ptr(), bvk.data_ptr(), cv.data_ptr(),
               h9.data_ptr(), qs.data_ptr(), v.data_ptr(), qc.data_ptr(),

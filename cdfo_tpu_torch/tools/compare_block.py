@@ -2,8 +2,9 @@
 parent commit, unpacked with ``git archive``), in turns on one card, in
 bfloat16: the exact ``Block_`` (``--kernel block``), the int8 ``Block_``
 (``blockq``), the alignment tail (``tail``, 6 neighbours per image), the
-upsample head (``head``), the group tail (``group``) or MDTA stage 1 or 2
-(``mdta1``, ``mdta2``).
+upsample head (``head``), the group tail (``group``), MDTA stage 1 or 2
+(``mdta1``, ``mdta2``), dual-MSA stage 2 (``msa2``, 6 neighbours per
+centre, ``--b`` centres) or EGLA's eg1 (``eg1``, ``--b`` frames).
 
 Each side is its own ``ops`` module, built by its own ``cuda_build`` from
 its own ``csrc/``, and is first held against this checkout's plain version
@@ -12,13 +13,14 @@ this, other, each side is timed (median of ``--reps`` calls, CUDA events)
 three ways: the call with its weights packed in it (the wrapper without
 ``packed``: what a caller that keeps no pack pays), the call with the pack
 kept (what the model pays) and the pack alone; a side whose wrapper takes
-no pack (the tail before it had one, the head, the group tail and the MDTA
-passes before they had one) has only the first. Times are per call, in
+no pack (the tail before it had one, the head, the group tail, the MDTA
+passes and dual-MSA stage 2 before they had one, eg1, whose matrices change
+with the mask) has only the first. Times are per call, in
 ms, with the card's name.
 
     python -m cdfo_tpu_torch.tools.compare_block --other DIR
-        [--kernel block|blockq|tail|head|group|mdta1|mdta2 --b 4 --h 272
-         --w 480 --reps 15]
+        [--kernel block|blockq|tail|head|group|mdta1|mdta2|msa2|eg1 --b 4
+         --h 272 --w 480 --reps 15]
 """
 from __future__ import annotations
 
@@ -33,8 +35,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..ops import fused_align as fal
 from ..ops import fused_block2 as fb
 from ..ops import fused_block2_q as fq
+from ..ops import fused_egla as fe
 from ..ops import fused_groupconv as fg
 from ..ops import fused_head as fh
 from ..ops import fused_mdta as fm
@@ -66,6 +70,10 @@ KERNELS = {
     "mdta2": (fm, "mdta_stage2",
               lambda m, a: m.pack_stage2_weights(a[4], a[7], a[0].dtype),
               fm.mdta_stage2_plain, "MDTA stage 2"),
+    "msa2": (fal, "msa_stage2",
+             lambda m, a: m.pack_stage2_weights(a[5], a[6], a[0].dtype),
+             fal.msa_stage2_plain, "dual-MSA stage 2"),
+    "eg1": (fe, "eg1_rows", None, fe.eg1_rows_plain, "EGLA eg1"),
 }
 
 
@@ -116,9 +124,11 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     g = torch.Generator(device="cuda").manual_seed(1)
-    if kind in ("mdta1", "mdta2"):
+    if kind in ("mdta1", "mdta2", "msa2"):
         args = kc.align_embed_args(kind, torch.bfloat16, g, (a.b, a.h, a.w),
                                    6)
+    elif kind == "eg1":
+        args = kc.egla_args(kind, torch.bfloat16, g, (a.b, a.h, a.w, 64))
     else:
         args = kc.trunk_args(kind, torch.bfloat16, g, (a.b, a.h, a.w, 64),
                              nbr=6)
@@ -142,7 +152,7 @@ def main(argv=None):
         for way, fn in sides[side].items():
             ms[side, way].append(
                 float(np.median(event_ms(fn, a.reps, warmup=3))))
-    shape = (a.b, a.h, a.w, 64) if kind != "tail" else (6 * a.b, a.h, a.w, 64)
+    shape = tuple(args[0].shape)
     print(f"{what} {shape} bf16, ms a call in turns (other, this, this, "
           f"other) [{card}]:")
     for way in WAYS:

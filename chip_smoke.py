@@ -27,9 +27,9 @@ CUDA device the script exits non-zero before printing any result):
    odd extent must be refused), its clipped values counted alike by kernel
    and plain version, timed in turns with the exact ``Block_`` (exact,
    int8, int8, exact), both with their weights packed once; the alignment
-   tail, the head, the group tail and both MDTA passes also with their
-   packs kept (the group tail beside cuDNN's ``F.conv2d`` alone, its conv
-   without the skip add);
+   tail, the head, the group tail, both MDTA passes and dual-MSA stage 2
+   also with their packs kept (the group tail beside cuDNN's ``F.conv2d``
+   alone, its conv without the skip add);
    the block-gather ring warp at 24 neighbour images of
    a ring of 8 272x480 frames and at (5 of 3, 20, 36), on flows constant
    over 4x4 blocks, on those with a mixed bottom band and single moved
@@ -114,16 +114,20 @@ path (``torch.profiler``): device time by kernel, in order, and the
 device's busy share of the run's wall time. Flags named after it are added
 to the four (``--profile trunk_int8 block_warp``).
 
-    python3 chip_smoke.py --phases
+    python3 chip_smoke.py --phases [msa2 eg1 blockq block tail head mdta1
+                                    group mdta2]
 
-builds the int8 ``Block_``, the exact one, the alignment tail, the head,
-the group tail and both MDTA passes with their phase clocks compiled in
-and prints, at the main shapes in bfloat16, the cycles spent in each
-phase: per step for the walks (the int8 kernel's walk down its strips,
-the tail's, the head's and stage 1's row by row, the group tail's and
-stage 2's two rows a step), as the kernels count their steps, and per CTA
-for the exact ``Block_``. The int8 ``Block_``'s other
-launch, its 0.5x branch, has no marks: ``--profile`` gives its device time.
+builds dual-MSA stage 2, eg1 (twice: its projection and band walk's
+marks, then its row attention's), the int8 ``Block_``, the exact one, the
+alignment tail, the head, the group tail and both MDTA passes (or those
+named) with their phase clocks compiled in and prints, at the main shapes
+in bfloat16, the cycles spent in each phase: per step for the walks
+(stage 2's (centre, 128 pixels, neighbour) steps, eg1's two rows a step
+and its row attention's 64-query tiles, the int8 kernel's walk down its
+strips, the tail's, the head's and stage 1's row by row, the group tail's
+and MDTA stage 2's two rows a step), as the kernels count their steps,
+and per CTA for the exact ``Block_``. The int8 ``Block_``'s other launch,
+its 0.5x branch, has no marks: ``--profile`` gives its device time.
 """
 from __future__ import annotations
 
@@ -497,9 +501,9 @@ def check_trunk_kernels(card: str) -> dict:
 def check_align_embed_kernels(card: str) -> dict:
     """Phase 3, fused embed and alignment part: ``check_kernel_table`` at
     the MDTA images, or centres with their neighbours, of
-    ``ALIGN_EMBED_SHAPES``, then both MDTA passes with their packs kept,
-    as ``PartitionTransformerSA2Fast`` keeps them (the JSON line's
-    ``ms``)."""
+    ``ALIGN_EMBED_SHAPES``, then both MDTA passes and dual-MSA stage 2
+    with their packs kept, as ``PartitionTransformerSA2Fast`` and
+    ``DualAttAlignment`` keep them (the JSON line's ``ms``)."""
     fields = check_kernel_table(card, ALIGN_EMBED_KERNELS, [
         (f"{shape} (MSA: {nbr} neighbours per centre)",
          (shape, nbr) == ALIGN_EMBED_SHAPES[0],
@@ -514,6 +518,9 @@ def check_align_embed_kernels(card: str) -> dict:
     args = kc.align_embed_args("mdta2", torch.bfloat16, g, shape, 6)
     pack_kept_ms(card, fields, "mdta2", args, lambda a: fm.pack_stage2_weights(
         a[4], a[7], torch.bfloat16), f"{shape}")
+    args = kc.align_embed_args("msa2", torch.bfloat16, g, shape, 6)
+    pack_kept_ms(card, fields, "msa2", args, lambda a: fal.pack_stage2_weights(
+        a[5], a[6], torch.bfloat16), f"{shape} (6 neighbours per centre)")
     return fields
 
 
@@ -1114,7 +1121,7 @@ def int8_clipped_share(trunk, x):
     return total[0].item() / (4 * n), total[1].item() / (16 * n)
 
 
-def profile_main_path(card: str, extra=(), top: int = 15):
+def profile_main_path(card: str, extra=(), top: int = 30):
     """``--profile``: the engine's timed region (bootstrap and every step of
     a 12-frame 272x480 sequence, inputs staged before it) of the main path
     (with the flags named in ``extra`` on as well) under
@@ -1194,6 +1201,22 @@ MDTA2_PHASES = ("the wait for the step's rows at its barrier",
                 "the proxy fence and barrier before the conv",
                 "the conv's products",
                 "epilogue: + b + t + x2, the store's issue")
+# the PHASE marks of csrc/fused_align.cu's bf16 stage-2 walk, per step
+MSA2_PHASES = ("the wait for the step's stage at its mbarrier",
+               "o = [w p] [awt; apt] on wgmma", "po = o W_proj on wgmma",
+               "fo = po W_fA + q W_fB on wgmma",
+               "epilogue: relu, sums, rounded fo to shared memory",
+               "barrier, the store's and the next loads' issue, running sums")
+# the PHASE marks of csrc/fused_egla.cu's bf16 eg1 walks, per step: the
+# projection and band walk's, then (-DCDFO_PHASE_ROWS) the row attention's
+EG1_WALK_PHASES = ("the wait for x's rows at the step's barrier",
+                   "q_s and v on wgmma", "their epilogue: ring and v rows",
+                   "the band, the stores' issue")
+EG1_ROWS_PHASES = ("the wait for the row's K", "Q K^T on wgmma",
+                   "mask, row max and its exchange",
+                   "exp, row sum and its exchange, p to bf16",
+                   "the wait for the row's V, P.V on wgmma",
+                   "warpgroup 1's half, v_r rounded, the store's issue")
 # the PHASE marks of csrc/fused_block2.cu's bf16 route, in order
 EXACT_PHASES = ("prologue", "conv1 and the y stores (4 chunks)",
                 "fold and conv2 with the sums (4 chunks)", "epilogue")
@@ -1201,7 +1224,7 @@ EXACT_PHASES = ("prologue", "conv1 and the y stores (4 chunks)",
 
 @torch.no_grad()
 def phase_clocks(card: str, label: str, source: str, symbol: str, nargs,
-                 args, res, check, names):
+                 args, res, check, names, defines=()):
     """``--phases``: compiles ``csrc/<source>.cu`` once more with
     ``-DCDFO_PHASE_CLOCKS``, launches ``symbol(*args, stream)`` (``nargs``
     pointers, then ints, as ``args`` gives them, or ``nargs`` the ctypes
@@ -1210,11 +1233,13 @@ def phase_clocks(card: str, label: str, source: str, symbol: str, nargs,
     thread 0 of a CTA spends between the kernel's phase marks
     (``csrc/phase_clocks.cuh``), averaged over the steps the launch's CTAs
     ran, as the kernel counts them, or over its CTAs where it counts none
-    (a warp's own view: its waits at barriers count where it waits)."""
-    out = cuda_build.BUILD_DIR / f"{source}-phase-clocks.so"
+    (a warp's own view: its waits at barriers count where it waits).
+    ``defines``: further -D flags (which of a source's kernels is
+    marked)."""
+    out = cuda_build.BUILD_DIR / f"{source}{''.join(defines)}-phase-clocks.so"
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
-                    "-DCDFO_PHASE_CLOCKS", "-o", str(out),
+                    "-DCDFO_PHASE_CLOCKS", *defines, "-o", str(out),
                     str(cuda_build.CSRC / f"{source}.cu")],
                    check=True, capture_output=True, timeout=900)
     lib = ctypes.CDLL(str(out))
@@ -1248,104 +1273,171 @@ def phase_clocks(card: str, label: str, source: str, symbol: str, nargs,
         print(f"  {c / per:9.0f} {100 * c / total:5.1f}%  {name}", flush=True)
 
 
-def run_phase_clocks(card: str):
+PHASE_KINDS = ("blockq", "block", "tail", "head", "mdta1", "group", "mdta2",
+               "msa2", "eg1")
+
+
+def run_phase_clocks(card: str, kinds=PHASE_KINDS):
     """``--phases`` for the int8 ``Block_``, the exact one, the alignment
-    tail, the head, the group tail and both MDTA passes at the main shapes
-    in bfloat16, their weights packed once."""
-    g = torch.Generator(device="cuda").manual_seed(4)
-    x, *params = kc.trunk_args("blockq", torch.bfloat16, g, TRUNK_MAIN)
-    packed = fq.pack_weights_q(*params, torch.bfloat16)
-    res = torch.empty_like(x)
-    b, h, w, c = x.shape
-    e = torch.empty(b, h // 2, w // 2, c, dtype=x.dtype, device="cuda")
-    phase_clocks(
-        card, f"int8 Block_ {tuple(x.shape)} (the walk)", "fused_block2_q",
-        "cdfo_fused_block2_q", 19,
-        [x.data_ptr(), *fb.pointers(packed), res.data_ptr(), None,
-         e.data_ptr(), 1, b, h, w], res,
-        lambda r: kc.assert_outputs_close(
-            r, fq.scale_block_q_plain(x, *params), torch.bfloat16, "blockq"),
-        INT8_PHASES)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    x, *params = kc.trunk_args("block", torch.bfloat16, g, TRUNK_MAIN)
-    packed = fb.pack_weights(*params, torch.bfloat16)
-    res = torch.empty_like(x)
-    phase_clocks(
-        card, f"exact Block_ {tuple(x.shape)}", "fused_block2",
-        "cdfo_fused_block2", 11,
-        [x.data_ptr(), *fb.pointers(packed), res.data_ptr(), 1,
-         *x.shape[:3]], res,
-        lambda r: kc.assert_outputs_close(
-            r, fb.scale_block_plain(x, *params), torch.bfloat16, "block"),
-        EXACT_PHASES)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    args = kc.trunk_args("tail", torch.bfloat16, g, TRUNK_MAIN, nbr=6)
-    packed = ft.pack_tail_weights(args[3::2], args[4::2], torch.bfloat16)
-    res = torch.empty_like(args[0])
-    b, h, w, _ = args[0].shape
-    phase_clocks(
-        card, f"alignment tail {tuple(args[0].shape)}", "fused_tail",
-        "cdfo_fused_tail", 6,
-        [*(t.data_ptr() for t in args[:3]), *fb.pointers(packed),
-         res.data_ptr(), 1, b, h, w, b // args[1].shape[0]], res,
-        lambda r: kc.assert_outputs_close(
-            r, ft.resblock_pair_plain(*args), torch.bfloat16, "tail"),
-        TAIL_PHASES)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    args = kc.trunk_args("head", torch.bfloat16, g, TRUNK_MAIN)
-    packed = fh.pack_head_weights(*args[2:7], torch.bfloat16)
-    b, h, w, _ = args[0].shape
-    res = torch.empty(b, 4 * h, 4 * w, 1, device="cuda")
-    phase_clocks(
-        card, f"head {tuple(args[0].shape)}", "fused_head", "cdfo_fused_head",
-        9, [args[0].data_ptr(), args[1].data_ptr(), *fb.pointers(packed),
-            args[7].data_ptr(), res.data_ptr(), 1, b, h, w], res,
-        lambda r: kc.assert_outputs_close(
-            r, fh.fused_head_plain(*args), torch.bfloat16, "head"),
-        HEAD_PHASES)
+    tail, the head, the group tail, both MDTA passes, dual-MSA stage 2 and
+    eg1's two walks at the main shapes in bfloat16, their weights packed
+    once; ``kinds``: those of ``PHASE_KINDS`` to run."""
+    if "msa2" in kinds:
+        phase_clocks_msa2(card)
+    if "eg1" in kinds:
+        phase_clocks_eg1(card)
+    if "blockq" in kinds:
+        g = torch.Generator(device="cuda").manual_seed(4)
+        x, *params = kc.trunk_args("blockq", torch.bfloat16, g, TRUNK_MAIN)
+        packed = fq.pack_weights_q(*params, torch.bfloat16)
+        res = torch.empty_like(x)
+        b, h, w, c = x.shape
+        e = torch.empty(b, h // 2, w // 2, c, dtype=x.dtype, device="cuda")
+        phase_clocks(
+            card, f"int8 Block_ {tuple(x.shape)} (the walk)", "fused_block2_q",
+            "cdfo_fused_block2_q", 19,
+            [x.data_ptr(), *fb.pointers(packed), res.data_ptr(), None,
+             e.data_ptr(), 1, b, h, w], res,
+            lambda r: kc.assert_outputs_close(
+                r, fq.scale_block_q_plain(x, *params), torch.bfloat16,
+                "blockq"),
+            INT8_PHASES)
+    if "block" in kinds:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        x, *params = kc.trunk_args("block", torch.bfloat16, g, TRUNK_MAIN)
+        packed = fb.pack_weights(*params, torch.bfloat16)
+        res = torch.empty_like(x)
+        phase_clocks(
+            card, f"exact Block_ {tuple(x.shape)}", "fused_block2",
+            "cdfo_fused_block2", 11,
+            [x.data_ptr(), *fb.pointers(packed), res.data_ptr(), 1,
+             *x.shape[:3]], res,
+            lambda r: kc.assert_outputs_close(
+                r, fb.scale_block_plain(x, *params), torch.bfloat16, "block"),
+            EXACT_PHASES)
+    if "tail" in kinds:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        args = kc.trunk_args("tail", torch.bfloat16, g, TRUNK_MAIN, nbr=6)
+        packed = ft.pack_tail_weights(args[3::2], args[4::2], torch.bfloat16)
+        res = torch.empty_like(args[0])
+        b, h, w, _ = args[0].shape
+        phase_clocks(
+            card, f"alignment tail {tuple(args[0].shape)}", "fused_tail",
+            "cdfo_fused_tail", 6,
+            [*(t.data_ptr() for t in args[:3]), *fb.pointers(packed),
+             res.data_ptr(), 1, b, h, w, b // args[1].shape[0]], res,
+            lambda r: kc.assert_outputs_close(
+                r, ft.resblock_pair_plain(*args), torch.bfloat16, "tail"),
+            TAIL_PHASES)
+    if "head" in kinds:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        args = kc.trunk_args("head", torch.bfloat16, g, TRUNK_MAIN)
+        packed = fh.pack_head_weights(*args[2:7], torch.bfloat16)
+        b, h, w, _ = args[0].shape
+        res = torch.empty(b, 4 * h, 4 * w, 1, device="cuda")
+        phase_clocks(
+            card, f"head {tuple(args[0].shape)}", "fused_head",
+            "cdfo_fused_head",
+            9, [args[0].data_ptr(), args[1].data_ptr(), *fb.pointers(packed),
+                args[7].data_ptr(), res.data_ptr(), 1, b, h, w], res,
+            lambda r: kc.assert_outputs_close(
+                r, fh.fused_head_plain(*args), torch.bfloat16, "head"),
+            HEAD_PHASES)
+    if "mdta1" in kinds:
+        g = torch.Generator(device="cuda").manual_seed(2)
+        shape = ALIGN_EMBED_SHAPES[0][0]
+        x, lnw, lnb, wq, wdw = kc.align_embed_args("mdta1", torch.bfloat16, g,
+                                                   shape, 6)
+        wk, taps = fm.pack_stage1_weights(wq, wdw, torch.bfloat16)
+        v = torch.empty_like(x)
+        stats = torch.empty(shape[0], 3, 64, 64, device="cuda")
+        ws = cuda_build.workspace(fm._kernel("cdfo_mdta_stage1_workspace"),
+                                  "mdta1", x.device, *shape, 1)
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        phase_clocks(
+            card, f"MDTA stage 1 {tuple(x.shape)}", "fused_mdta",
+            "cdfo_mdta_stage1", [ptr] * 7 + [i32, ptr] + [i32] * 4,
+            [*(t.data_ptr() for t in (x, lnw, lnb, wk, taps, v, ws)),
+             ws.numel(),
+             stats.data_ptr(), 1, *shape], (v, stats),
+            lambda r: kc.assert_outputs_close(
+                r, fm.mdta_stage1_plain(x, lnw, lnb, wq, wdw), torch.bfloat16,
+                "mdta1"),
+            MDTA1_PHASES)
+    if "group" in kinds:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        args = kc.trunk_args("group", torch.bfloat16, g, TRUNK_MAIN)
+        wk = fg.pack_grouptail_weights(args[2], torch.bfloat16)
+        res = torch.empty_like(args[0])
+        phase_clocks(
+            card, f"group tail {TRUNK_MAIN}", "fused_groupconv",
+            "cdfo_grouptail",
+            5, [args[0].data_ptr(), args[1].data_ptr(), wk.data_ptr(),
+                args[3].data_ptr(), res.data_ptr(), 1, *TRUNK_MAIN[:3]], res,
+            lambda r: kc.assert_outputs_close(
+                r, fg.grouptail_plain(*args), torch.bfloat16, "group"),
+            GROUP_PHASES)
+    if "mdta2" in kinds:
+        g = torch.Generator(device="cuda").manual_seed(2)
+        shape = ALIGN_EMBED_SHAPES[0][0]
+        args = kc.align_embed_args("mdta2", torch.bfloat16, g, shape, 6)
+        pk, ck = fm.pack_stage2_weights(args[4], args[7], torch.bfloat16)
+        res = torch.empty_like(args[0])
+        phase_clocks(
+            card, f"MDTA stage 2 {tuple(args[0].shape)}", "fused_mdta",
+            "cdfo_mdta_stage2", 10,
+            [*(t.data_ptr() for t in args[:4]), pk.data_ptr(),
+             args[5].data_ptr(), args[6].data_ptr(), ck.data_ptr(),
+             args[8].data_ptr(), res.data_ptr(), 1, *shape], res,
+            lambda r: kc.assert_outputs_close(
+                r, fm.mdta_stage2_plain(*args), torch.bfloat16, "mdta2"),
+            MDTA2_PHASES)
+
+
+def phase_clocks_msa2(card: str):
+    """``--phases`` of dual-MSA stage 2's bf16 walk at the main path's 24
+    neighbours of 4 centres, W_proj and W_fuse packed once."""
     g = torch.Generator(device="cuda").manual_seed(2)
-    shape = ALIGN_EMBED_SHAPES[0][0]
-    x, lnw, lnb, wq, wdw = kc.align_embed_args("mdta1", torch.bfloat16, g,
-                                               shape, 6)
-    wk, taps = fm.pack_stage1_weights(wq, wdw, torch.bfloat16)
-    v = torch.empty_like(x)
-    stats = torch.empty(shape[0], 3, 64, 64, device="cuda")
-    ws = cuda_build.workspace(fm._kernel("cdfo_mdta_stage1_workspace"),
-                              "mdta1", x.device, *shape, 1)
+    shape, nbr = ALIGN_EMBED_SHAPES[0]
+    args = kc.align_embed_args("msa2", torch.bfloat16, g, shape, nbr)
+    w, p, center, awt, apt, w_proj, w_fuse = args
+    pk, fk = fal.pack_stage2_weights(w_proj, w_fuse, torch.bfloat16)
+    ak = fal.pack_stage2_images(awt, apt, torch.bfloat16)
+    b = w.shape[0]
+    fo = torch.empty_like(w)
+    gap = torch.empty(b, 64, device="cuda")
+    ws = cuda_build.workspace(fal._kernel("cdfo_msa_stage2_workspace"),
+                              "msa2", w.device, b, *shape[1:], nbr, 1)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     phase_clocks(
-        card, f"MDTA stage 1 {tuple(x.shape)}", "fused_mdta",
-        "cdfo_mdta_stage1", [ptr] * 7 + [i32, ptr] + [i32] * 4,
-        [*(t.data_ptr() for t in (x, lnw, lnb, wk, taps, v, ws)), ws.numel(),
-         stats.data_ptr(), 1, *shape], (v, stats),
+        card, f"dual-MSA stage 2 {tuple(w.shape)}", "fused_align",
+        "cdfo_msa_stage2", [ptr] * 8 + [i32, ptr] + [i32] * 5,
+        [*(t.data_ptr() for t in (w, p, center, ak, pk, fk, fo, ws)),
+         ws.numel(), gap.data_ptr(), 1, b, *shape[1:], nbr], (fo, gap),
         lambda r: kc.assert_outputs_close(
-            r, fm.mdta_stage1_plain(x, lnw, lnb, wq, wdw), torch.bfloat16,
-            "mdta1"),
-        MDTA1_PHASES)
-    g = torch.Generator(device="cuda").manual_seed(1)
-    args = kc.trunk_args("group", torch.bfloat16, g, TRUNK_MAIN)
-    wk = fg.pack_grouptail_weights(args[2], torch.bfloat16)
-    res = torch.empty_like(args[0])
-    phase_clocks(
-        card, f"group tail {TRUNK_MAIN}", "fused_groupconv", "cdfo_grouptail",
-        5, [args[0].data_ptr(), args[1].data_ptr(), wk.data_ptr(),
-            args[3].data_ptr(), res.data_ptr(), 1, *TRUNK_MAIN[:3]], res,
-        lambda r: kc.assert_outputs_close(
-            r, fg.grouptail_plain(*args), torch.bfloat16, "group"),
-        GROUP_PHASES)
-    g = torch.Generator(device="cuda").manual_seed(2)
-    args = kc.align_embed_args("mdta2", torch.bfloat16, g, shape, 6)
-    pk, ck = fm.pack_stage2_weights(args[4], args[7], torch.bfloat16)
-    res = torch.empty_like(args[0])
-    phase_clocks(
-        card, f"MDTA stage 2 {tuple(args[0].shape)}", "fused_mdta",
-        "cdfo_mdta_stage2", 10,
-        [*(t.data_ptr() for t in args[:4]), pk.data_ptr(),
-         args[5].data_ptr(), args[6].data_ptr(), ck.data_ptr(),
-         args[8].data_ptr(), res.data_ptr(), 1, *shape], res,
-        lambda r: kc.assert_outputs_close(
-            r, fm.mdta_stage2_plain(*args), torch.bfloat16, "mdta2"),
-        MDTA2_PHASES)
+            r, fal.msa_stage2_plain(*args), torch.bfloat16, "msa2"),
+        MSA2_PHASES)
+
+
+def phase_clocks_eg1(card: str):
+    """``--phases`` of eg1's two bf16 walks at the main shape, each in a
+    build of its own (the projection and band walk's marks, then the row
+    attention's)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    args = kc.egla_args("eg1", torch.bfloat16, g, EGLA_MAIN)
+    x, aq, cq, bv, cv, h9 = args
+    aqk, bvk = fe.pack_eg1_weights(aq, bv, torch.bfloat16)
+    qs, v, qc, vr = (torch.empty_like(x) for _ in range(4))
+    for label, defines, names in (
+            ("projection and band walk", (), EG1_WALK_PHASES),
+            ("row attention", ("-DCDFO_PHASE_ROWS",), EG1_ROWS_PHASES)):
+        phase_clocks(
+            card, f"eg1 {EGLA_MAIN} ({label})", "fused_egla", "cdfo_eg1_rows",
+            10, [*(t.data_ptr() for t in (x, aqk, cq, bvk, cv, h9, qs, v, qc,
+                                          vr)), 1, *EGLA_MAIN[:3]], (qc, vr),
+            lambda r: kc.assert_outputs_close(
+                r, fe.eg1_rows_plain(*args), torch.bfloat16, "eg1"),
+            names, defines)
 
 
 def redesign_order(card: str, fields: dict, launches: dict) -> None:
@@ -1383,6 +1475,8 @@ def entry_name(line: str) -> str:
         return f"entry {mangled}"
     args = {"IfE": "<float>", "I13__nv_bfloat16E": "<bf16>", "ILb0E": "<false>",
             "ILb1E": "<true>"}
+    if rest.startswith("ILi") and "E" in rest[3:]:   # an int argument
+        return f"entry {name}<{rest[3:rest.index('E', 3)]}>"
     return "entry " + name + next(
         (v for k, v in args.items() if rest.startswith(k)), "")
 
@@ -1427,8 +1521,8 @@ def main():
     if sys.argv[1:2] == ["--profile"]:
         profile_main_path(card, sys.argv[2:])
         return
-    if sys.argv[1:] == ["--phases"]:
-        run_phase_clocks(card)
+    if sys.argv[1:2] == ["--phases"]:
+        run_phase_clocks(card, sys.argv[2:] or PHASE_KINDS)
         return
 
     fields = check_kernels(card)

@@ -376,6 +376,52 @@ def test_align_embed_kernel_matches_plain(cuda, kind, shape, nbr, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,nbr", [((4, 272, 480), 6), ((4, 272, 480), 3),
+                                       ((3, 10, 19), 3), ((5, 9, 200), 1)])
+def test_msa2_walk_matches_plain(cuda, shape, nbr):
+    """The bfloat16 stage-2 walk at the main path's shape with 6 and 3
+    neighbours a centre, at a ragged one whose units a CTA walks across a
+    centre, and at one neighbour a centre; the weights packed once (as the
+    model keeps them) give the same bits as packed in the call."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    args = kc.align_embed_args("msa2", torch.bfloat16, g, shape, nbr,
+                               device=cuda)
+    packed = fal.pack_stage2_weights(args[5], args[6], torch.bfloat16)
+    with torch.no_grad():
+        out = fal.msa_stage2(*args)
+        kept = fal.msa_stage2(*args, packed=packed)
+        ref = fal.msa_stage2_plain(*args)
+    torch.cuda.synchronize()
+    kc.assert_outputs_close(out, ref, torch.bfloat16, "msa2")
+    assert all(torch.equal(a, b) for a, b in zip(out, kept))
+
+
+@pytest.mark.cuda
+def test_alignment_caches_its_stage2_pack(cuda):
+    """DualAttAlignment.fused_msa keeps stage 2's pack until W_proj or
+    W_fuse changes."""
+    from cdfo_tpu_torch.models.alignment import DualAttAlignment
+    from cdfo_tpu_torch.models.layers import init_weights
+    align = init_weights(DualAttAlignment(64, dtype=torch.bfloat16),
+                         torch.Generator().manual_seed(0)).to(cuda)
+    w, p = (torch.randn(3, 8, 16, 64, device=cuda).bfloat16()
+            for _ in range(2))
+    center = torch.randn(1, 8, 16, 64, device=cuda).bfloat16()
+    with torch.no_grad():
+        a = align.fused_msa(w, p, center)
+        pack = align._msa2_pack
+        assert torch.equal(a, align.fused_msa(w, p, center))
+        assert align._msa2_pack is pack
+        align.project_out.weight.mul_(0.5)
+        align.fused_msa(w, p, center)
+        pack2 = align._msa2_pack
+        assert pack2 is not pack
+        align.fusion_out[0].weight.mul_(0.5)
+        align.fused_msa(w, p, center)
+    assert align._msa2_pack is not pack2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", list(ALIGN_EMBED))
 def test_align_embed_kernel_rejects_what_it_does_not_take(cuda, kind):
     kernel, _ = ALIGN_EMBED[kind]
@@ -409,12 +455,16 @@ EGLA = {"eg1": (fe.eg1_rows, fe.eg1_rows_plain),
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 272, 480, 64), (2, 24, 40, 64),
-                                   (1, 8, 8, 64), (3, 16, 136, 64)])
+                                   (1, 8, 8, 64), (3, 16, 136, 64),
+                                   (1, 16, 296, 64), (1, 8, 640, 64),
+                                   (1, 8, 704, 64)])
 @pytest.mark.parametrize("kind", list(EGLA))
 def test_egla_kernel_matches_plain(cuda, kind, shape, dtype):
     """The main path's shape, a ragged W (not a multiple of the 64-key or
-    128-query tile; eg2: a last tile of one window), one window, and a row
-    of three query tiles."""
+    128-query tile; eg2: a last tile of one window), one window, a row of
+    three query tiles, a W past 256 off the 64-position tiles, the widest
+    row eg1 keeps resident (640) and one past it (its first design's row
+    pass, in two passes)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     kernel, plain = EGLA[kind]
     g = torch.Generator(device=cuda).manual_seed(6)
@@ -442,6 +492,30 @@ def test_eg1_takes_any_height(cuda, h, dtype):
         ref = fe.eg1_rows_plain(*args)
     torch.cuda.synchronize()
     kc.assert_outputs_close(out, ref, dtype, "eg1")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [300, 704])
+def test_eg1_rounds_the_normalised_p(cuda, w):
+    """eg1's bfloat16 row attention rounds p = e / sum(e), on the resident
+    route (W = 300) and the wide one (704): its v_r is several times nearer
+    the normalised-p reference than the unnormalised one."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    args = kc.egla_args("eg1", torch.bfloat16, g, (1, 12, w, 64), device=cuda)
+    with torch.no_grad():
+        vr = fe.eg1_rows(*args)[1].flatten(0, 1).float()
+    x, aq, cq, bv, cv, _ = (t.float() for t in args)
+    q = (torch.matmul(x, aq[:, None]) + cq[:, None, None]).bfloat16()
+    v = (torch.matmul(x, bv) + cv).bfloat16()
+    q, v = q.flatten(0, 1), v.flatten(0, 1)
+    normalised = fa.token_attention_plain(q, v).float()
+    e = torch.exp((lambda s: s - s.amax(-1, keepdim=True))(
+        torch.matmul(q.float(), q.float().transpose(1, 2))))
+    unnormalised = (torch.matmul(e.bfloat16().float(), v.float())
+                    / e.sum(-1, keepdim=True)).bfloat16().float()
+    near = (vr - normalised).abs().mean().item()
+    far = (vr - unnormalised).abs().mean().item()
+    assert far > 4 * near, (near, far)
 
 
 @pytest.mark.cuda

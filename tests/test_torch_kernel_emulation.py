@@ -360,7 +360,7 @@ inline void tma_store_row(const CUtensorMap* m, const void* src, int x0, int y, 
   });
 }
 inline void bulk_commit() {}
-inline void bulk_wait_read() {}
+template <int N = 0> void bulk_wait_read() {}
 // stmatrix.trans: matrix j stored transposed, lane 4g + t's pair to bytes
 // 2g .. 2g+1 of rows 2t and 2t + 1 (x2: matrices 0 and 1)
 inline void emu_stsm_trans(void* row, const uint32_t* r, int n) {
@@ -577,10 +577,17 @@ def emulated(tmp_path_factory):
 # group tail and MDTA stage 2 (one image of 7 rows): three 62-column
 # strips, the last 5 wide, walked two rows a step (an odd row count: each
 # walk's last step drops its second row), which the 2 SMs split inside the
-# second strip (its 4th row). eg1:
-# two query tiles and three key tiles a row, the last ragged, and an
-# H-band that reaches past both image edges; eg2: a last tile whose second
-# window is outside
+# second strip (its 4th row). eg1 (bfloat16: the projection and band walk,
+# then the row attention): three frames of 5 rows, three 64-column strips
+# (the last 12 wide), which the 2 SMs split inside a strip of the second
+# frame, the H-band past both image edges; the row's keys split over the
+# warpgroups as 128 and 12 (of 128), three query tiles, the last ragged,
+# each SM's walk crossing rows (the next row's K coming into the second
+# buffer); float32: two query tiles and three key tiles a row, the last
+# ragged. eg2: a last tile whose second window is outside. Dual-MSA stage
+# 2 (bfloat16: the walk): 3 centres of 3 neighbours, 190 pixels (two
+# 128-pixel units, the second ragged), which the 2 SMs split inside the
+# second centre, so that each walks across a centre
 SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 24, 12, 64),
           "body": (1, 10, 20, 64),
           "group": (1, 7, 129, 64),
@@ -588,8 +595,9 @@ SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 24, 12, 64),
 # the int8 Block_'s bright rows: the top step's own, out of every later
 # step's windows (their xm, z and y windows start at row 6 and below)
 BRIGHT_ROWS, BRIGHT = 6, 40.0
-EGLA_SHAPES = {"eg1": (2, 5, 140, 64), "eg2": (2, 8, 24, 64)}
-ALIGN_EMBED_SHAPES = {"mdta1": (1, 5, 129), "mdta2": (1, 7, 129)}
+EGLA_SHAPES = {"eg1": (3, 5, 140, 64), "eg2": (2, 8, 24, 64)}
+ALIGN_EMBED_SHAPES = {"mdta1": (1, 5, 129), "mdta2": (1, 7, 129),
+                      "msa2": (3, 10, 19)}
 # the attention (bfloat16: its three routes): columns of a ragged H read in
 # place from NHWC (H <= 272: one warpgroup on wgmma, three 64-query tiles,
 # the last moved back); tokens past 272 positions (two passes over the keys
@@ -679,23 +687,33 @@ def _unnormalised_rounding(q, v):
     return (out / e.sum(-1, keepdim=True)).to(v.dtype)
 
 
-@pytest.mark.parametrize("kind", ["token", "column"])
+@pytest.mark.parametrize("kind", ["token", "column", "eg1"])
 def test_emulated_attention_rounds_the_normalised_p(emulated, monkeypatch,
                                                     kind):
     """The bfloat16 attention rounds p = e / sum(e), as
-    ``cdfo_tpu/ops/fused_attention.py`` does, and not exp(s - max): on both
-    routes (two passes on mma.sync past 272 positions, wgmma up to it) its
-    output is several times nearer the normalised-p reference than the
-    unnormalised one, which differs from it by far more than the kernel's
-    own fp32 summation order does."""
+    ``cdfo_tpu/ops/fused_attention.py`` and ``fused_egla.py`` do, and not
+    exp(s - max): on the long-range attention's two routes (two passes on
+    mma.sync past 272 positions, wgmma up to it) and on eg1's row attention
+    (the keys split over two warpgroups), its output is several times
+    nearer the normalised-p reference than the unnormalised one, which
+    differs from it by far more than the kernel's own fp32 summation order
+    does."""
+    module = KERNELS[kind][0]
     _route_through(monkeypatch, emulated[kind])
-    fa._kernel.cache_clear()
+    module._kernel.cache_clear()
     try:
-        q, v = _case(kind, torch.bfloat16)
+        args = _case(kind, torch.bfloat16)
         with torch.no_grad():
-            out = KERNELS[kind][1](q, v)
+            out = KERNELS[kind][1](*args)
     finally:
-        fa._kernel.cache_clear()
+        module._kernel.cache_clear()
+    if kind == "eg1":   # tokens are the image rows of the rounded q_s and v
+        x, aq, cq, bv, cv, _ = (t.float() for t in args)
+        q = (torch.matmul(x, aq[:, None]) + cq[:, None, None]).bfloat16()
+        v = (torch.matmul(x, bv) + cv).bfloat16()
+        q, v, out = (t.flatten(0, 1) for t in (q, v, out[1]))
+    else:
+        q, v = args
     if kind == "column":   # tokens are the columns: (B W, H, C)
         q, v, out = (t.permute(0, 2, 1, 3).flatten(0, 1) for t in (q, v, out))
     normalised = fa.token_attention_plain(q, v).float()
@@ -900,3 +918,53 @@ def test_mdta_stage2_weights_layout():
     pk32, ck32 = fm.pack_stage2_weights(w_proj, w_conv, torch.float32)
     assert torch.equal(pk32, cb.kernel_weights(w_proj, torch.float32))
     assert torch.equal(ck32, cb.kernel_weights(w_conv, torch.float32))
+
+
+def test_msa_stage2_weights_layout():
+    """Dual-MSA stage 2's bfloat16 packs: W_proj as B[n][k] = w_proj[n, k]
+    and W_fuse's halves as B[h][n][k] = w_fuse[n, 64 h + k], 128-byte
+    swizzled (kept by the model); the per-image matrices, made each call,
+    as B[b][0][n][k] = awt[b, k, n] and B[b][1][n][k] = apt[b, k, n],
+    unswizzled (the kernel's TMA loads swizzle them); float32 keeps
+    kernel_weights and the (C out, 2C in) matrix of [awt; apt]."""
+    g = torch.Generator().manual_seed(14)
+    w_proj = torch.randn(64, 64, 1, 1, generator=g)
+    w_fuse = torch.randn(64, 128, 1, 1, generator=g)
+    awt, apt = torch.randn(2, 3, 64, 64, generator=g)
+    pk, fk = fal.pack_stage2_weights(w_proj, w_fuse, torch.bfloat16)
+    assert pk.shape == (64, 64) and fk.shape == (2, 64, 64)
+    assert pk.dtype == fk.dtype == torch.bfloat16 and fk.is_contiguous()
+    assert torch.equal(_unswizzle(pk), w_proj[:, :, 0, 0].bfloat16())
+    for h in range(2):
+        assert torch.equal(_unswizzle(fk[h]),
+                           w_fuse[:, 64 * h:64 * h + 64, 0, 0].bfloat16())
+    mats = fal.pack_stage2_images(awt, apt, torch.bfloat16)
+    assert mats.shape == (3, 2, 64, 64) and mats.is_contiguous()
+    assert torch.equal(mats[:, 0], awt.transpose(1, 2).bfloat16())
+    assert torch.equal(mats[:, 1], apt.transpose(1, 2).bfloat16())
+    pk32, fk32 = fal.pack_stage2_weights(w_proj, w_fuse, torch.float32)
+    assert torch.equal(pk32, cb.kernel_weights(w_proj, torch.float32))
+    assert torch.equal(fk32, cb.kernel_weights(w_fuse, torch.float32))
+    assert torch.equal(
+        fal.pack_stage2_images(awt, apt, torch.float32),
+        cb.matrix_weights(torch.cat([awt, apt], 1).transpose(1, 2),
+                          torch.float32))
+
+
+def test_eg1_weights_layout():
+    """eg1's bfloat16 operands: aq as B[m][n][k] = aq[m, k, n] and bv as
+    B[n][k] = bv[k, n], contiguous and unswizzled (the walk's TMA loads
+    swizzle them); float32 keeps kernel_weights (aq one frame a tap)."""
+    g = torch.Generator().manual_seed(15)
+    aq = torch.randn(3, 64, 64, generator=g)
+    bv = torch.randn(64, 64, generator=g)
+    aqk, bvk = fe.pack_eg1_weights(aq, bv, torch.bfloat16)
+    assert aqk.shape == (3, 64, 64) and bvk.shape == (64, 64)
+    assert aqk.is_contiguous() and bvk.is_contiguous()
+    assert torch.equal(aqk, aq.transpose(1, 2).bfloat16())
+    assert torch.equal(bvk, bv.t().bfloat16())
+    aq32, bv32 = fe.pack_eg1_weights(aq, bv, torch.float32)
+    assert torch.equal(aq32, cb.matrix_weights(aq.transpose(1, 2),
+                                               torch.float32))
+    assert torch.equal(bv32, cb.kernel_weights(bv.t()[..., None, None],
+                                               torch.float32))
