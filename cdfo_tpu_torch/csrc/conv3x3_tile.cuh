@@ -421,6 +421,11 @@ inline int sm_count() {
 #define CDFO_LAUNCH(kernel, grid, smem, stream, ...) \
   kernel<<<(grid), cdfo::THREADS, (smem), (stream)>>>(__VA_ARGS__)
 #endif
+// a launch of another thread count
+#ifndef CDFO_LAUNCH_N
+#define CDFO_LAUNCH_N(kernel, grid, threads, smem, stream, ...) \
+  kernel<<<(grid), (threads), (smem), (stream)>>>(__VA_ARGS__)
+#endif
 
 // Each library is one translation unit that includes this header once.
 extern "C" const char* cdfo_cuda_error_string(int err) {

@@ -11,7 +11,8 @@
 // and the per-channel sum of fo.
 //
 // What bounds them: per neighbour pixel, stage 1 does 128x64 + 3x64x64
-// MACs (~41 KFLOP) against 256 B of w and p in bf16 and stage 2 128x64 +
+// MACs (~41 KFLOP) against 256 B of w and p in bf16 (plus the centre,
+// read once per group of nbr neighbours) and stage 2 128x64 +
 // 64x64 + 128x64 MACs (~41 KFLOP) against 384 B (w, p in, fo out), ~160
 // and ~107 FLOP/B, under the card's ~295 FLOP/B bf16 balance point: both
 // are memory-bound, at ~0.26 and ~0.39 ms for 24 images of 272 x 480. The
@@ -21,18 +22,52 @@
 // centre once per group of nbr neighbours; k, o and po never leave the
 // SM, and the centre is read as center[b / nbr], never broadcast.
 //
-// Stage 1, and stage 2 in float32: a block takes one centre and every
-// `parts`-th tile of 128 consecutive pixels of it, and walks the nbr
-// neighbours of that centre in turn (the centre tile comes from device
-// memory for the first and from L2 for the others). The 1x1 convolutions
-// are implicit GEMMs on conv3x3_tile.cuh's tile routine (bf16 mma.sync,
-// fp32 CUDA-core twin), one 16-pixel m-tile per warp; the grams are
-// gram_tile.cuh's. Each sum a block holds is written as one partial per
-// (neighbour, block), and a second launch adds the partials in a fixed
-// order. Rounding follows the TPU kernels: k, o and po to the working
-// type, the sums in fp32, fo's sum from the fp32 fo before fo is rounded.
+// Both stages in float32 (the twins for the float32 checks) keep the
+// first design: a block takes one centre and every `parts`-th tile of 128
+// consecutive pixels of it, and walks the nbr neighbours of that centre in
+// turn (the centre tile comes from device memory for the first and from
+// L2 for the others). The 1x1 convolutions are implicit GEMMs on
+// conv3x3_tile.cuh's tile routine (fp32 on the CUDA cores), one 16-pixel
+// m-tile per warp; the grams are gram_tile.cuh's. Each sum a block holds
+// is written as one partial per (neighbour, block), and a second launch
+// adds the partials in a fixed order. Rounding follows the TPU kernels: k,
+// o and po to the working type, the sums in fp32, fo's sum from the fp32
+// fo before fo is rounded.
 //
-// Stage 2 in bfloat16 (the main path) is a persistent walk on wgmma
+// Stage 1 in bfloat16 (the main path) is a persistent walk on wgmma
+// (`msa1_walk_kernel`). The first design (that tile routine on mma.sync)
+// read W_f's fragments from device memory in every warp, ~1 KB a pixel
+// against the 256 B of w and p it must read, loaded its tiles by
+// synchronous copies behind three block barriers a tile (the centre's
+// again for every neighbour) and ran the grams on mma.sync, q^T q once per
+// neighbour: 4.7x its bound. Now:
+// - The grid is groups of nbr CTAs, as many groups as the SMs hold side by
+//   side. A group walks an even share of the units (centre, 128 pixels),
+//   numbered centre-major, a unit a step, and its rank f takes neighbour
+//   image f of the unit's centre: a CTA's grams are of one image at a time,
+//   96 fp32 registers a thread, and stay in registers across its share of
+//   a centre. The ranks read the same centre tile within a few steps of
+//   each other: one read from device memory, the rest from L2. No CTA
+//   waits on another, so the walk runs with nbr above the SM count too.
+// - Loads by the TMA unit as stage 2's (w, p and the centre's q a stage),
+//   a ring of four stages three steps ahead; W_f's two halves resident,
+//   read from the (64, 128) weight as it is (its TMA loads swizzle it).
+// - Each warpgroup takes 64 of the unit's pixels: k = [w p] W_f^T on
+//   wgmma (SS, K = 128) while the CUDA cores sum w's and p's channels from
+//   the same tiles; k, relu'd and rounded, goes in place of w; then the
+//   grams with the pixels as K, both operands MN-major: q^T [k | q] (one
+//   m64n128, q two tiles after k) and k^T k (m64n64). Both warpgroups run
+//   one code path; a centre's first unit in the CTA starts the grams
+//   (scale_d 0). The unit's stage is refilled after a block barrier.
+// - When the walk leaves a centre, warpgroup 1's grams come through the
+//   spent stage and the sums' partials through a small exchange; warpgroup
+//   0 adds them in order and writes the group's partial of image f. A
+//   second launch adds, in group order, the partials of the groups that
+//   walked the image's centre. Deterministic.
+// - Units are stepped as (centre, tile) counters: 64-bit divisions in the
+//   step cost ~600 cycles of a ~3200-cycle step.
+//
+// Stage 2 in bfloat16 is a persistent walk on wgmma
 // (`msa2_walk_kernel`). The first design (that tile routine, one 16-pixel
 // m-tile per warp) fetched all three products' weight fragments from
 // device memory in every warp, ~2.5 KB a pixel against the 384 B it must
@@ -284,18 +319,6 @@ __host__ __device__ __forceinline__ int walk_part(long long u, long long total, 
   return static_cast<int>(((u + 1) * parts + total - 1) / total - 1);
 }
 
-// acc (64 x 64 fp32 fragments) rounded to bf16 as the register A operand of
-// the next product, k16 step kk taking n-tiles 2kk, 2kk + 1
-__device__ __forceinline__ void round_to_a(const float (&acc)[8][4], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      a[kk][2 * u] = pack_bf16x2(acc[2 * kk + u][0], acc[2 * kk + u][1]);
-      a[kk][2 * u + 1] = pack_bf16x2(acc[2 * kk + u][2], acc[2 * kk + u][3]);
-    }
-}
-
 // Units (centre, 128 pixels) numbered centre * tiles + tile; CTA i walks
 // [i total / G, (i + 1) total / G) of them, nbr steps a unit. ws
 // [batch][G][64]: the CTA's sum of fo over its pixels of each image (only
@@ -470,26 +493,283 @@ msa2_walk_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__
   PHASE_END
 }
 
-// gap[b] = the sum, in CTA order, of the partials of the CTAs that walked
-// image b's centre. Grid (batch), 64 threads used.
+// ---- stage 1, bfloat16: the walk on wgmma ----------------------------------
+
+constexpr int S1_STAGES = 4;
+constexpr int S1_STAGE_BYTES = 3 * TILE_BYTES;   // w | p | q of a unit
+constexpr int S1_GAPX = 2 * 2 * 8 * C;           // the [wg][w, p][8][64] exchange of the sums
+// W_fA | W_fB | stages | the sums' exchange | mbarriers (weights, stages)
+constexpr int S1_WALK_SMEM =
+    1024 + 2 * MAT_BYTES + S1_STAGES * S1_STAGE_BYTES + S1_GAPX * 4 + 8 * (1 + S1_STAGES);
+static_assert(S1_STAGE_BYTES == 96 * 128 * 4, "a stage holds warpgroup 1's grams at a flush");
+static_assert(S1_WALK_SMEM <= 232448, "one block's shared memory");
+
+struct Unit {
+  int c, tile;   // centre, 128-pixel tile
+};
+
+// Units (centre, 128 pixels) numbered centre * tiles + tile. The grid is
+// `groups` groups of nbr CTAs; group i walks units [i total / groups,
+// (i + 1) total / groups), and its rank f takes neighbour image f of each
+// unit's centre, so each CTA's grams are of one image at a time and stay
+// in registers. ws [batch][groups][3 * 64 * 64 + 128]: the group's sums
+// over its pixels of each image ([q^T k, q^T q, k^T k], then the channel
+// sums of w and of p; only the images of the centres it walks are
+// written).
+__global__ void __launch_bounds__(THREADS, 1)
+msa1_walk_kernel(const __grid_constant__ CUtensorMap tw, const __grid_constant__ CUtensorMap tp,
+                 const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap twf,
+                 float* __restrict__ ws, int npix, int centres, int nbr) {
+  extern __shared__ uint4 cdfo_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(cdfo_smem);
+  base += (1024u - (shared_address(base) & 1023u)) & 1023u;
+  bf16* wfs = reinterpret_cast<bf16*>(base);   // W_fA, W_fB [64 n][64 k], swizzled
+  unsigned char* stages = base + 2 * MAT_BYTES;
+  float* gx = reinterpret_cast<float*>(stages + S1_STAGES * S1_STAGE_BYTES);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(gx + S1_GAPX);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int r = threadIdx.x & 127;
+  const int groups = static_cast<int>(gridDim.x) / nbr;
+  const int grp = static_cast<int>(blockIdx.x) / nbr, f = static_cast<int>(blockIdx.x) % nbr;
+  const int tiles = (npix + UNIT - 1) / UNIT;
+  const long long total = static_cast<long long>(centres) * tiles;
+  const long long g0 = grp * total / groups, g1 = (grp + 1) * total / groups;
+  const int steps = static_cast<int>(g1 - g0);
+  if (steps <= 0) return;
+  auto stage = [&](int t) { return stages + (t % S1_STAGES) * S1_STAGE_BYTES; };
+  // the units as (centre, tile), stepped along without divisions
+  const Unit u0{static_cast<int>(g0 / tiles), static_cast<int>(g0 % tiles)};
+  auto next = [&](Unit& x) {
+    if (++x.tile == tiles) {
+      x.tile = 0;
+      ++x.c;
+    }
+  };
+
+  // step t's unit x: w and p of image f of its centre, and the centre's q,
+  // into stage t % 4 on its mbarrier
+  auto fetch = [&](int t, const Unit& x) {
+    const int p0 = x.tile * UNIT;
+    unsigned char* st = stage(t);
+    uint64_t* bar = bars + 1 + t % S1_STAGES;
+    mbar_expect_tx(bar, S1_STAGE_BYTES);
+    tma_load_row(st, &tw, p0, 0, x.c * nbr + f, bar);
+    tma_load_row(st + TILE_BYTES, &tp, p0, 0, x.c * nbr + f, bar);
+    tma_load_row(st + 2 * TILE_BYTES, &tq, p0, 0, x.c, bar);
+  };
+  Unit ahead = u0;   // thread 0: the next unit to fetch, that of step t + 4
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + S1_STAGES; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bars, 2 * MAT_BYTES);
+    tma_load_row(wfs, &twf, 0, 0, 0, bars);
+    tma_load_row(wfs + C * C, &twf, 1, 0, 0, bars);
+    for (int t = 0; t < S1_STAGES && t < steps; ++t) {
+      fetch(t, ahead);
+      next(ahead);
+    }
+  }
+  __syncthreads();
+  mbar_wait(bars, 0);
+
+  // the channel sums thread r of a warpgroup keeps: channels 8 sc .. 8 sc
+  // + 7 of w (st_ = 0) or p over the warpgroup's pixels 8 sp .. 8 sp + 7
+  // of each unit
+  const int st_ = r >> 6, sc = r & 7, sp = (r >> 3) & 7;
+  float csum[8];
+  // this warpgroup's grams over its 64 pixels of each unit: q^T [k | q]
+  // and k^T k
+  float gqk[16][4], gkk[8][4];
+  const uint64_t fad = wgmma_desc(wfs), fbd = wgmma_desc(wfs + C * C);
+  PHASE_START
+  Unit cur = u0;
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t, next(cur)) {
+    const bool first = t == 0 || cur.tile == 0;   // the CTA's first unit of the centre
+    const bool last = t + 1 == steps || cur.tile + 1 == tiles;
+    unsigned char* st = stage(t);
+    mbar_wait(bars + 1 + t % S1_STAGES, static_cast<uint32_t>((t / S1_STAGES) & 1));
+    PHASE(0)
+    bf16* wt = reinterpret_cast<bf16*>(st) + wg * 64 * C;   // this warpgroup's 64 pixels
+    const bf16* pt = reinterpret_cast<const bf16*>(st + TILE_BYTES) + wg * 64 * C;
+    const bf16* qt = reinterpret_cast<const bf16*>(st + 2 * TILE_BYTES) + wg * 64 * C;
+    float acc[8][4];
+    {
+      // k = [w p] [W_fA; W_fB]^T, while the CUDA cores take the sums of w
+      // and p from the same tiles
+      const uint64_t wd = wgmma_desc(wt), pd = wgmma_desc(pt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64(acc, wd + 2 * kk, fad + 2 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64(acc, pd + 2 * kk, fbd + 2 * kk, 1);
+      wgmma_commit();
+      const bf16* src = st_ ? pt : wt;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) csum[e] = first ? 0.f : csum[e];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float v[8];
+        load8(swizzled(const_cast<bf16*>(src), 8 * sp + i, 8 * sc), v);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) csum[e] += v[e];
+      }
+      wgmma_wait<0>();
+      keep(acc);
+    }
+    warpgroup_sync(wg);   // the warpgroup is done reading w: k goes in its place
+    PHASE(1)
+    // k = relu, rounded (zero past the image, where w and p are)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        store2(swizzled(wt, 16 * wl + g + 8 * half, 8 * j + t2), fmaxf(acc[j][2 * half], 0.f),
+               fmaxf(acc[j][2 * half + 1], 0.f));
+      }
+    async_fence();
+    warpgroup_sync(wg);
+    PHASE(2)
+    {
+      // the grams with the pixels as K: q^T [k | q] (k in w's place, q
+      // 2 tiles after it) and k^T k; a centre's first unit in the CTA
+      // starts them
+      const uint64_t qa = wgmma_desc(qt, 1024), kb = wgmma_desc(wt, 2 * TILE_BYTES);
+      const uint64_t ka = wgmma_desc(wt, 1024);
+      keep(gqk);
+      keep(gkk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss_64x128_tt(gqk, qa + 128 * kk, kb + 128 * kk, !first || kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss_64x64_tt(gkk, ka + 128 * kk, ka + 128 * kk, !first || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(gqk);
+      keep(gkk);
+    }
+    PHASE(3)
+    __syncthreads();   // both warpgroups are done with the stage
+    if (last) {
+      // the CTA leaves the centre: warpgroup 1's grams through the spent
+      // stage, the sums' partials through gx, then image f's partial out,
+      // warpgroup 0's grams plus warpgroup 1's
+      float* xb = reinterpret_cast<float*>(st);
+      if (wg == 1) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xb[(4 * i + e) * 128 + r] = gqk[i][e];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) xb[(64 + 4 * i + e) * 128 + r] = gkk[i][e];
+      }
+      float* gp = gx + ((wg * 2 + st_) * 8 + sp) * C + 8 * sc;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) gp[e] = csum[e];
+      __syncthreads();
+      const long long b = static_cast<long long>(cur.c) * nbr + f;
+      float* dst = ws + (b * groups + grp) * (3 * GRAM + 2 * C);
+      if (wg == 0) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int e = 2 * half, row = 16 * wl + g + 8 * half;
+            store2(dst + (i >> 3) * GRAM + row * C + 8 * (i & 7) + t2,
+                   gqk[i][e] + xb[(4 * i + e) * 128 + r],
+                   gqk[i][e + 1] + xb[(4 * i + e + 1) * 128 + r]);
+          }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int e = 2 * half, row = 16 * wl + g + 8 * half;
+            store2(dst + 2 * GRAM + row * C + 8 * i + t2,
+                   gkk[i][e] + xb[(64 + 4 * i + e) * 128 + r],
+                   gkk[i][e + 1] + xb[(64 + 4 * i + e + 1) * 128 + r]);
+          }
+        // the sums of w (r < 64) and p: warpgroups, then pixel groups, in order
+        float s = 0.f;
+#pragma unroll
+        for (int w2 = 0; w2 < 2; ++w2)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) s += gx[((w2 * 2 + (r >> 6)) * 8 + i) * C + (r & 63)];
+        dst[3 * GRAM + r] = s;
+      }
+      async_fence();   // the stage's writes before its refill by the TMA unit
+      __syncthreads();
+    }
+    if (threadIdx.x == 0 && t + S1_STAGES < steps) {
+      fetch(t + S1_STAGES, ahead);
+      next(ahead);
+    }
+    PHASE(4)
+    PHASE_STEP
+  }
+  PHASE_END
+}
+
+// out[b][e] = the sum, in CTA order, of the partials [b][parts][n] of the
+// CTAs that walked image b's centre (units of 128 pixels handed out as
+// `walk_part` does): e < n_a into out_a [batch][n_a], the rest into out_b
+// [batch][n - n_a]. Grid (ceil(n / THREADS), batch).
 __global__ void __launch_bounds__(THREADS)
-msa2_walk_reduce(const float* __restrict__ ws, float* __restrict__ gap, int npix, int nbr,
-                 int centres, int parts) {
-  const int ch = threadIdx.x;
-  if (ch >= C) return;
-  const int b = blockIdx.x;
+walk_reduce(const float* __restrict__ ws, float* __restrict__ out_a, float* __restrict__ out_b,
+            int n, int n_a, int npix, int nbr, int centres, int parts) {
+  const int e = blockIdx.x * THREADS + threadIdx.x;
+  if (e >= n) return;
+  const int b = blockIdx.y;
   const long long tiles = (npix + UNIT - 1) / UNIT, total = centres * tiles;
   const long long c = b / nbr;
   const int lo = walk_part(c * tiles, total, parts), hi = walk_part((c + 1) * tiles - 1, total, parts);
   float s = 0.f;
-  for (int p = lo; p <= hi; ++p) s += ws[(static_cast<long long>(b) * parts + p) * C + ch];
-  gap[static_cast<long long>(b) * C + ch] = s;
+  for (int p = lo; p <= hi; ++p) s += ws[(static_cast<long long>(b) * parts + p) * n + e];
+  if (e < n_a) {
+    out_a[static_cast<long long>(b) * n_a + e] = s;
+  } else {
+    out_b[static_cast<long long>(b) * (n - n_a) + e - n_a] = s;
+  }
 }
 
-template <typename T>
+// bfloat16 stage 1: the walk of `parts` groups of nbr CTAs, then the
+// reduction of each image's group partials
+cudaError_t launch1_walk(const void* w, const void* pr, const void* center, const void* wf,
+                         void* ws, void* stats, void* gaps, int batch, int npix, int nbr,
+                         int parts, cudaStream_t stream) {
+  cudaError_t err = allow_smem(msa1_walk_kernel, S1_WALK_SMEM);
+  if (err != cudaSuccess) return err;
+  const int centres = batch / nbr;
+  CUtensorMap tw, tp, tq, twf;
+  // W_f (64 n, 128 k) as a (64 rows, 2 pixels) image: box (1 pixel, 64
+  // rows) at pixel h is the swizzled tile of W_f's half h
+  if ((err = nhwc_tensor_map(&tw, w, batch, 1, npix, UNIT)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&tp, pr, batch, 1, npix, UNIT)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&tq, center, centres, 1, npix, UNIT)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&twf, wf, 1, C, 2, 1, C)) != cudaSuccess) {
+    return err;
+  }
+  CDFO_LAUNCH(msa1_walk_kernel, dim3(parts * nbr), S1_WALK_SMEM, stream, tw, tp, tq, twf,
+              static_cast<float*>(ws), npix, centres, nbr);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  CDFO_LAUNCH(walk_reduce, dim3((3 * GRAM + 2 * C + THREADS - 1) / THREADS, batch), 0, stream,
+              static_cast<const float*>(ws), static_cast<float*>(stats), static_cast<float*>(gaps),
+              3 * GRAM + 2 * C, 3 * GRAM, npix, nbr, centres, parts);
+  return cudaGetLastError();
+}
+
+// float32 stage 1: the first design
 cudaError_t launch1(const void* w, const void* pr, const void* center, const void* wf, void* ws,
                     void* stats, void* gaps, int batch, int npix, int nbr, int parts,
                     cudaStream_t stream) {
+  using T = float;
   const cudaError_t err = allow_smem(msa1_kernel<T>, s1_smem<T>());
   if (err != cudaSuccess) return err;
   CDFO_LAUNCH(msa1_kernel<T>, dim3(parts, batch / nbr), s1_smem<T>(), stream,
@@ -522,8 +802,8 @@ cudaError_t launch2(const void* w, const void* pr, const void* center, const voi
                 static_cast<const bf16*>(wf), static_cast<float*>(ws), npix, centres, nbr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    CDFO_LAUNCH(msa2_walk_reduce, dim3(batch), 0, stream, static_cast<const float*>(ws),
-                static_cast<float*>(gap), npix, nbr, centres, parts);
+    CDFO_LAUNCH(walk_reduce, dim3(1, batch), 0, stream, static_cast<const float*>(ws),
+                static_cast<float*>(gap), nullptr, C, C, npix, nbr, centres, parts);
     return cudaGetLastError();
   }
   using T = float;
@@ -552,47 +832,53 @@ int workspace(int batch, int h, int wd, int nbr, int per_part) {
   return workspace_floats((h * wd + NP - 1) / NP, batch / nbr, batch, per_part);
 }
 
-// bfloat16 stage 2: one partial per (image, walking CTA), a CTA an SM, at
-// most one a unit
-int walk_workspace(int batch, int h, int wd, int nbr) {
+// the bfloat16 walks: one partial per (image, walker), at most one walker
+// a unit; a walker is `group` CTAs side by side (stage 2: 1, stage 1: nbr),
+// as many as the SMs hold at once (at least one)
+int walk_workspace(int batch, int h, int wd, int nbr, int per_part, int group) {
   const int sms = sm_count();
   if (bad_shape(batch, h, wd, nbr) || sms <= 0) return -1;
   const long long units = static_cast<long long>(batch / nbr) * ((h * wd + UNIT - 1) / UNIT);
-  const long long n = (units < sms ? units : sms) * static_cast<long long>(batch) * S2_PART;
+  long long walkers = sms / group > 1 ? sms / group : 1;
+  walkers = units < walkers ? units : walkers;
+  const long long n = walkers * batch * per_part;
   return n > 0x7fffffff ? -1 : static_cast<int>(n);
 }
 
 }  // namespace
 
 // The float32 scratch cdfo_msa_stage1 and cdfo_msa_stage2 need for `batch`
-// neighbour images of h x wd, nbr per centre, on the current device, in
-// floats; -1 if there is none.
-extern "C" int cdfo_msa_stage1_workspace(int batch, int h, int wd, int nbr) {
-  return workspace(batch, h, wd, nbr, S1_PART);
+// neighbour images of h x wd, nbr per centre, of the dtype (is_bf16: 1
+// bfloat16, 0 float32), on the current device, in floats; -1 if there is
+// none. bfloat16 sizes it for the walks: stage 1's [batch][groups][3 * 64
+// * 64 + 128] (groups of nbr CTAs), stage 2's [batch][CTAs][64] (one CTA
+// an SM).
+extern "C" int cdfo_msa_stage1_workspace(int batch, int h, int wd, int nbr, int is_bf16) {
+  return is_bf16 ? walk_workspace(batch, h, wd, nbr, S1_PART, nbr)
+                 : workspace(batch, h, wd, nbr, S1_PART);
 }
 
-// bfloat16 (is_bf16) sizes stage 2's workspace for its walk: [batch][CTAs]
-// [64], one CTA an SM.
 extern "C" int cdfo_msa_stage2_workspace(int batch, int h, int wd, int nbr, int is_bf16) {
-  return is_bf16 ? walk_workspace(batch, h, wd, nbr) : workspace(batch, h, wd, nbr, S2_PART);
+  return is_bf16 ? walk_workspace(batch, h, wd, nbr, S2_PART, 1)
+                 : workspace(batch, h, wd, nbr, S2_PART);
 }
 
 // w (warped), pr (pred): (batch, h, wd, 64) NHWC; center: (batch / nbr, h,
-// wd, 64); wf: the fusion_out 1x1 (64 out, 128 in) in
-// ops/cuda_build.py::kernel_weights' layout; all of one dtype (is_bf16: 1
+// wd, 64); wf: the fusion_out 1x1 (64 out, 128 in), float32 in
+// ops/cuda_build.py::kernel_weights' layout, bfloat16 as it is (16-byte
+// aligned; the walk's TMA loads swizzle it); all of one dtype (is_bf16: 1
 // bfloat16, 0 float32). ws: ws_floats of float32 scratch, as
-// cdfo_msa_stage1_workspace sizes it ([batch][parts][3*64*64 + 128]);
-// stats: [batch][3][64][64] and gaps: [batch][2][64] float32 out. Two
-// launches (partials, reduction). Returns a cudaError_t.
+// cdfo_msa_stage1_workspace sizes it for the dtype ([batch][parts][3*64*64
+// + 128]); stats: [batch][3][64][64] and gaps: [batch][2][64] float32 out.
+// Two launches (partials, reduction). Returns a cudaError_t.
 extern "C" int cdfo_msa_stage1(const void* w, const void* pr, const void* center, const void* wf,
                                void* ws, int ws_floats, void* stats, void* gaps, int is_bf16,
                                int batch, int h, int wd, int nbr, void* stream) {
   const int parts = parts_of(ws_floats, batch, S1_PART);
   if (bad_shape(batch, h, wd, nbr) || parts <= 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch1<bf16>(w, pr, center, wf, ws, stats, gaps, batch, h * wd, nbr, parts, s)
-                 : launch1<float>(w, pr, center, wf, ws, stats, gaps, batch, h * wd, nbr, parts,
-                                  s);
+  return is_bf16 ? launch1_walk(w, pr, center, wf, ws, stats, gaps, batch, h * wd, nbr, parts, s)
+                 : launch1(w, pr, center, wf, ws, stats, gaps, batch, h * wd, nbr, parts, s);
 }
 
 // As stage 1, plus, in float32: wa the [batch] per-image (64 out, 128 in)

@@ -62,11 +62,6 @@
 #include "gram_tile.cuh"
 #include "wgmma_tile.cuh"
 
-#ifndef CDFO_LAUNCH_N
-#define CDFO_LAUNCH_N(kernel, grid, threads, smem, stream, ...) \
-  kernel<<<(grid), (threads), (smem), (stream)>>>(__VA_ARGS__)
-#endif
-
 namespace {
 
 constexpr int D = 64;         // channels per position

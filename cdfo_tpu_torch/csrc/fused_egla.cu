@@ -35,12 +35,12 @@
 // 16-pixel m-tile per warp) and projects q and v on conv3x3_tile.cuh's tile
 // routine; each warp then takes 16 queries of one window against its 64 keys
 // (one tile, so the softmax is exact), and the fusion GEMMs run on the tile
-// routine again. x, long, q, v and loc never leave shared memory.
-// bf16 eg2: mma.sync.m16n8k16 with fp32 accumulators. Q Kᵀ reads both
-// factors by ldmatrix (K = q: the keys are the queries' own rows); P V
-// takes P from the score fragments in registers and V by ldmatrix.trans.
-// fp32: the same fragments on the CUDA cores, P passed across the quad by
-// shuffles.
+// routine again. x, long, q, v and loc never leave shared memory. The
+// attention's fragments (`scores`, `attend`): bf16 on mma.sync.m16n8k16
+// with fp32 accumulators (now only eg1's row pass past 640 positions), Q
+// Kᵀ reading both factors by ldmatrix, P V taking P from the score
+// fragments in registers and V by ldmatrix.trans; fp32 on the CUDA cores,
+// P passed across the quad by shuffles.
 //
 // eg1 in bfloat16 (the main path) is two walks on wgmma. The first design
 // (above) ran at 13.7x its bound: its projection read the weights per warp
@@ -81,6 +81,33 @@
 // - A W past 640 keeps the first design's row pass, chosen by shape, in two
 //   passes over the keys (max and sum, then the normalised p, rounded, and
 //   P.V), its band left to the walk.
+//
+// eg2 in bfloat16 is a walk of 8x8 windows on wgmma (`eg2_walk_kernel`).
+// The first design ran 4080 short CTAs of two windows, its four 64 x 64
+// products reading weight fragments per warp from device memory (~2 KB a
+// pixel against the 384 B it must move), x and long loaded synchronously
+// behind a barrier, the attention on mma.sync: 6.7x its bound. Now:
+// - One CTA an SM walks an even share of the windows (frame, window row,
+//   window column), three a step, one per warpgroup of its 384 threads:
+//   each warpgroup's chain of five dependent products is latency-bound,
+//   and a third chain in flight hides more of it than a deeper ring would.
+// - Each warpgroup fills a ring of its own (three stages of its window's x
+//   and long, 16 KB) by the TMA unit: an 8 x 8 box of the NHWC tensor lands
+//   as the window's 64 tokens in row order, 128-byte swizzled, a K-major
+//   tile. No block barrier in the walk: the warpgroups drift, one's
+//   softmax beside another's products.
+// - wq, wv, fa, fb stay resident, loaded by TMA from the (C in, C out)
+//   matrices as they are, which makes them MN-major B tiles (no host pack).
+// - The chain through registers: q = x wq, v = x wv (SS); q's bias and mask
+//   and v's bias in the epilogue, rounded: q as the scores' register A and
+//   into a K-major tile (the keys are the queries' own rows), v into a tile
+//   read MN-major; s = q qᵀ (RS); softmax by quad shuffles (a thread holds
+//   2 rows x 16 scores), p = e / sum rounded into register A; loc = p v
+//   (RS), rounded; out = long fa (SS) + loc fb (RS), + bf + x (x from its
+//   tile) in fp32, rounded once into x's tile, then out to device memory
+//   as 16-byte rows; the stage is refilled once the warpgroup is past it.
+// - Windows are stepped as (frame, row, column) counters: 64-bit divisions
+//   in the step cost ~8% of it.
 
 #include <math.h>
 
@@ -982,6 +1009,308 @@ eg2_local_fuse(const T* __restrict__ x, const T* __restrict__ lg, const T* __res
   });
 }
 
+// ---- eg2, bfloat16: the window walk on wgmma -----------------------------------
+
+constexpr int WIN_BYTES = WS * WS * C * 2;     // a window's 64 tokens: 8 KB
+constexpr int E2_WGS = 3;                      // warpgroups, a window each a step
+constexpr int E2_THREADS = 128 * E2_WGS;
+constexpr int E2_STAGES = 3;                   // a ring per warpgroup
+constexpr int E2_STAGE_BYTES = 2 * WIN_BYTES;  // a window's x, then its long
+// wq | wv | fa | fb | stages [3 wg][3] | q, v of each warpgroup's window |
+// bq, bv, bf in fp32 | mbarriers (weights, [3 wg][3] stages)
+constexpr int E2_SMEM = 1024 + 4 * MAT_BYTES + E2_WGS * E2_STAGES * E2_STAGE_BYTES +
+                        2 * E2_WGS * WIN_BYTES + 3 * C * 4 + 8 * (1 + E2_WGS * E2_STAGES);
+static_assert(E2_SMEM <= 232448, "one block's shared memory");
+
+struct Win {
+  int f, wy, wx;   // frame, window row, window column
+};
+struct WinWalk {
+  long long i;   // the window's number
+  Win at;        // where it lies (past the CTA's run: its last window)
+};
+
+// Windows (frame, window row, window column) numbered in that order; CTA i
+// walks [i total / G, (i + 1) total / G) of them, three a step, one per
+// warpgroup, each warpgroup through a ring of its own (where the CTA's
+// windows run out, a step's last windows repeat its last one, computed and
+// dropped). The matrices twq, twv, tfa, tfb: wq, wv, fa, fb as they are,
+// (64 k, 64 n) rows, which the TMA loads make MN-major B tiles; bq, bv, bf
+// [64]; mi [m][64]; out (m, h, w, 64).
+__global__ void __launch_bounds__(E2_THREADS, 1)
+eg2_walk_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tlg,
+                const __grid_constant__ CUtensorMap twq, const __grid_constant__ CUtensorMap twv,
+                const __grid_constant__ CUtensorMap tfa, const __grid_constant__ CUtensorMap tfb,
+                const bf16* __restrict__ bq, const bf16* __restrict__ bv,
+                const bf16* __restrict__ mi, const bf16* __restrict__ bf, bf16* __restrict__ out,
+                int m, int h, int w) {
+  extern __shared__ uint4 cdfo_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(cdfo_smem);
+  base += (1024u - (shared_address(base) & 1023u)) & 1023u;
+  bf16* mats = reinterpret_cast<bf16*>(base);   // wq, wv, fa, fb [64 k][64 n], swizzled
+  unsigned char* stages = base + 4 * MAT_BYTES;
+  bf16* qsm = reinterpret_cast<bf16*>(stages + E2_WGS * E2_STAGES * E2_STAGE_BYTES);   // [wg][64][64]
+  bf16* vsm = qsm + E2_WGS * WS * WS * C;
+  float* bsm = reinterpret_cast<float*>(vsm + E2_WGS * WS * WS * C);   // bq | bv | bf
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bsm + 3 * C);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t2 = 2 * (lane & 3);
+  const int r = threadIdx.x & 127;
+  const int wrows = h / WS, wcols = w / WS;
+  const long long per = static_cast<long long>(wrows) * wcols, total = m * per;
+  const long long g0 = blockIdx.x * total / gridDim.x, g1 = (blockIdx.x + 1) * total / gridDim.x;
+  const int steps = static_cast<int>((g1 - g0 + E2_WGS - 1) / E2_WGS);
+  if (steps <= 0) return;
+  auto window = [&](long long i) {
+    const long long rem = i % per;
+    return Win{static_cast<int>(i / per), static_cast<int>(rem / wcols),
+               static_cast<int>(rem % wcols)};
+  };
+  // the windows of this warpgroup, g0 + wg, g0 + wg + 3, ..., stepped
+  // along without divisions; past the CTA's run, its last window
+  const Win final_win = window(g1 - 1);
+  auto walk_at = [&](long long i) { return WinWalk{i, window(i < g1 ? i : g1 - 1)}; };
+  auto next = [&](WinWalk& x) {
+    x.i += E2_WGS;
+    x.at.wx += E2_WGS;
+    while (x.at.wx >= wcols) {
+      x.at.wx -= wcols;
+      if (++x.at.wy == wrows) {
+        x.at.wy = 0;
+        ++x.at.f;
+      }
+    }
+    if (x.i >= g1) x.at = final_win;
+  };
+  unsigned char* myring = stages + wg * E2_STAGES * E2_STAGE_BYTES;
+  uint64_t* ring = bars + 1 + wg * E2_STAGES;
+  // step t's window of this warpgroup: its x and long into stage t % 3
+  auto fetch = [&](int t, const Win& wi) {
+    unsigned char* st = myring + (t % E2_STAGES) * E2_STAGE_BYTES;
+    uint64_t* bar = ring + t % E2_STAGES;
+    mbar_expect_tx(bar, E2_STAGE_BYTES);
+    tma_load_row(st, &tx, WS * wi.wx, WS * wi.wy, wi.f, bar);
+    tma_load_row(st + WIN_BYTES, &tlg, WS * wi.wx, WS * wi.wy, wi.f, bar);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 1 + E2_WGS * E2_STAGES; ++i) mbar_init(bars + i, 1);
+    mbar_init_fence();
+    mbar_expect_tx(bars, 4 * MAT_BYTES);
+    tma_load_row(mats, &twq, 0, 0, 0, bars);
+    tma_load_row(mats + C * C, &twv, 0, 0, 0, bars);
+    tma_load_row(mats + 2 * C * C, &tfa, 0, 0, 0, bars);
+    tma_load_row(mats + 3 * C * C, &tfb, 0, 0, 0, bars);
+  }
+  if (threadIdx.x < 3 * C) {
+    const bf16* bias = threadIdx.x < C ? bq : threadIdx.x < 2 * C ? bv : bf;
+    bsm[threadIdx.x] = to_f(bias[threadIdx.x & (C - 1)]);
+  }
+  __syncthreads();
+  const bool producer = r == 0;   // the thread that fills its warpgroup's ring
+  WinWalk ahead = walk_at(g0 + wg);   // the producer's next window, step t + 3's
+  if (producer) {
+    for (int t = 0; t < E2_STAGES && t < steps; ++t) {
+      fetch(t, ahead.at);
+      next(ahead);
+    }
+  }
+  mbar_wait(bars, 0);
+
+  // B descriptors of the (k, n) matrices: MN-major, 16 k rows (2 KB) a k16 step
+  const uint64_t wqd = wgmma_desc(mats, 1024), wvd = wgmma_desc(mats + C * C, 1024);
+  const uint64_t fad = wgmma_desc(mats + 2 * C * C, 1024);
+  const uint64_t fbd = wgmma_desc(mats + 3 * C * C, 1024);
+  bf16* qs = qsm + wg * WS * WS * C;   // this warpgroup's q, as the scores' K-major B
+  bf16* vs = vsm + wg * WS * WS * C;   // its v, as P.V's MN-major B
+  WinWalk cur = walk_at(g0 + wg);
+  PHASE_START
+#pragma unroll 1
+  for (int t = 0; t < steps; ++t, next(cur)) {
+    unsigned char* st = myring + (t % E2_STAGES) * E2_STAGE_BYTES;
+    mbar_wait(ring + t % E2_STAGES, static_cast<uint32_t>((t / E2_STAGES) & 1));
+    PHASE(0)
+    bf16* xt = reinterpret_cast<bf16*>(st);   // token t of the window at row t
+    const bf16* lt = reinterpret_cast<const bf16*>(st + WIN_BYTES);
+    const Win wi = cur.at;
+    // mask_inv[f] at this lane's channels 8 j + t2, + 1, loaded under the products
+    float2 mv[NCT];
+    const bf16* mim = mi + static_cast<long long>(wi.f) * C;
+#pragma unroll
+    for (int j = 0; j < NCT; ++j) mv[j] = load2(mim + 8 * j + t2);
+    float qacc[NCT][4], vacc[NCT][4];
+    zero1(qacc);
+    zero1(vacc);
+    keep(qacc);   // defined before the products' fence
+    keep(vacc);
+    {
+      // q = x wq, v = x wv
+      const uint64_t xd = wgmma_desc(xt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64_tb(qacc, xd + 2 * kk, wqd + 128 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64_tb(vacc, xd + 2 * kk, wvd + 128 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(qacc);
+      keep(vacc);
+    }
+    PHASE(1)
+    // q = (x wq + bq) mask_inv[f] and v = x wv + bv, rounded: q as the
+    // scores' register A and, with v, into this warpgroup's tiles
+    uint32_t qa[4][4];
+#pragma unroll
+    for (int j = 0; j < NCT; ++j) {
+      const float2 bqj = *reinterpret_cast<const float2*>(bsm + 8 * j + t2);
+      const float2 bvj = *reinterpret_cast<const float2*>(bsm + C + 8 * j + t2);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int tok = 16 * wl + g + 8 * half;
+        const uint32_t q2 = pack_bf16x2((qacc[j][2 * half] + bqj.x) * mv[j].x,
+                                        (qacc[j][2 * half + 1] + bqj.y) * mv[j].y);
+        qa[j >> 1][2 * (j & 1) + half] = q2;
+        *reinterpret_cast<uint32_t*>(swizzled(qs, tok, 8 * j + t2)) = q2;
+        store2(swizzled(vs, tok, 8 * j + t2), vacc[j][2 * half] + bvj.x,
+               vacc[j][2 * half + 1] + bvj.y);
+      }
+    }
+    async_fence();
+    warpgroup_sync(wg);
+    PHASE(2)
+    // the scores s = q qᵀ (the keys are the window's own q rows)
+    float sc[NKT][4];
+    {
+      const uint64_t qd = wgmma_desc(qs);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_64x64(sc, qa[kk], qd + 2 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(sc);
+      keep(qa);
+    }
+    PHASE(3)
+    // softmax over the 64 keys of rows 16 wl + g (e = 0, 1) and + 8 (e =
+    // 2, 3): a quad holds a row; p = e / sum rounded into P.V's register A
+    uint32_t pa[4][4];
+    {
+      float ml[2], inv[2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NKT; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * rr], sc[j][2 * rr + 1]));
+        ml[rr] = quad_max(mx) * LOG2E;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NKT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = ex2(fmaf(sc[j][e], LOG2E, -ml[e >> 1]));
+          sum[e >> 1] += sc[j][e];
+        }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) inv[rr] = 1.f / quad_sum(sum[rr]);
+#pragma unroll
+      for (int j = 0; j < NKT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] *= inv[e >> 1];
+      round_to_a(sc, pa);
+      keep(pa);   // rounded before the products' fence
+    }
+    PHASE(4)
+    // loc = p v, rounded into the fusion's register A
+    float acc[NCT][4];
+    {
+      const uint64_t vd = wgmma_desc(vs, 1024);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_64x64_tb(acc, pa[kk], vd + 128 * kk, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(acc);
+      keep(pa);
+    }
+    uint32_t la[4][4];
+    round_to_a(acc, la);
+    keep(la);
+    {
+      // out = long fa + loc fb
+      const uint64_t ld = wgmma_desc(lt);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64_tb(acc, ld + 2 * kk, fad + 128 * kk, kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_64x64_tb(acc, la[kk], fbd + 128 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(acc);
+      keep(la);
+    }
+    PHASE(5)
+    // + bf + x in fp32, rounded once, in place of x; then the window's 64
+    // pixel rows out as 16-byte chunks, 4 a thread
+#pragma unroll
+    for (int j = 0; j < NCT; ++j) {
+      const float2 bfj = *reinterpret_cast<const float2*>(bsm + 2 * C + 8 * j + t2);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        bf16* o = swizzled(xt, 16 * wl + g + 8 * half, 8 * j + t2);
+        const float2 xv = load2(o);
+        store2(o, acc[j][2 * half] + bfj.x + xv.x, acc[j][2 * half + 1] + bfj.y + xv.y);
+      }
+    }
+    warpgroup_sync(wg);
+    if (cur.i < g1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int tok = (r >> 3) + 16 * i, ch = 8 * (r & 7);
+        const long long pix = (static_cast<long long>(wi.f) * h + WS * wi.wy + (tok >> 3)) * w +
+                              WS * wi.wx + (tok & 7);
+        *reinterpret_cast<uint4*>(out + pix * C + ch) =
+            *reinterpret_cast<const uint4*>(swizzled(xt, tok, ch));
+      }
+    }
+    async_fence();   // the stage's reads and writes before its refill by the TMA unit
+    warpgroup_sync(wg);
+    if (producer && t + E2_STAGES < steps) {
+      fetch(t + E2_STAGES, ahead.at);
+      next(ahead);
+    }
+    PHASE(6)
+    PHASE_STEP
+  }
+  PHASE_END
+}
+
+cudaError_t launch_eg2_bf16(const void* x, const void* lg, const void* wq, const void* bq,
+                            const void* wv, const void* bv, const void* mi, const void* fa,
+                            const void* fb, const void* bf, void* out, int batch, int h, int w,
+                            cudaStream_t stream) {
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidValue;
+  CUtensorMap tx, tlg, twq, twv, tfa, tfb;
+  cudaError_t err;
+  if ((err = nhwc_tensor_map(&tx, x, batch, h, w, WS, WS)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&tlg, lg, batch, h, w, WS, WS)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&twq, wq, 1, 1, C, C)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&twv, wv, 1, 1, C, C)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&tfa, fa, 1, 1, C, C)) != cudaSuccess ||
+      (err = nhwc_tensor_map(&tfb, fb, 1, 1, C, C)) != cudaSuccess) {
+    return err;
+  }
+  if ((err = allow_smem(eg2_walk_kernel, E2_SMEM)) != cudaSuccess) return err;
+  const long long sets = (static_cast<long long>(batch) * (h / WS) * (w / WS) + E2_WGS - 1) / E2_WGS;
+  CDFO_LAUNCH_N(eg2_walk_kernel, dim3(static_cast<unsigned>(sets < sms ? sets : sms)), E2_THREADS,
+                E2_SMEM, stream, tx, tlg, twq, twv, tfa, tfb, static_cast<const bf16*>(bq),
+                static_cast<const bf16*>(bv), static_cast<const bf16*>(mi),
+                static_cast<const bf16*>(bf), static_cast<bf16*>(out), batch, h, w);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_eg1(const void* x, const void* aq, const void* cq, const void* bv,
                        const void* cv, const void* h9, void* qs, void* vs, void* qc, void* vr,
                        int batch, int h, int w, cudaStream_t stream) {
@@ -1053,11 +1382,12 @@ cudaError_t launch_eg1_bf16(const void* x, const void* aq, const void* cq, const
   return cudaGetLastError();
 }
 
-template <typename T>
+// float32: the first design
 cudaError_t launch_eg2(const void* x, const void* lg, const void* wq, const void* bq,
                        const void* wv, const void* bv, const void* mi, const void* fa,
                        const void* fb, const void* bf, void* out, int batch, int h, int w,
                        cudaStream_t stream) {
+  using T = float;
   const cudaError_t err = allow_smem(eg2_local_fuse<T>, eg2_smem<T>());
   if (err != cudaSuccess) return err;
   const dim3 grid((w + TW - 1) / TW, h / WS, batch);
@@ -1094,9 +1424,10 @@ extern "C" int cdfo_eg1_rows(const void* x, const void* aq, const void* cq, cons
 }
 
 // x, lg (the column stage's output), out: (batch, h, w, 64) NHWC, h and w
-// multiples of 8; wq, wv, fa, fb: 64 x 64 matrices (out, in) in
-// kernel_weights' layout; bq, bv, bf: [64]; mi: [batch][64] (1 - mask); all
-// of one dtype. Returns a cudaError_t.
+// multiples of 8; wq, wv, fa, fb: 64 x 64 matrices, float32 (out, in) in
+// kernel_weights' layout, bfloat16 (in, out) as they are (16-byte aligned;
+// the walk's TMA loads swizzle them); bq, bv, bf: [64]; mi: [batch][64]
+// (1 - mask); all of one dtype. Returns a cudaError_t.
 extern "C" int cdfo_eg2_local_fuse(const void* x, const void* lg, const void* wq, const void* bq,
                                    const void* wv, const void* bv, const void* mi, const void* fa,
                                    const void* fb, const void* bf, void* out, int is_bf16,
@@ -1106,6 +1437,6 @@ extern "C" int cdfo_eg2_local_fuse(const void* x, const void* lg, const void* wq
     return cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_eg2<bf16>(x, lg, wq, bq, wv, bv, mi, fa, fb, bf, out, batch, h, w, s)
-                 : launch_eg2<float>(x, lg, wq, bq, wv, bv, mi, fa, fb, bf, out, batch, h, w, s);
+  return is_bf16 ? launch_eg2_bf16(x, lg, wq, bq, wv, bv, mi, fa, fb, bf, out, batch, h, w, s)
+                 : launch_eg2(x, lg, wq, bq, wv, bv, mi, fa, fb, bf, out, batch, h, w, s);
 }

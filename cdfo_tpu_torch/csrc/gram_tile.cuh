@@ -1,15 +1,11 @@
 // Channel-attention statistics, shared by fused_mdta.cu and fused_align.cu:
 // the three 64 x 64 grams [Q^T K, Q^T Q, K^T K] of a pixel tile held in
-// shared memory (pixel-major, `Pitch<T>` per pixel, as conv3x3_tile.cuh
+// shared memory (pixel-major, `Pitch<float>` per pixel, as conv3x3_tile.cuh
 // keeps its windows), summed over the tiles a block walks, and the second
-// launch that adds the blocks' partial sums.
-//
-// The grams contract over pixels. In bfloat16 both factors come from the
-// pixel-major tiles by `ldmatrix.trans`, which hands a lane the column
-// pairs the mma fragments want (A = Q^T: channel rows, pixel columns; B =
-// K: pixel rows, channel columns), and `mma.sync.m16n8k16` sums them in
-// float32. The float32 twin computes the same fragment elements on the
-// CUDA cores.
+// launch that adds the blocks' partial sums. Only the float32 twins use
+// the grams here (on the CUDA cores, in the mma C-fragment layout below);
+// the bfloat16 routes run theirs on wgmma (wgmma_tile.cuh). The
+// attention kernels take `ldsm_x4_trans` from here for their P.V reads.
 //
 // Warp w owns m-tile (w & 3) (left-factor channels 16(w & 3) .. +15) and
 // n-tiles 4(w >> 2) .. +3 (right-factor channels 32(w >> 2) .. +31) of all
@@ -51,38 +47,7 @@ __device__ __forceinline__ void zero_grams(float (&acc)[3][4][4]) {
 }
 
 // acc += this warp's share of [Q^T K, Q^T Q, K^T K] over pixels 0 .. npix-1
-// (a multiple of 16) of the tiles qs and ks.
-__device__ __forceinline__ void gram3(float (&acc)[3][4][4], const bf16* qs, const bf16* ks,
-                                      int npix, int warp, int lane) {
-  constexpr int P = Pitch<bf16>::value;
-  const int c0 = (warp & 3) * 16, d0 = (warp >> 2) * 32;
-  const int j = lane >> 3, r = lane & 7;
-  // A = Q^T (16 channels x 16 pixels): matrices (pixels 0-7 | 8-15) x
-  // (channels c0 | c0 + 8) in a0 .. a3 order; B = K (16 pixels x 8
-  // channels) for two n-tiles: (pixels 0-7, 8-15) of channel block d, then
-  // of d + 8
-  const int a_off = (r + 8 * (j >> 1)) * P + c0 + 8 * (j & 1);
-  const int b_off = (r + 8 * (j & 1)) * P + d0 + 8 * (j >> 1);
-#pragma unroll 1
-  for (int p0 = 0; p0 < npix; p0 += 16) {
-    uint32_t aq[4], ak[4], bq[2][4], bk[2][4];
-    ldsm_x4_trans(aq, qs + p0 * P + a_off);
-    ldsm_x4_trans(ak, ks + p0 * P + a_off);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      ldsm_x4_trans(bq[hh], qs + p0 * P + b_off + 16 * hh);
-      ldsm_x4_trans(bk[hh], ks + p0 * P + b_off + 16 * hh);
-    }
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int hh = nt >> 1, s = (nt & 1) * 2;
-      mma16816(acc[0][nt], aq[0], aq[1], aq[2], aq[3], bk[hh][s], bk[hh][s + 1]);
-      mma16816(acc[1][nt], aq[0], aq[1], aq[2], aq[3], bq[hh][s], bq[hh][s + 1]);
-      mma16816(acc[2][nt], ak[0], ak[1], ak[2], ak[3], bk[hh][s], bk[hh][s + 1]);
-    }
-  }
-}
-
+// of the tiles qs and ks.
 __device__ __forceinline__ void gram3(float (&acc)[3][4][4], const float* qs, const float* ks,
                                       int npix, int warp, int lane) {
   constexpr int P = Pitch<float>::value;

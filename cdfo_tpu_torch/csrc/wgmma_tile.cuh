@@ -4,14 +4,16 @@
 // (its s8 products and its 0.5x branch's bf16 convs), fused_head.cu (its
 // three chained products), fused_mdta.cu (stage 1's qkv and grams, stage
 // 2's three products), fused_groupconv.cu (the group tail's conv),
-// fused_align.cu (dual-MSA stage 2's three products) and fused_egla.cu
-// (eg1's projection and its row attention). Only those include this
+// fused_align.cu (dual-MSA stage 1's key and grams, stage 2's three
+// products) and fused_egla.cu (eg1's projection and its row attention,
+// eg2's window chain). Only those include this
 // header; conv3x3_tile.cuh is unchanged for the rest.
 //
 // The wgmma forms used: m64nNk16, bf16 x bf16 -> fp32, A from registers (or,
 // wgmma_ss_*, a K-major tile in shared memory like B) and B from shared
-// memory (K-major, or MN-major in wgmma_64x64_tb and, with A MN-major too,
-// wgmma_ss_64x128_tt); m64nNk32, s8 x s8 -> s32
+// memory (K-major, or MN-major in wgmma_64x64_tb and wgmma_ss_64x64_tb
+// and, with A MN-major too, wgmma_ss_64x128_tt and wgmma_ss_64x64_tt);
+// m64nNk32, s8 x s8 -> s32
 // (`wgmma_*s8*`), both operands K-major (8-bit types take no transpose),
 // either as the swizzle-free tiles of `wgmma_desc_plain` or, for A, in
 // registers in the mma.sync.m16n8k32 A-fragment layout.
@@ -169,9 +171,9 @@ __device__ __forceinline__ void wgmma_ss_64x96(float (&d)[12][4], uint64_t desc_
 // d (64 x 128) += A (descriptor) . B (descriptor), both MN-major: each
 // tile's 128-byte rows run along M (or N) and its 8-row groups along K,
 // B's two 64-column blocks `lead` bytes apart (wgmma_desc(tile, lead)):
-// the MDTA grams, pixels as K
+// the MDTA and dual-MSA grams, pixels as K
 __device__ __forceinline__ void wgmma_ss_64x128_tt(float (&d)[16][4], uint64_t desc_a,
-                                                   uint64_t desc_b) {
+                                                   uint64_t desc_b, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -193,7 +195,47 @@ __device__ __forceinline__ void wgmma_ss_64x128_tt(float (&d)[16][4], uint64_t d
         "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]),
         "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(desc_a), "l"(desc_b), "r"(1));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64) += A (descriptor) . B (descriptor), both MN-major: the
+// dual-MSA gram k^T k, pixels as K
+__device__ __forceinline__ void wgmma_ss_64x64_tt(float (&d)[8][4], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64) += A (descriptor, K-major) . B (descriptor, MN-major): eg2's
+// products of a window's tokens with a (C in, C out) matrix as it is
+__device__ __forceinline__ void wgmma_ss_64x64_tb(float (&d)[8][4], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]),
+        "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]),
+        "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]),
+        "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
+        "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // d (64 x N over the warpgroup) += A (descriptor) . B (descriptor), both
@@ -274,7 +316,7 @@ __device__ __forceinline__ void wgmma_ss_64x136(float (&d)[17][4], uint64_t desc
 // d (64 x 64) += A (registers) . B (descriptor), B MN-major: the tile's
 // 128-byte rows run along N (64 columns) and its 8-row groups along K
 __device__ __forceinline__ void wgmma_64x64_tb(float (&d)[8][4], const uint32_t (&a)[4],
-                                               uint64_t desc) {
+                                               uint64_t desc, int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -288,7 +330,7 @@ __device__ __forceinline__ void wgmma_64x64_tb(float (&d)[8][4], const uint32_t 
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]),
         "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
         "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
 // d (64 x 64) += A (descriptor) . B (descriptor), both K-major: the
@@ -392,8 +434,9 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
 }
 
 // The TMA unit's tensor copies of 64-pixel rows of a bf16 NHWC tensor
-// (`nhwc_tensor_map`): box pixels x0 .. x0 + box_w - 1 of row y of image b,
-// 64 channels a pixel, one 128-byte pixel row each in shared memory,
+// (`nhwc_tensor_map`): box pixels x0 .. x0 + box_w - 1 of row y (and of
+// the box's further rows) of image b, 64 channels a pixel, one 128-byte
+// pixel row each in shared memory,
 // 128-byte swizzled (as `fetch_row64` and wgmma's K-major tiles lay them
 // out; the tile 1024-byte aligned). A load zero-fills what lies outside the
 // tensor and completes its box's bytes on bar; a store skips it, one bulk
@@ -431,10 +474,12 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
 }
 
 // The TMA map of a bf16 NHWC tensor (batch, h, wd, 64) at base, for
-// `tma_load_row` and `tma_store_row` with boxes of box_w pixels (host
-// code; the driver's encoder is looked up once through the runtime).
+// `tma_load_row` and `tma_store_row` with boxes of box_w pixels of box_h
+// rows (host code; the driver's encoder is looked up once through the
+// runtime). A box of box_h > 1 rows lands as its box_w-pixel rows one
+// after another: an 8 x 8 box is an 8x8 window's 64 tokens in row order.
 inline cudaError_t nhwc_tensor_map(CUtensorMap* map, const void* base, int batch, int h, int wd,
-                                   int box_w) {
+                                   int box_w, int box_h = 1) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -459,7 +504,8 @@ inline cudaError_t nhwc_tensor_map(CUtensorMap* map, const void* base, int batch
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
                                  static_cast<cuuint64_t>(wd) * C * 2,
                                  static_cast<cuuint64_t>(h) * wd * C * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C), static_cast<cuuint32_t>(box_w), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C), static_cast<cuuint32_t>(box_w),
+                             static_cast<cuuint32_t>(box_h), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -532,6 +578,18 @@ __device__ __forceinline__ void zero1(float (&acc)[NT][4]) {
   for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+}
+
+// acc (64 x 64 fp32 fragments) rounded to bf16 as the register A operand of
+// the next product, k16 step kk taking n-tiles 2kk, 2kk + 1
+__device__ __forceinline__ void round_to_a(const float (&acc)[8][4], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      a[kk][2 * u] = pack_bf16x2(acc[2 * kk + u][0], acc[2 * kk + u][1]);
+      a[kk][2 * u + 1] = pack_bf16x2(acc[2 * kk + u][2], acc[2 * kk + u][3]);
+    }
 }
 
 // element c of pixel p of a window of 128-byte pixel rows (64 bf16

@@ -20,11 +20,13 @@ for a CPU tensor, and a CUDA tensor launches the hand-written kernels in
 ``csrc/fused_align.cu`` (the ports of the TPU kernels ``msa_stage1`` and
 ``msa_stage2``) or raises. Each call is two launches (per-block partial
 sums, then their fixed-order reduction) and counts once in the wrapper's
-``launches``. The bfloat16 stage 2 is a walk on ``wgmma`` that reads
-W_proj and W_fuse as 128-byte swizzled tiles (``pack_stage2_weights``,
-which ``DualAttAlignment`` keeps with ``cuda_build.cached_pack``) and the
-per-image matrices, made each call from stage 1's statistics, as
-``pack_stage2_images`` stacks them (its loads swizzle them).
+``launches``. The bfloat16 passes are walks on ``wgmma``: stage 1 reads
+``w_fuse`` as it is (its loads swizzle it; nothing is packed), stage 2
+reads W_proj and W_fuse as 128-byte swizzled tiles
+(``pack_stage2_weights``, which ``DualAttAlignment`` keeps with
+``cuda_build.cached_pack``) and the per-image matrices, made each call from
+stage 1's statistics, as ``pack_stage2_images`` stacks them (its loads
+swizzle them).
 
 Weights are torch layouts: ``w_fuse`` (C, 2C, 1, 1) the shared
 ``fusion_out`` conv (input channels [w; p], or [po; q]), ``w_proj`` (C, C,
@@ -116,7 +118,7 @@ def pack_stage2_images(awt, apt, dtype):
 
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol):
-    argtypes = {"cdfo_msa_stage1_workspace": [_I] * 4,
+    argtypes = {"cdfo_msa_stage1_workspace": [_I] * 5,
                 "cdfo_msa_stage2_workspace": [_I] * 5,
                 "cdfo_msa_stage1": [_P] * 5 + [_I] + [_P] * 2 + [_I] * 5 + [_P],
                 "cdfo_msa_stage2": [_P] * 8 + [_I, _P] + [_I] * 5 + [_P]}[symbol]
@@ -151,16 +153,16 @@ def msa_stage1(warped, pred, center, w_fuse):
     if not cb.on_card(warped, what):
         return msa_stage1_plain(warped, pred, center, w_fuse)
     b, h, wd, nbr = _check(what, warped, pred, center, (), (), w_fuse)
-    c = CHANNELS
+    c, dt = CHANNELS, warped.dtype
     stats = warped.new_empty((b, 3, c, c), dtype=torch.float32)
     gaps = warped.new_empty((b, 2, c), dtype=torch.float32)
     ws = cb.workspace(_kernel("cdfo_msa_stage1_workspace"), what,
-                      warped.device, b, h, wd, nbr)
-    fk = cb.kernel_weights(w_fuse, warped.dtype)
+                      warped.device, b, h, wd, nbr, cb.DTYPE_CODES[dt])
+    fk = w_fuse if dt == torch.bfloat16 else cb.kernel_weights(w_fuse, dt)
     cb.launch(_kernel("cdfo_msa_stage1"), what, warped.device,
               warped.data_ptr(), pred.data_ptr(), center.data_ptr(),
               fk.data_ptr(), ws.data_ptr(), ws.numel(), stats.data_ptr(),
-              gaps.data_ptr(), cb.DTYPE_CODES[warped.dtype], b, h, wd, nbr)
+              gaps.data_ptr(), cb.DTYPE_CODES[dt], b, h, wd, nbr)
     msa_stage1.launches += 1
     return stats, gaps
 

@@ -27,7 +27,9 @@ projection and band walk, then the row attention with the row resident, or
 past 640 positions the first design's row pass) and counts once in
 ``eg1_rows.launches``; ``eg2_local_fuse.launches`` counts eg2's. eg1's
 matrices go to the kernel as ``pack_eg1_weights`` lays them out; aq depends
-on the mask, so they are packed in each call.
+on the mask, so they are packed in each call. eg2's bfloat16 walk takes its
+four matrices as they are (its loads swizzle them); its float32 twin takes
+them in ``cuda_build.kernel_weights``' layout.
 """
 from __future__ import annotations
 
@@ -171,7 +173,10 @@ def eg2_local_fuse(x, long_out, wq, bq, wv, bv, mask_inv, fa, fb, bf):
                               (("bq", bq), ("bv", bv), ("bf", bf))},
                            "mask_inv": (mask_inv, (m, c))})
     out = torch.empty_like(x)
-    wqk, wvk, fak, fbk = (_matrix(t, x.dtype) for t in (wq, wv, fa, fb))
+    mats = (wq, wv, fa, fb)
+    if x.dtype != torch.bfloat16:
+        mats = tuple(_matrix(t, x.dtype) for t in mats)
+    wqk, wvk, fak, fbk = mats
     cb.launch(_kernel("cdfo_eg2_local_fuse"), what, x.device, x.data_ptr(),
               long_out.data_ptr(), wqk.data_ptr(), bq.data_ptr(),
               wvk.data_ptr(), bv.data_ptr(), mask_inv.data_ptr(),

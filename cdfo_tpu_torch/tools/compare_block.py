@@ -3,8 +3,9 @@ parent commit, unpacked with ``git archive``), in turns on one card, in
 bfloat16: the exact ``Block_`` (``--kernel block``), the int8 ``Block_``
 (``blockq``), the alignment tail (``tail``, 6 neighbours per image), the
 upsample head (``head``), the group tail (``group``), MDTA stage 1 or 2
-(``mdta1``, ``mdta2``), dual-MSA stage 2 (``msa2``, 6 neighbours per
-centre, ``--b`` centres) or EGLA's eg1 (``eg1``, ``--b`` frames).
+(``mdta1``, ``mdta2``), dual-MSA stage 1 or 2 (``msa1``, ``msa2``, 6
+neighbours per centre, ``--b`` centres) or EGLA's eg1 or eg2 (``eg1``,
+``eg2``, ``--b`` frames).
 
 Each side is its own ``ops`` module, built by its own ``cuda_build`` from
 its own ``csrc/``, and is first held against this checkout's plain version
@@ -15,12 +16,13 @@ three ways: the call with its weights packed in it (the wrapper without
 kept (what the model pays) and the pack alone; a side whose wrapper takes
 no pack (the tail before it had one, the head, the group tail, the MDTA
 passes and dual-MSA stage 2 before they had one, eg1, whose matrices change
-with the mask) has only the first. Times are per call, in
+with the mask, dual-MSA stage 1 and eg2, whose walks read their weights as
+they are) has only the first. Times are per call, in
 ms, with the card's name.
 
     python -m cdfo_tpu_torch.tools.compare_block --other DIR
-        [--kernel block|blockq|tail|head|group|mdta1|mdta2|msa2|eg1 --b 4
-         --h 272 --w 480 --reps 15]
+        [--kernel block|blockq|tail|head|group|mdta1|mdta2|msa1|msa2|eg1|eg2
+         --b 4 --h 272 --w 480 --reps 15]
 """
 from __future__ import annotations
 
@@ -70,10 +72,13 @@ KERNELS = {
     "mdta2": (fm, "mdta_stage2",
               lambda m, a: m.pack_stage2_weights(a[4], a[7], a[0].dtype),
               fm.mdta_stage2_plain, "MDTA stage 2"),
+    "msa1": (fal, "msa_stage1", None, fal.msa_stage1_plain,
+             "dual-MSA stage 1"),
     "msa2": (fal, "msa_stage2",
              lambda m, a: m.pack_stage2_weights(a[5], a[6], a[0].dtype),
              fal.msa_stage2_plain, "dual-MSA stage 2"),
     "eg1": (fe, "eg1_rows", None, fe.eg1_rows_plain, "EGLA eg1"),
+    "eg2": (fe, "eg2_local_fuse", None, fe.eg2_local_fuse_plain, "EGLA eg2"),
 }
 
 
@@ -124,10 +129,10 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     g = torch.Generator(device="cuda").manual_seed(1)
-    if kind in ("mdta1", "mdta2", "msa2"):
+    if kind in ("mdta1", "mdta2", "msa1", "msa2"):
         args = kc.align_embed_args(kind, torch.bfloat16, g, (a.b, a.h, a.w),
                                    6)
-    elif kind == "eg1":
+    elif kind in ("eg1", "eg2"):
         args = kc.egla_args(kind, torch.bfloat16, g, (a.b, a.h, a.w, 64))
     else:
         args = kc.trunk_args(kind, torch.bfloat16, g, (a.b, a.h, a.w, 64),

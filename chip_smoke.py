@@ -114,20 +114,22 @@ path (``torch.profiler``): device time by kernel, in order, and the
 device's busy share of the run's wall time. Flags named after it are added
 to the four (``--profile trunk_int8 block_warp``).
 
-    python3 chip_smoke.py --phases [msa2 eg1 blockq block tail head mdta1
-                                    group mdta2]
+    python3 chip_smoke.py --phases [msa1 msa2 eg1 eg2 blockq block tail
+                                    head mdta1 group mdta2]
 
-builds dual-MSA stage 2, eg1 (twice: its projection and band walk's
-marks, then its row attention's), the int8 ``Block_``, the exact one, the
-alignment tail, the head, the group tail and both MDTA passes (or those
-named) with their phase clocks compiled in and prints, at the main shapes
-in bfloat16, the cycles spent in each phase: per step for the walks
-(stage 2's (centre, 128 pixels, neighbour) steps, eg1's two rows a step
-and its row attention's 64-query tiles, the int8 kernel's walk down its
-strips, the tail's, the head's and stage 1's row by row, the group tail's
-and MDTA stage 2's two rows a step), as the kernels count their steps,
-and per CTA for the exact ``Block_``. The int8 ``Block_``'s other launch,
-its 0.5x branch, has no marks: ``--profile`` gives its device time.
+builds both dual-MSA passes, eg1 (twice: its projection and band walk's
+marks, then its row attention's), eg2, the int8 ``Block_``, the exact one,
+the alignment tail, the head, the group tail and both MDTA passes (or
+those named) with their phase clocks compiled in and prints, at the main
+shapes in bfloat16, the cycles spent in each phase: per step for the walks
+(dual-MSA stage 1's (centre, 128 pixels) steps of one neighbour, stage
+2's (centre, 128 pixels, neighbour) steps, eg1's two rows a step and its
+row attention's 64-query tiles, eg2's three windows a step, the int8
+kernel's walk down its strips, the tail's, the head's and MDTA stage 1's
+row by row, the group tail's and MDTA stage 2's two rows a step), as the
+kernels count their steps, and per CTA for the exact ``Block_``. The int8
+``Block_``'s other launch, its 0.5x branch, has no marks: ``--profile``
+gives its device time.
 """
 from __future__ import annotations
 
@@ -1207,6 +1209,19 @@ MSA2_PHASES = ("the wait for the step's stage at its mbarrier",
                "fo = po W_fA + q W_fB on wgmma",
                "epilogue: relu, sums, rounded fo to shared memory",
                "barrier, the store's and the next loads' issue, running sums")
+# the PHASE marks of csrc/fused_align.cu's bf16 stage-1 walk, per step
+MSA1_PHASES = ("the wait for the step's stage at its mbarrier",
+               "k = [w p] W_f on wgmma beside the sums of w and p",
+               "k: relu, rounded in place of w",
+               "the grams q^T [k | q] and k^T k on wgmma",
+               "barrier, a centre's flush, the next loads' issue")
+# the PHASE marks of csrc/fused_egla.cu's bf16 eg2 walk, per step
+EG2_PHASES = ("the wait for the step's stage at its mbarrier",
+              "q = x wq, v = x wv on wgmma",
+              "their epilogue: biases, mask, q and v tiles",
+              "s = q q^T on wgmma", "softmax, p rounded",
+              "loc = p v, out = long fa + loc fb on wgmma",
+              "epilogue: + bf + x, barrier, the stores' and loads' issue")
 # the PHASE marks of csrc/fused_egla.cu's bf16 eg1 walks, per step: the
 # projection and band walk's, then (-DCDFO_PHASE_ROWS) the row attention's
 EG1_WALK_PHASES = ("the wait for x's rows at the step's barrier",
@@ -1274,18 +1289,22 @@ def phase_clocks(card: str, label: str, source: str, symbol: str, nargs,
 
 
 PHASE_KINDS = ("blockq", "block", "tail", "head", "mdta1", "group", "mdta2",
-               "msa2", "eg1")
+               "msa1", "msa2", "eg1", "eg2")
 
 
 def run_phase_clocks(card: str, kinds=PHASE_KINDS):
     """``--phases`` for the int8 ``Block_``, the exact one, the alignment
-    tail, the head, the group tail, both MDTA passes, dual-MSA stage 2 and
-    eg1's two walks at the main shapes in bfloat16, their weights packed
-    once; ``kinds``: those of ``PHASE_KINDS`` to run."""
+    tail, the head, the group tail, both MDTA passes, both dual-MSA passes,
+    eg1's two walks and eg2 at the main shapes in bfloat16, their weights
+    packed once; ``kinds``: those of ``PHASE_KINDS`` to run."""
+    if "msa1" in kinds:
+        phase_clocks_msa1(card)
     if "msa2" in kinds:
         phase_clocks_msa2(card)
     if "eg1" in kinds:
         phase_clocks_eg1(card)
+    if "eg2" in kinds:
+        phase_clocks_eg2(card)
     if "blockq" in kinds:
         g = torch.Generator(device="cuda").manual_seed(4)
         x, *params = kc.trunk_args("blockq", torch.bfloat16, g, TRUNK_MAIN)
@@ -1394,6 +1413,30 @@ def run_phase_clocks(card: str, kinds=PHASE_KINDS):
             MDTA2_PHASES)
 
 
+def phase_clocks_msa1(card: str):
+    """``--phases`` of dual-MSA stage 1's bf16 walk at the main path's 24
+    neighbours of 4 centres."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    shape, nbr = ALIGN_EMBED_SHAPES[0]
+    args = kc.align_embed_args("msa1", torch.bfloat16, g, shape, nbr)
+    w, p, center, w_fuse = args
+    b = w.shape[0]
+    stats = torch.empty(b, 3, 64, 64, device="cuda")
+    gaps = torch.empty(b, 2, 64, device="cuda")
+    ws = cuda_build.workspace(fal._kernel("cdfo_msa_stage1_workspace"),
+                              "msa1", w.device, b, *shape[1:], nbr, 1)
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    phase_clocks(
+        card, f"dual-MSA stage 1 {tuple(w.shape)}", "fused_align",
+        "cdfo_msa_stage1", [ptr] * 5 + [i32] + [ptr] * 2 + [i32] * 5,
+        [*(t.data_ptr() for t in (w, p, center, w_fuse, ws)), ws.numel(),
+         stats.data_ptr(), gaps.data_ptr(), 1, b, *shape[1:], nbr],
+        (stats, gaps),
+        lambda r: kc.assert_outputs_close(
+            r, fal.msa_stage1_plain(*args), torch.bfloat16, "msa1"),
+        MSA1_PHASES)
+
+
 def phase_clocks_msa2(card: str):
     """``--phases`` of dual-MSA stage 2's bf16 walk at the main path's 24
     neighbours of 4 centres, W_proj and W_fuse packed once."""
@@ -1438,6 +1481,20 @@ def phase_clocks_eg1(card: str):
             lambda r: kc.assert_outputs_close(
                 r, fe.eg1_rows_plain(*args), torch.bfloat16, "eg1"),
             names, defines)
+
+
+def phase_clocks_eg2(card: str):
+    """``--phases`` of eg2's bf16 window walk at the main shape."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    args = kc.egla_args("eg2", torch.bfloat16, g, EGLA_MAIN)
+    out = torch.empty_like(args[0])
+    phase_clocks(
+        card, f"eg2 {EGLA_MAIN} (the window walk)", "fused_egla",
+        "cdfo_eg2_local_fuse", 11,
+        [*(t.data_ptr() for t in (*args, out)), 1, *EGLA_MAIN[:3]], out,
+        lambda r: kc.assert_outputs_close(
+            r, fe.eg2_local_fuse_plain(*args), torch.bfloat16, "eg2"),
+        EG2_PHASES)
 
 
 def redesign_order(card: str, fields: dict, launches: dict) -> None:

@@ -397,6 +397,28 @@ def test_msa2_walk_matches_plain(cuda, shape, nbr):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,nbr", [((4, 272, 480), 6), ((4, 272, 480), 3),
+                                       ((3, 40, 100), 6), ((2, 18, 34), 3),
+                                       ((4, 64, 100), 1), ((1, 7, 5), 2)])
+def test_msa1_walk_matches_plain(cuda, shape, nbr):
+    """The bfloat16 stage-1 walk (groups of nbr CTAs, rank f taking
+    neighbour f) at the main path's shape with 6 and 3 neighbours a centre,
+    at ragged pixel counts (not a multiple of the 128-pixel unit) whose
+    groups' shares cross a centre, at one neighbour a centre (shares of 1.5
+    units) and below one unit; a second call gives the same bits."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    args = kc.align_embed_args("msa1", torch.bfloat16, g, shape, nbr,
+                               device=cuda)
+    with torch.no_grad():
+        out = fal.msa_stage1(*args)
+        again = fal.msa_stage1(*args)
+        ref = fal.msa_stage1_plain(*args)
+    torch.cuda.synchronize()
+    kc.assert_outputs_close(out, ref, torch.bfloat16, "msa1")
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+@pytest.mark.cuda
 def test_alignment_caches_its_stage2_pack(cuda):
     """DualAttAlignment.fused_msa keeps stage 2's pack until W_proj or
     W_fuse changes."""
@@ -476,6 +498,23 @@ def test_egla_kernel_matches_plain(cuda, kind, shape, dtype):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     kc.assert_outputs_close(out, ref, dtype, kind)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 272, 480, 64), (3, 24, 40, 64),
+                                   (5, 8, 8, 64), (2, 16, 24, 64)])
+def test_eg2_walk_matches_plain(cuda, shape):
+    """The bfloat16 window walk at the main path's shape, at W % 16 == 8
+    with CTA shares that cross a frame, at one window a frame (a step's two
+    windows in two frames; a CTA of one window, whose partner is dropped)
+    and at an odd window count."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    args = kc.egla_args("eg2", torch.bfloat16, g, shape, device=cuda)
+    with torch.no_grad():
+        out = fe.eg2_local_fuse(*args)
+        ref = fe.eg2_local_fuse_plain(*args)
+    torch.cuda.synchronize()
+    kc.assert_outputs_close(out, ref, torch.bfloat16, "eg2")
 
 
 @pytest.mark.cuda

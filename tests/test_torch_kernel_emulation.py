@@ -67,9 +67,11 @@ KERNELS = {
     "mdta1": (fm, fm.mdta_stage1, fm.mdta_stage1_plain, "fused_mdta"),
     "mdta2": (fm, fm.mdta_stage2, fm.mdta_stage2_plain, "fused_mdta"),
     "msa1": (fal, fal.msa_stage1, fal.msa_stage1_plain, "fused_align"),
+    "msa1_groups": (fal, fal.msa_stage1, fal.msa_stage1_plain, "fused_align"),
     "msa2": (fal, fal.msa_stage2, fal.msa_stage2_plain, "fused_align"),
     "eg1": (fe, fe.eg1_rows, fe.eg1_rows_plain, "fused_egla"),
     "eg2": (fe, fe.eg2_local_fuse, fe.eg2_local_fuse_plain, "fused_egla"),
+    "eg2_odd": (fe, fe.eg2_local_fuse, fe.eg2_local_fuse_plain, "fused_egla"),
     **{f"warp_{case}": (wb, wb.flow_warp_ring_block,
                         wb.flow_warp_ring_block_plain, "warp_block")
        for case in kc.WARP_CASES},
@@ -170,14 +172,14 @@ inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 2; return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated launch refused"; }
 inline std::barrier<>* emu_block_bar;
-inline std::barrier<>* emu_warp_bar[8];
-inline std::barrier<>* emu_wg_bar[2];   // the two warpgroups of a block
+inline std::barrier<>* emu_warp_bar[12];
+inline std::barrier<>* emu_wg_bar[3];   // the warpgroups of a block (up to 384 threads)
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
 inline void cp_async_commit() {}
 inline void cp_async_wait() {}
 struct EmuWarp { uint32_t a[32][4]; uint32_t b[32][2]; const void* rows[32]; float f[32]; };
-inline EmuWarp emu_warp[8];
+inline EmuWarp emu_warp[12];
 inline float emu_half(uint32_t v, int hi) { return __uint_as_float((hi ? v >> 16 : v & 0xffffu) << 16); }
 // mma.sync.m16n8k16 row.col bf16 -> f32: lane 4g + t holds A rows g, g + 8
 // (k 2t, 2t+1 and 2t+8, 2t+9), B column g (same k) and C rows g, g + 8,
@@ -275,13 +277,13 @@ template <class F> void emu_launch(dim3 grid, F&& body, unsigned threads = 256) 
         blockIdx = {x, y, z};
         std::barrier<> bar(threads);
         emu_block_bar = &bar;
-        for (int i = 0; i < 8; ++i) emu_warp_bar[i] = new std::barrier<>(32);
-        for (int i = 0; i < 2; ++i) emu_wg_bar[i] = new std::barrier<>(128);
+        for (int i = 0; i < 12; ++i) emu_warp_bar[i] = new std::barrier<>(32);
+        for (int i = 0; i < 3; ++i) emu_wg_bar[i] = new std::barrier<>(128);
         std::vector<std::thread> threads_;
         for (unsigned i = 0; i < threads; ++i) threads_.emplace_back([&, i] { threadIdx = {i, 0, 0}; body(); });
         for (auto& t : threads_) t.join();
-        for (int i = 0; i < 8; ++i) delete emu_warp_bar[i];
-        for (int i = 0; i < 2; ++i) delete emu_wg_bar[i];
+        for (int i = 0; i < 12; ++i) delete emu_warp_bar[i];
+        for (int i = 0; i < 3; ++i) delete emu_wg_bar[i];
       }
   blockDim = dim3(256);
 }
@@ -326,33 +328,34 @@ inline void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar)
   emu_complete_tx(bar, bytes);
 }
 // the TMA unit's row copies of a bf16 NHWC tensor (wgmma_tile.cuh): a box
-// of box_w pixels, 128-byte pixel rows swizzled by their shared address,
-// zero (load) or skipped (store) outside the tensor; a store completes at
-// once
-struct CUtensorMap { const char* base; int batch, h, wd, box_w; };
+// of box_w pixels of box_h rows, its 128-byte pixel rows one after another
+// in row order, swizzled by their shared address, zero (load) or skipped
+// (store) outside the tensor; a store completes at once
+struct CUtensorMap { const char* base; int batch, h, wd, box_w, box_h; };
 inline int nhwc_tensor_map(CUtensorMap* map, const void* base, int batch, int h, int wd,
-                           int box_w) {
-  *map = {static_cast<const char*>(base), batch, h, wd, box_w};
+                           int box_w, int box_h = 1) {
+  *map = {static_cast<const char*>(base), batch, h, wd, box_w, box_h};
   return 0;
 }
-template <class F> void emu_tma_rows(const CUtensorMap* m, const void* smem, int x0, int y, int b,
+template <class F> void emu_tma_rows(const CUtensorMap* m, const void* smem, int x0, int y0, int b,
                                      F&& copy) {
-  for (int p = 0; p < m->box_w; ++p)
-    for (int v = 0; v < 8; ++v) {
-      uint32_t a = shared_address(smem) + p * 128 + v * 16;
-      a ^= ((a >> 7) & 7) << 4;
-      const int xx = x0 + p;
-      const bool in = b >= 0 && b < m->batch && y >= 0 && y < m->h && xx >= 0 && xx < m->wd;
-      copy(reinterpret_cast<char*>(cdfo_smem) + a,
-           in ? m->base + ((static_cast<long long>(b) * m->h + y) * m->wd + xx) * 128 + v * 16
-              : nullptr);
-    }
+  for (int r = 0; r < m->box_h; ++r)
+    for (int p = 0; p < m->box_w; ++p)
+      for (int v = 0; v < 8; ++v) {
+        uint32_t a = shared_address(smem) + (r * m->box_w + p) * 128 + v * 16;
+        a ^= ((a >> 7) & 7) << 4;
+        const int xx = x0 + p, y = y0 + r;
+        const bool in = b >= 0 && b < m->batch && y >= 0 && y < m->h && xx >= 0 && xx < m->wd;
+        copy(reinterpret_cast<char*>(cdfo_smem) + a,
+             in ? m->base + ((static_cast<long long>(b) * m->h + y) * m->wd + xx) * 128 + v * 16
+                : nullptr);
+      }
 }
 inline void tma_load_row(void* dst, const CUtensorMap* m, int x0, int y, int b, uint64_t* bar) {
   emu_tma_rows(m, dst, x0, y, b, [](char* s, const char* g) {
     if (g) memcpy(s, g, 16); else memset(s, 0, 16);
   });
-  emu_complete_tx(bar, m->box_w * 128);
+  emu_complete_tx(bar, m->box_w * m->box_h * 128);
 }
 inline void tma_store_row(const CUtensorMap* m, const void* src, int x0, int y, int b) {
   emu_tma_rows(m, src, x0, y, b, [](char* s, const char* g) {
@@ -413,7 +416,7 @@ inline void __syncwarp() {}
 // of row r at start + (r / 8) * 128 + (r % 8) * 16 + (b / 16) * LBO + b %
 // 16); any other form reads as NaN (bf16) or -128 (s8), which the
 // comparisons catch
-inline uint32_t emu_wg_a[2][128][4];
+inline uint32_t emu_wg_a[3][128][4];
 inline bool emu_addr(uint64_t desc, int row, int byte, uint32_t& addr) {
   const uint32_t start = uint32_t(desc & 0x3FFF) << 4;
   const uint32_t lbo = uint32_t((desc >> 16) & 0x3FFF) << 4;
@@ -482,8 +485,9 @@ inline void wgmma_64x16(float (&d)[2][4], const uint32_t (&a)[4], uint64_t desc,
                         int scale_d = 1) {
   emu_wgmma<16>(d, a, 0, desc, false, false, scale_d);
 }
-inline void wgmma_64x64_tb(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc) {
-  emu_wgmma<64>(d, a, 0, desc, true);
+inline void wgmma_64x64_tb(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc,
+                           int scale_d = 1) {
+  emu_wgmma<64>(d, a, 0, desc, true, false, scale_d);
 }
 template <int N>
 void emu_wgmma_ss(float (&d)[N / 8][4], uint64_t a_desc, uint64_t desc, int scale_d = 1) {
@@ -498,8 +502,14 @@ inline void wgmma_ss_64x64(float (&d)[8][4], uint64_t a, uint64_t b, int scale_d
 inline void wgmma_ss_64x96(float (&d)[12][4], uint64_t a, uint64_t b, int scale_d = 1) {
   emu_wgmma_ss<96>(d, a, b, scale_d);
 }
-inline void wgmma_ss_64x128_tt(float (&d)[16][4], uint64_t a, uint64_t b) {
-  emu_wgmma<128>(d, nullptr, a, b, true, true);
+inline void wgmma_ss_64x128_tt(float (&d)[16][4], uint64_t a, uint64_t b, int scale_d = 1) {
+  emu_wgmma<128>(d, nullptr, a, b, true, true, scale_d);
+}
+inline void wgmma_ss_64x64_tt(float (&d)[8][4], uint64_t a, uint64_t b, int scale_d = 1) {
+  emu_wgmma<64>(d, nullptr, a, b, true, true, scale_d);
+}
+inline void wgmma_ss_64x64_tb(float (&d)[8][4], uint64_t a, uint64_t b, int scale_d = 1) {
+  emu_wgmma<64>(d, nullptr, a, b, true, false, scale_d);
 }
 // wgmma m64nNk32 s8 -> s32: A from registers (warp w: rows 16w .. 16w+15 in
 // the m16n8k32 A-fragment layout) or a K-major tile; B a K-major tile
@@ -584,10 +594,19 @@ def emulated(tmp_path_factory):
 # warpgroups as 128 and 12 (of 128), three query tiles, the last ragged,
 # each SM's walk crossing rows (the next row's K coming into the second
 # buffer); float32: two query tiles and three key tiles a row, the last
-# ragged. eg2: a last tile whose second window is outside. Dual-MSA stage
-# 2 (bfloat16: the walk): 3 centres of 3 neighbours, 190 pixels (two
-# 128-pixel units, the second ragged), which the 2 SMs split inside the
-# second centre, so that each walks across a centre
+# ragged. eg2 (bfloat16: the window walk, three windows a step, one per
+# warpgroup): three frames of two windows, which the 2 SMs split inside the
+# second frame, so that a step's windows cross a frame (``eg2``); five
+# frames of one window, so that each SM's last step lacks windows (the
+# step repeats its last window and drops it; float32: a tile whose second
+# window is outside, ``eg2_odd``). Dual-MSA stage 2 (bfloat16: the walk):
+# 3 centres of 3 neighbours, 190 pixels (two 128-pixel units, the second
+# ragged), which
+# the 2 SMs split inside the second centre, so that each walks across a
+# centre. Dual-MSA stage 1 (bfloat16: groups of nbr CTAs, as many as the
+# SMs hold): 2 centres of 3 neighbours, one group of 3 whose walk crosses
+# the centre (``msa1``); 3 centres of 1 neighbour, two groups that split
+# the second centre (``msa1_groups``)
 SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 24, 12, 64),
           "body": (1, 10, 20, 64),
           "group": (1, 7, 129, 64),
@@ -595,9 +614,15 @@ SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 24, 12, 64),
 # the int8 Block_'s bright rows: the top step's own, out of every later
 # step's windows (their xm, z and y windows start at row 6 and below)
 BRIGHT_ROWS, BRIGHT = 6, 40.0
-EGLA_SHAPES = {"eg1": (3, 5, 140, 64), "eg2": (2, 8, 24, 64)}
+EGLA_SHAPES = {"eg1": (3, 5, 140, 64), "eg2": (3, 8, 16, 64),
+               "eg2_odd": (5, 8, 8, 64)}
 ALIGN_EMBED_SHAPES = {"mdta1": (1, 5, 129), "mdta2": (1, 7, 129),
                       "msa2": (3, 10, 19)}
+# the kinds whose inputs and tolerances are another kind's, at shapes of
+# their own
+SAME_AS = {"msa1_groups": "msa1", "eg2_odd": "eg2"}
+# (neighbours a centre, (centres, H, W)) of an MSA case with other than 3
+ALIGN_NBR = {"msa1_groups": (1, (3, 10, 19))}
 # the attention (bfloat16: its three routes): columns of a ragged H read in
 # place from NHWC (H <= 272: one warpgroup on wgmma, three 64-query tiles,
 # the last moved back); tokens past 272 positions (two passes over the keys
@@ -625,9 +650,14 @@ def _case(kind, dtype):
         return kc.attention_args(dtype, g, ATTENTION_SHAPES[kind],
                                  device="cpu")
     if kind in EGLA_SHAPES:
-        return kc.egla_args(kind, dtype, g, EGLA_SHAPES[kind], device="cpu")
+        return kc.egla_args(SAME_AS.get(kind, kind), dtype, g,
+                            EGLA_SHAPES[kind], device="cpu")
     if kind.startswith("warp_"):
         return kc.warp_args(kind[5:], dtype, g, (3, 2, 16, 32), device="cpu")
+    if kind in ALIGN_NBR:
+        nbr, shape = ALIGN_NBR[kind]
+        return kc.align_embed_args(SAME_AS[kind], dtype, g, shape, nbr,
+                                   device="cpu")
     return kc.align_embed_args(kind, dtype, g,
                                ALIGN_EMBED_SHAPES.get(kind, (2, 10, 19)), 3,
                                device="cpu")
@@ -669,7 +699,7 @@ def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
     finally:
         module._kernel.cache_clear()
     assert wrapper.launches == before + 1
-    kc.assert_outputs_close(out, ref, dtype, kind)
+    kc.assert_outputs_close(out, ref, dtype, SAME_AS.get(kind, kind))
     if kind == "blockq":
         # the third step on its own scale: its lagged y scales come from the
         # bright first step (the running max), not from the dim second one
