@@ -426,6 +426,12 @@ inline int sm_count() {
 #define CDFO_LAUNCH_N(kernel, grid, threads, smem, stream, ...) \
   kernel<<<(grid), (threads), (smem), (stream)>>>(__VA_ARGS__)
 #endif
+// a launch of a kernel whose CTAs run in clusters of `cluster` (the
+// kernel's __cluster_dims__; grid a multiple of it)
+#ifndef CDFO_LAUNCH_CLUSTER
+#define CDFO_LAUNCH_CLUSTER(kernel, grid, cluster, smem, stream, ...) \
+  kernel<<<(grid), cdfo::THREADS, (smem), (stream)>>>(__VA_ARGS__)
+#endif
 
 // Each library is one translation unit that includes this header once.
 extern "C" const char* cdfo_cuda_error_string(int err) {

@@ -6,12 +6,16 @@
 // PHASE_STEP at the end of each step of a kernel that walks steps, and
 // PHASE_END where every thread of the CTA has passed its last mark. Each
 // thread keeps the cycles (clock64) between its marks; thread 0 of every
-// CTA adds its own to cdfo_phase_clocks[i], the steps it ran to
-// cdfo_phase_clocks[14] and 1 to cdfo_phase_clocks[15], the CTA count.
+// CTA (or thread CDFO_PHASE_THREAD, another warpgroup's view) adds its own
+// to cdfo_phase_clocks[i], the steps it ran to cdfo_phase_clocks[14] and 1
+// to cdfo_phase_clocks[15], the CTA count.
 // cdfo_phase_clocks_read copies the 16 counters out and zeroes them.
 #pragma once
 
 #ifdef CDFO_PHASE_CLOCKS
+#ifndef CDFO_PHASE_THREAD
+#define CDFO_PHASE_THREAD 0
+#endif
 __device__ unsigned long long cdfo_phase_clocks[16];
 #define PHASE_START                  \
   long long phase_t = clock64();     \
@@ -25,7 +29,7 @@ __device__ unsigned long long cdfo_phase_clocks[16];
   }
 #define PHASE_STEP ++phase_steps;
 #define PHASE_END                                                                   \
-  if (threadIdx.x == 0) {                                                          \
+  if (threadIdx.x == CDFO_PHASE_THREAD) {                                          \
     for (int i_ = 0; i_ < 14; ++i_) {                                              \
       atomicAdd(&cdfo_phase_clocks[i_], static_cast<unsigned long long>(phase_acc[i_])); \
     }                                                                              \

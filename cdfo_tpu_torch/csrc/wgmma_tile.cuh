@@ -5,9 +5,11 @@
 // three chained products), fused_mdta.cu (stage 1's qkv and grams, stage
 // 2's three products), fused_groupconv.cu (the group tail's conv),
 // fused_align.cu (dual-MSA stage 1's key and grams, stage 2's three
-// products) and fused_egla.cu (eg1's projection and its row attention,
-// eg2's window chain). Only those include this
-// header; conv3x3_tile.cuh is unchanged for the rest.
+// products), fused_egla.cu (eg1's projection and its row attention,
+// eg2's window chain), fused_block.cu (the body pair's cluster walk: the
+// cluster barrier, asynchronous stores into another CTA's shared memory,
+// named barriers) and warp_block.cu (its patches by TMA). Only those
+// include this header; conv3x3_tile.cuh is unchanged for the rest.
 //
 // The wgmma forms used: m64nNk16, bf16 x bf16 -> fp32, A from registers (or,
 // wgmma_ss_*, a K-major tile in shared memory like B) and B from shared
@@ -473,13 +475,77 @@ __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
+// ---- thread block clusters (the body pair's walk: __cluster_dims__) -----
+//
+// The dynamic shared memory of this CTA (at the same offset in every CTA
+// of a cluster)
+__device__ __forceinline__ unsigned char* dynamic_smem() {
+  extern __shared__ uint4 cdfo_smem[];
+  return reinterpret_cast<unsigned char*>(cdfo_smem);
+}
+// this CTA's rank in its cluster
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+// the cluster barrier, split: every thread of every CTA of the cluster
+// arrives (release: its earlier shared-memory writes, remote ones too,
+// become visible), then waits (acquire) for the phase to complete;
+// arrive and wait alternate in each thread
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+// an arrival without release: for a barrier that orders only this
+// thread's reads (already consumed) before the others' later writes
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+// 16 bytes to the shared memory of CTA `rank` of the cluster, at the
+// offset that `local` has in this CTA's (distributed shared memory), as an
+// asynchronous store that completes its bytes on the mbarrier at the
+// offset that `bar` has in this CTA's: the receiver waits on that barrier
+// (which expects the bytes) and nothing else orders the store
+__device__ __forceinline__ void st_async_remote4(const float* local, int rank, float a, float b,
+                                                 float c, float d, const uint64_t* bar) {
+  uint32_t remote, remote_bar;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(shared_address(local)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote_bar)
+               : "r"(shared_address(bar)), "r"(rank));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::
+          "r"(remote),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(remote_bar)
+      : "memory");
+}
+// named barrier `id` of `count` threads (a multiple of 32): arrive without
+// waiting (the producers), or arrive and wait (the consumers)
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 // The TMA map of a bf16 NHWC tensor (batch, h, wd, 64) at base, for
 // `tma_load_row` and `tma_store_row` with boxes of box_w pixels of box_h
 // rows (host code; the driver's encoder is looked up once through the
 // runtime). A box of box_h > 1 rows lands as its box_w-pixel rows one
 // after another: an 8 x 8 box is an 8x8 window's 64 tokens in row order.
+// swizzle: the 128-byte swizzle of wgmma's tiles, or none (pixel rows as
+// they lie, for readers that are not wgmma).
 inline cudaError_t nhwc_tensor_map(CUtensorMap* map, const void* base, int batch, int h, int wd,
-                                   int box_w, int box_h = 1) {
+                                   int box_w, int box_h = 1, bool swizzle = true) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -509,7 +575,8 @@ inline cudaError_t nhwc_tensor_map(CUtensorMap* map, const void* base, int batch
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -702,18 +769,26 @@ __device__ __forceinline__ bool strip_next(const StripStep& s, long long g1, int
 // stages B[n][k], 128-byte swizzled, 1024-byte aligned. acc (64 positions
 // x 64 channels in the C-fragment order) is overwritten; the 36 products
 // are one wgmma group, committed and not waited for.
-__device__ __forceinline__ void conv3x3_row(float (&acc)[8][4], const bf16* r0, const bf16* r1,
-                                            const bf16* r2, const bf16* w) {
+// Taps [T0, T1) of it, one wgmma group: a conv issued in parts lets the
+// warpgroup work between them while the first part's products run (its
+// first part overwrites acc).
+template <int T0, int T1>
+__device__ __forceinline__ void conv3x3_taps(float (&acc)[8][4], const bf16* r0, const bf16* r1,
+                                             const bf16* r2, const bf16* w) {
   const bf16* rows[3] = {r0, r1, r2};
   wgmma_fence();
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
+  for (int tap = T0; tap < T1; ++tap) {
     const uint64_t a = wgmma_desc(rows[tap / 3] + (tap % 3) * C);
     const uint64_t b = wgmma_desc(w + tap * C * C);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) wgmma_ss_64x64(acc, a + 2 * kk, b + 2 * kk, tap + kk);
   }
   wgmma_commit();
+}
+__device__ __forceinline__ void conv3x3_row(float (&acc)[8][4], const bf16* r0, const bf16* r1,
+                                            const bf16* r2, const bf16* w) {
+  conv3x3_taps<0, 9>(acc, r0, r1, r2, w);
 }
 
 }  // namespace cdfo

@@ -14,6 +14,9 @@ against the eager pair.
   tensor launches the hand-written kernel in ``csrc/fused_block.cu`` (the
   port of ``block_body_hcw``), which keeps y on chip, or raises. Launches
   are counted in ``block_body.launches``.
+* ``pack_body_weights``: the kernel's weight operand (in bfloat16 the
+  slices that the 4 CTAs of a cluster keep resident);
+  ``block_body(..., packed=)`` takes it from a caller that keeps it.
 
 Weights are HWIO, as ``fused_block_body`` takes them: w1 (3, 3, 64, 256),
 b1 (256,), w2 (3, 3, 256, 64), b2 (64,).
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_build as cb
+from .fused_block2 import swizzle128
 
 CHANNELS = 64
 MID = 4 * CHANNELS
@@ -50,14 +54,32 @@ def block_body_plain(x, w1, b1, w2, b2, residual: bool = True):
     return out.permute(0, 2, 3, 1).to(dt).contiguous()
 
 
+def pack_body_weights(w1, w2, dtype):
+    """The kernel's weight operand for HWIO ``w1`` and ``w2`` in ``dtype``:
+    bfloat16 (4, 2, 9, C n, C k), for CTA q of a cluster conv1's taps
+    B[n][k] = w1[ky, kx, k, 64 q + n] and conv2's B[n][k] = w2[ky, kx,
+    64 q + k, n] (tap 3 ky + kx), 128-byte swizzled (``fused_block2.
+    swizzle128``); float32 ``cuda_build.kernel_weights`` of each, a pair.
+    Callers may keep it."""
+    if dtype == torch.bfloat16:
+        c = w2.shape[-1]
+        q = w1.shape[-1] // c
+        taps1 = w1.reshape(9, c, q, c).permute(2, 0, 3, 1)   # q, tap, n, k
+        taps2 = w2.reshape(9, q, c, c).permute(1, 0, 3, 2)
+        return swizzle128(torch.stack([taps1, taps2], dim=1).to(dtype))
+    return (cb.kernel_weights(_oihw(w1), dtype),
+            cb.kernel_weights(_oihw(w2), dtype))
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return cb.kernel_function("fused_block", "cdfo_fused_block",
                               [_P] * 6 + [_I] * 5 + [_P])
 
 
-def block_body(x, w1, b1, w2, b2, residual: bool = True):
-    """The body pair of ``block_body_plain``."""
+def block_body(x, w1, b1, w2, b2, residual: bool = True, packed=None):
+    """The body pair of ``block_body_plain``. ``packed``:
+    ``pack_body_weights(w1, w2, x.dtype)``, if the caller keeps it."""
     cb.forbid_grad("fused_block", x, w1, b1, w2, b2)
     if not cb.on_card(x, "fused_block"):
         return block_body_plain(x, w1, b1, w2, b2, residual)
@@ -70,11 +92,12 @@ def block_body(x, w1, b1, w2, b2, residual: bool = True):
         raise ValueError(f"{what} takes NHWC x, got {tuple(x.shape)}")
     bsz, h, wd, _ = x.shape
     out = torch.empty_like(x)
-    wk1 = cb.kernel_weights(_oihw(w1), x.dtype)
-    wk2 = cb.kernel_weights(_oihw(w2), x.dtype)
+    wk = pack_body_weights(w1, w2, x.dtype) if packed is None else packed
+    wk1, wk2 = (wk, None) if x.dtype == torch.bfloat16 else wk
     cb.launch(_kernel(), what, x.device, x.data_ptr(), wk1.data_ptr(),
-              b1.data_ptr(), wk2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-              cb.DTYPE_CODES[x.dtype], bsz, h, wd, int(residual))
+              b1.data_ptr(), None if wk2 is None else wk2.data_ptr(),
+              b2.data_ptr(), out.data_ptr(), cb.DTYPE_CODES[x.dtype], bsz, h,
+              wd, int(residual))
     block_body.launches += 1
     return out
 

@@ -18,8 +18,10 @@ of ring and flow up to float32 rounding (2e-5 relative).
   under ``block_warp``. A CPU tensor takes the plain version; a CUDA tensor
   launches ``csrc/warp_block.cu`` (the port of ``_block_warp_call`` with the
   per-pixel gather and the choice between them in the same launch, so the
-  host decides nothing and never waits for the flows), or raises. Launches
-  are counted in ``flow_warp_ring_block.launches``.
+  host decides nothing and never waits for the flows; in bfloat16 a walk
+  that visits the images of one place together, so that each ring slot
+  is read from device memory about once), or raises. Launches are counted
+  in ``flow_warp_ring_block.launches``.
 
 The ring is (L, H, W, C) as the engine keeps it, without the TPU layout's
 zero border; H and W must be multiples of 4 and, on the card, C = 64.
@@ -114,7 +116,7 @@ def flow_warp_ring_block_plain(ring, frame_idx, flow, return_paths=False):
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return cb.kernel_function("warp_block", "cdfo_warp_block",
-                              [_P] * 5 + [_I] * 4 + [_P])
+                              [_P] * 5 + [_I] * 5 + [_P])
 
 
 def flow_warp_ring_block(ring, frame_idx, flow, return_paths=False):
@@ -143,7 +145,7 @@ def flow_warp_ring_block(ring, frame_idx, flow, return_paths=False):
     cb.launch(_kernel(), "warp_block", ring.device, ring.data_ptr(),
               idx.data_ptr(), flow.data_ptr(), out.data_ptr(),
               paths.data_ptr() if return_paths else None,
-              cb.DTYPE_CODES[ring.dtype], b, h, w)
+              cb.DTYPE_CODES[ring.dtype], ring.shape[0], b, h, w)
     flow_warp_ring_block.launches += 1
     return (out, paths.bool()) if return_paths else out
 

@@ -4,8 +4,10 @@ bfloat16: the exact ``Block_`` (``--kernel block``), the int8 ``Block_``
 (``blockq``), the alignment tail (``tail``, 6 neighbours per image), the
 upsample head (``head``), the group tail (``group``), MDTA stage 1 or 2
 (``mdta1``, ``mdta2``), dual-MSA stage 1 or 2 (``msa1``, ``msa2``, 6
-neighbours per centre, ``--b`` centres) or EGLA's eg1 or eg2 (``eg1``,
-``eg2``, ``--b`` frames).
+neighbours per centre, ``--b`` centres), EGLA's eg1 or eg2 (``eg1``,
+``eg2``, ``--b`` frames), the ``Block_`` body pair (``body``) or the block
+warp (``warp``: 6 neighbour images of each of ``--b`` centres from a ring
+of 8 frames, flows constant over 4x4 blocks).
 
 Each side is its own ``ops`` module, built by its own ``cuda_build`` from
 its own ``csrc/``, and is first held against this checkout's plain version
@@ -17,12 +19,13 @@ kept (what the model pays) and the pack alone; a side whose wrapper takes
 no pack (the tail before it had one, the head, the group tail, the MDTA
 passes and dual-MSA stage 2 before they had one, eg1, whose matrices change
 with the mask, dual-MSA stage 1 and eg2, whose walks read their weights as
-they are) has only the first. Times are per call, in
-ms, with the card's name.
+they are, the block warp, which has no weights, and the body pair before
+it had one) has only the first. Times are per call, in ms, with the card's
+name.
 
     python -m cdfo_tpu_torch.tools.compare_block --other DIR
-        [--kernel block|blockq|tail|head|group|mdta1|mdta2|msa1|msa2|eg1|eg2
-         --b 4 --h 272 --w 480 --reps 15]
+        [--kernel block|blockq|tail|head|group|mdta1|mdta2|msa1|msa2|eg1|eg2|
+                  body|warp --b 4 --h 272 --w 480 --reps 15]
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from ..ops import fused_align as fal
+from ..ops import fused_block as fbody
 from ..ops import fused_block2 as fb
 from ..ops import fused_block2_q as fq
 from ..ops import fused_egla as fe
@@ -46,6 +50,7 @@ from ..ops import fused_head as fh
 from ..ops import fused_mdta as fm
 from ..ops import fused_tail as ft
 from ..ops import kernel_cases as kc
+from ..ops import warp_block as wb
 from . import event_ms, require_card
 
 WAYS = ("packed in the call", "pack kept", "pack alone")
@@ -79,7 +84,14 @@ KERNELS = {
              fal.msa_stage2_plain, "dual-MSA stage 2"),
     "eg1": (fe, "eg1_rows", None, fe.eg1_rows_plain, "EGLA eg1"),
     "eg2": (fe, "eg2_local_fuse", None, fe.eg2_local_fuse_plain, "EGLA eg2"),
+    "body": (fbody, "block_body",
+             lambda m, a: m.pack_body_weights(a[1], a[3], a[0].dtype),
+             fbody.block_body_plain, "Block_ body pair"),
+    "warp": (wb, "flow_warp_ring_block", None, wb.flow_warp_ring_block_plain,
+             "block warp"),
 }
+# the ring slots the block warp reads
+WARP_SLOTS = 8
 
 
 def other_module(root: Path, module: str):
@@ -134,6 +146,11 @@ def main(argv=None):
                                    6)
     elif kind in ("eg1", "eg2"):
         args = kc.egla_args(kind, torch.bfloat16, g, (a.b, a.h, a.w, 64))
+    elif kind == "body":
+        args = kc.body_args(torch.bfloat16, g, (a.b, a.h, a.w, 64))
+    elif kind == "warp":
+        args = kc.warp_args("blocky", torch.bfloat16, g,
+                            (WARP_SLOTS, 6 * a.b, a.h, a.w))
     else:
         args = kc.trunk_args(kind, torch.bfloat16, g, (a.b, a.h, a.w, 64),
                              nbr=6)
@@ -157,7 +174,7 @@ def main(argv=None):
         for way, fn in sides[side].items():
             ms[side, way].append(
                 float(np.median(event_ms(fn, a.reps, warmup=3))))
-    shape = tuple(args[0].shape)
+    shape = tuple(args[2 if kind == "warp" else 0].shape)
     print(f"{what} {shape} bf16, ms a call in turns (other, this, this, "
           f"other) [{card}]:")
     for way in WAYS:

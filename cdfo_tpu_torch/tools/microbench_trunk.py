@@ -5,7 +5,8 @@ Candidates, all computing y = conv3x3_{256->64}(lrelu(conv3x3_{64->256}(x)
 + b1)) + b2 + x:
   plain_nhwc    two ``F.conv2d`` in channels_last (cuDNN), lrelu, residual
   plain_im2col  ``F.unfold`` of the 9 taps + one ``torch.matmul`` per conv
-  kernel        the hand-written kernel (``ops/fused_block.block_body``)
+  kernel        the hand-written kernel (``ops/fused_block.block_body``),
+                its weights packed once, as cuDNN's are laid out once
 
 Weights from ``np.random.RandomState(0)`` with the TPU tool's scales. The
 kernel is first held against its plain version
@@ -50,6 +51,7 @@ def candidates(x, w1, b1, w2, b2):
     k1_cl = k1.contiguous(memory_format=torch.channels_last)
     k2_cl = k2.contiguous(memory_format=torch.channels_last)
     m1, m2 = k1.reshape(k1.shape[0], -1), k2.reshape(k2.shape[0], -1)
+    packed = fb.pack_body_weights(w1, w2, dt)
 
     def plain_nhwc():
         y = F.leaky_relu(F.conv2d(x_cl, k1_cl, b1, padding=1), 0.1)
@@ -65,7 +67,7 @@ def candidates(x, w1, b1, w2, b2):
         return (x_cl + out).permute(0, 2, 3, 1)
 
     def kernel():
-        return fb.block_body(x, w1, b1, w2, b2, residual=True)
+        return fb.block_body(x, w1, b1, w2, b2, residual=True, packed=packed)
 
     return {"plain_nhwc": plain_nhwc, "plain_im2col": plain_im2col,
             "kernel": kernel}

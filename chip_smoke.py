@@ -36,8 +36,8 @@ CUDA device the script exits non-zero before printing any result):
    pixels, and on arbitrary flows: bit for bit equal to its plain version,
    the same path in every block, within tolerance of the per-pixel
    ``flow_warp_ring``, with ``F.grid_sample`` as its library time; the
-   ``Block_`` body pair at the trunk's two shapes, with cuDNN's two
-   convolutions as its library time; the dot probes (``dot_case`` at three
+   ``Block_`` body pair at the trunk's two shapes, also with its pack kept,
+   with cuDNN's two convolutions as its library time; the dot probes (``dot_case`` at three
    shapes, one streamed and two with resident planes, with one
    ``torch.matmul`` over K = reps * k as its library time, and the timed
    case's resident planes also streamed, at the same K; ``rowpipe`` and
@@ -115,19 +115,21 @@ device's busy share of the run's wall time. Flags named after it are added
 to the four (``--profile trunk_int8 block_warp``).
 
     python3 chip_smoke.py --phases [msa1 msa2 eg1 eg2 blockq block tail
-                                    head mdta1 group mdta2]
+                                    head mdta1 group mdta2 warp body]
 
 builds both dual-MSA passes, eg1 (twice: its projection and band walk's
 marks, then its row attention's), eg2, the int8 ``Block_``, the exact one,
-the alignment tail, the head, the group tail and both MDTA passes (or
-those named) with their phase clocks compiled in and prints, at the main
-shapes in bfloat16, the cycles spent in each phase: per step for the walks
-(dual-MSA stage 1's (centre, 128 pixels) steps of one neighbour, stage
-2's (centre, 128 pixels, neighbour) steps, eg1's two rows a step and its
-row attention's 64-query tiles, eg2's three windows a step, the int8
-kernel's walk down its strips, the tail's, the head's and MDTA stage 1's
-row by row, the group tail's and MDTA stage 2's two rows a step), as the
-kernels count their steps, and per CTA for the exact ``Block_``. The int8
+the alignment tail, the head, the group tail, both MDTA passes, the block
+warp and the body pair (or those named) with their phase clocks compiled
+in and prints, at the main shapes in bfloat16, the cycles spent in each
+phase: per step for the walks (dual-MSA stage 1's (centre, 128 pixels)
+steps of one neighbour, stage 2's (centre, 128 pixels, neighbour) steps,
+eg1's two rows a step and its row attention's 64-query tiles, eg2's three
+windows a step, the int8 kernel's walk down its strips, the tail's, the
+head's, MDTA stage 1's and the body pair's cluster walk row by row, the
+group tail's and MDTA stage 2's two rows a step, the block warp's block
+by block), as the kernels count their steps, and per CTA for the exact
+``Block_``. The int8
 ``Block_``'s other launch, its 0.5x branch, has no marks: ``--profile``
 gives its device time.
 """
@@ -440,9 +442,10 @@ def check_kernel_table(card: str, table: dict, cases, seed: int,
 @torch.no_grad()
 def pack_kept_ms(card: str, fields: dict, kind: str, args, pack, label: str):
     """A wrapper's bfloat16 time at ``args`` with its weights packed once
-    (``pack(args)``), as the model keeps them: the JSON line's ``ms``, the
-    time per call with the packing beside it."""
-    name, wrapper = ALL_KERNELS[kind][:2]
+    (``pack(args)``), as the model (or the trunk microbenchmark) keeps
+    them: the JSON line's ``ms``, the time per call with the packing beside
+    it."""
+    name, wrapper = {**ALL_KERNELS, **TOOL_KERNELS}[kind][:2]
     packed = pack(args)
     kept = median_ms(lambda: wrapper(*args, packed=packed))
     print(f"kernel {name} {label} bfloat16: {kept:.3f} ms with the pack "
@@ -689,15 +692,18 @@ def check_warp_kernel(card: str) -> dict:
 
 def check_body_kernel(card: str) -> dict:
     """Phase 3, the ``Block_`` body pair: ``check_kernel_table`` at the
-    trunk's two shapes, and cuDNN's two convolutions (the trunk
-    microbenchmark's ``plain_nhwc``) as its library time at the main one
-    in bfloat16."""
+    trunk's two shapes, the time with its pack kept (as the trunk
+    microbenchmark keeps it; the JSON line's ``ms``), and cuDNN's two
+    convolutions (the microbenchmark's ``plain_nhwc``) as its library time
+    at the main one in bfloat16."""
     fields = check_kernel_table(card, BODY_KERNELS, [
         (shape, shape == TRUNK_MAIN,
          lambda kind, dtype, g, shape=shape: kc.body_args(dtype, g, shape))
         for shape in TRUNK_SHAPES], seed=6)
     g = torch.Generator(device="cuda").manual_seed(6)
     args = kc.body_args(torch.bfloat16, g, TRUNK_MAIN)
+    pack_kept_ms(card, fields, "body", args, lambda a: fbody.pack_body_weights(
+        a[1], a[3], torch.bfloat16), f"{TRUNK_MAIN}")
     with torch.no_grad():
         cudnn = microbench_trunk.candidates(*args)["plain_nhwc"]
         err, scale = kc.worst_error(cudnn().contiguous(),
@@ -1235,6 +1241,23 @@ EG1_ROWS_PHASES = ("the wait for the row's K", "Q K^T on wgmma",
 # the PHASE marks of csrc/fused_block2.cu's bf16 route, in order
 EXACT_PHASES = ("prologue", "conv1 and the y stores (4 chunks)",
                 "fold and conv2 with the sums (4 chunks)", "epilogue")
+# the PHASE marks of csrc/warp_block.cu's bf16 kernel, per block of a
+# warp (lane 0 of warp 0's view; the first mark once a warp)
+WARP_PHASES = ("the blocks' flows, paths and TMA issue (once a warp)",
+               "the wait for the block's patch (patch path)",
+               "blend and stores (per-pixel path: its taps too)")
+# the PHASE marks of csrc/fused_block.cu's bf16 cluster walk, per step, in
+# warpgroup 0's view (thread 0: conv1) and warpgroup 1's (thread 128:
+# conv2's partial and the sums)
+BODY_PHASES = ("warpgroup 0: x's loads, the wait for x's rows; warpgroup "
+               "1: the residual's loads, the wait for y1's rows",
+               "the products' issue, the wait for the last step's barrier; "
+               "warpgroup 1: the last partials' sends",
+               "the last step's epilogue under the products: warpgroup 0 "
+               "y1's row stores, warpgroup 1 the wait for the partials, "
+               "their sum and stores",
+               "the wait for the products",
+               "the arrival at the step's barrier")
 
 
 @torch.no_grad()
@@ -1289,14 +1312,19 @@ def phase_clocks(card: str, label: str, source: str, symbol: str, nargs,
 
 
 PHASE_KINDS = ("blockq", "block", "tail", "head", "mdta1", "group", "mdta2",
-               "msa1", "msa2", "eg1", "eg2")
+               "msa1", "msa2", "eg1", "eg2", "warp", "body")
 
 
 def run_phase_clocks(card: str, kinds=PHASE_KINDS):
     """``--phases`` for the int8 ``Block_``, the exact one, the alignment
     tail, the head, the group tail, both MDTA passes, both dual-MSA passes,
-    eg1's two walks and eg2 at the main shapes in bfloat16, their weights
-    packed once; ``kinds``: those of ``PHASE_KINDS`` to run."""
+    eg1's two walks, eg2, the block warp and the body pair at the main
+    shapes in bfloat16, their weights packed once; ``kinds``: those of
+    ``PHASE_KINDS`` to run."""
+    if "warp" in kinds:
+        phase_clocks_warp(card)
+    if "body" in kinds:
+        phase_clocks_body(card)
     if "msa1" in kinds:
         phase_clocks_msa1(card)
     if "msa2" in kinds:
@@ -1411,6 +1439,45 @@ def run_phase_clocks(card: str, kinds=PHASE_KINDS):
             lambda r: kc.assert_outputs_close(
                 r, fm.mdta_stage2_plain(*args), torch.bfloat16, "mdta2"),
             MDTA2_PHASES)
+
+
+def phase_clocks_warp(card: str):
+    """``--phases`` of the block warp's bf16 walk at the main path's 24
+    neighbour images of a ring of 8 frames, blocky flows: bit for bit its
+    plain version's."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ring, idx, flow = kc.warp_args("blocky", torch.bfloat16, g, WARP_MAIN)
+    idx32 = idx.to(torch.int32)
+    res = torch.empty(*flow.shape[:3], 64, dtype=ring.dtype, device="cuda")
+
+    def check(r):
+        if not torch.equal(r, wb.flow_warp_ring_block_plain(ring, idx, flow)):
+            raise AssertionError("the phase-clock warp differs from plain")
+
+    phase_clocks(
+        card, f"block warp {WARP_MAIN} (blocky)", "warp_block",
+        "cdfo_warp_block", 5,
+        [ring.data_ptr(), idx32.data_ptr(), flow.data_ptr(), res.data_ptr(),
+         None, 1, *WARP_MAIN], res, check, WARP_PHASES)
+
+
+def phase_clocks_body(card: str):
+    """``--phases`` of the body pair's bf16 cluster walk at the main shape,
+    its weights packed once."""
+    g = torch.Generator(device="cuda").manual_seed(6)
+    args = kc.body_args(torch.bfloat16, g, TRUNK_MAIN)
+    x, w1, b1, w2, b2 = args
+    packed = fbody.pack_body_weights(w1, w2, torch.bfloat16)
+    res = torch.empty_like(x)
+    for view, thread in (("warpgroup 0", 0), ("warpgroup 1", 128)):
+        phase_clocks(
+            card, f"Block_ body pair {TRUNK_MAIN} ({view}'s view)",
+            "fused_block", "cdfo_fused_block", 6,
+            [x.data_ptr(), packed.data_ptr(), b1.data_ptr(), None,
+             b2.data_ptr(), res.data_ptr(), 1, *TRUNK_MAIN[:3], 1], res,
+            lambda r: kc.assert_outputs_close(
+                r, fbody.block_body_plain(*args), torch.bfloat16, "body"),
+            BODY_PHASES, defines=(f"-DCDFO_PHASE_THREAD={thread}",))
 
 
 def phase_clocks_msa1(card: str):

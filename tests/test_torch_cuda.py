@@ -730,11 +730,14 @@ def test_int8_trunk_caches_its_pack(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(3, 2, 16, 32), (8, 24, 272, 480),
-                                   (2, 5, 20, 36)])
+                                   (2, 5, 20, 36), (8, 24, 184, 320),
+                                   (8, 24, 400, 640)])
 @pytest.mark.parametrize("case", kc.WARP_CASES)
 def test_block_warp_matches_plain(cuda, case, shape, dtype):
     """Equal bit for bit: the kernel rounds every product and sum as the
-    plain version does, and takes the same path in every block."""
+    plain version does, and takes the same path in every block; at the
+    main path's shape and at ``tools/bench_fps.py``'s other two
+    geometries."""
     from cdfo_tpu_torch.ops.warp import flow_warp_ring
     g = torch.Generator(device=cuda).manual_seed(5)
     ring, idx, flow = kc.warp_args(case, dtype, g, shape, device=cuda)
@@ -825,10 +828,14 @@ def test_attention_refuses_grad(cuda, kind):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("residual", [True, False])
 @pytest.mark.parametrize("shape", [(1, 16, 32, 64), (2, 18, 34, 64),
-                                   (1, 5, 7, 64)])
+                                   (1, 5, 7, 64), (4, 272, 480, 64),
+                                   (4, 184, 320, 64), (4, 400, 640, 64),
+                                   (1, 3, 124, 64)])
 def test_body_kernel_matches_plain(cuda, shape, residual, dtype):
     """Whole tiles, ragged right and bottom edges, and an odd extent
-    smaller than one tile."""
+    smaller than one tile; the main shape and ``tools/bench_fps.py``'s
+    other two geometries (bfloat16: 62-column strips, the last 46, 10
+    and 20 wide), and two whole strips of 3 rows."""
     from cdfo_tpu_torch.ops import fused_block as fbody
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=cuda).manual_seed(10)
@@ -840,6 +847,22 @@ def test_body_kernel_matches_plain(cuda, shape, residual, dtype):
     torch.cuda.synchronize()
     assert fbody.block_body.launches == before + 1
     kc.assert_outputs_close(out, ref, dtype, "body")
+
+
+@pytest.mark.cuda
+def test_body_kernel_takes_a_kept_pack(cuda):
+    """The bfloat16 body pair with its resident slices packed once gives
+    the call's own result bit for bit."""
+    from cdfo_tpu_torch.ops import fused_block as fbody
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x, w1, b1, w2, b2 = kc.body_args(torch.bfloat16, g, (2, 40, 130, 64),
+                                     device=cuda)
+    packed = fbody.pack_body_weights(w1, w2, torch.bfloat16)
+    with torch.no_grad():
+        a = fbody.block_body(x, w1, b1, w2, b2)
+        b = fbody.block_body(x, w1, b1, w2, b2, packed=packed)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -9,8 +9,11 @@ attention, and the trunk probes:
 the dot probes with their partial-sum launch and the DMA probes) with the
 host C++ compiler against a small emulation of the CUDA
 subset they use (``_SHIM`` below): blocks run one after another with 256
-threads each (or the count a launch names), ``__syncthreads`` is a
-barrier, ``mma.sync`` / ``ldmatrix`` / ``stmatrix`` (plain and transposed)
+threads each (or the count a launch names), the CTAs of a cluster at once,
+each with shared memory of its own (the cluster barrier a barrier of all
+their threads, an asynchronous store into another CTA's shared memory a
+copy that completes on its mbarrier), ``__syncthreads`` and the named
+barriers are barriers, ``mma.sync`` / ``ldmatrix`` / ``stmatrix`` (plain and transposed)
 and the warp shuffles exchange their values through per-warp memory, a
 warpgroup's ``wgmma`` (bf16 and s8) through per-warpgroup memory, reading
 its shared tiles through their descriptors (128-byte swizzled, or without
@@ -96,7 +99,9 @@ _SHIM = r"""
 #include <cstdint>
 #include <cstring>
 #include <math.h>
+#include <memory>
 #include <mutex>
+#include <optional>
 #include <thread>
 #include <vector>
 using std::max;
@@ -109,6 +114,7 @@ using std::min;
 #define __constant__
 #define __shared__
 #define __grid_constant__
+#define __cluster_dims__(...)
 #define CDFO_HOST_MMA 1
 struct dim3 {
   unsigned x, y, z;
@@ -116,7 +122,7 @@ struct dim3 {
 };
 struct emu_uint3 { unsigned x, y, z; };
 inline thread_local emu_uint3 threadIdx;
-inline emu_uint3 blockIdx;
+inline thread_local emu_uint3 blockIdx;
 inline dim3 blockDim(256);
 inline dim3 gridDim;
 struct alignas(8) float2 { float x, y; };
@@ -171,15 +177,64 @@ inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 // launch several partials
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 2; return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated launch refused"; }
-inline std::barrier<>* emu_block_bar;
-inline std::barrier<>* emu_warp_bar[12];
-inline std::barrier<>* emu_wg_bar[3];   // the warpgroups of a block (up to 384 threads)
+struct EmuWarp { uint32_t a[32][4]; uint32_t b[32][2]; const void* rows[32]; float f[32]; };
+// one emulated CTA: its barriers (the block's, each warp's and each
+// warpgroup's, up to 384 threads), its warps' and warpgroups' exchange
+// memory and its shared memory; each of its threads points at them
+struct EmuCta {
+  std::barrier<> block;
+  std::unique_ptr<std::barrier<>> warp_bars[12], wg_bars[3];
+  std::barrier<>* warp[12];
+  std::barrier<>* wg[3];
+  EmuWarp warps[12];
+  uint32_t wg_a[3][128][4];
+  unsigned char* smem;
+  std::unique_ptr<std::barrier<>> named_bars[8];
+  std::barrier<>* named[8];
+  EmuCta(unsigned threads, unsigned char* shared) : block(threads), smem(shared) {
+    for (int i = 3; i < 8; ++i) {
+      named_bars[i] = std::make_unique<std::barrier<>>(threads);
+      named[i] = named_bars[i].get();
+    }
+    for (int i = 0; i < 12; ++i) {
+      warp_bars[i] = std::make_unique<std::barrier<>>(32);
+      warp[i] = warp_bars[i].get();
+    }
+    for (int i = 0; i < 3; ++i) {
+      wg_bars[i] = std::make_unique<std::barrier<>>(128);
+      wg[i] = wg_bars[i].get();
+    }
+  }
+};
+// a cluster's CTAs' shared memory (by rank) and its barrier
+struct EmuCluster {
+  unsigned char* smem[8];
+  std::unique_ptr<std::barrier<>> bar;
+};
+inline thread_local std::barrier<>* emu_block_bar;
+inline thread_local std::barrier<>** emu_warp_bar;
+inline thread_local std::barrier<>** emu_wg_bar;
+inline thread_local EmuWarp* emu_warp;
+inline thread_local uint32_t (*emu_wg_a)[128][4];
+inline thread_local unsigned char* emu_smem;   // this CTA's shared memory
+inline thread_local std::barrier<>** emu_named;
+inline thread_local EmuCluster* emu_cluster;
+inline thread_local int emu_rank;
+inline void emu_enter(EmuCta& cta, emu_uint3 block, unsigned thread) {
+  threadIdx = {thread, 0, 0};
+  blockIdx = block;
+  emu_block_bar = &cta.block;
+  emu_warp_bar = cta.warp;
+  emu_wg_bar = cta.wg;
+  emu_warp = cta.warps;
+  emu_wg_a = cta.wg_a;
+  emu_smem = cta.smem;
+  emu_named = cta.named;
+}
 inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
 inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
 inline void cp_async_commit() {}
 inline void cp_async_wait() {}
-struct EmuWarp { uint32_t a[32][4]; uint32_t b[32][2]; const void* rows[32]; float f[32]; };
-inline EmuWarp emu_warp[12];
 inline float emu_half(uint32_t v, int hi) { return __uint_as_float((hi ? v >> 16 : v & 0xffffu) << 16); }
 // mma.sync.m16n8k16 row.col bf16 -> f32: lane 4g + t holds A rows g, g + 8
 // (k 2t, 2t+1 and 2t+8, 2t+9), B column g (same k) and C rows g, g + 8,
@@ -268,38 +323,79 @@ inline float __shfl_sync(unsigned, float v, int src) {
 inline float __shfl_xor_sync(unsigned m, float v, int lane_mask) {
   return __shfl_sync(m, v, int(threadIdx.x % 32) ^ lane_mask);
 }
+namespace { alignas(1024) uint4 cdfo_smem[232448 / 16]; }
+// blocks one after another, all sharing cdfo_smem
 template <class F> void emu_launch(dim3 grid, F&& body, unsigned threads = 256) {
   blockDim = dim3(threads);
   gridDim = grid;
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
-        blockIdx = {x, y, z};
-        std::barrier<> bar(threads);
-        emu_block_bar = &bar;
-        for (int i = 0; i < 12; ++i) emu_warp_bar[i] = new std::barrier<>(32);
-        for (int i = 0; i < 3; ++i) emu_wg_bar[i] = new std::barrier<>(128);
+        auto cta = std::make_unique<EmuCta>(threads, reinterpret_cast<unsigned char*>(cdfo_smem));
         std::vector<std::thread> threads_;
-        for (unsigned i = 0; i < threads; ++i) threads_.emplace_back([&, i] { threadIdx = {i, 0, 0}; body(); });
+        for (unsigned i = 0; i < threads; ++i)
+          threads_.emplace_back([&, i] { emu_enter(*cta, {x, y, z}, i); body(); });
         for (auto& t : threads_) t.join();
-        for (int i = 0; i < 12; ++i) delete emu_warp_bar[i];
-        for (int i = 0; i < 3; ++i) delete emu_wg_bar[i];
       }
+  blockDim = dim3(256);
+}
+// clusters of `cluster` CTAs along x, one cluster after another; the CTAs
+// of a cluster run at once, each with shared memory of its own, which the
+// others reach through the cluster helpers below
+template <class F> void emu_launch_cluster(dim3 grid, unsigned cluster, F&& body,
+                                           unsigned threads = 256) {
+  blockDim = dim3(threads);
+  gridDim = grid;
+  for (unsigned c = 0; c < grid.x / cluster; ++c) {
+    EmuCluster cl;
+    cl.bar = std::make_unique<std::barrier<>>(cluster * threads);
+    std::vector<std::unique_ptr<uint4[]>> shared;
+    std::vector<std::unique_ptr<EmuCta>> ctas;
+    for (unsigned r = 0; r < cluster; ++r) {
+      shared.push_back(std::make_unique<uint4[]>(232448 / 16));
+      cl.smem[r] = reinterpret_cast<unsigned char*>(shared.back().get());
+      ctas.push_back(std::make_unique<EmuCta>(threads, cl.smem[r]));
+    }
+    std::vector<std::thread> threads_;
+    for (unsigned r = 0; r < cluster; ++r)
+      for (unsigned i = 0; i < threads; ++i)
+        threads_.emplace_back([&, r, i] {
+          emu_enter(*ctas[r], {c * cluster + r, 0, 0}, i);
+          emu_cluster = &cl;
+          emu_rank = int(r);
+          body();
+        });
+    for (auto& t : threads_) t.join();
+  }
   blockDim = dim3(256);
 }
 #define CDFO_LAUNCH(kernel, grid, smem, stream, ...) emu_launch((grid), [&] { kernel(__VA_ARGS__); })
 #define CDFO_LAUNCH_N(kernel, grid, threads, smem, stream, ...) \
   emu_launch((grid), [&] { kernel(__VA_ARGS__); }, (threads))
+#define CDFO_LAUNCH_CLUSTER(kernel, grid, cluster, smem, stream, ...) \
+  emu_launch_cluster((grid), (cluster), [&] { kernel(__VA_ARGS__); })
+// the emulated card holds 3 clusters at once
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  void* attrs;
+  unsigned numAttrs;
+};
+template <class K> cudaError_t cudaOccupancyMaxActiveClusters(int* n, K, const cudaLaunchConfig_t*) {
+  *n = 3;
+  return 0;
+}
 // ex2.approx.ftz
 inline float ex2(float x) { return exp2f(x); }
-namespace { alignas(1024) uint4 cdfo_smem[232448 / 16]; }
-// wgmma_tile.cuh: shared addresses count from the block's shared memory;
+// wgmma_tile.cuh: shared addresses count from the CTA's shared memory;
 // the products run at once; a bulk copy is a plain copy, after which its
 // mbarrier counts one more completed phase, and mbar_wait waits for the
 // phase of its parity
 inline uint32_t shared_address(const void* p) {
-  return uint32_t(static_cast<const char*>(p) - reinterpret_cast<const char*>(cdfo_smem));
+  return uint32_t(static_cast<const unsigned char*>(p) - emu_smem);
 }
+inline unsigned char* dynamic_smem() { return emu_smem; }
 inline void wgmma_fence() {}
 inline void wgmma_commit() {}
 template <int N> void wgmma_wait() {}
@@ -316,8 +412,15 @@ inline void emu_complete_tx(uint64_t* bar, uint32_t bytes) {
     phases.notify_all();
   }
 }
+// (bytes may land before they are expected: the count then passes below 0
+// and the expectation completes the phase)
 inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  std::atomic_ref<uint64_t>(*bar).fetch_add(uint64_t(bytes) << 32);
+  std::atomic_ref<uint64_t> phases(*bar);
+  const uint64_t tx = uint64_t(bytes) << 32;
+  if (((phases.fetch_add(tx) + tx) >> 32) == 0) {
+    phases.fetch_add(1);
+    phases.notify_all();
+  }
 }
 inline void mbar_wait(uint64_t* bar, uint32_t parity) {   // sleeps until the copy lands
   std::atomic_ref<uint64_t> phases(*bar);
@@ -329,12 +432,13 @@ inline void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar)
 }
 // the TMA unit's row copies of a bf16 NHWC tensor (wgmma_tile.cuh): a box
 // of box_w pixels of box_h rows, its 128-byte pixel rows one after another
-// in row order, swizzled by their shared address, zero (load) or skipped
-// (store) outside the tensor; a store completes at once
-struct CUtensorMap { const char* base; int batch, h, wd, box_w, box_h; };
+// in row order, swizzled by their shared address (or not, a map made
+// without swizzle), zero (load) or skipped (store) outside the tensor; a
+// store completes at once
+struct CUtensorMap { const char* base; int batch, h, wd, box_w, box_h; bool swizzle; };
 inline int nhwc_tensor_map(CUtensorMap* map, const void* base, int batch, int h, int wd,
-                           int box_w, int box_h = 1) {
-  *map = {static_cast<const char*>(base), batch, h, wd, box_w, box_h};
+                           int box_w, int box_h = 1, bool swizzle = true) {
+  *map = {static_cast<const char*>(base), batch, h, wd, box_w, box_h, swizzle};
   return 0;
 }
 template <class F> void emu_tma_rows(const CUtensorMap* m, const void* smem, int x0, int y0, int b,
@@ -343,10 +447,10 @@ template <class F> void emu_tma_rows(const CUtensorMap* m, const void* smem, int
     for (int p = 0; p < m->box_w; ++p)
       for (int v = 0; v < 8; ++v) {
         uint32_t a = shared_address(smem) + (r * m->box_w + p) * 128 + v * 16;
-        a ^= ((a >> 7) & 7) << 4;
+        if (m->swizzle) a ^= ((a >> 7) & 7) << 4;
         const int xx = x0 + p, y = y0 + r;
         const bool in = b >= 0 && b < m->batch && y >= 0 && y < m->h && xx >= 0 && xx < m->wd;
-        copy(reinterpret_cast<char*>(cdfo_smem) + a,
+        copy(reinterpret_cast<char*>(emu_smem) + a,
              in ? m->base + ((static_cast<long long>(b) * m->h + y) * m->wd + xx) * 128 + v * 16
                 : nullptr);
       }
@@ -364,6 +468,32 @@ inline void tma_store_row(const CUtensorMap* m, const void* src, int x0, int y, 
 }
 inline void bulk_commit() {}
 template <int N = 0> void bulk_wait_read() {}
+// the cluster helpers (wgmma_tile.cuh): the cluster barrier as a barrier
+// of all the cluster's threads, split into its arrival and its wait; an
+// asynchronous remote store as a copy into the other CTA's shared memory
+// at the same offset, completing its bytes on that CTA's mbarrier
+inline thread_local std::optional<std::barrier<>::arrival_token> emu_token;
+inline int cluster_rank() { return emu_rank; }
+inline void cluster_arrive() { emu_token.emplace(emu_cluster->bar->arrive()); }
+inline void cluster_arrive_relaxed() { cluster_arrive(); }
+inline void cluster_wait() {
+  emu_cluster->bar->wait(std::move(*emu_token));
+  emu_token.reset();
+}
+inline void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+inline void st_async_remote4(const float* local, int rank, float a, float b, float c, float d,
+                             const uint64_t* bar) {
+  const float v[4] = {a, b, c, d};
+  memcpy(emu_cluster->smem[rank] + shared_address(local), v, 16);
+  emu_complete_tx(reinterpret_cast<uint64_t*>(emu_cluster->smem[rank] + shared_address(bar)), 16);
+}
+// named barriers 3 .. 7 of all the CTA's threads: the producers arrive, the
+// consumers arrive and wait
+inline void named_arrive(int id, int) { (void)emu_named[id]->arrive(); }
+inline void named_sync(int id, int) { emu_named[id]->arrive_and_wait(); }
 // stmatrix.trans: matrix j stored transposed, lane 4g + t's pair to bytes
 // 2g .. 2g+1 of rows 2t and 2t + 1 (x2: matrices 0 and 1)
 inline void emu_stsm_trans(void* row, const uint32_t* r, int n) {
@@ -416,7 +546,6 @@ inline void __syncwarp() {}
 // of row r at start + (r / 8) * 128 + (r % 8) * 16 + (b / 16) * LBO + b %
 // 16); any other form reads as NaN (bf16) or -128 (s8), which the
 // comparisons catch
-inline uint32_t emu_wg_a[3][128][4];
 inline bool emu_addr(uint64_t desc, int row, int byte, uint32_t& addr) {
   const uint32_t start = uint32_t(desc & 0x3FFF) << 4;
   const uint32_t lbo = uint32_t((desc >> 16) & 0x3FFF) << 4;
@@ -437,13 +566,13 @@ inline float emu_tile(uint64_t desc, int row, int col) {   // bf16 element `col`
   uint32_t addr;
   if (!emu_addr(desc, row, 2 * col, addr)) return NAN;
   uint16_t v;
-  memcpy(&v, reinterpret_cast<const unsigned char*>(cdfo_smem) + addr, 2);
+  memcpy(&v, emu_smem + addr, 2);
   return __uint_as_float(uint32_t(v) << 16);
 }
 inline int emu_tile_s8(uint64_t desc, int row, int k) {   // s8 element k of row `row`
   uint32_t addr;
   if (!emu_addr(desc, row, k, addr)) return -128;
-  return int(reinterpret_cast<const int8_t*>(cdfo_smem)[addr]);
+  return int(reinterpret_cast<const int8_t*>(emu_smem)[addr]);
 }
 // an MN-major (transposed) tile, 128-byte swizzled: element (k, mn) at
 // row k of its 64-column block mn / 64, blocks LBO bytes apart
@@ -606,11 +735,18 @@ def emulated(tmp_path_factory):
 # centre. Dual-MSA stage 1 (bfloat16: groups of nbr CTAs, as many as the
 # SMs hold): 2 centres of 3 neighbours, one group of 3 whose walk crosses
 # the centre (``msa1``); 3 centres of 1 neighbour, two groups that split
-# the second centre (``msa1_groups``)
+# the second centre (``msa1_groups``). The body pair (bfloat16: clusters of
+# 4 CTAs walking 62-column strips a row a step): one image of 7 rows, two
+# strips (the second 38 wide), which the emulated card's 3 clusters split
+# inside each strip, so that the second cluster's walk crosses from the
+# first strip to the second. The block warp (bfloat16: each warp walks its
+# share of the blocks, images fastest): 5 images from a ring of 3 frames of
+# 20 x 36, 5 x 9 blocks, the bottom row per pixel, 32 walkers of 7 blocks
 SHAPES = {"block": (1, 10, 12, 64), "blockq": (1, 24, 12, 64),
-          "body": (1, 10, 20, 64),
+          "body": (1, 7, 100, 64),
           "group": (1, 7, 129, 64),
           "head": (3, 5, 129, 64), "tail": (1, 12, 54, 64)}
+WARP_SHAPE = (3, 5, 20, 36)
 # the int8 Block_'s bright rows: the top step's own, out of every later
 # step's windows (their xm, z and y windows start at row 6 and below)
 BRIGHT_ROWS, BRIGHT = 6, 40.0
@@ -653,7 +789,7 @@ def _case(kind, dtype):
         return kc.egla_args(SAME_AS.get(kind, kind), dtype, g,
                             EGLA_SHAPES[kind], device="cpu")
     if kind.startswith("warp_"):
-        return kc.warp_args(kind[5:], dtype, g, (3, 2, 16, 32), device="cpu")
+        return kc.warp_args(kind[5:], dtype, g, WARP_SHAPE, device="cpu")
     if kind in ALIGN_NBR:
         nbr, shape = ALIGN_NBR[kind]
         return kc.align_embed_args(SAME_AS[kind], dtype, g, shape, nbr,
@@ -998,3 +1134,119 @@ def test_eg1_weights_layout():
                                                torch.float32))
     assert torch.equal(bv32, cb.kernel_weights(bv.t()[..., None, None],
                                                torch.float32))
+
+
+def test_body_weights_layout():
+    """The bfloat16 body pair's resident slices: CTA q of a cluster keeps
+    conv1's 9 taps (3 ky + kx) as B[n][k] = w1[ky, kx, k, 64 q + n] and
+    conv2's as B[n][k] = w2[ky, kx, 64 q + k, n], 128-byte swizzled;
+    float32 keeps kernel_weights of each."""
+    g = torch.Generator().manual_seed(16)
+    w1 = torch.randn(3, 3, 64, 256, generator=g)
+    w2 = torch.randn(3, 3, 256, 64, generator=g)
+    st = fbody.pack_body_weights(w1, w2, torch.bfloat16)
+    assert st.shape == (4, 2, 9, 64, 64) and st.dtype == torch.bfloat16
+    assert st.is_contiguous()
+    rows = _unswizzle(st)
+    for q in (0, 3):
+        for tap in (0, 4, 8):
+            ky, kx = divmod(tap, 3)
+            assert torch.equal(rows[q, 0, tap],
+                               w1[ky, kx, :, 64 * q:64 * q + 64].t().bfloat16())
+            assert torch.equal(rows[q, 1, tap],
+                               w2[ky, kx, 64 * q:64 * q + 64, :].t().bfloat16())
+    wk1, wk2 = fbody.pack_body_weights(w1, w2, torch.float32)
+    assert torch.equal(wk1, cb.kernel_weights(w1.permute(3, 2, 0, 1),
+                                              torch.float32))
+    assert torch.equal(wk2, cb.kernel_weights(w2.permute(3, 2, 0, 1),
+                                              torch.float32))
+
+
+# A kernel of clusters of 4 CTAs that exercises the shim's cluster helpers
+# alone: the cluster barrier, asynchronous stores into every CTA's shared
+# memory that complete on its mbarrier before it expects their bytes, and a
+# named barrier that one warpgroup passes and the other waits at.
+_CLUSTER_PROBE = r"""
+#include "wgmma_tile.cuh"
+
+namespace {
+using namespace cdfo;
+constexpr int CL = 4;
+
+__global__ void __cluster_dims__(CL, 1, 1) cluster_probe(float* out) {
+  unsigned char* base = dynamic_smem();
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base);
+  float* flag = reinterpret_cast<float*>(base + 512);      // [128]
+  float* recv = reinterpret_cast<float*>(base + 1024);     // [CL sources][THREADS][4]
+  const int rank = cluster_rank(), t = threadIdx.x;
+  if (t == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
+  cluster_sync();
+  for (int r = 0; r < CL; ++r) {
+    st_async_remote4(recv + (rank * THREADS + t) * 4, r, float(rank), float(t),
+                     float(blockIdx.x), 1.f, bar);
+  }
+  if (t >= 128) {
+    flag[t - 128] = float(blockIdx.x * 1000 + t);
+    named_arrive(3, THREADS);
+  } else {
+    named_sync(3, THREADS);
+  }
+  cluster_sync();   // every store has landed: the bytes come before their expectation
+  if (t == 0) mbar_expect_tx(bar, CL * THREADS * 16);
+  mbar_wait(bar, 0);
+  float* mine = out + static_cast<long long>(blockIdx.x) * (CL * THREADS * 4 + 128);
+  for (int i = t; i < CL * THREADS * 4; i += THREADS) mine[i] = recv[i];
+  if (t < 128) mine[CL * THREADS * 4 + t] = flag[t];
+  cluster_sync();
+}
+}  // namespace
+
+// two clusters; out [8 CTAs][CL * THREADS * 4 + 128] float
+extern "C" int cdfo_cluster_probe(float* out) {
+  CDFO_LAUNCH_CLUSTER(cluster_probe, dim3(2 * CL), CL, 0, nullptr, out);
+  return cudaGetLastError();
+}
+"""
+
+
+def test_emulated_cluster_shim(tmp_path):
+    """The shim's cluster helpers on their own: each CTA holds every CTA's
+    asynchronous stores at the offset they were made at, and its mbarrier
+    completes though their bytes landed before it expected them; warpgroup
+    0 sees what warpgroup 1 stored before the named barrier."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++20 compiler (g++) to emulate the "
+                    "kernels")
+    (tmp_path / "shim.h").write_text(_SHIM)
+    (tmp_path / "inc").mkdir()
+    for header in ("cuda.h", "cuda_bf16.h", "cuda_runtime.h"):
+        (tmp_path / "inc" / header).write_text("")
+    src, lib = tmp_path / "probe.cu", tmp_path / "probe.so"
+    src.write_text(_CLUSTER_PROBE)
+    proc = subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread", "-include",
+         str(tmp_path / "shim.h"), "-x", "c++", str(src), "-I", str(cb.CSRC),
+         "-I", str(tmp_path / "inc"), "-o", str(lib)],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    fn = ctypes.CDLL(str(lib)).cdfo_cluster_probe
+    fn.argtypes = [ctypes.c_void_p]
+    threads, cl = 256, 4
+    out = torch.zeros(2 * cl, cl * threads * 4 + 128)
+    assert fn(out.data_ptr()) == 0
+    for cta in range(2 * cl):
+        recv = out[cta, :cl * threads * 4].reshape(cl, threads, 4)
+        first = cta - cta % cl
+        for src in range(cl):
+            want = torch.stack([torch.full((threads,), float(src)),
+                                torch.arange(threads, dtype=torch.float32),
+                                torch.full((threads,), float(first + src)),
+                                torch.ones(threads)], dim=1)
+            assert torch.equal(recv[src], want), (cta, src)
+        flags = out[cta, cl * threads * 4:]
+        assert torch.equal(flags, cta * 1000 + 128
+                           + torch.arange(128, dtype=torch.float32)), cta
