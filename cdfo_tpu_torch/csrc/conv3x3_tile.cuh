@@ -432,6 +432,31 @@ inline int sm_count() {
 #define CDFO_LAUNCH_CLUSTER(kernel, grid, cluster, smem, stream, ...) \
   kernel<<<(grid), cdfo::THREADS, (smem), (stream)>>>(__VA_ARGS__)
 #endif
+// a launch of `threads` threads a CTA in clusters of `cluster` CTAs given
+// at launch (a kernel without __cluster_dims__; grid a multiple of it)
+#ifndef CDFO_LAUNCH_CLUSTER_N
+namespace cdfo {
+template <typename... P, typename... A>
+cudaError_t launch_clusters(void (*kernel)(P...), dim3 grid, int cluster, int threads, int smem,
+                            cudaStream_t stream, A... args) {
+  cudaLaunchAttribute dims;
+  dims.id = cudaLaunchAttributeClusterDimension;
+  dims.val.clusterDim.x = static_cast<unsigned>(cluster);
+  dims.val.clusterDim.y = 1;
+  dims.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = grid;
+  config.blockDim = dim3(static_cast<unsigned>(threads));
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = stream;
+  config.attrs = &dims;
+  config.numAttrs = 1;
+  return cudaLaunchKernelEx(&config, kernel, args...);
+}
+}  // namespace cdfo
+#define CDFO_LAUNCH_CLUSTER_N(kernel, grid, cluster, threads, smem, stream, ...) \
+  cdfo::launch_clusters((kernel), (grid), (cluster), (threads), (smem), (stream), __VA_ARGS__)
+#endif
 
 // Each library is one translation unit that includes this header once.
 extern "C" const char* cdfo_cuda_error_string(int err) {

@@ -8,8 +8,10 @@
 // products), fused_egla.cu (eg1's projection and its row attention,
 // eg2's window chain), fused_block.cu (the body pair's cluster walk: the
 // cluster barrier, asynchronous stores into another CTA's shared memory,
-// named barriers) and warp_block.cu (its patches by TMA). Only those
-// include this header; conv3x3_tile.cuh is unchanged for the rest.
+// named barriers), warp_block.cu (its patches by TMA), probe_dots.cu (the
+// dot and row probes' products) and probe_dma.cu (its patch gathers by
+// TMA). Only those include this header; conv3x3_tile.cuh is unchanged for
+// the rest.
 //
 // The wgmma forms used: m64nNk16, bf16 x bf16 -> fp32, A from registers (or,
 // wgmma_ss_*, a K-major tile in shared memory like B) and B from shared
@@ -355,6 +357,77 @@ __device__ __forceinline__ void wgmma_ss_64x64(float (&d)[8][4], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d (64 x 128) += A (descriptor) . B (descriptor), both K-major: the dot
+// probe at m = 128, the row probes at 128 output channels a CTA
+__device__ __forceinline__ void wgmma_ss_64x128(float (&d)[16][4], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]),
+        "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]),
+        "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]),
+        "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]),
+        "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 256) += A (descriptor) . B (descriptor), both K-major: the dot
+// probe at m = 256 (128 accumulators a thread)
+__device__ __forceinline__ void wgmma_ss_64x256(float (&d)[32][4], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]),
+        "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]),
+        "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]),
+        "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]),
+        "+f"(d[15][2]), "+f"(d[15][3]), "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]),
+        "+f"(d[16][3]), "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]), "+f"(d[19][0]),
+        "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]), "+f"(d[20][0]), "+f"(d[20][1]),
+        "+f"(d[20][2]), "+f"(d[20][3]), "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]),
+        "+f"(d[21][3]), "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]), "+f"(d[24][0]),
+        "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]), "+f"(d[25][0]), "+f"(d[25][1]),
+        "+f"(d[25][2]), "+f"(d[25][3]), "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]),
+        "+f"(d[26][3]), "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]), "+f"(d[29][0]),
+        "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]), "+f"(d[30][0]), "+f"(d[30][1]),
+        "+f"(d[30][2]), "+f"(d[30][3]), "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]),
+        "+f"(d[31][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // The s8 forms (s8 x s8 -> s32, K = 32 bytes a step; both operands
 // K-major, the only layout PTX allows for 8-bit types): d (64 x 64) +=
 // A (descriptor) . B (descriptor) ...
@@ -528,6 +601,21 @@ __device__ __forceinline__ void st_async_remote4(const float* local, int rank, f
       "f"(a), "f"(b), "f"(c), "f"(d), "r"(remote_bar)
       : "memory");
 }
+// 16 bytes of the shared memory of CTA `rank` of the cluster (this one
+// too), at the offset that `local` has in this CTA's (distributed shared
+// memory); a cluster barrier between the writer's stores and this load
+// orders them
+__device__ __forceinline__ float4 ld_remote4(const float* local, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(shared_address(local)), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote));
+  return v;
+}
 // named barrier `id` of `count` threads (a multiple of 32): arrive without
 // waiting (the producers), or arrive and wait (the consumers)
 __device__ __forceinline__ void named_arrive(int id, int count) {
@@ -543,9 +631,11 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 // runtime). A box of box_h > 1 rows lands as its box_w-pixel rows one
 // after another: an 8 x 8 box is an 8x8 window's 64 tokens in row order.
 // swizzle: the 128-byte swizzle of wgmma's tiles, or none (pixel rows as
-// they lie, for readers that are not wgmma).
+// they lie, for readers that are not wgmma). c: the elements of a pixel,
+// 64 but for a tensor seen as lanes of another width (the DMA probe's ring
+// as pixels of 8 or 64 lanes; a multiple of 8, and 64 where swizzled).
 inline cudaError_t nhwc_tensor_map(CUtensorMap* map, const void* base, int batch, int h, int wd,
-                                   int box_w, int box_h = 1, bool swizzle = true) {
+                                   int box_w, int box_h = 1, bool swizzle = true, int c = C) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -565,12 +655,12 @@ inline cudaError_t nhwc_tensor_map(CUtensorMap* map, const void* base, int batch
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<Encode>(fn);
   }
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(wd),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(wd),
                               static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(C) * 2,
-                                 static_cast<cuuint64_t>(wd) * C * 2,
-                                 static_cast<cuuint64_t>(h) * wd * C * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C), static_cast<cuuint32_t>(box_w),
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(c) * 2,
+                                 static_cast<cuuint64_t>(wd) * c * 2,
+                                 static_cast<cuuint64_t>(h) * wd * c * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(c), static_cast<cuuint32_t>(box_w),
                              static_cast<cuuint32_t>(box_h), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),

@@ -14,6 +14,7 @@ each, all started together.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -237,6 +238,14 @@ def workspace(query, what: str, device: torch.device,
     if n <= 0:
         raise RuntimeError(f"{what}: no workspace for sizes {sizes}")
     return torch.empty(n, dtype=torch.float32, device=device)
+
+
+def asking(device: torch.device):
+    """The context in which a C entry point that asks the current CUDA
+    device (its SM count, say) asks ``device``'s: none for a CPU one."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 def launch(kernel, what: str, device: torch.device, *args) -> None:

@@ -13,10 +13,11 @@ ring of (H+8, (W+8)*c) bf16 read by patch gathers or by one big copy.
   in steps of 2c), drawn from a numpy ``RandomState``.
 
 Each wrapper launches the hand-written kernel of ``csrc/probe_dma.cu`` on a
-CUDA ring, which copies every byte of every patch into shared memory, or
-takes the plain version on a CPU one; launches are counted in
-``launches``. Starts are clamped so that every patch lies inside the ring
-(``clamp_starts``; ``mk_starts``' already do).
+CUDA ring, which copies every byte of every patch into shared memory (the
+gather by TMA tensor copies, a patch one box or a few; the big copy by
+``cp.async``), or takes the plain version on a CPU one;
+launches are counted in ``launches``. Starts are clamped so that every
+patch lies inside the ring (``clamp_starts``; ``mk_starts``' already do).
 """
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ def big_plain(ring, starts, rows: int):
 
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol):
-    argtypes = {"cdfo_probe_gather_ctas": [_I] * 2,
+    argtypes = {"cdfo_probe_gather_ctas": [_I] * 3,
                 "cdfo_probe_gather": [_P] * 4 + [_I] * 6 + [_P],
                 "cdfo_probe_big": [_P] * 3 + [_I] * 3 + [_P]}[symbol]
     return cb.kernel_function("probe_dma", symbol, argtypes)
@@ -109,7 +110,8 @@ def gather(ring, starts, ph: int, pwl: int):
                          f"multiple of 8, at least {LANES}) in a ring of "
                          f"{tuple(ring.shape)}")
     fn, _ = _kernel("cdfo_probe_gather_ctas")
-    ctas = fn(nblk, ph * pwl * 2)
+    with cb.asking(ring.device):
+        ctas = fn(nblk, ph, pwl)
     if ctas <= 0:
         raise ValueError(f"{what}: a patch of {ph} x {pwl} does not fit")
     part = torch.empty(ctas * LANES, dtype=torch.float32, device=ring.device)

@@ -16,15 +16,19 @@ the (m, n) output layout of the TPU probes:
 Each has a plain PyTorch version (``*_plain``, which computes the same
 function without the loop: the products' sum through the planes' counts in
 float64, and the row-0 iteration alone) and a wrapper that launches the
-hand-written kernel of ``csrc/probe_dots.cu`` on a CUDA tensor, or takes
-the plain version on a CPU one, counting its launches in ``launches``.
-All operands are bfloat16 but the float32 b and cm, as in the TPU probes.
-The kernels take m of 64, 128 or 256 and k (c) a multiple of 64; kstack
-also needs its ring of stacked rows to fit shared memory (``kstack_mt``).
-Two arguments serve the tools' like-for-like comparisons and change no
-result: ``dot_case(..., streamed=True)`` streams the planes from L2 where
-they would fit shared memory, and ``rowpipe(..., mt=)`` sets the m-tiles
-(16 pixels each) per warp, 4 by default, so that it can run at kstack's.
+hand-written kernel of ``csrc/probe_dots.cu`` (``wgmma`` with both operands
+in shared memory) on a CUDA tensor, or takes the plain version on a CPU
+one, counting its launches in ``launches``. All operands are bfloat16 but
+the float32 b and cm, as in the TPU probes. The kernels take m of 64, 128
+or 256 and k a multiple of 64; the row probes take c = 64 (their weights
+split by output channels) or c = 128 .. 512, a multiple of 64 (split by
+input channels over a cluster of c / 64 CTAs). Two arguments serve the
+tools' like-for-like comparisons and change no result: ``dot_case(...,
+streamed=True)`` streams the planes from L2 where they would fit shared
+memory, and ``rowpipe(..., mt=)`` caps the m-tiles (64 output channels
+each) a CTA keeps, 4 by default (the kernel takes the most whose weights
+fit: 2 at m = 256, c = 64), so that it can run at kstack's
+(``kstack_mt``).
 """
 from __future__ import annotations
 
@@ -40,7 +44,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 KERNEL_M = (64, 128, 256)
 KERNEL_MT = (1, 2, 4)
-DOTS_MT = 4
 
 
 def _counts(reps: int, nplanes: int) -> list[int]:
@@ -94,7 +97,8 @@ def _check_rows(what, stacked, reps, nrows, u):
 
 @functools.lru_cache(maxsize=None)
 def _kernel(symbol):
-    argtypes = {"cdfo_probe_groups": [_I] * 4,
+    argtypes = {"cdfo_probe_dots_parts": [_I] * 6,
+                "cdfo_probe_rows_groups": [_I] * 6,
                 "cdfo_probe_kstack_mt": [_I] * 3,
                 "cdfo_probe_dots": [_P] * 4 + [_I] * 7 + [_P],
                 "cdfo_probe_rows": [_I] * 2 + [_P] * 6 + [_I] * 6 + [_P]
@@ -103,24 +107,35 @@ def _kernel(symbol):
 
 
 def kstack_mt(m: int, c: int, nrows: int) -> int:
-    """The m-tiles per warp of the kstack kernel at (m, c, nrows): the
-    largest of 4, 2, 1 whose ring of nrows + 2 stacked rows fits shared
-    memory (card only); raises ValueError where none does."""
+    """The 64-channel m-tiles a CTA of the kstack kernel keeps at (m, c,
+    nrows): 2 or 1, the most whose weights and stacked rows fit shared
+    memory (1 where the input channels split over a cluster; card only);
+    raises ValueError where nothing fits."""
     fn, _ = _kernel("cdfo_probe_kstack_mt")
     mt = fn(m, c, nrows)
     if mt <= 0:
-        raise ValueError(f"probe_dots kstack: no tile of m {m} whose ring "
-                         f"of {nrows} + 2 stacked rows of c {c} fits shared "
-                         "memory")
+        raise ValueError(f"probe_dots kstack: no tile of m {m} whose "
+                         f"weights and stacked rows of c {c} fit shared "
+                         "memory (c at most 512)")
     return mt
 
 
-def _groups(what, m, mt, n, reps):
-    fn, _ = _kernel("cdfo_probe_groups")
-    g = fn(m, mt, n, reps)
-    if g <= 0:
-        raise RuntimeError(f"{what}: no rep groups for m {m}, n {n}")
-    return g
+@functools.lru_cache(maxsize=256)
+def _plan(symbol, device, *args):
+    fn, _ = _kernel(symbol)
+    with cb.asking(device):
+        return fn(*args)
+
+
+def _count(what, symbol, device, *args):
+    """The kernel's partial sums (dots) or rep groups (rows) at ``args``,
+    asked once a device and shape."""
+    v = _plan(symbol, device, *args)
+    if v <= 0:
+        raise ValueError(f"{what}: no kernel plan for {args} (its weights "
+                         "fit no shared memory, the row probes take c at "
+                         "most 512, or the card cannot be asked)")
+    return v
 
 
 def _check_card(what, m, k, *tensors):
@@ -145,14 +160,17 @@ def dot_case(lhs, rhs, reps: int, streamed: bool = False):
     cb.check_shapes(what, {"rhs": (rhs, (nplanes, k, n))})
     if reps < 1:
         raise ValueError(f"{what}: reps {reps}")
-    rhs_t = rhs.transpose(1, 2).contiguous()
-    wl = cb.kernel_weights(lhs[:, :, None, None], torch.bfloat16)
-    groups = _groups(what, m, DOTS_MT, n, reps)
-    part = torch.empty(groups * n * m, dtype=torch.float32, device=lhs.device)
+    # (the host's work first, so that the transpose and the kernel go out
+    # back to back)
+    parts = _count(what, "cdfo_probe_dots_parts", lhs.device, m, k, n,
+                   nplanes, reps, int(streamed))
+    part = torch.empty(parts * n * m, dtype=torch.float32, device=lhs.device)
     out = lhs.new_empty((m, n))
+    lhs = lhs.contiguous()
+    rhs_t = rhs.transpose(1, 2).contiguous()
     cb.launch(_kernel("cdfo_probe_dots"), what, lhs.device, rhs_t.data_ptr(),
-              wl.data_ptr(), part.data_ptr(), out.data_ptr(), m, k, n, nplanes,
-              reps, groups, int(streamed))
+              lhs.data_ptr(), part.data_ptr(), out.data_ptr(), m, k, n,
+              nplanes, reps, parts, int(streamed))
     dot_case.launches += 1
     return out
 
@@ -171,18 +189,20 @@ def _rows_on_card(what, stacked, w, b, cm, u, reps, nrows, mt):
     elif mt not in KERNEL_MT:
         raise ValueError(f"{what}: mt {mt} not in {KERNEL_MT}")
     u_t = u.transpose(1, 2).contiguous()
-    wpk = cb.kernel_weights(w[:, :, None, None], torch.bfloat16)
-    groups = _groups(what, m, mt, n, reps)
+    w = w.contiguous()
+    groups = _count(what, "cdfo_probe_rows_groups", w.device, int(stacked),
+                    mt, m, c, n, reps)
     yscr = u.new_empty(groups * nrows * n * m)
     out = u.new_empty((m, n))
     cb.launch(_kernel("cdfo_probe_rows"), what, w.device, int(stacked), mt,
-              u_t.data_ptr(), wpk.data_ptr(), b.data_ptr(), cm.data_ptr(),
+              u_t.data_ptr(), w.data_ptr(), b.data_ptr(), cm.data_ptr(),
               yscr.data_ptr(), out.data_ptr(), m, c, n, nrows, reps, groups)
     return out
 
 
 def rowpipe(w, b, cm, u, reps: int, nrows: int, mt: int = 4):
-    """``rowpipe_plain``; ``mt``: the kernel's m-tiles per warp."""
+    """``rowpipe_plain``; ``mt``: at most this many 64-channel m-tiles a
+    CTA of the kernel."""
     if not cb.on_card(w, "probe_dots rowpipe"):
         return rowpipe_plain(w, b, cm, u, reps, nrows)
     out = _rows_on_card("probe_dots rowpipe", False, w, b, cm, u, reps, nrows,

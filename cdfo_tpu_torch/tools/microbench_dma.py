@@ -1,12 +1,13 @@
 """Small-copy throughput probe on the GPU, the port of
 ``tools/microbench_dma.py``: how fast do many small strided patch copies
-into shared memory run with 8 in flight, against one big contiguous copy?
-It sizes the block warp's patch gathers.
+into shared memory run with many in flight (TMA tensor copies, one a patch,
+a ring of stages per CTA and several CTAs an SM), against one big
+contiguous copy? It sizes the block warp's patch gathers.
 
   mode=patch : N copies of (8, 6*C) strided rows (the TPU tool's smallest
                tile-legal block-gather unit)
-  mode=run16 : N/16 copies of (8, 66*C) (a merged run of 16 blocks; 3 in
-               flight, as many as fit 200 KB of shared memory)
+  mode=run16 : N/16 copies of (8, 66*C) (a merged run of 16 blocks; 2 in
+               flight a CTA, one CTA an SM)
   mode=row   : N copies of (8, 4*C)
   mode=big   : one contiguous copy of about the same bytes
 

@@ -1,17 +1,21 @@
 """Dot-shape probe on the GPU, the port of ``tools/microbench_dots.py``:
-does the sustained rate of ``mma.sync`` bf16 (the trunk kernels'
-instruction, fed by ``ldmatrix`` from shared memory) scale with N, and
-does the ``Block_``'s per-row issue lose to K-stacked issue?
+how does the sustained rate of bf16 ``wgmma`` with both operands in shared
+memory (the main-path kernels' instruction) go with N, the probe's M
+(output channels: 64, 128, 256), what does splitting weights that fit no
+SM cost, and does the ``Block_``'s per-row issue lose to K-stacked issue?
 
   --mode dots     one (M, K, N) product repeated over 4 resident planes
-                  (``ops/probe_dots.dot_case``)
+                  (``ops/probe_dots.dot_case``; K split over CTAs where
+                  the weights and planes fit no CTA)
   --mode rowpipe  the fused ``Block_``'s y-row pipeline: three dx-shifted
-                  products, bias, lrelu, mask, bf16 store per row
+                  products, bias, lrelu, mask, bf16 store per row (the
+                  weights split by output channels, or at C = 256 by
+                  input channels over a cluster of C / 64 CTAs)
   --mode kstack   the K-stacked row pipeline: one row built into three
                   shifted copies in shared memory, then one product of
                   K = 9C per row; each case is followed by rowpipe at
-                  kstack's tile (m-tiles per warp), so that the two differ
-                  only in issue order and the build
+                  kstack's tile (64-channel m-tiles a CTA), so that the
+                  two differ only in issue order and the build
 
 Each case first holds the kernel against its plain version
 (``ops/kernel_cases.py``'s tolerance), then times it at two rep counts
@@ -105,7 +109,7 @@ def bench_rows(kind, m, c, n, *, nrows=8, iters=4, seed=0, mt=None):
                  plain(*args, reps_hi // 2, nrows), f"{kind} {m} {c} {n}")
     t_lo, t_hi, tfs = _diff(lambda reps: wrapper(*args, reps, nrows),
                             flop_it, reps_hi, iters)
-    tile = "" if mt is None else f"  (at kstack's tile, {mt} m-tiles/warp)"
+    tile = "" if mt is None else f"  (at kstack's tile, {mt} m-tiles/CTA)"
     print(f"{kind:7s} M={m:4d} C={c:3d} N={n:5d}: lo={t_lo * 1e3:7.2f} ms "
           f"hi={t_hi * 1e3:7.2f} ms  diff -> {tfs:7.1f} TF/s  (relerr "
           f"{rel:.1e}){tile}", flush=True)

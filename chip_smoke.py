@@ -10,7 +10,8 @@ CUDA device the script exits non-zero before printing any result):
 2. build of every hand-written CUDA kernel from ``cdfo_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once, with each library's ``ptxas``
    register, spill and C75xx (``wgmma``) lines; a library whose ``wgmma``
-   products ``ptxas`` serializes fails the run;
+   products ``ptxas`` serializes fails the run, and so does a spill or a
+   C75xx line in the probes' libraries (``probe_dots``, ``probe_dma``);
 3. each kernel against its plain PyTorch version on the card, in float32
    and bfloat16, with kernel and plain times (CUDA events, median of 15) at
    the main path's shapes: the attention kernel at its row and column
@@ -37,17 +38,21 @@ CUDA device the script exits non-zero before printing any result):
    the same path in every block, within tolerance of the per-pixel
    ``flow_warp_ring``, with ``F.grid_sample`` as its library time; the
    ``Block_`` body pair at the trunk's two shapes, also with its pack kept,
-   with cuDNN's two convolutions as its library time; the dot probes (``dot_case`` at three
-   shapes, one streamed and two with resident planes, with one
-   ``torch.matmul`` over K = reps * k as its library time, and the timed
-   case's resident planes also streamed, at the same K; ``rowpipe`` and
-   ``kstack``, which must refuse reps <= nrows) and the DMA probes (the
-   gather at its tool's 8160 patches, with ``ring[index]`` as its library
-   time; the big copy, with ``clone()``; these two timed as CUDA-graph
-   replays, their work being shorter than their wrappers' host work, in
-   chains over 16 copies of the ring, so that each call reads device
-   memory, as the block warp's ring of 8 frames does; their warm,
-   L2-resident times are printed beside).
+   with cuDNN's two convolutions as its library time; the dot probes (``dot_case`` at its
+   three widths, m = 64 with K split over CTAs, m = 128 and 256 with
+   resident planes, with one ``torch.matmul`` over K = reps * k as its
+   library time, and the timed case's planes also streamed, at the same
+   K; ``rowpipe`` and ``kstack``, which must refuse reps <= nrows, and
+   ``rowpipe`` also with its weights split by input channels over a
+   cluster, m = 64, c = 256) and the
+   DMA probes (the gather at its tool's 8160 patches, with ``ring[index]``
+   as its library time; the big copy, with ``clone()``; these two timed as
+   CUDA-graph replays, their work being shorter than their wrappers' host
+   work, in chains over 16 copies of the ring, so that each call reads
+   device memory, as the block warp's ring of 8 frames does; their warm,
+   L2-resident times are printed beside, and the rate at which the
+   gather's copies cross from L2 into the SMs, beside the warm big
+   copy's).
    Each output is held against the plain one slice by slice, each slice
    against its own largest value (``kernel_cases``: the MDTA and dual-MSA
    statistics per image and gram, their feature maps and EGLA's outputs
@@ -138,6 +143,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -175,6 +181,8 @@ LIBRARIES = ("fused_attention", "fused_block2", "fused_groupconv",
              "fused_head", "fused_tail", "fused_mdta", "fused_align",
              "fused_egla", "fused_block2_q", "warp_block", "fused_block",
              "probe_dots", "probe_dma")
+# the libraries whose ptxas lines must show no spill and no C75xx
+PROBE_LIBRARIES = ("probe_dots", "probe_dma")
 # the fused-trunk kernels: JSON name, wrapper, plain version, source, the
 # TPU kernel it replaces
 TRUNK_KERNELS = {
@@ -741,7 +749,7 @@ def _probe_timing(card, kind, kernel, plain, library, flop, nbytes,
     over ``COLD_COPIES`` copies of it, so that each call finds its copy out
     of L2 and reads device memory at the bound's rate, as the block warp
     reads its ring of 8 frames; the warm times, one ring in L2, are
-    printed beside."""
+    printed beside, and the fields come back with the kernel's warm ms."""
     if ring is None:
         ms = median_ms(kernel)
         plain_ms = median_ms(plain, 5)
@@ -753,10 +761,11 @@ def _probe_timing(card, kind, kernel, plain, library, flop, nbytes,
         library_ms = chain_ms(library, copies)
         plain_ms = median_ms(lambda: plain(ring), 5)
         one = [ring] * COLD_COPIES
+        warm_ms = chain_ms(kernel, one, wrapper)
         warm = (f" (chained over {COLD_COPIES} copies of the ring, "
                 f"{COLD_COPIES * ring.numel() * 2 / 1e6:.0f} MB; warm, one "
-                f"ring in L2: kernel {chain_ms(kernel, one, wrapper):.4f} "
-                f"ms, library {chain_ms(library, one):.4f} ms)")
+                f"ring in L2: kernel {warm_ms:.4f} ms, library "
+                f"{chain_ms(library, one):.4f} ms)")
         del copies
     t_ops, t_bytes = flop / PEAK_FLOPS[torch.bfloat16], nbytes / PEAK_BYTES
     bound_ms = 1e3 * max(t_ops, t_bytes)
@@ -767,8 +776,9 @@ def _probe_timing(card, kind, kernel, plain, library, flop, nbytes,
           f"[{card}]", flush=True)
     if ms < bound_ms:
         raise AssertionError(f"probe {kind} ran faster than its bound")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+    fields = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+              "bound_by": bound_by, "library_ms": library_ms}
+    return fields if ring is None else (fields, warm_ms)
 
 
 def covered_bytes(ring, yi, xi) -> int:
@@ -805,6 +815,8 @@ def check_probe_kernels(card: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(7)
     fields = {}
     m, k, n, reps = PROBE_DOT
+    # the three widths: m = 64 with K split over CTAs, m = 128 and the
+    # timed m = 256 with their planes resident
     for mm, kk, nn, rr in ((64, 768, 516, 9), (128, 128, 2064, 9),
                            (m, k, n, reps)):
         lhs, rhs = kc.dots_args(g, mm, kk, nn)
@@ -846,6 +858,16 @@ def check_probe_kernels(card: str) -> dict:
         print(f"kstack at reps = nrows refused: {e}", flush=True)
     else:
         raise AssertionError("kstack took reps = nrows")
+    # the row pipeline with the same operations' weights split by input
+    # channels over a cluster (m = 64, c = 256) instead of output channels
+    args = kc.rows_args(g, 64, 256, n, PROBE_NROWS)
+    _probe_check("rowpipe", pd.rowpipe(*args, reps, PROBE_NROWS),
+                 pd.rowpipe_plain(*args, reps, PROBE_NROWS))
+    split_ms = median_ms(lambda: pd.rowpipe(*args, reps, PROBE_NROWS))
+    print(f"probe rowpipe (64, 256, {n}, {reps}): weights split by input "
+          f"channels over a cluster of 4 {split_ms:.3f} ms against "
+          f"{fields['rowpipe']['ms']:.3f} ms split by output channels at "
+          f"{PROBE_ROWS}, same operations [{card}]", flush=True)
     h, w, c, nblk = PROBE_DMA
     ring, starts = kc.dma_args(np.random.RandomState(0), h, w, c, nblk, 6)
     ph, pw = pm.PATCHES["patch"]
@@ -856,24 +878,34 @@ def check_probe_kernels(card: str) -> dict:
     yi = st[:, 0, None, None] + torch.arange(ph, device="cuda")[:, None]
     xi = st[:, 1, None, None] + torch.arange(pwl, device="cuda")
     covered = covered_bytes(ring, yi, xi)
-    fields["gather"] = {"max_abs_err": err, **_probe_timing(
+    moved = nblk * ph * pwl * 2   # the patches' bytes into shared memory
+    timing, gather_warm = _probe_timing(
         card, f"gather {nblk} patches of ({ph}, {pwl}) "
-        f"({nblk * ph * pwl * 2 / 1e6:.1f} MB, covering {covered / 1e6:.1f} "
+        f"({moved / 1e6:.1f} MB, covering {covered / 1e6:.1f} "
         f"MB of the {ring.numel() * 2 / 1e6:.1f} MB ring {tuple(ring.shape)})",
         lambda r: pm.gather(r, starts, ph, pwl),
         lambda r: pm.gather_plain(r, starts, ph, pwl),
         lambda r: r[yi, xi], 0.0, covered + starts.numel() * 4 + 128 * 4,
-        ring=ring, wrapper=pm.gather)}
+        ring=ring, wrapper=pm.gather)
+    fields["gather"] = {"max_abs_err": err, **timing}
     rows = pm.big_rows(h, w, nblk)
     err = _probe_check("big", pm.big(ring, starts, rows),
                        pm.big_plain(ring, starts, rows))
     y0 = min(max(int(starts[0]), 0), ring.shape[0] - rows)
-    fields["big"] = {"max_abs_err": err, **_probe_timing(
-        card, f"big {rows} rows ({rows * ring.shape[1] * 2 / 1e6:.1f} MB)",
+    big_bytes = rows * ring.shape[1] * 2
+    timing, big_warm = _probe_timing(
+        card, f"big {rows} rows ({big_bytes / 1e6:.1f} MB)",
         lambda r: pm.big(r, starts, rows),
         lambda r: pm.big_plain(r, starts, rows),
         lambda r: r[y0:y0 + rows].clone(), 0.0,
-        rows * ring.shape[1] * 2 + 4 + 128 * 4, ring=ring, wrapper=pm.big)}
+        big_bytes + 4 + 128 * 4, ring=ring, wrapper=pm.big)
+    fields["big"] = {"max_abs_err": err, **timing}
+    # which floor the gather is against: its copies cross from L2 into the
+    # SMs (every patch byte, overlaps included), beside the warm big copy
+    print(f"probe gather: {moved / 1e6:.1f} MB from L2 into the SMs at "
+          f"{moved / fields['gather']['ms'] / 1e9:.3f} TB/s (warm "
+          f"{moved / gather_warm / 1e9:.3f}); the warm big copy "
+          f"{big_bytes / big_warm / 1e9:.3f} TB/s [{card}]", flush=True)
     torch.cuda.empty_cache()
     return fields
 
@@ -1578,6 +1610,16 @@ def redesign_order(card: str, fields: dict, launches: dict) -> None:
           + f" [{card}]", flush=True)
 
 
+def ptxas_fault(line: str) -> bool:
+    """A ptxas line that reports a spill (a non-zero spill store or load)
+    or a C75xx warning (``wgmma`` serialized, or a wait or arrive
+    injected)."""
+    spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       line)
+    return "C75" in line or bool(spills and (int(spills[1]) or
+                                            int(spills[2])))
+
+
 def entry_name(line: str) -> str:
     """The kernel a ptxas "Compiling entry function '<mangled>'" line
     names: the last identifier of its (nested) name, with its template
@@ -1621,7 +1663,7 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
-    serialized = []
+    serialized, probe_faults = [], []
     try:
         cuda_build.build(*LIBRARIES)
     finally:
@@ -1637,11 +1679,16 @@ def main():
                     print(f"  {name}: {line}", flush=True)
                 if "wgmma.mma_async instructions are serialized" in line:
                     serialized.append(name)
+                if name in PROBE_LIBRARIES and ptxas_fault(line):
+                    probe_faults.append(f"{name}: {line.strip()}")
     print(f"built {len(LIBRARIES)} libraries in parallel in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if serialized:
         raise AssertionError(f"ptxas serializes the wgmma products of "
                              f"{sorted(set(serialized))}")
+    if probe_faults:
+        raise AssertionError(f"ptxas spills or warns in the probes: "
+                             f"{probe_faults}")
     if sys.argv[1:2] == ["--profile"]:
         profile_main_path(card, sys.argv[2:])
         return

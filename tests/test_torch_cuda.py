@@ -21,6 +21,7 @@ from cdfo_tpu_torch.ops import fused_tail as ft
 from cdfo_tpu_torch.ops import kernel_cases as kc
 from cdfo_tpu_torch.ops import warp_block as wb
 from cdfo_tpu_torch.ops.kernel_cases import TOLERANCE
+from cdfo_tpu_torch.tools import microbench_dots as mbd
 
 
 @pytest.fixture
@@ -866,11 +867,13 @@ def test_body_kernel_takes_a_kept_pack(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n,reps", [(64, 768, 132, 7), (128, 128, 260, 5),
-                                        (256, 192, 516, 9), (256, 576, 70, 3)])
+@pytest.mark.parametrize("m,k,n,reps", [
+    *((m, k, n, 7) for m, k, n in mbd.DOT_CASES),
+    (64, 768, 132, 7), (128, 128, 260, 5), (256, 576, 70, 3)])
 def test_dot_probe_matches_plain(cuda, m, k, n, reps):
-    """Streamed and resident planes, each m the kernel takes, ragged n;
-    resident planes also streamed on request."""
+    """Every case of the tool's list (m = 64, 128 and 256; K split over
+    CTAs at (64, 768), (64, 1024) and (256, 576)) and ragged n; resident
+    planes also streamed on request."""
     from cdfo_tpu_torch.ops import probe_dots as pd
     g = torch.Generator(device=cuda).manual_seed(11)
     lhs, rhs = kc.dots_args(g, m, k, n, device=cuda)
@@ -884,21 +887,23 @@ def test_dot_probe_matches_plain(cuda, m, k, n, reps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["rowpipe", "kstack"])
-@pytest.mark.parametrize("m,c,n", [(256, 64, 516), (128, 64, 132),
-                                   (64, 256, 132)])
+@pytest.mark.parametrize("kind,m,c,n", [
+    *(("rowpipe", *case) for case in mbd.ROWPIPE_CASES),
+    *(("kstack", *case) for case in mbd.KSTACK_CASES),
+    ("rowpipe", 128, 64, 132), ("kstack", 128, 64, 132),
+    ("kstack", 64, 256, 132), ("rowpipe", 64, 128, 132),
+    ("rowpipe", 128, 192, 132), ("kstack", 64, 512, 68)])
 def test_row_probes_match_plain(cuda, kind, m, c, n):
-    """rowpipe at each tile it takes; kstack where its ring of stacked
-    rows fits shared memory (not at c = 256, which it must refuse)."""
+    """Every case of the tool's lists and ragged ones: rowpipe at each tile
+    it takes (its weights whole in a CTA, split by output channels, or by
+    input channels over a cluster of c / 64: 2, 3 and 4), kstack at its
+    own (and by input channels over clusters of 4 and 8); kstack refuses
+    reps <= nrows."""
     from cdfo_tpu_torch.ops import probe_dots as pd
     g = torch.Generator(device=cuda).manual_seed(12)
     args = kc.rows_args(g, m, c, n, 8, device=cuda)
     with pytest.raises(ValueError, match="reps"):
         pd.kstack(*args, 8, 8)
-    if kind == "kstack" and c > 64:
-        with pytest.raises(ValueError, match="fits shared memory"):
-            pd.kstack(*args, 9, 8)
-        return
     runs = ([pd.kstack] if kind == "kstack" else
             [functools.partial(pd.rowpipe, mt=mt) for mt in pd.KERNEL_MT])
     plain = pd.kstack_plain if kind == "kstack" else pd.rowpipe_plain
@@ -911,13 +916,45 @@ def test_row_probes_match_plain(cuda, kind, m, c, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["rowpipe", "kstack"])
+def test_row_probes_refuse_more_than_a_cluster(cuda, kind):
+    """At c = 576 the weights' nine 64-channel chunks would need a cluster
+    of 9 CTAs, past the 8 a portable cluster holds: both raise."""
+    from cdfo_tpu_torch.ops import probe_dots as pd
+    g = torch.Generator(device=cuda).manual_seed(12)
+    args = kc.rows_args(g, 64, 576, 68, 8, device=cuda)
+    with pytest.raises(ValueError, match="c at most 512"):
+        getattr(pd, kind)(*args, 9, 8)
+
+
+@pytest.mark.cuda
+def test_dma_probe_gathers_tall_patches(cuda):
+    """Patches of 300 rows (two boxes of 150 rows each) of 17 8-lane pixels,
+    starts off the 64-lane boundaries and past the ring's end."""
+    from cdfo_tpu_torch.ops import probe_dma as pm
+    g = torch.Generator(device=cuda).manual_seed(13)
+    ring = torch.randn(320, 512, generator=g, device=cuda).bfloat16()
+    starts = torch.randint(0, 400, (2 * 40,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    out = pm.gather(ring, starts, 300, 136)
+    torch.cuda.synchronize()
+    kc.assert_outputs_close(out, pm.gather_plain(ring, starts, 300, 136),
+                            torch.bfloat16, "gather")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 24])
 @pytest.mark.parametrize("mode", ["patch", "row", "run16", "big"])
-def test_dma_probe_matches_plain(cuda, mode):
+def test_dma_probe_matches_plain(cuda, mode, shift):
+    """The tool's modes; ``shift`` moves every other patch's lane start off
+    the 64-lane boundaries (the gather's narrow map: run16's patch of 528
+    8-lane pixels as three boxes)."""
     import numpy as np
     from cdfo_tpu_torch.ops import probe_dma as pm
     rng = np.random.RandomState(3)
     pw = pm.PATCHES.get(mode, (8, 6))[1]
     ring, starts = kc.dma_args(rng, 64, 96, 64, 300, pw, device=cuda)
+    starts[1::4] += shift
     if mode == "big":
         rows = pm.big_rows(64, 96, 300)
         out, ref = pm.big(ring, starts, rows), pm.big_plain(ring, starts, rows)

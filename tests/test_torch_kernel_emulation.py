@@ -374,7 +374,14 @@ template <class F> void emu_launch_cluster(dim3 grid, unsigned cluster, F&& body
   emu_launch((grid), [&] { kernel(__VA_ARGS__); }, (threads))
 #define CDFO_LAUNCH_CLUSTER(kernel, grid, cluster, smem, stream, ...) \
   emu_launch_cluster((grid), (cluster), [&] { kernel(__VA_ARGS__); })
-// the emulated card holds 3 clusters at once
+#define CDFO_LAUNCH_CLUSTER_N(kernel, grid, cluster, threads, smem, stream, ...) \
+  emu_launch_cluster((grid), (cluster), [&] { kernel(__VA_ARGS__); }, (threads))
+// the emulated card holds 3 clusters at once (of any size)
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  struct { struct { unsigned x, y, z; } clusterDim; } val;
+};
 struct cudaLaunchConfig_t {
   dim3 gridDim, blockDim;
   size_t dynamicSmemBytes;
@@ -431,27 +438,28 @@ inline void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar)
   emu_complete_tx(bar, bytes);
 }
 // the TMA unit's row copies of a bf16 NHWC tensor (wgmma_tile.cuh): a box
-// of box_w pixels of box_h rows, its 128-byte pixel rows one after another
-// in row order, swizzled by their shared address (or not, a map made
-// without swizzle), zero (load) or skipped (store) outside the tensor; a
-// store completes at once
-struct CUtensorMap { const char* base; int batch, h, wd, box_w, box_h; bool swizzle; };
+// of box_w pixels of box_h rows, its pixel rows (c elements, 128 bytes but
+// for a map of other lanes) one after another in row order, swizzled by
+// their shared address (or not, a map made without swizzle), zero (load)
+// or skipped (store) outside the tensor; a store completes at once
+struct CUtensorMap { const char* base; int batch, h, wd, box_w, box_h; bool swizzle; int c; };
 inline int nhwc_tensor_map(CUtensorMap* map, const void* base, int batch, int h, int wd,
-                           int box_w, int box_h = 1, bool swizzle = true) {
-  *map = {static_cast<const char*>(base), batch, h, wd, box_w, box_h, swizzle};
+                           int box_w, int box_h = 1, bool swizzle = true, int c = 64) {
+  *map = {static_cast<const char*>(base), batch, h, wd, box_w, box_h, swizzle, c};
   return 0;
 }
 template <class F> void emu_tma_rows(const CUtensorMap* m, const void* smem, int x0, int y0, int b,
                                      F&& copy) {
+  const int pix = 2 * m->c;
   for (int r = 0; r < m->box_h; ++r)
     for (int p = 0; p < m->box_w; ++p)
-      for (int v = 0; v < 8; ++v) {
-        uint32_t a = shared_address(smem) + (r * m->box_w + p) * 128 + v * 16;
+      for (int v = 0; v < pix / 16; ++v) {
+        uint32_t a = shared_address(smem) + (r * m->box_w + p) * pix + v * 16;
         if (m->swizzle) a ^= ((a >> 7) & 7) << 4;
         const int xx = x0 + p, y = y0 + r;
         const bool in = b >= 0 && b < m->batch && y >= 0 && y < m->h && xx >= 0 && xx < m->wd;
         copy(reinterpret_cast<char*>(emu_smem) + a,
-             in ? m->base + ((static_cast<long long>(b) * m->h + y) * m->wd + xx) * 128 + v * 16
+             in ? m->base + ((static_cast<long long>(b) * m->h + y) * m->wd + xx) * pix + v * 16
                 : nullptr);
       }
 }
@@ -459,7 +467,7 @@ inline void tma_load_row(void* dst, const CUtensorMap* m, int x0, int y, int b, 
   emu_tma_rows(m, dst, x0, y, b, [](char* s, const char* g) {
     if (g) memcpy(s, g, 16); else memset(s, 0, 16);
   });
-  emu_complete_tx(bar, m->box_w * m->box_h * 128);
+  emu_complete_tx(bar, m->box_w * m->box_h * 2 * m->c);
 }
 inline void tma_store_row(const CUtensorMap* m, const void* src, int x0, int y, int b) {
   emu_tma_rows(m, src, x0, y, b, [](char* s, const char* g) {
@@ -489,6 +497,11 @@ inline void st_async_remote4(const float* local, int rank, float a, float b, flo
   const float v[4] = {a, b, c, d};
   memcpy(emu_cluster->smem[rank] + shared_address(local), v, 16);
   emu_complete_tx(reinterpret_cast<uint64_t*>(emu_cluster->smem[rank] + shared_address(bar)), 16);
+}
+inline float4 ld_remote4(const float* local, int rank) {
+  float4 v;
+  memcpy(&v, emu_cluster->smem[rank] + shared_address(local), 16);
+  return v;
 }
 // named barriers 3 .. 7 of all the CTA's threads: the producers arrive, the
 // consumers arrive and wait
@@ -630,6 +643,12 @@ inline void wgmma_ss_64x64(float (&d)[8][4], uint64_t a, uint64_t b, int scale_d
 }
 inline void wgmma_ss_64x96(float (&d)[12][4], uint64_t a, uint64_t b, int scale_d = 1) {
   emu_wgmma_ss<96>(d, a, b, scale_d);
+}
+inline void wgmma_ss_64x128(float (&d)[16][4], uint64_t a, uint64_t b, int scale_d = 1) {
+  emu_wgmma_ss<128>(d, a, b, scale_d);
+}
+inline void wgmma_ss_64x256(float (&d)[32][4], uint64_t a, uint64_t b, int scale_d = 1) {
+  emu_wgmma_ss<256>(d, a, b, scale_d);
 }
 inline void wgmma_ss_64x128_tt(float (&d)[16][4], uint64_t a, uint64_t b, int scale_d = 1) {
   emu_wgmma<128>(d, nullptr, a, b, true, true, scale_d);
@@ -892,30 +911,36 @@ def test_emulated_attention_rounds_the_normalised_p(emulated, monkeypatch,
 
 def _probe_case(kind):
     """A probe's arguments and the wrapper's keyword arguments at small
-    ragged sizes: m = 64 (the kernels' m are 64, 128 and 256), a ragged n,
-    reps split over the emulated card's 2 SMs; the dot probe also at m =
-    256 with its planes resident in shared memory (three pixel blocks, one
-    rep group), and the same streamed; kstack and a second rowpipe at m =
-    128, where kstack's ring fits at 2 m-tiles per warp; the DMA probe at
-    10 patches of 6 x 32-channel pixels."""
+    ragged sizes (the kernels' m are 64, 128 and 256; a last pixel tile of
+    4), reps split over the emulated card's 2 SMs: the dot probe at m = 64
+    with K split over two CTAs (six 64-channel chunks of lhs and four
+    planes fit no CTA), at m = 256 with its planes resident in shared
+    memory, and the same streamed; rowpipe at m = 64, c = 192 (its weights
+    split by input channels over a cluster of 3, whose rank 0 adds two
+    warps' pixel rows) and at m = 128, 2 m-tiles a CTA (its weights held
+    whole, two warpgroups taking turns); kstack at m = 64, c = 256 (split
+    over a cluster of 4); the DMA probe at 10 patches of 6 x 32-channel pixels, two starts outside the
+    ring (clamped into it) and one off a 64-lane boundary (the narrow
+    map)."""
     g = torch.Generator().manual_seed(6)
     if kind == "dots":
-        return (*kc.dots_args(g, 64, 128, 132, device="cpu"), 5), {}
+        return (*kc.dots_args(g, 64, 384, 132, device="cpu"), 5), {}
     if kind in ("dots_resident", "dots_streamed"):
         return ((*kc.dots_args(g, 256, 64, 132, device="cpu"), 6),
                 {"streamed": kind == "dots_streamed"})
-    if kind == "rowpipe":
-        return (*kc.rows_args(g, 64, 64, 132, nrows=4, device="cpu"), 9,
+    if kind in ("rowpipe", "kstack"):
+        c = 192 if kind == "rowpipe" else 256
+        return (*kc.rows_args(g, 64, c, 68, nrows=4, device="cpu"), 9,
                 4), {}
-    if kind in ("rowpipe_mt2", "kstack"):
-        kw = {"mt": 2} if kind == "rowpipe_mt2" else {}
-        return (*kc.rows_args(g, 128, 64, 132, nrows=4, device="cpu"), 9,
-                4), kw
+    if kind == "rowpipe_mt2":
+        return (*kc.rows_args(g, 128, 64, 68, nrows=4, device="cpu"), 9,
+                4), {"mt": 2}
     ring, starts = kc.dma_args(np.random.RandomState(0), 16, 24, 32, 10, 6,
                                device="cpu")
     if kind == "big":
         return (ring, starts, pm.big_rows(16, 24, 10)), {}
     starts[2], starts[5] = 40, 10**6   # outside the ring: clamped into it
+    starts[7] = 8 * 13                 # a lane off the 64-lane boundaries
     return (ring, starts, 8, 6 * 32), {}
 
 
@@ -930,7 +955,8 @@ def test_emulated_probe_matches_plain(emulated, monkeypatch, kind):
         out = wrapper(*args, **kw)
         ref = plain(*args)
         if kind == "kstack":
-            assert pd.kstack_mt(128, 64, 4) == 2
+            assert pd.kstack_mt(128, 64, 4) == 1
+            assert pd.kstack_mt(64, 256, 4) == 1
     finally:
         module._kernel.cache_clear()
     assert wrapper.launches == before + 1
