@@ -5,6 +5,6 @@ layout at every public function. It imports torch and numpy, never JAX:
 the JAX package stays the reference that the port is tested against.
 """
 
-from .config import ModelConfig
+from .config import DataConfig, ModelConfig, TrainConfig
 
-__all__ = ["ModelConfig"]
+__all__ = ["DataConfig", "ModelConfig", "TrainConfig"]

@@ -5,8 +5,10 @@
 * ``EGLA``: residual-prior-guided long-range attention (a row then a column
   1-D self-attention, through the hand-written kernel on a GPU) plus an
   inverse-masked 8x8 window attention, with the noise-free ("expected")
-  residual mask. ``EGLA(fused=True)`` runs it as ``ops/fused_egla``'s two
-  kernels around the column attention, in the model's dtype.
+  residual mask or the per-pixel gumbel-sampled one ("sample", the
+  reference's and the trainer's). ``EGLA(fused=True)`` runs it as
+  ``ops/fused_egla``'s two kernels around the column attention, in the
+  model's dtype (expected mask only).
 """
 from __future__ import annotations
 
@@ -115,20 +117,28 @@ class _Direct9(nn.Module):
 
 
 class EGLA(nn.Module):
-    """LLongRangAttention with the expected residual mask:
-    forward(res_prior, x) -> attended features + x. ``fused``: the two
-    ``ops/fused_egla`` kernels around the column attention (8x8 windows
-    only)."""
+    """LLongRangAttention: forward(res_prior, x) -> attended features + x.
+
+    ``mask_mode``: ``"expected"`` thresholds the noise-free softmax (one
+    bit per frame and channel); ``"sample"`` adds per-pixel gumbel noise
+    before the softmax (`arch/SIDECVSR_our.py:2168-2177`), drawn from the
+    ``generator`` that ``forward`` is given, or taken as the uniform draw
+    ``u`` (b, h, w, c). ``fused``: the two ``ops/fused_egla`` kernels
+    around the column attention (8x8 windows, expected mask only)."""
 
     def __init__(self, in_dim: int = 64, window_size: int = 8,
-                 fused: bool = False, dtype: torch.dtype = torch.float32):
+                 fused: bool = False, dtype: torch.dtype = torch.float32,
+                 mask_mode: str = "expected"):
         super().__init__()
         if fused and window_size != 8:
             raise ValueError("the fused EGLA kernels take 8x8 windows, got "
                              f"window_size={window_size}")
+        if fused and mask_mode != "expected":
+            raise ValueError("the fused EGLA takes the expected mask only")
         self.in_dim = in_dim
         self.window_size = window_size
         self.fused = fused
+        self.mask_mode = mask_mode
         self.conv_du_re = nn.Sequential(
             Conv2d(in_dim, in_dim, 1, dtype=dtype), nn.ReLU(),
             Conv2d(in_dim, in_dim, 3, 2, 2, dtype=dtype), nn.ReLU())
@@ -139,22 +149,57 @@ class EGLA(nn.Module):
         self.directH1_conv = _Direct9((9, 1))
         self.fuse = Conv2d(in_dim * 2, in_dim, 1, dtype=dtype)
 
+    def _mask_logits(self, res):
+        """The mask generator's softmax input, (b, c) float32: it is
+        spatially constant (a 1x1 map bilinearly resized is a broadcast)."""
+        v = self.conv_du_re(res).mean(dim=(1, 2), keepdim=True)
+        return self.conv_du_re2(v).float()[:, 0, 0]
+
     def residual_mask(self, res):
         """(b, c) float32 0/1: the noise-free softmax input is spatially
         constant, so softmax + threshold run on (b, c), in float32 (in bf16
         a probability near 0.5 would flip its bit)."""
-        v = self.conv_du_re(res).mean(dim=(1, 2), keepdim=True)
-        rm = torch.softmax(self.conv_du_re2(v).float()[:, 0, 0], dim=-1)
+        rm = torch.softmax(self._mask_logits(res), dim=-1)
         return (rm >= 0.5).float()
 
-    def forward(self, res, x):
+    def sampled_mask(self, res, shape, generator=None, u=None):
+        """(b, h, w, c) float32 0/1 of ``shape`` = x's: softmax(v + g) >=
+        0.5 with g = -log(-log u) per pixel and channel, u uniform on
+        [float32 tiny, 1), as ``jax.random.uniform(key, shape,
+        minval=tiny, maxval=1)`` draws it. ``u`` given is used as it is;
+        else it is drawn from ``generator`` on res's device. The threshold
+        carries no gradient (the reference's masked_fill)."""
+        if u is None:
+            if generator is None:
+                raise ValueError(
+                    "mask_mode='sample' draws gumbel noise: give EGLA a "
+                    "torch.Generator on the model's device, or the uniform "
+                    "draw u")
+            u = torch.rand(shape, generator=generator, device=res.device)
+            u.clamp_min_(torch.finfo(torch.float32).tiny)
+        elif tuple(u.shape) != tuple(shape):
+            raise ValueError(f"gumbel u of shape {tuple(u.shape)}, the "
+                             f"features' is {tuple(shape)}")
+        with torch.no_grad():
+            v = self._mask_logits(res)[:, None, None]
+            g = -torch.log(-torch.log(u.to(res.device, torch.float32)))
+            rm = torch.softmax(v + g, dim=-1)
+            return (rm >= 0.5).float()
+
+    def forward(self, res, x, generator=None, u=None):
+        """``generator`` / ``u``: the gumbel noise of the sampled mask
+        (``sampled_mask``); the expected mask takes none."""
         b, h, w, c = x.shape
         if c != self.in_dim:
             raise ValueError(f"EGLA({self.in_dim}) got {c} channels")
-        mask = self.residual_mask(res)
-        if self.fused:
-            return self._fused_call(mask, x)
-        res_mask = mask[:, None, None].to(x.dtype)
+        if self.mask_mode == "sample":
+            res_mask = self.sampled_mask(res, x.shape, generator, u)
+        else:
+            mask = self.residual_mask(res)
+            if self.fused:
+                return self._fused_call(mask, x)
+            res_mask = mask[:, None, None]
+        res_mask = res_mask.to(x.dtype)
         res_mask_inv = 1.0 - res_mask
 
         q_full, v_full = self.input_conv(x).chunk(2, dim=-1)

@@ -11,6 +11,13 @@ Inputs (channels-last):
   pre_l1 (B, N, H, W, nf) optional recurrent feature cache
 
 ``forward`` returns (sr (B, 4H, 4W, 1) float32, l1_fea (B, N, H, W, nf)).
+Under ``cfg.mask_mode="sample"`` it takes the EGLA mask's gumbel noise as a
+``generator`` on the model's device, or as the uniform draw ``gumbel_u``
+(B*(N-1), H, W, nf) (``EGLA.sampled_mask``). It is the trainer's forward:
+with ``fused_trunk`` the trunk's ``Block_`` and group tails and the head
+run as ``ops/fused_vjp``'s autograd Functions (kernel forwards, the
+recompute backwards of ``cdfo_tpu/ops/fused_vjp.py``), and EGLA's row and
+column attention as ``ops/fused_attention``'s.
 The streaming engine calls ``compensate_frames`` once per new frame and
 ``align_reconstruct`` for k centre frames at a time.
 
@@ -40,7 +47,8 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.cuda_build import cached_pack
-from ..ops.fused_head import fused_head, pack_head_weights
+from ..ops.fused_head import pack_head_weights
+from ..ops.fused_vjp import head_fused
 from ..ops.resize import interpolate_bilinear, pixel_shuffle
 from ..ops.warp import flow_warp_ring
 from ..ops.warp_block import flow_warp_ring_block
@@ -91,7 +99,8 @@ class CVSRV8(nn.Module):
         self.upconv2 = Conv2d(nf, nf * 4, 1, dtype=dt)
         self.conv_last = Conv2d(nf, 1, 3, 1, 1, dtype=dt)
         self.MV_deform_align = DualAttAlignment(nf, cfg.align_heads, dtype=dt)
-        self.RDAB = EGLA(nf, fused=cfg.fused_egla, dtype=dt)
+        self.RDAB = EGLA(nf, fused=cfg.fused_egla, dtype=dt,
+                         mask_mode=cfg.mask_mode)
         init_weights(self, generator)
         self.to(device)
 
@@ -101,11 +110,12 @@ class CVSRV8(nn.Module):
         return self.transformer_feature_extraction["path1"](
             l1, self.conv_second(pms))
 
-    def _compensate(self, fea, rms):
+    def _compensate(self, fea, rms, generator=None, gumbel_u=None):
         """Spatial-compensate block -> aligner input ``fea_i``; depends on
-        the neighbour frame only. fea (M, H, W, nf), rms (M, H, W, 1)."""
+        the neighbour frame only. fea (M, H, W, nf), rms (M, H, W, 1);
+        ``generator`` / ``gumbel_u``: the sampled EGLA mask's noise."""
         rms_prior = self.conv_expand_rms(rms)
-        x_n = self.RDAB(rms_prior, fea + rms_prior)
+        x_n = self.RDAB(rms_prior, fea + rms_prior, generator, gumbel_u)
         return self.conv_expand_fea_r(torch.cat([fea, x_n], dim=-1))
 
     def _tsa(self, nbr, center=None):
@@ -139,7 +149,7 @@ class CVSRV8(nn.Module):
             params = (self.upconv1.weight, self.upconv1.bias,
                       self.upconv2.weight, self.upconv2.bias,
                       self.conv_last.weight)
-            return fused_head(out.contiguous(), center_lr.to(dt).contiguous(),
+            return head_fused(out.contiguous(), center_lr.to(dt).contiguous(),
                               *params, self.conv_last.bias,
                               packed=cached_pack(
                                   self, "_head_pack", out, params,
@@ -157,7 +167,8 @@ class CVSRV8(nn.Module):
         lrs/pms/rms/ufs (M, H, W, 1), priors already max(1, i)-indexed by
         the caller. Returns (l1 (M, H, W, nf), fea_i (M, H, W, nf), the
         compensated feature the neighbour warp samples, and ufs_prior
-        (M, H, W, nf)).
+        (M, H, W, nf)). The streaming engine runs the expected mask: the
+        sampled one's per-step noise is not ported.
         """
         dt = self.cfg.compute_dtype
         l1 = self.embed(lrs.to(dt), pms.to(dt))
@@ -217,7 +228,9 @@ class CVSRV8(nn.Module):
         return aligned.reshape(k, nm1, h, w, nf)
 
     def forward(self, lrs, mvs0, mvs1, pms, rms, ufs,
-                pre_l1: Optional[torch.Tensor] = None):
+                pre_l1: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                gumbel_u: Optional[torch.Tensor] = None):
         cfg = self.cfg
         b, n, h, w, _ = lrs.shape
         center = cfg.center
@@ -243,7 +256,8 @@ class CVSRV8(nn.Module):
             return t[:, nbr_idx].reshape(b * (n - 1), h, w, t.shape[-1])
 
         ufs_prior = self.conv_expand_ufs(nbrs(ufs))
-        fea_i = self._compensate(nbrs(l1_fea), nbrs(rms))
+        fea_i = self._compensate(nbrs(l1_fea), nbrs(rms), generator,
+                                 gumbel_u)
         center_rep = center_fea[:, None].expand(b, n - 1, h, w, cfg.nf) \
             .reshape(b * (n - 1), h, w, cfg.nf)
         aligned = self.MV_deform_align(center_rep, fea_i, ufs_prior,

@@ -1,11 +1,14 @@
 """The CSSR trunk on the fused kernels (counterpart of
 ``cdfo_tpu/models/trunk_fast.py``): ``SCNetFast`` / ``_GroupFast`` /
 ``_BlockFast`` compute what ``SCNetS`` / ``SCGroupS`` / ``BlockS`` compute,
-with each ``Block_`` one ``ops/fused_block2.scale_block`` call and each
-group tail one ``ops/fused_groupconv.grouptail`` call. The outer ``x + r``
-skip stays plain. ``use_int8`` makes each ``Block_`` one
+with each ``Block_`` one ``ops/fused_block2.scale_block`` kernel and each
+group tail one ``ops/fused_groupconv.grouptail`` kernel, both called
+through ``ops/fused_vjp``'s autograd Functions (so the fused trunk trains,
+with ``cdfo_tpu``'s recompute backwards). The outer ``x + r`` skip stays
+plain. ``use_int8`` makes each ``Block_`` one
 ``ops/fused_block2_q.scale_block_q`` call instead (the int8 trunk of
-``ModelConfig.trunk_int8``; approximate, see that module).
+``ModelConfig.trunk_int8``; approximate and inference-only, see that
+module).
 
 Their ``state_dict`` keys are ``SCNetS``'s (``body.i.body.j.body.0.weight``
 and so on): ``_BlockFast`` is a ``BlockS`` with another ``forward``, so
@@ -19,9 +22,10 @@ import torch
 from torch import nn
 
 from ..ops.cuda_build import cached_pack
-from ..ops.fused_block2 import pack_weights, scale_block
+from ..ops.fused_block2 import pack_weights
 from ..ops.fused_block2_q import pack_weights_q, scale_block_q
-from ..ops.fused_groupconv import grouptail, pack_grouptail_weights
+from ..ops.fused_groupconv import pack_grouptail_weights
+from ..ops.fused_vjp import block_fused, grouptail_fused
 from .layers import Conv2d
 from .trunk import BlockS
 
@@ -58,12 +62,12 @@ class _BlockFast(BlockS):
         if self.use_int8:
             return scale_block_q(x, *params, packed=packed,
                                  geometry=self.geometry)
-        return scale_block(x, *params, packed=packed)
+        return block_fused(x, *params, packed=packed)
 
 
 class _GroupFast(nn.Module):
     """``SCGroupS``: the Block_s, then the group tail through
-    ``grouptail``, whose packed conv weights are kept as the Block_s'
+    ``grouptail_fused``, whose packed conv weights are kept as the Block_s'
     are."""
 
     def __init__(self, nf: int = 64, back_rbs: int = 3,
@@ -78,7 +82,8 @@ class _GroupFast(nn.Module):
         w = self.conv.weight
         packed = cached_pack(self, "_pack", x, (w,),
                              lambda dt: pack_grouptail_weights(w, dt))
-        return grouptail(self.body(x), x, w, self.conv.bias, packed=packed)
+        return grouptail_fused(self.body(x), x, w, self.conv.bias,
+                               packed=packed)
 
 
 class SCNetFast(nn.Module):

@@ -141,12 +141,25 @@ def matrix_weights(mats: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def forbid_grad(what: str, *tensors: torch.Tensor) -> None:
-    """The kernels are inference-only: raise when autograd would record."""
+    """The kernels off the training path are inference-only: raise when
+    autograd would record."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{what} is inference-only: its backward is not ported (ROADMAP "
-            "Queue 1.4, the recompute backwards of cdfo_tpu/ops/fused_vjp.py);"
-            " call it under torch.no_grad() or torch.inference_mode()")
+            f"{what} is inference-only: cdfo_tpu has no backward for it "
+            "either, and the trainer runs this module unfused (the trained "
+            "kernels are ops/fused_vjp.py's and ops/fused_attention.py's "
+            "Functions); call it under torch.no_grad() or "
+            "torch.inference_mode()")
+
+
+def through_function(what: str, function: str, *tensors: torch.Tensor):
+    """A launch returns a result without a ``grad_fn``: under autograd a
+    kernel on the training path is called through its autograd Function
+    (``function``), whose forward runs without recording."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} on a CUDA tensor under autograd: call {function}, "
+            "which launches the kernel and carries its backward")
 
 
 def cached_pack(owner, attr: str, x: torch.Tensor, params, pack, *tag):
@@ -156,14 +169,17 @@ def cached_pack(owner, attr: str, x: torch.Tensor, params, pack, *tag):
     x's dtype and ``tag``); None on the CPU, where the plain version runs.
     Parameters made under ``torch.inference_mode`` keep no version counter,
     so nothing tells a kept pack from a stale one: those are packed at
-    every call."""
+    every call. A pack is built without autograd, so that none holds a
+    graph; an optimizer step updates the parameters in place, which bumps
+    their versions, so the next call packs anew."""
     if x.device.type != "cuda":
         return None
     if any(p.is_inference() for p in params):
         return pack(x.dtype)
     key = (x.dtype, *tag) + tuple((p.data_ptr(), p._version) for p in params)
     if getattr(owner, attr + "_key", None) != key:
-        setattr(owner, attr, pack(x.dtype))
+        with torch.no_grad():
+            setattr(owner, attr, pack(x.dtype))
         setattr(owner, attr + "_key", key)
     return getattr(owner, attr)
 

@@ -17,7 +17,10 @@ with ``body`` = conv3x3 (C -> 4C), lrelu(0.1), conv3x3 (4C -> C), and
   every 2x and 0.5x intermediate on chip, or raises. In bfloat16 the
   kernel runs its products on ``wgmma`` with every weight tap streamed
   into shared memory (``stage_weights``). Launches are counted
-  in ``scale_block.launches``.
+  in ``scale_block.launches``. A CPU tensor's plain version is
+  differentiable; on the card the trainer calls it through
+  ``ops/fused_vjp.block_fused``, and a call under autograd that is not
+  through it raises.
 
 H and W must be even (the reference ``Block_`` is undefined otherwise);
 both paths raise ``ValueError`` on odd extents.
@@ -141,13 +144,14 @@ def scale_block(x, w1, b1, w2, b2, wd, bd, wu, bu, packed=None):
     """The Block_ of ``scale_block_plain``; ``packed``: this block's
     ``pack_weights`` in x's dtype, if the caller keeps it."""
     params = (w1, b1, w2, b2, wd, bd, wu, bu)
-    cb.forbid_grad("fused_block2", x, *params)
     if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
         raise ValueError(f"fused_block2 needs even H and W (the reference "
                          f"Block_ is undefined otherwise), got "
                          f"{tuple(x.shape)}")
     if not cb.on_card(x, "fused_block2"):
         return scale_block_plain(x, *params)
+    cb.through_function("fused_block2", "ops/fused_vjp.block_fused", x,
+                        *params)
     cb.check_operands("fused_block2", x, *params, channels=CHANNELS)
     c = CHANNELS
     if (w1.shape != (4 * c, c, 3, 3) or w2.shape != (c, 4 * c, 3, 3)

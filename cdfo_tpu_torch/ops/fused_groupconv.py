@@ -6,7 +6,9 @@
 * ``grouptail``: the wrapper the fused trunk calls. A CPU tensor takes the
   plain version; a CUDA tensor launches the hand-written kernel in
   ``csrc/fused_groupconv.cu`` (the port of ``conv3x3_residual_hcw``) or
-  raises. Launches are counted in ``grouptail.launches``.
+  raises. Launches are counted in ``grouptail.launches``. The trainer
+  calls it through ``ops/fused_vjp.grouptail_fused`` (a call on the card
+  under autograd that is not through it raises).
 * ``pack_grouptail_weights``: the kernel's weight operand (in bfloat16 the
   9 taps as swizzled ``wgmma`` stages, which the kernel keeps resident in
   shared memory); ``grouptail(..., packed=)`` takes it from a caller that
@@ -57,9 +59,10 @@ def grouptail(x, skip, w, b, packed=None):
     """skip + conv3x3(x) + b, zero-padded; NHWC, C = 64 on the card.
     ``packed``: ``pack_grouptail_weights(w, x.dtype)``, if the caller keeps
     it."""
-    cb.forbid_grad("fused_groupconv", x, skip, w, b)
     if not cb.on_card(x, "fused_groupconv"):
         return grouptail_plain(x, skip, w, b)
+    cb.through_function("fused_groupconv", "ops/fused_vjp.grouptail_fused",
+                        x, skip, w, b)
     cb.check_operands("fused_groupconv", x, skip, w, b, channels=CHANNELS)
     if skip.shape != x.shape or w.shape != (CHANNELS, CHANNELS, 3, 3):
         raise ValueError(f"fused_groupconv: x {tuple(x.shape)}, skip "

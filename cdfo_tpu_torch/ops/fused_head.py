@@ -8,7 +8,9 @@ out (``cdfo_tpu/ops/fused_head.py``).
   path. A CPU tensor takes the plain version; a CUDA tensor launches the
   hand-written kernel in ``csrc/fused_head.cu`` (the port of
   ``fused_head_hcw``), which never writes the 2x or 4x intermediates, or
-  raises. Launches are counted in ``fused_head.launches``.
+  raises. Launches are counted in ``fused_head.launches``. The trainer
+  calls it through ``ops/fused_vjp.head_fused`` (a call on the card under
+  autograd that is not through it raises).
 * ``pack_head_weights``: the kernel's weight and bias operands (in
   bfloat16 ``stage_head_weights``, which the kernel keeps resident in
   shared memory for ``wgmma``); ``fused_head(..., packed=)`` takes them
@@ -102,9 +104,10 @@ def fused_head(t, lr, w1, b1, w2, b2, wl, bl, packed=None):
     """The upsample head + bilinear x4 base; see ``fused_head_plain``.
     ``packed``: ``pack_head_weights`` of these weights in t's dtype, if the
     caller keeps it."""
-    cb.forbid_grad("fused_head", t, lr, w1, b1, w2, b2, wl, bl)
     if not cb.on_card(t, "fused_head"):
         return fused_head_plain(t, lr, w1, b1, w2, b2, wl, bl)
+    cb.through_function("fused_head", "ops/fused_vjp.head_fused", t, lr, w1,
+                        b1, w2, b2, wl, bl)
     cb.check_operands("fused_head", t, lr, w1, b1, w2, b2, wl, bl,
                       channels=CHANNELS)
     bsz, h, wd, _ = t.shape

@@ -1,10 +1,12 @@
-"""The trunk's microbenchmarks on the GPU, ports of the TPU tools in the
-repository's ``tools/`` (``microbench_trunk``, ``microbench_dots``,
-``microbench_dma``), and ``compare_block``, a kernel (the exact or int8
-``Block_``, the alignment tail) against another checkout's. Each runs as
-``python -m
-cdfo_tpu_torch.tools.<name>`` (the ports with their TPU tools' arguments
-and defaults), on the card only: without CUDA it raises."""
+"""The port's command-line tools, each run as ``python -m
+cdfo_tpu_torch.tools.<name>``: ``train``, the trainer (the port of the
+repository's ``tools/train.py``, with its flags; on the card, or on the
+CPU with ``--cpu``); the trunk's microbenchmarks on the GPU, ports of the
+TPU tools ``microbench_trunk``, ``microbench_dots`` and ``microbench_dma``
+(with their arguments and defaults); and ``compare_block``, a kernel (the
+exact or int8 ``Block_``, the alignment tail) against another checkout's.
+The microbenchmarks and ``compare_block`` run on the card only: without
+CUDA they raise."""
 from __future__ import annotations
 
 import torch

@@ -1,0 +1,152 @@
+"""The training loop (``cdfo_tpu/train/loop.py``; the reference's
+`train_LD_37.py:299-415`): train steps over the batcher, a checkpoint every
+``val_interval`` epochs, automatic resume from the newest one, and a JSONL
+log of each epoch's mean loss.
+
+A checkpoint (``step_%08d.pt``, ``torch.save``) holds the model's and the
+float32 masters' values, the optimizer state, the step and the state of
+the generator that draws the EGLA mask's gumbel noise. Not ported yet,
+each raising where it is asked for: the periodic eval hook (it needs the
+eval path's ``StreamingInferencer`` and PSNR/SSIM, ROADMAP Queue 1, item
+1.3), data-parallel training and per-host sharding (item 1.8) and
+TensorBoard scalars.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..config import DataConfig, ModelConfig, TrainConfig
+from ..data.dataset import CVCPDataset, TrainBatcher
+from ..models import CVSRV8
+from .state import TrainState, train_step
+
+_CKPT = re.compile(r"step_(\d{8})\.pt")
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState,
+                    generator: Optional[torch.Generator] = None) -> str:
+    """Writes ``<ckpt_dir>/step_%08d.pt`` (the state and, if given, the
+    gumbel generator's state) and returns its path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.abspath(os.path.join(ckpt_dir,
+                                        f"step_{state.step:08d}.pt"))
+    blob = state.state_dict()
+    if generator is not None:
+        blob["generator"] = generator.get_state()
+    tmp = path + ".tmp"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def restore_checkpoint(path: str, state: TrainState,
+                       generator: Optional[torch.Generator] = None
+                       ) -> TrainState:
+    """Loads ``path`` into ``state`` (and ``generator``, if the checkpoint
+    holds its state) in place; returns ``state``."""
+    blob = torch.load(path, map_location=state.device, weights_only=True)
+    state.load_state_dict(blob)
+    if generator is not None and "generator" in blob:
+        generator.set_state(blob["generator"].cpu())
+    return state
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The path of the newest ``step_%08d.pt`` in ``ckpt_dir``, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = sorted(d for d in os.listdir(ckpt_dir) if _CKPT.fullmatch(d))
+    return os.path.join(ckpt_dir, steps[-1]) if steps else None
+
+
+def make_eval_fn(*args, **kwargs):
+    """The periodic eval hook of ``cdfo_tpu``'s loop: not ported."""
+    raise NotImplementedError(
+        "the periodic eval hook needs the eval path (StreamingInferencer "
+        "and psnr_ssim), ROADMAP Queue 1, item 1.3")
+
+
+def run_dirs(train_cfg: TrainConfig, data_cfg: DataConfig) -> tuple[str, str]:
+    """(checkpoint directory, JSONL log path) of a run, as ``cdfo_tpu``
+    lays them out: ``<ckpt_dir>/<cfg>_<qp>/ckpt`` and
+    ``<ckpt_dir>/<cfg>_<qp>/training_log.jsonl``."""
+    run = os.path.join(train_cfg.ckpt_dir,
+                       f"{data_cfg.coding_cfg}_{data_cfg.qp}")
+    return os.path.join(run, "ckpt"), os.path.join(run, "training_log.jsonl")
+
+
+def train_loop(model_cfg: ModelConfig, data_cfg: DataConfig,
+               train_cfg: TrainConfig, data_root: str,
+               num_epochs: Optional[int] = None,
+               steps_per_epoch: Optional[int] = None,
+               log_dir: Optional[str] = None,
+               eval_fn: Optional[Callable] = None,
+               cache_path: Optional[str] = None,
+               device: torch.device | str = "cuda",
+               on_start: Optional[Callable] = None,
+               on_step: Optional[Callable] = None,
+               host_id: int = 0, num_hosts: int = 1) -> TrainState:
+    """Trains CVSR_V8 on the CVCP tree at ``data_root`` and returns the
+    final ``TrainState``; resumes from the newest checkpoint of the run's
+    directory. The model is built on ``device`` (the card unless the
+    caller asks for the CPU) from ``train_cfg.seed``; under
+    ``mask_mode="sample"`` its gumbel noise comes from a generator on that
+    device seeded likewise. ``on_start(state)``, if given, is called once
+    before the first step (after a resume), ``on_step(state, loss)`` after
+    each step (the loss a device scalar)."""
+    if eval_fn is not None:
+        make_eval_fn()
+    if log_dir is not None:
+        raise NotImplementedError(
+            "TensorBoard scalars are not ported; the loop writes its JSONL "
+            "log (run_dirs) instead")
+    if num_hosts != 1 or host_id != 0:
+        raise NotImplementedError(
+            "per-host sharding and data-parallel training wait for ROADMAP "
+            "Queue 1, item 1.8")
+    device = torch.device(device)
+    model = CVSRV8(model_cfg, torch.Generator().manual_seed(train_cfg.seed),
+                   device=device)
+    ds = CVCPDataset(data_root, data_cfg, cache_path=cache_path)
+    batcher = TrainBatcher(ds, train_cfg.batch_size, data_cfg.crop_size,
+                           seed=train_cfg.seed)
+    spe = steps_per_epoch or max(1, len(ds) // train_cfg.batch_size)
+    epochs = num_epochs or train_cfg.epochs
+    state = TrainState(model, train_cfg, steps_per_epoch=spe)
+    generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
+
+    ckpt_dir, log_path = run_dirs(train_cfg, data_cfg)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    latest = latest_checkpoint(ckpt_dir)
+    if latest:
+        restore_checkpoint(latest, state, generator)
+        print(f"resumed from {latest} at step {state.step}", flush=True)
+
+    if on_start is not None:
+        on_start(state)
+    it = batcher.prefetch()
+    start_epoch = state.step // spe
+    for epoch in range(start_epoch, epochs):
+        losses = []
+        t0 = time.time()
+        for _ in range(spe):
+            loss = train_step(state, next(it), generator)
+            losses.append(loss)
+            if on_step is not None:
+                on_step(state, loss)
+        avg = float(np.mean([float(v) for v in losses]))
+        msg = {"epoch": epoch + 1, "loss": round(avg, 5),
+               "sec_per_epoch": round(time.time() - t0, 2)}
+        print(json.dumps(msg), flush=True)
+        with open(log_path, "a") as f:
+            f.write(json.dumps(msg) + "\n")
+        if (epoch + 1) % train_cfg.val_interval == 0:
+            save_checkpoint(ckpt_dir, state, generator)
+    return state

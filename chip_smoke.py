@@ -95,7 +95,30 @@ CUDA device the script exits non-zero before printing any result):
    (bf16 defaults), ``microbench_dots`` in its three modes and
    ``microbench_dma`` (patch, row, big) at their TPU tools' case lists,
    each case held against its plain version before it is timed; every
-   kernel of the tools must launch.
+   kernel of the tools must launch;
+7. training: (a) the four kernels training runs (the row and column
+   attention, the ``Block_``, the group tail, the head) against their
+   plain versions at the LD preset's shapes (rows (7680, 64, 64), columns
+   (120, 64, 64, 64), the trunk and head (20, 64, 64, 64)), float32 and
+   bfloat16, with phase 3's slices and tolerances; (b) two train steps of
+   a float32 CVSR_V8 (nf 64, 2 trunk groups, the sampled mask, batch 2 of
+   7 16x24 frames, TF32 off) on the card against the same weights,
+   batches and gumbel draw on the CPU, unfused and with ``fused_trunk``:
+   loss within 1e-4 relative, each gradient and each parameter after the
+   second Adam step within 1e-3 relative L2, and the kernels' launches;
+   (c) the LD preset through ``train_loop`` (nf 64, 7 trunk groups, 7
+   frames, batch 20, 64x64 crops, the sampled mask, ``fused_trunk``, bf16
+   with float32 master weights) on a synthetic CVCP tree the port's io
+   writes to a temporary directory (2 sequences of 10 64x96 frames), 2
+   warm-up and 5 timed steps: every loss finite, each step's forward
+   launching the row and the column attention once each, 21 ``Block_``,
+   7 group tails and 1 head and its backward none; s/step, samples/s and
+   peak memory; one step's forward, backward and update times; then a new
+   loop resumes from the checkpoint written at the
+   end with equal parameters, masters, optimizer state and step, and takes
+   its next step; then the same run unfused (with its breakdown), whose first-step loss (same
+   weights, batch and gumbel noise) must be within 1e-2 relative of the
+   fused one.
 
 Every model gets the same seeded weights with its EGLA residual mask made
 one-hot (``kernel_cases.excite_egla_mask``; under random weights it is all
@@ -104,13 +127,19 @@ prints the mask's set bits per frame of one ``compensate_frames`` call.
 
 After phase 6 one line orders every kernel on a model path by launches x
 (time - bound) per 12-frame run, its launches from the run of its own path:
-the order in which a redesign gains most.
+the order in which a redesign gains most. Phase 7 follows it.
 
 The line before the last is a JSON object with one entry per kernel
 wrapper (launches from the four-flag run; the int8 ``Block_``'s from path
 A's, the warp's from path B's, and those of the body pair and the probes,
-which no model path runs, from phase 6's run of the tools); the last line
-is ``{"ok": true, "device": {...}}``.
+which no model path runs, from phase 6's run of the tools; the five
+trained wrappers also with ``train_launches_per_step``, their launches in
+one LD training step's forward); the last line is ``{"ok": true,
+"device": {...}}``.
+
+    python3 chip_smoke.py --train
+
+builds the kernels and runs phase 7 alone.
 
     python3 chip_smoke.py --profile
 
@@ -141,11 +170,15 @@ gives its device time.
 from __future__ import annotations
 
 import collections
+import copy
 import ctypes
 import json
+import math
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -153,6 +186,8 @@ import torch
 import torch.nn.functional as F
 
 from cdfo_tpu_torch import ModelConfig
+from cdfo_tpu_torch.config import DataConfig, TrainConfig
+from cdfo_tpu_torch.data import io as data_io
 from cdfo_tpu_torch.infer import BatchedStreamingEngine, synthetic_sequence
 from cdfo_tpu_torch.models import CVSRV8
 from cdfo_tpu_torch.models.layers import lrelu
@@ -174,6 +209,9 @@ from cdfo_tpu_torch.ops import warp_block as wb
 from cdfo_tpu_torch.ops.warp import flow_warp_ring
 from cdfo_tpu_torch.tools import captured, event_ms, microbench_dma
 from cdfo_tpu_torch.tools import microbench_dots, microbench_trunk
+from cdfo_tpu_torch.train.loop import train_loop
+from cdfo_tpu_torch.losses import charbonnier_loss
+from cdfo_tpu_torch.train.state import TrainState, model_inputs, train_step
 
 SOURCE = "cdfo_tpu_torch/csrc/fused_attention.cu"
 REPLACES = "cdfo_tpu/ops/fused_attention.py:43"
@@ -1610,6 +1648,318 @@ def redesign_order(card: str, fields: dict, launches: dict) -> None:
           + f" [{card}]", flush=True)
 
 
+# -- phase 7: training ----------------------------------------------------------
+
+# the LD preset's shapes of the four kernels training runs: batch 20 of 64x64
+# crops for the Block_, the group tail and the head; EGLA over the batch's
+# 120 neighbour images (rows of 7680 tokens, columns of 120 images)
+TRAIN_TRUNK = (20, 64, 64, 64)
+TRAIN_ATTENTION = (("token", (7680, 64, 64)), ("column", (120, 64, 64, 64)))
+# kernel launches of one training step's forward at 7 trunk groups; the
+# backward launches none
+TRAIN_LAUNCHES = {"token": 1, "column": 1, "block": 21, "group": 7,
+                  "head": 1}
+TRAIN_STEPS = (2, 5)   # warm-up steps, timed steps
+
+
+def launch_counts() -> dict:
+    counts = {"token": fa.token_self_attention.launches,
+              "column": fa.column_self_attention.launches}
+    counts.update({kind: w.launches for kind, (_, w, *_) in
+                   {**ALL_KERNELS, **TOOL_KERNELS}.items()})
+    return counts
+
+
+@torch.no_grad()
+def check_training_kernels(card: str) -> None:
+    """Phase 7(a): the four trained kernels' forwards against their plain
+    versions at the LD preset's shapes, in float32 and bfloat16, with phase
+    3's slices and tolerances."""
+    check_kernel_table(card, {k: TRUNK_KERNELS[k] for k in
+                              ("block", "group", "head")},
+                       [(f"LD {TRAIN_TRUNK}", False,
+                         lambda kind, dtype, g: kc.trunk_args(
+                             kind, dtype, g, TRAIN_TRUNK))], seed=7)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kind, shape in TRAIN_ATTENTION:
+            kernel, plain = WRAPPERS[kind]
+            q, v = kc.attention_args(dtype, g, shape)
+            out, ref = kernel(q, v), plain(q, v)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            line = (f"kernel {kind} LD {shape} {str(dtype)[6:]}: max_abs_err "
+                    f"{err:.3e} (max |plain| {scale:.3f}, rel "
+                    f"{err / scale:.3e}, tolerance rel "
+                    f"{kc.TOLERANCE[dtype]:.1e})")
+            print(line, flush=True)
+            if not err <= kc.TOLERANCE[dtype] * scale:
+                raise AssertionError(f"kernel disagrees with plain: {line}")
+
+
+def small_batches(seed: int, b: int = 2, h: int = 16, w: int = 24):
+    r = np.random.RandomState(seed)
+    out = []
+    for _ in range(2):
+        lrs, pms, rms, ufs = (r.rand(b, 7, h, w, 1).astype(np.float32)
+                              for _ in range(4))
+        mvs = (r.randn(b, 7, h, w, 2) * 1.5).astype(np.float32)
+        out.append({"lrs": lrs, "mvs0": mvs, "mvs1": mvs, "pms": pms,
+                    "rms": rms, "ufs": ufs,
+                    "hr": r.rand(b, 4 * h, 4 * w, 1).astype(np.float32)})
+    return out
+
+
+def train_two_steps(device: str, fused: bool, batches, u):
+    """Two train steps of a float32 CVSR_V8 (nf 64, 2 trunk groups, the
+    sampled mask, gumbel draw ``u``) from seeded weights on ``device``:
+    (losses, the first step's gradients, the parameters after), on the
+    CPU."""
+    cfg = ModelConfig(scn_groups=2, mask_mode="sample", fused_trunk=fused)
+    model = CVSRV8(cfg, torch.Generator().manual_seed(0), device=device)
+    state = TrainState(model, TrainConfig())
+    names = {id(p): n for n, p in model.named_parameters()}
+    grads = {}
+    apply = state.apply_gradients
+
+    def record():
+        if not grads:
+            grads.update({names[id(p)]: p.grad.detach().float().cpu()
+                          for p in state.params if p.grad is not None})
+        apply()
+
+    state.apply_gradients = record
+    losses = [train_step(state, b, gumbel_u=u.to(device)).item()
+              for b in batches]
+    params = {n: p.detach().float().cpu()
+              for n, p in model.state_dict().items()}
+    return losses, grads, params
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def check_small_training(fused: bool) -> None:
+    """Phase 7(b): two steps on the card (kernels) against the same on the
+    CPU (plain versions): same weights, batches and gumbel u (drawn on the
+    CPU). Loss within 1e-4 relative, each gradient and each parameter
+    after the second step within 1e-3 relative L2: Adam moves each weight
+    by about lr whatever its gradient's size, so a weight whose gradient
+    is near zero takes the rounding's sign and size, and a tensor's
+    parameters part by ~10x its gradients' relative error (on an H100:
+    gradients 2.6e-5, parameters 2.7e-4, unfused)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batches = small_batches(11)
+    u = torch.rand((2 * 6, 16, 24, 64), generator=torch.Generator()
+                   .manual_seed(5)).clamp_min(torch.finfo(torch.float32).tiny)
+    cpu = train_two_steps("cpu", fused, batches, u)
+    reset_launches()
+    card = train_two_steps("cuda", fused, batches, u)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    label = f"small training (nf=64, 2 groups, 2x7x16x24, fp32, fused_trunk={fused})"
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(card[0], cpu[0]))
+    if set(card[1]) != set(cpu[1]):
+        raise AssertionError(f"{label}: gradients of other parameters")
+    grad_err = max((rel_l2(card[1][n], g), n) for n, g in cpu[1].items()
+                   if g.norm() > 0)
+    zero = [n for n, g in cpu[1].items() if g.norm() == 0
+            and card[1][n].norm() > 0]
+    param_err = max((rel_l2(card[2][n], p), n) for n, p in cpu[2].items())
+    print(f"{label}: card vs CPU losses {card[0]} / {cpu[0]} (rel "
+          f"{loss_err:.3e}); worst gradient rel L2 {grad_err[0]:.3e} "
+          f"({grad_err[1]}); worst parameter after 2 Adam steps rel L2 "
+          f"{param_err[0]:.3e} ({param_err[1]}); launches {launches}",
+          flush=True)
+    if not (loss_err <= 1e-4 and grad_err[0] <= 1e-3 and not zero
+            and param_err[0] <= 1e-3):
+        raise AssertionError(f"{label}: card disagrees with CPU ({zero})")
+    want = {k: 0 for k in launches}
+    want.update(token=2, column=2)
+    if fused:
+        want.update(block=12, group=4, head=2)
+    if launches != want:
+        raise AssertionError(f"{label}: expected launches {want}, got "
+                             f"{launches}")
+
+
+def snapshot(state) -> tuple:
+    return ({k: v.detach().clone() for k, v in
+             state.model.state_dict().items()},
+            [m.detach().clone() for m in state.masters],
+            copy.deepcopy(state.optimizer.state_dict()), state.step)
+
+
+def same_state(a: tuple, b: tuple) -> bool:
+    return (all(torch.equal(a[0][k], b[0][k]) for k in a[0])
+            and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+            and a[3] == b[3] and _same_tree(a[2], b[2]))
+
+
+def _same_tree(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(map(_same_tree, a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b.to(a.device))
+    return a == b
+
+
+def run_training(card: str, root: str, ckpt: str, fused: bool):
+    """Phase 7(c): the LD preset through ``train_loop`` (nf 64, 7 trunk
+    groups, 7 frames, batch 20, 64x64 crops, the sampled mask, bf16 with
+    float32 masters), 2 warm-up and 5 timed steps, one epoch, a checkpoint
+    at its end. Checks each step's launches (forward ``TRAIN_LAUNCHES``
+    with ``fused_trunk``, backward none) and finite losses; returns (the
+    final state, the first loss, s/step, peak GiB, forward launches per
+    step)."""
+    warm, timed = TRAIN_STEPS
+    model_cfg = ModelConfig(mask_mode="sample", fused_trunk=fused,
+                            compute_dtype=torch.bfloat16)
+    data_cfg = DataConfig(coding_cfg="LD", qp=37, frames_per_seq=10)
+    train_cfg = TrainConfig(ckpt_dir=ckpt, val_interval=1)
+    forward, steps, times = [], [], []
+
+    def on_start(state):
+        state.model.register_forward_pre_hook(lambda m, a: reset_launches())
+        state.model.register_forward_hook(
+            lambda m, a, out: forward.append(launch_counts()))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+
+    def on_step(state, loss):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        if len(times) == warm + 1:
+            torch.cuda.reset_peak_memory_stats()
+        total = launch_counts()
+        steps.append((forward[-1], {k: total[k] - forward[-1][k]
+                                    for k in total}, loss.item()))
+
+    state = train_loop(model_cfg, data_cfg, train_cfg, root, num_epochs=1,
+                       steps_per_epoch=warm + timed, device="cuda",
+                       on_start=on_start, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_step = (times[-1] - times[warm]) / timed
+    label = (f"LD training (CVSR_V8 nf=64, 7 groups, 7 frames, batch 20, "
+             f"64x64 crops, sampled mask, bf16 + fp32 masters, "
+             f"fused_trunk={fused})")
+    want = {k: 0 for k in steps[0][0]}
+    if fused:
+        want.update(TRAIN_LAUNCHES)
+    else:
+        want.update(token=1, column=1)
+    for i, (fwd, bwd, loss) in enumerate(steps):
+        if fwd != want or any(bwd.values()) or not math.isfinite(loss):
+            raise AssertionError(f"{label} step {i}: loss {loss}, forward "
+                                 f"launches {fwd} (want {want}), backward "
+                                 f"{bwd}")
+    print(f"{label}: losses {[round(s[2], 3) for s in steps]}; "
+          f"{per_step:.4f} s/step, {20 / per_step:.2f} samples/s over "
+          f"{timed} steps after {warm}, peak memory {peak:.2f} GiB; "
+          f"launches per step forward {steps[0][0]}, backward none [{card}]",
+          flush=True)
+    return state, steps[0][2], per_step, peak, want
+
+
+def step_breakdown(card: str, state, label: str, reps: int = 3) -> None:
+    """Where one LD training step's time goes: the forward (with the loss),
+    the backward and the optimizer's update, each closed by a
+    synchronize, on one seeded batch; medians of ``reps`` after one
+    warm-up step. The steps advance ``state``."""
+    r = np.random.RandomState(3)
+    b, n, h, w = 20, 7, 64, 64
+    lrs, pms, rms, ufs = (r.rand(b, n, h, w, 1).astype(np.float32)
+                          for _ in range(4))
+    mvs = (r.randn(b, n, h, w, 2) * 0.05).astype(np.float32)
+    batch = state.batch_to_device({
+        "lrs": lrs, "mvs0": mvs, "mvs1": np.zeros_like(mvs), "pms": pms,
+        "rms": rms, "ufs": ufs,
+        "hr": r.rand(b, 4 * h, 4 * w, 1).astype(np.float32)})
+    gen = torch.Generator(device=state.device).manual_seed(1)
+    parts = collections.defaultdict(list)
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sr, _ = state.model(*model_inputs(batch), generator=gen)
+        loss = charbonnier_loss(sr, batch["hr"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        state.apply_gradients()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, v in (("forward", t1 - t0), ("backward", t2 - t1),
+                     ("update", t3 - t2)):
+            parts[k].append(1e3 * v)
+    print(f"{label}: one step's ms (median of {reps}) "
+          + ", ".join(f"{k} {np.median(v[1:]):.1f}" for k, v in parts.items())
+          + f" [{card}]", flush=True)
+
+
+def check_resume(root: str, ckpt: str, before: tuple) -> None:
+    """Phase 7(c): a new loop on the same directory resumes from the last
+    checkpoint with the parameters, masters, optimizer state and step it
+    held, then takes its next step."""
+    seen, losses = [], []
+    model_cfg = ModelConfig(mask_mode="sample", fused_trunk=True,
+                            compute_dtype=torch.bfloat16)
+    state = train_loop(
+        model_cfg, DataConfig(coding_cfg="LD", qp=37, frames_per_seq=10),
+        TrainConfig(ckpt_dir=ckpt, val_interval=1), root,
+        num_epochs=before[3] + 1, steps_per_epoch=1, device="cuda",
+        on_start=lambda s: seen.append(same_state(snapshot(s), before)),
+        on_step=lambda s, loss: losses.append(loss.item()))
+    print(f"resume: state equal to the saved one {seen}, next step loss "
+          f"{losses}, step {state.step}", flush=True)
+    if seen != [True] or len(losses) != 1 or not math.isfinite(losses[0]) \
+            or state.step != before[3] + 1:
+        raise AssertionError("the checkpoint did not resume")
+
+
+def check_training(card: str) -> dict:
+    """Phase 7; returns the training launches per step of each kernel."""
+    check_training_kernels(card)
+    for fused in (False, True):
+        check_small_training(fused)
+    codec = ("cv2" if data_io.cv2 else "PIL" if data_io.Image
+             else "the standard-library PNG codec (data/png.py)")
+    print(f"training data: images written and read through {codec}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="cdfo_train_") as tmp:
+        root = os.path.join(tmp, "cvcp")
+        data_io.make_synthetic_cvcp_tree(root, num_seqs=2, frames=10, h=64,
+                                         w=96)
+        state, first, per_step, peak, launches = run_training(
+            card, root, os.path.join(tmp, "fused"), fused=True)
+        saved = snapshot(state)
+        step_breakdown(card, state, "LD training fused_trunk=True")
+        del state
+        check_resume(root, os.path.join(tmp, "fused"), saved)
+        del saved
+        torch.cuda.empty_cache()
+        state, plain_first, plain_step, plain_peak, _ = run_training(
+            card, root, os.path.join(tmp, "unfused"), fused=False)
+        step_breakdown(card, state, "LD training fused_trunk=False")
+        del state
+        torch.cuda.empty_cache()
+    rel = abs(first - plain_first) / abs(plain_first)
+    print(f"LD training fused vs unfused: first-step loss {first:.4f} / "
+          f"{plain_first:.4f} (rel {rel:.3e}); {per_step:.4f} / "
+          f"{plain_step:.4f} s/step, {20 / per_step:.2f} / "
+          f"{20 / plain_step:.2f} samples/s, peak {peak:.2f} / "
+          f"{plain_peak:.2f} GiB [{card}]", flush=True)
+    if not rel <= 1e-2:
+        raise AssertionError("fused and unfused first-step losses differ")
+    return launches
+
+
 def ptxas_fault(line: str) -> bool:
     """A ptxas line that reports a spill (a non-zero spill store or load)
     or a C75xx warning (``wgmma`` serialized, or a wait or arrive
@@ -1695,6 +2045,9 @@ def main():
     if sys.argv[1:2] == ["--phases"]:
         run_phase_clocks(card, sys.argv[2:] or PHASE_KINDS)
         return
+    if sys.argv[1:2] == ["--train"]:
+        check_training(card)
+        return
 
     fields = check_kernels(card)
     fields.update(check_trunk_kernels(card))
@@ -1744,6 +2097,7 @@ def main():
                 launches["warp"] = counted["warp"]
     launches.update(run_tools(card))
     redesign_order(card, fields, launches)
+    train_launches = check_training(card)
 
     # launches: the four-flag run's; the int8 Block_'s from path A's run and
     # the warp's from path B's
@@ -1757,6 +2111,11 @@ def main():
          "replaces": replaces, "launches": launches[kind], **fields[kind]}
         for kind, (name, _, _, source, replaces) in {
             **ALL_KERNELS, **TOOL_KERNELS}.items()]
+    # the trained kernels' launches per LD training step (phase 7)
+    for entry, kind in zip(kernels, ("token", "column", *ALL_KERNELS,
+                                     *TOOL_KERNELS)):
+        if kind in TRAIN_LAUNCHES:
+            entry["train_launches_per_step"] = train_launches[kind]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ from cdfo_tpu_torch.ops import fused_groupconv as fg
 from cdfo_tpu_torch.ops import fused_head as fh
 from cdfo_tpu_torch.ops import fused_mdta as fm
 from cdfo_tpu_torch.ops import fused_tail as ft
+from cdfo_tpu_torch.ops import fused_vjp as fv
 from cdfo_tpu_torch.ops import kernel_cases as kc
 from cdfo_tpu_torch.ops import warp_block as wb
 from cdfo_tpu_torch.ops.kernel_cases import TOLERANCE
@@ -464,7 +465,7 @@ def test_align_embed_kernel_rejects_what_it_does_not_take(cuda, kind):
             bad[NORM_ARG[kind]] = bad[NORM_ARG[kind]].bfloat16()
             with pytest.raises(TypeError, match="float32"):
                 kernel(*bad)
-    with pytest.raises(NotImplementedError, match="Queue 1.4"):
+    with pytest.raises(NotImplementedError, match="no backward"):
         kernel(x.clone().requires_grad_(), *rest)
     assert kernel.launches == before
 
@@ -582,7 +583,7 @@ def test_egla_kernel_rejects_what_it_does_not_take(cuda, kind):
             with pytest.raises(ValueError, match="multiples of 8"):
                 kernel(x[:, :6].contiguous(), rest[0][:, :6].contiguous(),
                        *rest[1:])
-    with pytest.raises(NotImplementedError, match="Queue 1.4"):
+    with pytest.raises(NotImplementedError, match="no backward"):
         kernel(x.clone().requires_grad_(), *rest)
     assert kernel.launches == before
 
@@ -807,20 +808,95 @@ def test_block_warp_rejects_what_it_does_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["token", "column"])
 def test_attention_refuses_grad(cuda, kind):
-    """The kernel has no backward: under autograd the wrapper raises
-    instead of returning a result without a grad_fn."""
-    fn = (fa.token_self_attention if kind == "token"
-          else fa.column_self_attention)
+    """The wrappers no longer refuse autograd: under it the kernel launches
+    once, the result carries a grad_fn and q's gradient is that of
+    autograd through the plain version (float32, TF32 off); under no_grad
+    it launches once too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fn, plain = TRAIN_FUNCTIONS[kind][:2]
     shape = (2, 16, 64) if kind == "token" else (1, 16, 8, 64)
     q = torch.randn(shape, device=cuda, requires_grad=True)
     v = torch.randn(shape, device=cuda)
     before = fn.launches
-    with pytest.raises(NotImplementedError, match="Queue 1.4"):
-        fn(q, v)
-    assert fn.launches == before
+    out = fn(q, v)
+    assert fn.launches == before + 1 and out.grad_fn is not None
+    (dq,) = torch.autograd.grad(out.square().sum(), q)
+    (ref,) = torch.autograd.grad(plain(q, v).square().sum(), q)
+    kc.assert_outputs_close(dq, ref, torch.float32)
     with torch.no_grad():
         fn(q, v)
-    assert fn.launches == before + 1
+    assert fn.launches == before + 2
+
+
+# -- the training path: the four kernels' autograd Functions -------------------
+
+# (Function, plain version, the wrapper that counts the launches)
+TRAIN_FUNCTIONS = {
+    "token": (fa.token_self_attention, fa.token_attention_plain,
+              fa.token_self_attention),
+    "column": (fa.column_self_attention, fa.column_attention_plain,
+               fa.column_self_attention),
+    "block": (fv.block_fused, fb.scale_block_plain, fb.scale_block),
+    "group": (fv.grouptail_fused, fg.grouptail_plain, fg.grouptail),
+    "head": (fv.head_fused, fh.fused_head_plain, fh.fused_head),
+}
+# the LD preset's (batch 20 of 64x64 crops; EGLA over its 120 neighbour
+# images: rows of 7680 tokens, columns of 120 images), then ragged ones
+TRAIN_LD = [("token", (7680, 64, 64)), ("column", (120, 64, 64, 64)),
+            ("block", (20, 64, 64, 64)), ("group", (20, 64, 64, 64)),
+            ("head", (20, 64, 64, 64))]
+TRAIN_RAGGED = [("token", (3, 130, 64)), ("column", (2, 70, 9, 64)),
+                ("block", (2, 18, 34, 64)), ("group", (2, 18, 34, 64)),
+                ("head", (2, 18, 34, 64))]
+
+
+def _train_args(kind, dtype, g, shape):
+    if kind in ("token", "column"):
+        return kc.attention_args(dtype, g, shape)
+    return kc.trunk_args(kind, dtype, g, shape)
+
+
+def _grads(fn, args, needs, cot):
+    leaves = [a.detach().clone().requires_grad_(n) for a, n in zip(args, needs)]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(
+        out, [t for t, n in zip(leaves, needs) if n], cot.to(out.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,shape", TRAIN_LD + TRAIN_RAGGED)
+def test_function_gradients_match_autograd_through_plain(cuda, kind, shape,
+                                                         dtype):
+    """Each Function with its kernel forward (one launch, none in the
+    backward) against autograd through the plain version: the forward
+    within the kernel's tolerance, every gradient within the dtype's
+    tolerance of its largest value, in bfloat16 plus the plain bfloat16
+    gradient's own distance from the float32 one (``tests/test_torch_vjp``'s
+    rule: both sides round along the backward)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fn, plain, counter = TRAIN_FUNCTIONS[kind]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    args = _train_args(kind, dtype, g, shape)
+    needs = [not (kind == "head" and i == 1) for i in range(len(args))]
+    shape_out = plain(*args).shape
+    cot = torch.randn(shape_out, generator=g, device=cuda)
+    before = counter.launches
+    out, got = _grads(fn, args, needs, cot)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    ref_out, ref = _grads(plain, args, needs, cot)
+    kc.assert_outputs_close(out.detach(), ref_out.detach(), dtype, kind)
+    exact = (_grads(plain, [a.float() for a in args], needs, cot)[1]
+             if dtype == torch.bfloat16 else [None] * len(ref))
+    for i, (a, b, b32) in enumerate(zip(got, ref, exact)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        err = (a.float() - b.float()).abs().max().item()
+        scale = b.float().abs().max().item()
+        slack = 0.0 if b32 is None else (b.float() - b32).abs().max().item()
+        assert err <= kc.tolerance(dtype) * scale + slack, (i, err, scale,
+                                                            slack)
 
 
 # -- the trunk microbenchmarks' kernels (Block_ body pair, probes) ------------

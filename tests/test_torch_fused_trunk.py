@@ -6,7 +6,10 @@ cdfo_tpu's, in float32 on the CPU.
   the CPU), and against its XLA twin in ``cdfo_tpu/ops/fused_vjp.py`` at a
   second shape. The plain versions are not tied to C = 64, so the
   ``Block_`` and tail run narrow.
-* ``fold_down_conv2``'s algebra, the weight trees, the wrappers' refusals.
+* ``fold_down_conv2``'s algebra, the weight trees, the wrappers' refusals
+  (odd extents; on the card, autograd outside ``ops/fused_vjp``'s
+  Functions; the tail, which has no backward) and the Functions' gradients
+  against the JAX twins' vjp.
 * The port's fused engine against the JAX engine (``fused_trunk=False``,
   which ``tests/test_engine.py`` pins equal to the fused one): uint8 frames
   within 1 LSB.
@@ -36,6 +39,7 @@ from cdfo_tpu_torch.compat import from_flax
 from cdfo_tpu_torch.infer import BatchedStreamingEngine, synthetic_sequence
 from cdfo_tpu_torch.models import CVSRV8
 from cdfo_tpu_torch.ops import cuda_build
+from cdfo_tpu_torch.ops import fused_vjp as tvjp
 from cdfo_tpu_torch.ops.fused_block2 import (fold_down_conv2, scale_block,
                                              scale_block_plain)
 from cdfo_tpu_torch.ops.fused_groupconv import grouptail, grouptail_plain
@@ -120,14 +124,63 @@ def test_fold_down_conv2_is_down2_after_conv2():
     torch.testing.assert_close(got, ref, rtol=1e-12, atol=1e-12)
 
 
-def test_block_refuses_odd_extents_and_grad():
+def _on_card_without_launching(monkeypatch):
+    """The wrappers' card route, stopped before any launch (a CPU test
+    cannot launch)."""
+    def no_launch(*args):
+        raise AssertionError("launched")
+
+    monkeypatch.setattr(cuda_build, "on_card", lambda t, what: True)
+    monkeypatch.setattr(cuda_build, "launch", no_launch)
+
+
+def _grads_against_twin(port_fn, twin, arrays, layouts, seed):
+    """port_fn's gradients (every argument requiring grad) against
+    ``jax.vjp(twin)`` on the same arrays: layouts per argument, "x" NHWC
+    (the twin's HCW), "w" a torch conv weight (the twin's HWIO), "v" as
+    it is."""
+    tensors = [t_(a).requires_grad_() for a in arrays]
+    out = port_fn(*[t_conv(t.detach().numpy()).requires_grad_() if k == "w"
+                    else t for t, k in zip(tensors, layouts)])
+    g = np.random.RandomState(seed).randn(*out.shape).astype(np.float32)
+    jin = [hcw(a) if k == "x" else jnp.asarray(a)
+           for a, k in zip(arrays, layouts)]
+    ref = jax.jit(lambda c, *x: jax.vjp(twin, *x)[1](c))(hcw(g), *jin)
+    out.backward(t_(g))
+    return out, ref
+
+
+def test_block_refuses_odd_extents_and_grad(monkeypatch):
+    """Odd extents are refused. The gradient flows through
+    ``fused_vjp.block_fused`` and equals JAX's recompute backward (the vjp
+    of ``_block_twin``); on the card the bare wrapper under autograd
+    refuses, pointing to that Function (its launch would carry no
+    grad_fn)."""
     c = 8
-    ws = [t_conv(k) if k.ndim == 4 else t_(k) for k in _block_weights(4, c)]
+    ws = _block_weights(4, c)
+    tws = [t_conv(k) if k.ndim == 4 else t_(k) for k in ws]
     with torch.no_grad(), pytest.raises(ValueError, match="even"):
-        scale_block(torch.zeros(1, 6, 7, c), *ws)
-    x = torch.zeros(1, 6, 8, c, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1.4"):
-        scale_block(x, *ws)
+        scale_block(torch.zeros(1, 6, 7, c), *tws)
+    x = np.random.RandomState(5).randn(1, 6, 8, c).astype(np.float32)
+    layouts = ["x"] + ["w" if k.ndim == 4 else "v" for k in ws]
+    grads = {}
+
+    def port(xt, *params):
+        for i, p in enumerate(params):
+            p.register_hook(lambda gr, i=i: grads.__setitem__(i, gr))
+        xt.register_hook(lambda gr: grads.__setitem__("x", gr))
+        return tvjp.block_fused(xt, *params)
+
+    _, ref = _grads_against_twin(port, fused_vjp._block_twin, [x, *ws],
+                                 layouts, 6)
+    assert_close(grads["x"], np.transpose(np.asarray(ref[0]), (0, 1, 3, 2)))
+    for i, (k, r) in enumerate(zip(ws, ref[1:])):
+        r = np.asarray(r)
+        assert_close(grads[i], np.transpose(r, (3, 2, 0, 1))
+                     if k.ndim == 4 else r)
+    _on_card_without_launching(monkeypatch)
+    with pytest.raises(RuntimeError, match="fused_vjp.block_fused"):
+        scale_block(t_(x).requires_grad_(), *tws)
 
 
 # -- SCGroup tail ----------------------------------------------------------------
@@ -242,14 +295,33 @@ def test_tail_plain_matches_xla_composition():
                  ref)
 
 
-def test_wrappers_refuse_grad():
+def test_wrappers_refuse_grad(monkeypatch):
+    """The alignment tail has no backward in cdfo_tpu either: under
+    autograd it refuses. The group tail trains: its gradient through
+    ``fused_vjp.grouptail_fused`` equals the vjp of ``_grouptail_twin``,
+    and on the card the bare wrapper under autograd refuses, pointing to
+    that Function."""
     x = torch.zeros(2, 4, 4, 8, requires_grad=True)
     w = torch.zeros(8, 8, 3, 3)
     b = torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="Queue 1.4"):
-        grouptail(x, x, w, b)
-    with pytest.raises(NotImplementedError, match="Queue 1.4"):
+    with pytest.raises(NotImplementedError, match="no backward"):
         resblock_pair(x, x[:1], torch.ones(2, 8), *([w, b] * 4))
+    xs, skip, kg, bg = _group_case(7, 2, 5, 6, 8)
+    grads = {}
+
+    def port(*ts):
+        for i, t in enumerate(ts):
+            t.register_hook(lambda gr, i=i: grads.__setitem__(i, gr))
+        return tvjp.grouptail_fused(*ts)
+
+    _, ref = _grads_against_twin(port, fused_vjp._grouptail_twin,
+                                 [xs, skip, kg, bg], ["x", "x", "w", "v"], 8)
+    for i, back in enumerate([(0, 1, 3, 2), (0, 1, 3, 2), (3, 2, 0, 1), None]):
+        r = np.asarray(ref[i])
+        assert_close(grads[i], r if back is None else np.transpose(r, back))
+    _on_card_without_launching(monkeypatch)
+    with pytest.raises(RuntimeError, match="fused_vjp.grouptail_fused"):
+        grouptail(x, x, w, b)
 
 
 # -- the model and the engine ------------------------------------------------------

@@ -115,11 +115,16 @@ def test_compensate_frames(models):
 def test_config_rejects_settings_outside_the_slice():
     for kw in ({"scan_trunk": True, "fused_egla": True},
                {"scan_trunk": True, "fused_trunk": True},
-               {"scan_trunk": True}, {"mask_mode": "sample"},
+               {"scan_trunk": True},
                {"use_mv": False}, {"name": "cvsr_v9"},
                {"compute_dtype": torch.float16}):
         with pytest.raises(NotImplementedError):
             ModelConfig(**kw)
+    # the sampled EGLA mask is ported; the fused EGLA takes the expected one
+    # only (cdfo_tpu ignores fused_egla under the sampled mask)
+    assert ModelConfig(mask_mode="sample").mask_mode == "sample"
+    with pytest.raises(ValueError, match="fused_egla"):
+        ModelConfig(mask_mode="sample", fused_egla=True)
     # trunk_int8 is read only under fused_trunk; block_warp stands alone
     with pytest.raises(ValueError, match="fused_trunk"):
         ModelConfig(trunk_int8=True)

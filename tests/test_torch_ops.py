@@ -3,12 +3,14 @@
 Inputs come from numpy seeds and go through both packages; float32
 results agree within 1e-4 of the reference's largest magnitude (the JAX
 suite's own rule), host numpy code exactly. The attention wrappers take
-their plain versions on CPU tensors, so their launch counters stay 0.
+their plain versions on CPU tensors, so their launch counters stay 0
+(except where a test stands in for the launch).
 """
 import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -181,23 +183,34 @@ def test_attention_wrappers_refuse_other_devices():
 
 @pytest.mark.parametrize("kind", ["token", "column"])
 def test_attention_wrappers_refuse_grad_on_the_card(monkeypatch, kind):
-    """On a CUDA tensor that requires grad the wrappers raise before any
-    launch: the kernel has no backward, and its result would carry no
-    grad_fn."""
-    def no_launch(*args):
-        raise AssertionError("launched")
+    """The wrappers no longer refuse autograd on the card: each is an
+    autograd Function whose forward launches the kernel (here a stand-in
+    for the launch, which returns the plain result) and counts the launch,
+    and whose backward is cdfo_tpu's ``_bwd`` / ``_col_bwd``: q's and v's
+    gradients equal JAX's."""
+    def launch(q, v, *args):
+        return tfa.token_attention_plain(q, v) if kind == "token" else \
+            tfa.column_attention_plain(q, v)
 
     monkeypatch.setattr(cuda_build, "on_card", lambda t, what: True)
-    monkeypatch.setattr(cuda_build, "launch", no_launch)
-    fn = (tfa.token_self_attention if kind == "token"
-          else tfa.column_self_attention)
+    monkeypatch.setattr(tfa, "_launch", launch)
+    fn, ref_fn = ((tfa.token_self_attention, jfa.token_self_attention)
+                  if kind == "token" else
+                  (tfa.column_self_attention, jfa.column_self_attention))
     shape = (2, 8, 64) if kind == "token" else (1, 8, 4, 64)
-    q = torch.randn(shape, requires_grad=True)
-    v = torch.randn(shape)
+    r = np.random.RandomState(2)
+    qn, vn, gn = ((r.randn(*shape) * s).astype(np.float32)
+                  for s in (0.3, 1.0, 1.0))
+    q = torch.from_numpy(qn).requires_grad_()
+    v = torch.from_numpy(vn).requires_grad_()
     before = fn.launches
-    with pytest.raises(NotImplementedError, match="Queue 1.4"):
-        fn(q, v)
-    assert fn.launches == before
+    out = fn(q, v)
+    assert fn.launches == before + 1 and out.grad_fn is not None
+    out.backward(torch.from_numpy(gn))
+    _, vjp = jax.vjp(ref_fn, jnp.asarray(qn), jnp.asarray(vn))
+    dq, dv = vjp(jnp.asarray(gn))
+    assert_close(q.grad, dq)
+    assert_close(v.grad, dv)
 
 
 @pytest.mark.parametrize("kind", ["token", "column"])
