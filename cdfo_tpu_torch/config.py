@@ -38,10 +38,10 @@ class ModelConfig:
     ``cdfo_tpu.config.ModelConfig``.
 
     ``mask_mode`` defaults to ``"expected"`` here (the JAX default is
-    ``"sample"``): inference, the streaming engine and the card's smoke
-    run build on the deterministic mask, and the engine's per-step mask
-    noise is not ported. The trainer asks for ``"sample"``, as
-    ``cdfo_tpu``'s does by its default.
+    ``"sample"``): the port's entry points are inference and evaluation,
+    and the JAX eval tools pick the deterministic mask too
+    (`tools/test_sr.py:28`, `tools/eval_jctvc.py:68`). The trainer asks
+    for ``"sample"``, as ``cdfo_tpu``'s does by its default.
     """
 
     name: str = "cvsr_v8"

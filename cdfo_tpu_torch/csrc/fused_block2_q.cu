@@ -14,6 +14,14 @@
 // the lrelu'd conv1 outputs y1, y2 quantized with a lagged running scale
 // (1.25 x the largest amax of the earlier steps of the strip, step 0 from
 // the analytic bound); int32 sums dequantised by s_act * s_w[channel].
+// Where the TPU kernel clips y values past the lagged scale, a step whose
+// y1 or y2 values pass it runs again with that scale set to their own
+// amax (the amax is the values', which the scale does not change), so
+// nothing clips: the TPU's clipping, at the top and bottom rows where y1
+// outgrows the lag, cost the int8 trunk its 0.05 dB budget on a trained
+// model (PERF.md). A step done again costs a second pass of all its work;
+// in bfloat16 the walk lists such steps for a launch of their own (run in
+// the walk, they cost more: PERF.md), float32 runs them again in place.
 // Every float step that sets a quantized value is written without fused
 // multiply-add, so that it rounds as the plain version does.
 //
@@ -53,7 +61,7 @@
 //   gives a lane 4 bytes of a pixel's 16-byte chunk). Neither the weight
 //   copies nor the fold's products were the limit (removing either left the
 //   fold's cycles within ~10%).
-// A call is two launches. The 0.5x branch (`half_branch_kernel`: no
+// A call is three launches. The 0.5x branch (`half_branch_kernel`: no
 // quantization in it, bf16 wgmma with the dequantised conv1 and conv2
 // streamed through a bulk-copy ring, one CTA per 16 x 16 tile of the 0.5x
 // image) writes e = ku(conv2(y5) + b2) + bu to device memory (on an
@@ -62,7 +70,8 @@
 // runs per step the prologue (xq, us), and per chunk of 64 mid channels
 // conv1 at 2x and 1x, its quantizing epilogue into the chunk's y windows,
 // the chunk's fold and conv2 (int32 partial sums in shared memory); then
-// the epilogue (kd, up2(e), x).
+// the epilogue (kd, up2(e), x). The third launch runs the steps the walk
+// listed as past their lagged scale again, one CTA an SM.
 // conv1 runs in window coordinates with both operands in shared memory:
 // the int8 windows keep each pixel's 16-byte channel chunk in a plane of
 // its own, which the swizzle-free K-major descriptor reads as a tile from
@@ -228,7 +237,10 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
   auto nothing = [](float, float) {};
 
   float run1 = 0.f, run2 = 0.f;     // largest y1 / y2 amax of the steps so far
-  float clip1 = 0.f, clip2 = 0.f;   // this thread's clipped y1 / y2 values
+  float clip1 = 0.f, clip2 = 0.f;   // this thread's y1 / y2 values past the lagged scale
+  // a step run again: its y1 / y2 amax, the scale it quantizes at (< 0:
+  // the lagged one)
+  float own1 = -1.f, own2 = -1.f;
   const int nsteps = (h + S - 1) / S;
 
 #pragma unroll 1
@@ -269,8 +281,14 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
     auto boot = [&](float in_max, float in_rms) {
       return __fadd_rn(fminf(__fmul_rn(rs1, in_max), __fmul_rn(__fmul_rn(5.f, rn1), in_rms)), b1max);
     };
-    scale_of(step == 0 ? boot(st[0], z_rms) : __fmul_rn(LAG_MARGIN, run2), s_y2, inv_y2);
-    scale_of(step == 0 ? boot(st[1], x_rms) : __fmul_rn(LAG_MARGIN, run1), s_y1, inv_y1);
+    scale_of(own2 >= 0.f  ? own2
+             : step == 0 ? boot(st[0], z_rms)
+                         : __fmul_rn(LAG_MARGIN, run2),
+             s_y2, inv_y2);
+    scale_of(own1 >= 0.f  ? own1
+             : step == 0 ? boot(st[1], x_rms)
+                         : __fmul_rn(LAG_MARGIN, run1),
+             s_y1, inv_y1);
 
     // xq = quantized xm
     for (int i = threadIdx.x; i < X1 * X1 * (C / 8); i += blockDim.x) {
@@ -344,8 +362,9 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
     float amax1 = 0.f, amax2 = 0.f;
     // One m-tile of lrelu(dequantised conv1 + b1), zeroed outside the image
     // at the window's scale (width x width pixels), quantized with the
-    // lagged scale; values past +-127 are counted where the step owns the
-    // pixel, then clipped. sw, bias: this lane's conv1 weight scales and
+    // step's scale; values past +-127 (only at the lagged scale) are
+    // counted where the step owns the pixel, then clipped. sw, bias: this
+    // lane's conv1 weight scales and
     // biases of the chunk; s_act: the scale of the window that conv1 read.
     const int t2 = (lane & 3) * 2;
     auto put = [&](auto width, s8* dst, int y0, int x0, int hs, int ws, int mt,
@@ -571,14 +590,25 @@ block_q_kernel(const T* __restrict__ x, const s8* __restrict__ w1q, const float*
         });
       }
     }
-    // the step's y amaxes join the running ones; its two barriers also end
-    // the step (the next one overwrites xs and the partial sums)
+    // the step's amaxes; its two barriers also end the step (the next one
+    // overwrites xs and the partial sums). A step whose y1 or y2 values
+    // passed +-127 at the lagged scale runs again (fs and es took the
+    // windows it quantized) with that scale set to their own amax.
     {
       float am[2] = {amax1, amax2};
       const bool is_max[2] = {true, true};
       block_reduce(am, is_max, red);
-      run1 = fmaxf(run1, am[0]);
-      run2 = fmaxf(run2, am[1]);
+      const bool over1 = __float2int_rn(__fmul_rn(am[0], inv_y1)) > 127;
+      const bool over2 = __float2int_rn(__fmul_rn(am[1], inv_y2)) > 127;
+      if (own1 < 0.f && own2 < 0.f && (over1 || over2)) {
+        own1 = over1 ? am[0] : -1.f;
+        own2 = over2 ? am[1] : -1.f;
+        --step;
+      } else {
+        own1 = own2 = -1.f;
+        run1 = fmaxf(run1, am[0]);
+        run2 = fmaxf(run2, am[1]);
+      }
     }
   }
   if (counts != nullptr) {
@@ -907,8 +937,15 @@ __device__ __forceinline__ void static_for(F&& f) {
 
 // One CTA walks the 8 x 8 steps of the 8-pixel column strip at c0 = 8
 // blockIdx.x of image blockIdx.z from the top, carrying the two running
-// amaxes; COUNT: also counts the clipped y1 / y2 values into `counts`.
-template <bool COUNT>
+// amaxes; COUNT: also counts the y1 / y2 values past the lagged scale into
+// `counts`. A step whose y1 or y2 values pass the lagged scale is listed in
+// `redo` ([0]: the count, then per step its image, strip, step and the two
+// y scales, with the one passed set to the values' own amax), and REDO,
+// the second launch, runs the listed steps again, one at a time, CTA i
+// taking entries i, i + gridDim.x, ... (a step's output depends on its own
+// scales alone). Redone in the walk, a step would lengthen its strip's
+// walk and the round of CTAs it runs in.
+template <bool COUNT, bool REDO>
 __global__ void __launch_bounds__(THREADS, 1)
 block_q_walk(const bf16* __restrict__ x, const s8* __restrict__ stages,
              const float* __restrict__ s1, const bf16* __restrict__ b1,
@@ -917,7 +954,7 @@ block_q_walk(const bf16* __restrict__ x, const s8* __restrict__ stages,
              const bf16* __restrict__ bdn, const bf16* __restrict__ wup,
              const bf16* __restrict__ bup, const float* __restrict__ bnd,
              const bf16* __restrict__ e, bf16* __restrict__ out, float* __restrict__ counts,
-             int h, int wd) {
+             int* __restrict__ redo, int h, int wd) {
   using G = QGeo;
   extern __shared__ uint4 cdfo_smem[];
   unsigned char* base = reinterpret_cast<unsigned char*>(cdfo_smem);
@@ -936,10 +973,16 @@ block_q_walk(const bf16* __restrict__ x, const s8* __restrict__ stages,
   bf16* zs = reinterpret_cast<bf16*>(y2);   // prologue: ku x + bu, window of xs
   bf16* fs = reinterpret_cast<bf16*>(us);   // epilogue: fold + b2, S x S
 
-  const int strips = (wd + S - 1) / S, nsteps = (h + S - 1) / S;
-  const int c0 = blockIdx.x * S, b = blockIdx.z;
+  const int strips = (wd + S - 1) / S;
+  int nsteps = (h + S - 1) / S;   // REDO: this CTA's listed steps
+  if constexpr (REDO) {
+    const int n = redo[0], i = static_cast<int>(blockIdx.x);
+    nsteps = n > i ? (n - i + static_cast<int>(gridDim.x) - 1) / static_cast<int>(gridDim.x) : 0;
+    if (nsteps == 0) return;
+  }
+  int c0 = blockIdx.x * S, b = blockIdx.z;   // REDO: the listed step's
   const long long strip_id = static_cast<long long>(b) * strips + blockIdx.x;
-  const long long img = static_cast<long long>(b) * h * wd * C;
+  long long img = static_cast<long long>(b) * h * wd * C;
   const bf16* xb = x + img;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t2 = 2 * (lane & 3);
@@ -997,7 +1040,8 @@ block_q_walk(const bf16* __restrict__ x, const s8* __restrict__ stages,
   // 16 wl + g + 8 (i % 2)): the byte offset of its y pixel in its window's
   // first plane, its (row, column) there, and bits i of `keep_rows`
   // (inside the y window) and `own` (a pixel of the step's own, whose
-  // clipped values count); `in_rows` (inside the image too) is the step's
+  // values past the lagged scale count); `in_rows` (inside the image too)
+  // is the step's
   uint64_t jdesc[4];
   int yoff[8], ypix[8];
   unsigned keep_rows = 0, own = 0;
@@ -1019,12 +1063,24 @@ block_q_walk(const bf16* __restrict__ x, const s8* __restrict__ stages,
   }
   const float rs1 = bnd[0], b1max = bnd[1], rn1 = bnd[2];
   float run1 = 0.f, run2 = 0.f;   // the largest y1 / y2 amax of the steps so far
-  int clip1 = 0, clip2 = 0;       // this thread's clipped y1 / y2 values
+  int clip1 = 0, clip2 = 0;       // this thread's y1 / y2 values past the lagged scale
 
   PHASE_START
 #pragma unroll 1
-  for (int step = 0; step < nsteps; ++step) {
-    const int r0 = step * S, js0 = step * STAGES_Q;
+  for (int it = 0; it < nsteps; ++it) {
+    int step = it;
+    float sy1 = 0.f, sy2 = 0.f;   // REDO: the listed y1 / y2 scales
+    if constexpr (REDO) {
+      const int* entry = redo + 1 + 5 * (blockIdx.x + it * gridDim.x);
+      b = entry[0];
+      c0 = entry[1] * S;
+      step = entry[2];
+      sy1 = __int_as_float(entry[3]);
+      sy2 = __int_as_float(entry[4]);
+      img = static_cast<long long>(b) * h * wd * C;
+      xb = x + img;
+    }
+    const int r0 = step * S, js0 = it * STAGES_Q;
     // ---- prologue: the float32 kernel's arithmetic -----------------------------
     load_window(xs, xb, h, wd, r0 - 2, c0 - 2, X1, X1, true);
     __syncthreads();
@@ -1064,8 +1120,15 @@ block_q_walk(const bf16* __restrict__ x, const s8* __restrict__ stages,
         return __fadd_rn(fminf(__fmul_rn(rs1, in_max), __fmul_rn(__fmul_rn(5.f, rn1), in_rms)),
                          b1max);
       };
-      scale_of(step == 0 ? boot(st[0], z_rms) : __fmul_rn(LAG_MARGIN, run2), s_y2, inv_y2);
-      scale_of(step == 0 ? boot(st[1], x_rms) : __fmul_rn(LAG_MARGIN, run1), s_y1, inv_y1);
+      if constexpr (REDO) {
+        s_y1 = sy1;
+        inv_y1 = 1.f / sy1;
+        s_y2 = sy2;
+        inv_y2 = 1.f / sy2;
+      } else {
+        scale_of(step == 0 ? boot(st[0], z_rms) : __fmul_rn(LAG_MARGIN, run2), s_y2, inv_y2);
+        scale_of(step == 0 ? boot(st[1], x_rms) : __fmul_rn(LAG_MARGIN, run1), s_y1, inv_y1);
+      }
     }
     // xq = quantized xm, us = quantized up2(z) (z's window holds clamped rows
     // and columns, the bilinear border rule; 2x row 2r0-2+qy blends z rows
@@ -1178,13 +1241,14 @@ block_q_walk(const bf16* __restrict__ x, const s8* __restrict__ stages,
       if (ch > 0) __syncthreads();   // the last chunk's fold and conv2 read the y windows
       PHASE(6)
       // y = lrelu(dequantised conv1 + b1), zeroed outside the image at the
-      // window's scale, quantized with the lagged scale into the y window;
-      // values past +-127 are counted where the step owns the pixel, then
-      // clipped. The stage's mid channels come in the order that gives this
-      // lane (t = lane % 4) bytes 4t .. 4t + 3 of each 16-byte chunk kc of
-      // a pixel: accumulator column 8j + 2t + e is channel 16 (j / 2) + 4t +
-      // 2 (j % 2) + e (ops/fused_block2_q.py::stage_weights_q), so a lane
-      // stores 4 bytes at a time.
+      // window's scale, quantized with the step's scale into the y window;
+      // values past +-127 (only at the lagged scale) are counted where the
+      // step owns the pixel, then clipped. The stage's mid channels come in
+      // the order that gives this lane (t = lane % 4) bytes 4t .. 4t + 3 of
+      // each 16-byte chunk kc of a pixel: accumulator column 8j + 2t + e is
+      // channel 16 (j / 2) + 4t + 2 (j % 2) + e
+      // (ops/fused_block2_q.py::stage_weights_q), so a lane stores 4 bytes
+      // at a time.
 #pragma unroll
       for (int kc = 0; kc < 4; ++kc) {
         float cu[4], cx[4], bs[4];   // per byte: the 2x and 1x dequantization, the bias
@@ -1400,13 +1464,29 @@ block_q_walk(const bf16* __restrict__ x, const s8* __restrict__ stages,
     }
     PHASE(4)
     // the step's amaxes join the running ones; the reduction's barriers also
-    // end the step (the next one overwrites xs, fs and the windows)
+    // end the step (the next one overwrites xs, fs and the windows). A step
+    // whose y1 or y2 values passed +-127 at the lagged scale goes on the
+    // list for REDO.
     {
       float am[2] = {amax1, amax2};
       const bool is_max[2] = {true, true};
       block_reduce(am, is_max, red);
       run1 = fmaxf(run1, am[0]);
       run2 = fmaxf(run2, am[1]);
+      if constexpr (!REDO) {
+        const bool over1 = quant_rn(am[0], inv_y1) > 127, over2 = quant_rn(am[1], inv_y2) > 127;
+        if ((over1 || over2) && threadIdx.x == 0) {
+          float own1 = s_y1, own2 = s_y2, inv;
+          if (over1) scale_of(am[0], own1, inv);
+          if (over2) scale_of(am[1], own2, inv);
+          int* entry = redo + 1 + 5 * atomicAdd(redo, 1);
+          entry[0] = b;
+          entry[1] = blockIdx.x;
+          entry[2] = step;
+          entry[3] = __float_as_int(own1);
+          entry[4] = __float_as_int(own2);
+        }
+      }
     }
     PHASE(5)
     PHASE_STEP
@@ -1439,9 +1519,9 @@ cudaError_t launch_f32(const void* const* p, void* out, float* counts, int batch
   return cudaGetLastError();
 }
 
-// the 0.5x branch into e, then the walk
-cudaError_t launch_bf16(const void* const* p, void* out, float* counts, bf16* e, int batch, int h,
-                        int wd, cudaStream_t stream) {
+// the 0.5x branch into e, then the walk, then its listed steps again
+cudaError_t launch_bf16(const void* const* p, void* out, float* counts, bf16* e, int* redo,
+                        int batch, int h, int wd, cudaStream_t stream) {
   const auto t = [p](int i) { return static_cast<const bf16*>(p[i]); };
   const auto f = [p](int i) { return static_cast<const float*>(p[i]); };
   const s8* stages = static_cast<const s8*>(p[1]);
@@ -1452,12 +1532,27 @@ cudaError_t launch_bf16(const void* const* p, void* out, float* counts, bf16* e,
               t(12), t(13), t(14), e, h, wd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto walk = counts != nullptr ? block_q_walk<true> : block_q_walk<false>;
+  auto walk = counts != nullptr ? block_q_walk<true, false> : block_q_walk<false, false>;
   err = allow_smem(walk, QGeo::BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((wd + S - 1) / S, 1, batch);
+  err = cudaMemsetAsync(redo, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return err;
+  const int strips = (wd + S - 1) / S;
+  const dim3 grid(strips, 1, batch);
   CDFO_LAUNCH(walk, grid, QGeo::BYTES, stream, t(0), stages, f(2), t(3), f(5), t(6), f(8),
-              t(11), t(12), t(13), t(14), f(15), e, static_cast<bf16*>(out), counts, h, wd);
+              t(11), t(12), t(13), t(14), f(15), e, static_cast<bf16*>(out), counts, redo, h, wd);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto again = block_q_walk<false, true>;
+  err = allow_smem(again, QGeo::BYTES);
+  if (err != cudaSuccess) return err;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidValue;
+  const long long steps = static_cast<long long>(batch) * strips * ((h + S - 1) / S);
+  const dim3 rgrid(static_cast<unsigned>(steps < sms ? steps : sms), 1, 1);
+  CDFO_LAUNCH(again, rgrid, QGeo::BYTES, stream, t(0), stages, f(2), t(3), f(5), t(6), f(8),
+              t(11), t(12), t(13), t(14), f(15), e, static_cast<bf16*>(out), nullptr, redo, h,
+              wd);
   return cudaGetLastError();
 }
 
@@ -1477,16 +1572,18 @@ cudaError_t launch_bf16(const void* const* p, void* out, float* counts, bf16* e,
 // wup + bup (up_0) of the working type in its Weights layout; bnd
 // float32 [3]: max row sum of |W1|, max |b1|, max row 2-norm of W1.
 // counts: null, or float32 [batch * ceil(wd / 8)][2], zeroed, that
-// receives each strip's clipped y1 and y2 values. Bfloat16 only (else
-// NULL): e, the 0.5x branch's output, workspace of [batch][h / 2][wd / 2]
-// [64] bfloat16. All device pointers. Returns a cudaError_t.
+// receives each strip's y1 and y2 values past the lagged scale.
+// Bfloat16 only (else NULL): e, the 0.5x branch's output, workspace of
+// [batch][h / 2][wd / 2][64] bfloat16; redo, int32 workspace of 1 + 5 x
+// batch x ceil(wd / 8) x ceil(h / 8), the list of the steps the walk runs
+// again. All device pointers. Returns a cudaError_t.
 extern "C" int cdfo_fused_block2_q(const void* x, const void* w1q, const void* s1, const void* b1,
                                    const void* w2q, const void* s2, const void* b2,
                                    const void* wfq, const void* sf, const void* w1b,
                                    const void* w2b, const void* wdn, const void* bdn,
                                    const void* wup, const void* bup, const void* bnd, void* out,
-                                   void* counts, void* e, int is_bf16, int batch, int h, int wd,
-                                   void* stream) {
+                                   void* counts, void* e, void* redo, int is_bf16, int batch,
+                                   int h, int wd, void* stream) {
   if (batch <= 0 || batch > 65535 || h <= 0 || wd <= 0 || h % 2 != 0 || wd % 2 != 0) {
     return cudaErrorInvalidValue;
   }
@@ -1494,8 +1591,9 @@ extern "C" int cdfo_fused_block2_q(const void* x, const void* w1q, const void* s
   const auto s = static_cast<cudaStream_t>(stream);
   float* cnt = static_cast<float*>(counts);
   if (is_bf16) {
-    if (e == nullptr) return cudaErrorInvalidValue;
-    return launch_bf16(p, out, cnt, static_cast<bf16*>(e), batch, h, wd, s);
+    if (e == nullptr || redo == nullptr) return cudaErrorInvalidValue;
+    return launch_bf16(p, out, cnt, static_cast<bf16*>(e), static_cast<int*>(redo), batch, h,
+                       wd, s);
   }
   return launch_f32<float>(p, out, cnt, batch, h, wd, s);
 }

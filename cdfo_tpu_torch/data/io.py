@@ -12,14 +12,19 @@ training tree:
       pred_unfiltered/00000_unflt.png
   <root>/sequences_list.csv
 
+eval tree:
+  <tst_path>{seq}.yuv/00000.png                                  LR frames
+  <side_path>{seq}/part_m/00001_M_mask.png  res/00001_res.npy
+      unfiltered/00001_unflt.png  mvl0/00001_mvl0.npy  mvl1/00001_mvl1.npy
+
 Images go through ``cv2``, else PIL, else the standard-library codec of
-``data/png.py`` (8-bit gray and RGB PNG), so the trainer's data runs on a
-machine that has neither library. The eval sequence loader waits for the
-eval path (ROADMAP Queue 1, item 1.3).
+``data/png.py`` (8-bit gray and RGB PNG), so the trainer's data and the eval
+tools run on a machine that has neither library.
 """
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -67,22 +72,71 @@ def pad_270_to_272(img: np.ndarray) -> np.ndarray:
     return img
 
 
+def load_eval_sequence(lr_dir: str, side_dir: str, max_frames: Optional[int] = None):
+    """Load one eval sequence into a ``infer.pipeline.SequenceData``.
+
+    Frame 0 priors use index 1 at *window build* time (max(1, i) rule), so
+    here we just load every indexed file; missing index-0 prior files fall
+    back to index 1 (I-frames have no inter priors).
+    """
+    from ..infer.pipeline import SequenceData
+
+    files = sorted(f for f in os.listdir(lr_dir) if f.endswith(".png"))
+    if max_frames:
+        files = files[:max_frames]
+    lrs, pms, rms, ufs, mv0s, mv1s = [], [], [], [], [], []
+    for i in range(len(files)):
+        idx = "%05d" % max(1, i)
+        lr = read_gray(os.path.join(lr_dir, files[i])).astype(np.float32) / 255.0
+        lrs.append(pad_270_to_272(lr))
+        pm = read_gray(os.path.join(side_dir, "part_m", idx + "_M_mask.png"))
+        pms.append(pad_270_to_272(pm.astype(np.float32) / 255.0))
+        res = np.load(os.path.join(side_dir, "res", idx + "_res.npy"))
+        if res.ndim == 3:
+            res = res[:, :, 0]
+        rms.append(pad_270_to_272(res.astype(np.float32) / 255.0))
+        uf = read_gray(os.path.join(side_dir, "unfiltered", idx + "_unflt.png"))
+        ufs.append(pad_270_to_272(uf.astype(np.float32) / 255.0))
+        mv0s.append(np.load(os.path.join(side_dir, "mvl0", idx + "_mvl0.npy")))
+        mv1s.append(np.load(os.path.join(side_dir, "mvl1", idx + "_mvl1.npy")))
+    return SequenceData(
+        lr=np.stack(lrs), pm=np.stack(pms), rm=np.stack(rms),
+        uf=np.stack(ufs), mvl0=np.stack(mv0s), mvl1=np.stack(mv1s))
+
+
 def make_synthetic_cvcp_tree(root: str, num_seqs: int = 2, frames: int = 32,
                              h: int = 64, w: int = 96, qp: int = 37,
                              cfg: str = "LD", seed: int = 0,
                              structured: bool = False) -> list[str]:
-    """A miniature CVCP-layout tree of iid noise (the JAX tree's arrays for
-    the same arguments), for loader tests and smoke runs; returns the
-    sequence names. ``structured=True`` (learnable content) needs the
-    MATLAB-bicubic resize of ``cdfo_tpu/metrics/matlab.py``, which is not
-    ported (ROADMAP Queue 1, item 1.5)."""
-    if structured:
-        raise NotImplementedError(
-            "structured=True needs metrics/matlab.py's imresize, which waits "
-            "for the int8 budget's trainer script (ROADMAP Queue 1, item "
-            "1.5)")
+    """Materialise a miniature CVCP-layout tree (the `*_tmp.csv` smoke-test
+    trick from `metric/misc/`, but self-contained) for loader tests; the
+    JAX package's tree, array for array, for the same arguments. Returns
+    the sequence names.
+
+    ``structured=True`` writes LEARNABLE content for convergence soaks
+    instead of iid noise: per-sequence static textured HR (smoothed noise
+    + oriented sinusoids), LR = MATLAB-bicubic 1/4 downscale + per-frame
+    sensor noise, priors derived from the content (unfiltered = blurred
+    LR, residual = |LR - blur|); MVs are zero (static content), so a
+    model that fuses the 7-frame window and learns the texture statistics
+    beats bicubic clearly — pure-noise trees are unlearnable by design.
+    """
     r = np.random.RandomState(seed)
     names = []
+
+    def structured_seq(s):
+        from scipy.ndimage import gaussian_filter
+
+        hr4 = gaussian_filter(r.rand(4 * h, 4 * w) * 255.0, 6.0)
+        yy, xx = np.mgrid[0:4 * h, 0:4 * w]
+        for _ in range(4):
+            fy, fx = r.uniform(0.02, 0.2, 2)
+            ph = r.uniform(0, 6.28)
+            hr4 = hr4 + r.uniform(10, 30) * np.sin(fy * yy + fx * xx + ph)
+        hr4 = np.clip((hr4 - hr4.min()) / np.ptp(hr4) * 235 + 10, 0, 255)
+        from ..metrics.matlab import imresize
+        lr_clean = np.clip(imresize(hr4 / 255.0, 0.25), 0, 1) * 255.0
+        return hr4, lr_clean
     for s in range(num_seqs):
         seq = f"synth{s:03d}_{w}x{h}"
         names.append(seq)
@@ -98,18 +152,36 @@ def make_synthetic_cvcp_tree(root: str, num_seqs: int = 2, frames: int = 32,
                   os.path.join(pri, "Partition_Map"),
                   os.path.join(pri, "Prediction_Signal"), unf]:
             os.makedirs(d, exist_ok=True)
+        if structured:
+            hr4_s, lr_clean_s = structured_seq(s)
         for f in range(frames):
             idx = "%05d" % f
-            lr = r.randint(0, 255, (h, w), dtype=np.uint8)
-            hr = r.randint(0, 255, (h * 4, w * 4), dtype=np.uint8)
-            mv = np.zeros((h, w, 3), np.int16)
-            mv[..., 0] = r.randint(-32, 32, (h, w))
-            mv[..., 1] = r.randint(-32, 32, (h, w))
-            mv[..., 2] = -1
-            res = r.randint(-30, 30, (h, w)).astype(np.int16)
-            pm_img = (r.rand(h, w) > 0.5).astype(np.uint8) * 255
-            pred = r.randint(0, 255, (h, w), dtype=np.uint8)
-            uf_img = r.randint(0, 255, (h, w), dtype=np.uint8)
+            if structured:
+                from scipy.ndimage import gaussian_filter
+                hr = hr4_s.astype(np.uint8)
+                lr = np.clip(lr_clean_s + r.randn(h, w) * 4.0,
+                             0, 255).astype(np.uint8)
+                blur = gaussian_filter(lr.astype(np.float32), 1.0)
+                uf_img = np.clip(blur, 0, 255).astype(np.uint8)
+                res = np.clip(lr.astype(np.int16) - blur.astype(np.int16),
+                              -30, 30)
+                pm_img = (((np.arange(h)[:, None] // 8
+                            + np.arange(w)[None, :] // 8) % 2)
+                          .astype(np.uint8) * 255)
+                pred = uf_img
+                mv = np.zeros((h, w, 3), np.int16)
+                mv[..., 2] = -1
+            else:
+                lr = r.randint(0, 255, (h, w), dtype=np.uint8)
+                hr = r.randint(0, 255, (h * 4, w * 4), dtype=np.uint8)
+                mv = np.zeros((h, w, 3), np.int16)
+                mv[..., 0] = r.randint(-32, 32, (h, w))
+                mv[..., 1] = r.randint(-32, 32, (h, w))
+                mv[..., 2] = -1
+                res = r.randint(-30, 30, (h, w)).astype(np.int16)
+                pm_img = (r.rand(h, w) > 0.5).astype(np.uint8) * 255
+                pred = r.randint(0, 255, (h, w), dtype=np.uint8)
+                uf_img = r.randint(0, 255, (h, w), dtype=np.uint8)
             write_gray(os.path.join(lr_dir, idx + ".png"), lr)
             write_gray(os.path.join(hr_dir, idx + ".png"), hr)
             np.save(os.path.join(pri, "MV_l0", idx + "_mvl0.npy"), mv)

@@ -35,13 +35,24 @@ from .pipeline import SequenceData, crop_sr_output
 
 class BatchedStreamingEngine:
     """k-frame batched streaming with per-frame compensation ring buffers.
-    Runs on the device that holds ``model``'s parameters."""
+    Runs on the device that holds ``model``'s parameters. Under
+    ``mask_mode="sample"`` each ``compensate_frames`` call (the bootstrap's
+    and every step's) draws its gumbel noise from ``generator`` (on that
+    device; seeded with 0 if not given), which every ``run_sequence``
+    restarts from the state it had here, as the JAX engine restarts from
+    its ``mask_rng``: timed and untimed runs draw the same noise."""
 
-    def __init__(self, model, k: int = 4, nframes: int = 7):
+    def __init__(self, model, k: int = 4, nframes: int = 7,
+                 generator: torch.Generator | None = None):
         self.model = model
         self.k = k
         self.n = nframes
         self.device = next(model.parameters()).device
+        self.generator = None
+        if model.cfg.mask_mode == "sample":
+            self.generator = generator or torch.Generator(
+                device=self.device).manual_seed(0)
+            self._generator_state = self.generator.get_state()
         # modular ring geometry: capacity >= k+6, a multiple of k so every
         # step's k-frame write is one contiguous slice; logical frame
         # position p lives in slot (p + S) % L
@@ -140,12 +151,16 @@ class BatchedStreamingEngine:
 
     # -- device work ------------------------------------------------------
 
+    def _compensate(self, lrs, pms, rms, ufs):
+        return self.model.compensate_frames(lrs, pms, rms, ufs,
+                                            generator=self.generator)
+
     def _boot(self, binp, bslots):
         """Compensate frames [-k-3 .. 2] (clamped) and scatter them into
         zeroed rings, so the first step's write leaves the rings covering
         [-3 .. k+2]."""
         rings = []
-        for feat in self.model.compensate_frames(*binp):
+        for feat in self._compensate(*binp):
             ring = feat.new_zeros((self._L,) + feat.shape[1:])
             ring.index_copy_(0, bslots, feat)
             rings.append(ring)
@@ -154,7 +169,7 @@ class BatchedStreamingEngine:
     def _step(self, rings, staged, slot0):
         lrs, pms, rms, ufs, mvs, center_lr, idx, cidx = staged
         ring_l1, ring_fi, ring_uf = rings
-        new = self.model.compensate_frames(lrs, pms, rms, ufs)
+        new = self._compensate(lrs, pms, rms, ufs)
         # in-place slot writes: the JAX engine donates the ring buffers to
         # the step, so its dynamic_update_slice also updates in place
         for ring, feat in zip(rings, new):
@@ -196,6 +211,8 @@ class BatchedStreamingEngine:
         """Returns (sr uint8 (T, sH, sW), fps or None). With
         ``collect_timing`` the timer covers the bootstrap and every step and
         divides the full frame count."""
+        if self.generator is not None:
+            self.generator.set_state(self._generator_state)
         k, t = self.k, data.num_frames
         starts = list(range(0, t, k))
         out_frames = [None] * t

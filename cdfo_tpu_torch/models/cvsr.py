@@ -65,10 +65,14 @@ class CVSRV8(nn.Module):
     """CVSR_V8 built on ``device`` (the card by default; ``"cpu"`` runs
     every kernel's plain version) with weights drawn from ``generator`` (a
     CPU ``torch.Generator``; load trained or converted weights with
-    ``load_state_dict``)."""
+    ``load_state_dict``, a released checkpoint with
+    ``compat.load_reference_checkpoint``). With ``capture_features`` each
+    ``forward`` keeps its aligned features (B, N, H, W, nf) in
+    ``intermediates["aligned_fea"]`` (the reference's featuremap_visual)."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 capture_features: bool = False):
         super().__init__()
         if torch.device(device).type == "cuda" and \
                 not torch.cuda.is_available():
@@ -77,6 +81,8 @@ class CVSRV8(nn.Module):
                 "available; pass device='cpu' to run the plain versions of "
                 "the kernels on the CPU")
         self.cfg = cfg
+        self.capture_features = capture_features
+        self.intermediates = {}
         nf, dt = cfg.nf, cfg.compute_dtype
         self.conv_first = Conv2d(1, nf, 3, 1, 1, dtype=dt)
         self.conv_second = Conv2d(1, nf, 3, 1, 1, dtype=dt)
@@ -161,18 +167,21 @@ class CVSRV8(nn.Module):
                                     scale_factor=float(self.cfg.scale))
         return (out + base).float()
 
-    def compensate_frames(self, lrs, pms, rms, ufs):
+    def compensate_frames(self, lrs, pms, rms, ufs,
+                          generator: Optional[torch.Generator] = None,
+                          gumbel_u: Optional[torch.Tensor] = None):
         """Per-frame, centre-independent stage.
 
         lrs/pms/rms/ufs (M, H, W, 1), priors already max(1, i)-indexed by
         the caller. Returns (l1 (M, H, W, nf), fea_i (M, H, W, nf), the
         compensated feature the neighbour warp samples, and ufs_prior
-        (M, H, W, nf)). The streaming engine runs the expected mask: the
-        sampled one's per-step noise is not ported.
+        (M, H, W, nf)). Under ``mask_mode="sample"`` the EGLA mask's
+        gumbel noise comes from ``generator`` or is the uniform draw
+        ``gumbel_u`` (M, H, W, nf), as in ``forward``.
         """
         dt = self.cfg.compute_dtype
         l1 = self.embed(lrs.to(dt), pms.to(dt))
-        fea_i = self._compensate(l1, rms.to(dt))
+        fea_i = self._compensate(l1, rms.to(dt), generator, gumbel_u)
         return l1, fea_i, self.conv_expand_ufs(ufs.to(dt))
 
     def align_reconstruct(self, center_l1, center_lr, ring_fi, nbr_ufs_p,
@@ -267,6 +276,8 @@ class CVSRV8(nn.Module):
         # re-interleave with the center frame in temporal order
         aligned_fea = torch.cat([aligned[:, :center], center_fea[:, None],
                                  aligned[:, center:]], dim=1)
+        if self.capture_features:
+            self.intermediates["aligned_fea"] = aligned_fea
 
         # 3+4. fusion, trunk, upsample head, bilinear base
         sr = self._reconstruct(aligned_fea, None, lrs[:, center])

@@ -37,9 +37,13 @@ class _BlockFast(BlockS):
     down2-folded conv2) are packed once and kept until a parameter changes
     (new storage or an in-place update); parameters made under
     ``torch.inference_mode`` are packed at every call. ``geometry``: the
-    int8 plain version's step geometry on the CPU (None: the kernel's)."""
+    int8 plain version's step geometry on the CPU (None: the kernel's).
+    ``clips``: with ``SCNetFast.count_clips``, float64 (4,) running sums of
+    the int8 calls' y1 and y2 values past the lagged scale and of all their
+    y1 and y2 values (None: not counted)."""
 
     geometry = None
+    clips = None
 
     def __init__(self, nf: int = 64, dtype: torch.dtype = torch.float32,
                  use_int8: bool = False):
@@ -59,6 +63,14 @@ class _BlockFast(BlockS):
     def forward(self, x):
         params = self._params()
         packed = self._packed(x, params)
+        if self.use_int8 and self.clips is not None:
+            out, clipped = scale_block_q(x, *params, packed=packed,
+                                         geometry=self.geometry,
+                                         clip_counts=True)
+            self.clips[:2] += clipped
+            self.clips[2] += 4.0 * x.numel()
+            self.clips[3] += 16.0 * x.numel()
+            return out
         if self.use_int8:
             return scale_block_q(x, *params, packed=packed,
                                  geometry=self.geometry)
@@ -102,6 +114,23 @@ class SCNetFast(nn.Module):
         for m in self.modules():
             if isinstance(m, _BlockFast):
                 m.geometry = geometry
+
+    def count_clips(self, on: bool = True) -> None:
+        """Starts (from zero) or stops counting the int8 blocks' values
+        past the lagged scale (``clip_totals``)."""
+        for m in self.modules():
+            if isinstance(m, _BlockFast):
+                m.clips = (torch.zeros(4, dtype=torch.float64,
+                                       device=m.body[0].weight.device)
+                           if on else None)
+
+    def clip_totals(self) -> tuple[float, float, float, float]:
+        """(y1 values past the lagged scale, y2 values past it, y1 values,
+        y2 values) summed over the int8 blocks' calls since
+        ``count_clips``."""
+        total = sum(m.clips for m in self.modules()
+                    if isinstance(m, _BlockFast) and m.clips is not None)
+        return tuple(float(v) for v in total.tolist())
 
     def forward(self, x):
         x = x.contiguous()

@@ -16,8 +16,12 @@ The quantization scheme, which is what the TPU kernel and this port share:
 * the lrelu'd conv1 outputs ``y1`` (1x) and ``y2`` (2x) use a lagged
   running scale: step ``i`` quantizes with ``LAG_MARGIN`` times the largest
   amax measured in the steps ``< i`` of its strip, and step 0 starts from
-  ``min(rowsum|W1| * amax(in), 5 * rownorm2(W1) * rms(in)) + max|b1|``;
-  larger values clip to +-127;
+  ``min(rowsum|W1| * amax(in), 5 * rownorm2(W1) * rms(in)) + max|b1|``.
+  The TPU kernel clips larger values to +-127; the port quantizes a step
+  whose values pass +-127 at that scale again at the step's own amax
+  (``StepGeometry.requantize``), so that nothing clips. At the top and
+  bottom rows of an image, where y1 outgrows the lag, the TPU's clipping
+  cost the int8 trunk its 0.05 dB budget (``tools/int8_delta.py``);
 * int32 sums are dequantised by ``s_act * s_w[channel]`` before bias and
   activation; the 1x1 convs, the 0.5x branch, the resizes and the residual
   stay in the working type with float32 accumulation.
@@ -31,9 +35,9 @@ int8 ``Block_`` is the scheme at ``KERNEL_GEOMETRY`` on every device:
 * ``scale_block_q``: the wrapper the int8 trunk calls. A CPU tensor takes
   the plain version, a CUDA tensor launches the kernel or raises. Launches
   are counted in ``scale_block_q.launches`` (one per call; in bfloat16 a
-  call is two launches of the kernel's library: the 0.5x branch, then the
-  walk down the strips); ``clip_counts=True`` also returns how many ``y1``
-  and ``y2`` values clipped.
+  call is three launches of the kernel's library: the 0.5x branch, the
+  walk down the strips, then the steps it listed to run again); ``clip_counts=True`` also returns how many ``y1``
+  and ``y2`` values passed the lagged scale.
 """
 from __future__ import annotations
 
@@ -65,13 +69,16 @@ class StepGeometry:
     rows 2r0-1 .. 2r0+2rows and columns 2c0-1 .. 2c0+2cols with ``y2_extra``
     more on each side. Outside the image x repeats its edge for ``edge``
     pixels and is zero beyond (None: it repeats without end), which only
-    the ``z`` statistics see."""
+    the ``z`` statistics see. ``requantize``: a step whose y1 (or y2)
+    values pass +-127 at the lagged scale quantizes them again at their own
+    amax (the CUDA kernel), else they clip (the TPU kernel)."""
 
     rows: int
     cols: int
     z_extra: int = 0
     y2_extra: int = 0
     edge: int | None = None
+    requantize: bool = True
 
 
 # csrc/fused_block2_q.cu: 8 x 8 steps down 8-pixel column strips
@@ -82,12 +89,14 @@ def tpu_geometry(w: int, rows: int = 16, wt: int | None = None) -> StepGeometry:
     """The steps of ``scale_block_hcw_q`` as ``cdfo_tpu``'s trunk calls it
     on a ``w``-wide image: 16 rows by one lane tile (the whole 128-padded
     width up to 1024 lanes, equal 128-aligned tiles beyond), z one column
-    wider, y2 one 2x column wider each side, x edge-padded by 6."""
+    wider, y2 one 2x column wider each side, x edge-padded by 6; values past
+    the lagged scale clip."""
     if wt is None:
         wp = -(-w // 128) * 128
         ntiles = -(-wp // 1024)
         wt = -(-wp // (ntiles * 128)) * 128
-    return StepGeometry(rows, wt, z_extra=1, y2_extra=1, edge=6)
+    return StepGeometry(rows, wt, z_extra=1, y2_extra=1, edge=6,
+                        requantize=False)
 
 
 def quant_weight(w: torch.Tensor):
@@ -156,8 +165,9 @@ def scale_block_q_plain(x, w1, b1, w2, b2, wd, bd, wu, bu,
     are computed in float32 and rounded to x's dtype where the kernels
     round (z, the 0.5x branch's d, y5, conv2 sum and e, the folded sum
     before kd). With ``clip_counts`` also returns float64 (2,): how many
-    values of y1 and of y2 clipped, each element counted once (in the
-    step that owns its pixel)."""
+    values of y1 and of y2 passed +-127 at the lagged scale (clipped, or
+    quantized again where the geometry requantizes), each element counted
+    once (in the step that owns its pixel)."""
     geo = geometry
     dt = x.dtype
     bsz, h, w, c = x.shape
@@ -223,6 +233,14 @@ def scale_block_q_plain(x, w1, b1, w2, b2, wd, bd, wu, bu,
         s = amax.clamp_min(1e-8) / 127.0
         return s, 1.0 / s
 
+    def requantize(y, q, amax, s, inv):
+        """q = y quantized at (s, inv), where a window's values pass +-127
+        quantized again at the window's own amax instead: (q, scale)."""
+        over = _quant(amax, inv) > 127
+        s_own, inv_own = scale_of(amax)
+        q = torch.where(col(over), _quant(y, col(inv_own)), q)
+        return q, torch.where(over, s_own, s)
+
     def masked(m):   # (1, nc, 1, rows, width) mask for (B * nc, C', ...)
         return m.expand(bsz, -1, -1, -1, -1).reshape(bsz * nc, 1,
                                                      *m.shape[-2:])
@@ -259,18 +277,24 @@ def scale_block_q_plain(x, w1, b1, w2, b2, wd, bd, wu, bu,
                         2 * cw + 2 + 2 * e2, 2 * cw))
         y2 = _lrelu(_int_conv(uq, w1q) * (s1.reshape(1, -1, 1, 1) * col(s_u))
                     + b1f) * m2
-        run2 = torch.maximum(run2, per_window(y2)[0])
+        a2 = per_window(y2)[0]
+        run2 = torch.maximum(run2, a2)
         y2r = _quant(y2, col(inv_y2))
-        y2r = y2r[..., e2:y2r.shape[-1] - e2]
         # conv1 at 1x
         my = masked(win(in1, r0 + 1, r_ + 2, 1, cw + 2, cw))
         y1 = _lrelu(_int_conv(xq, w1q) * (s1.reshape(1, -1, 1, 1) * col(s_xm))
                     + b1f) * my
-        run1 = torch.maximum(run1, per_window(y1)[0])
+        a1 = per_window(y1)[0]
+        run1 = torch.maximum(run1, a1)
         y1r = _quant(y1, col(inv_y1))
         if clip_counts:
             clipped[0] += (y1r[..., 1:-1, 1:-1].abs() > 127).sum()
-            clipped[1] += (y2r[..., 1:-1, 1:-1].abs() > 127).sum()
+            own2 = y2r[..., 1:-1, 1 + e2:y2r.shape[-1] - 1 - e2]
+            clipped[1] += (own2.abs() > 127).sum()
+        if geo.requantize:
+            y1r, s_y1 = requantize(y1, y1r, a1, s_y1, inv_y1)
+            y2r, s_y2 = requantize(y2, y2r, a2, s_y2, inv_y2)
+        y2r = y2r[..., e2:y2r.shape[-1] - e2]
         body = _int_conv(y1r.clamp(-127, 127), w2q) \
             * (s2.reshape(1, -1, 1, 1) * col(s_y1)) + b2f
         fold = rd(_int_conv(y2r.clamp(-127, 127), wfq, stride=2)
@@ -380,7 +404,7 @@ def pack_weights_q(w1, b1, w2, b2, wd, bd, wu, bu, dtype):
 @functools.lru_cache(maxsize=None)
 def _kernel():
     return cb.kernel_function("fused_block2_q", "cdfo_fused_block2_q",
-                              [_P] * 19 + [_I] * 4 + [_P])
+                              [_P] * 20 + [_I] * 4 + [_P])
 
 
 def scale_block_q(x, w1, b1, w2, b2, wd, bd, wu, bu, packed=None,
@@ -390,7 +414,8 @@ def scale_block_q(x, w1, b1, w2, b2, wd, bd, wu, bu, packed=None,
     block's ``pack_weights_q`` in x's dtype, if the caller keeps it.
     ``geometry`` (None: ``KERNEL_GEOMETRY``) is the plain version's on a
     CPU tensor; the kernel has one geometry and refuses another. With
-    ``clip_counts`` returns (out, float64 (2,) clipped y1 and y2 values)."""
+    ``clip_counts`` returns (out, float64 (2,) y1 and y2 values past the
+    lagged scale)."""
     params = (w1, b1, w2, b2, wd, bd, wu, bu)
     cb.forbid_grad("fused_block2_q", x, *params)
     if x.dim() != 4 or x.shape[1] % 2 or x.shape[2] % 2:
@@ -418,11 +443,15 @@ def scale_block_q(x, w1, b1, w2, b2, wd, bd, wu, bu, packed=None,
     strips = -(-wdt // KERNEL_GEOMETRY.cols)
     counts = (torch.zeros(bsz * strips, 2, dtype=torch.float32,
                           device=x.device) if clip_counts else None)
-    e = (torch.empty(bsz, h // 2, wdt // 2, c, dtype=x.dtype,
-                     device=x.device)
-         if x.dtype == torch.bfloat16 else None)   # the 0.5x branch's output
+    e = redo = None
+    if x.dtype == torch.bfloat16:
+        # the 0.5x branch's output; the list of the steps run again
+        e = torch.empty(bsz, h // 2, wdt // 2, c, dtype=x.dtype,
+                        device=x.device)
+        steps = bsz * strips * -(-h // KERNEL_GEOMETRY.rows)
+        redo = torch.empty(1 + 5 * steps, dtype=torch.int32, device=x.device)
     cb.launch(_kernel(), "fused_block2_q", x.device, x.data_ptr(),
-              *pointers(packed), out.data_ptr(), *pointers((counts, e)),
+              *pointers(packed), out.data_ptr(), *pointers((counts, e, redo)),
               cb.DTYPE_CODES[x.dtype], bsz, h, wdt)
     scale_block_q.launches += 1
     if clip_counts:

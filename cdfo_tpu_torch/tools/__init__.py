@@ -1,9 +1,12 @@
 """The port's command-line tools, each run as ``python -m
-cdfo_tpu_torch.tools.<name>``: ``train``, the trainer (the port of the
-repository's ``tools/train.py``, with its flags; on the card, or on the
-CPU with ``--cpu``); the trunk's microbenchmarks on the GPU, ports of the
-TPU tools ``microbench_trunk``, ``microbench_dots`` and ``microbench_dma``
-(with their arguments and defaults); and ``compare_block``, a kernel (the
+cdfo_tpu_torch.tools.<name>``: ``train``, the trainer, and ``test_sr``,
+``eval_jctvc``, ``int8_delta`` and ``gumbel_variance``, the evaluation
+tools (ports of the repository's ``tools/`` scripts of those names, with
+their flags; on the card, or on the CPU with ``--cpu``; the last two on
+``structured``'s small trained model); the trunk's microbenchmarks on the
+GPU, ports of the TPU tools ``microbench_trunk``, ``microbench_dots`` and
+``microbench_dma`` (with their arguments and defaults); and
+``compare_block``, a kernel (the
 exact or int8 ``Block_``, the alignment tail) against another checkout's.
 The microbenchmarks and ``compare_block`` run on the card only: without
 CUDA they raise."""

@@ -14,8 +14,10 @@ second run with the same directory resumes from the newest checkpoint.
 ``--synthetic`` writes a small noise tree to a temporary directory (2
 sequences of 10 frames at 64x64) and trains a one-group model on batches
 of 2, as the JAX tool does. The model trains with the sampled EGLA mask.
-``--scan-trunk``, ``--distributed`` and ``--eval-lr-dir`` raise: their
-work is not ported.
+``--eval-lr-dir``, ``--eval-side-dir`` and ``--eval-gt-dir`` name one eval
+sequence (``data/io.py``'s eval layout and its GT PNGs) that is scored after
+every checkpoint (``train/loop.py::make_eval_fn``). ``--scan-trunk`` and
+``--distributed`` raise: their work is not ported.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute, float32 master weights and loss")
     p.add_argument("--eval-lr-dir", default="",
-                   help="validation sequence LR dir (not ported)")
+                   help="validation sequence LR dir (periodic eval)")
     p.add_argument("--eval-side-dir", default="")
     p.add_argument("--eval-gt-dir", default="")
     return p.parse_args(argv)
@@ -69,9 +71,6 @@ def main(argv=None):
     if args.distributed:
         raise NotImplementedError("--distributed waits for data-parallel "
                                   "training (ROADMAP Queue 1, item 1.8)")
-    if args.eval_lr_dir:
-        raise NotImplementedError("--eval-lr-dir waits for the eval path "
-                                  "(ROADMAP Queue 1, item 1.3)")
     if not args.cpu and not torch.cuda.is_available():
         sys.exit("cdfo_tpu_torch.tools.train runs on the card and "
                  "torch.cuda.is_available() is False; pass --cpu to train "
@@ -79,7 +78,7 @@ def main(argv=None):
 
     from ..config import DataConfig, ModelConfig, TrainConfig
     from ..data.io import make_synthetic_cvcp_tree
-    from ..train.loop import train_loop
+    from ..train.loop import make_eval_fn, train_loop
 
     is_ra = args.cfg == "RA"
     data_cfg = DataConfig(coding_cfg=args.cfg, qp=args.qp,
@@ -105,11 +104,17 @@ def main(argv=None):
                                 ckpt_dir=args.ckpt_dir, seed=args.seed)
         model_cfg = ModelConfig(scn_groups=1, **mkw)
         spe = spe or 2
+    device = "cpu" if args.cpu else "cuda"
+    eval_fn = None
+    if args.eval_lr_dir:
+        eval_fn = make_eval_fn(model_cfg, args.eval_lr_dir,
+                               args.eval_side_dir, args.eval_gt_dir,
+                               device=device)
     try:
         return train_loop(model_cfg, data_cfg, train_cfg, data_root,
                           steps_per_epoch=spe or None,
-                          cache_path=args.cache or None,
-                          device="cpu" if args.cpu else "cuda")
+                          cache_path=args.cache or None, eval_fn=eval_fn,
+                          device=device)
     finally:
         if synthetic_root:
             shutil.rmtree(synthetic_root, ignore_errors=True)

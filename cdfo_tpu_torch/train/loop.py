@@ -5,14 +5,15 @@ log of each epoch's mean loss.
 
 A checkpoint (``step_%08d.pt``, ``torch.save``) holds the model's and the
 float32 masters' values, the optimizer state, the step and the state of
-the generator that draws the EGLA mask's gumbel noise. Not ported yet,
-each raising where it is asked for: the periodic eval hook (it needs the
-eval path's ``StreamingInferencer`` and PSNR/SSIM, ROADMAP Queue 1, item
-1.3), data-parallel training and per-host sharding (item 1.8) and
-TensorBoard scalars.
+the generator that draws the EGLA mask's gumbel noise. After each
+checkpoint the loop calls the periodic eval hook, if given
+(``make_eval_fn``). Not ported yet, each raising where it is asked for:
+data-parallel training and per-host sharding (ROADMAP Queue 1, item 1.8)
+and TensorBoard scalars.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -66,11 +67,42 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(ckpt_dir, steps[-1]) if steps else None
 
 
-def make_eval_fn(*args, **kwargs):
-    """The periodic eval hook of ``cdfo_tpu``'s loop: not ported."""
-    raise NotImplementedError(
-        "the periodic eval hook needs the eval path (StreamingInferencer "
-        "and psnr_ssim), ROADMAP Queue 1, item 1.3")
+def make_eval_fn(model_cfg: ModelConfig, lr_dir: str, side_dir: str,
+                 gt_dir: str, max_frames: Optional[int] = 32,
+                 device: torch.device | str = "cuda") -> Callable:
+    """Periodic-eval hook (the reference's per-`val_itv` ParkScene run,
+    `train_LD_37.py:393-412`): streaming inference over one sequence with
+    the model's config and the expected mask, on ``device``, then Y/crop4
+    PSNR/SSIM against the GT PNG tree. ``eval_fn(state, epoch)`` scores the
+    weights the last step wrote: the trained model's (under bfloat16 its
+    float32 masters as the model casts them) copied in place into the
+    eval model, which bumps their versions, so no stale kernel weight pack
+    is reused (``cuda_build.cached_pack``)."""
+    from ..data.io import load_eval_sequence, read_gray
+    from ..infer.pipeline import StreamingInferencer
+    from ..metrics.psnr_ssim import calculate_psnr, calculate_ssim
+
+    data = load_eval_sequence(lr_dir, side_dir, max_frames)
+    eval_model = CVSRV8(dataclasses.replace(model_cfg, mask_mode="expected"),
+                        torch.Generator().manual_seed(0), device=device)
+    inf = StreamingInferencer(eval_model)
+
+    def eval_fn(state: TrainState, epoch: int) -> dict:
+        eval_model.load_state_dict(state.model.state_dict())
+        frames, _ = inf.run_sequence(data)
+        psnrs, ssims = [], []
+        for i, f in enumerate(frames):
+            gt = read_gray(os.path.join(gt_dir, "%05d.png" % i))
+            mh, mw = min(gt.shape[0], f.shape[0]), min(gt.shape[1], f.shape[1])
+            a = f[:mh, :mw, None].astype(np.float64)
+            b = gt[:mh, :mw, None].astype(np.float64)
+            psnrs.append(calculate_psnr(a, b, 4, test_y_channel=True))
+            ssims.append(calculate_ssim(a, b, 4, test_y_channel=True))
+        metrics = {"psnr": float(np.mean(psnrs)), "ssim": float(np.mean(ssims))}
+        print(json.dumps({"epoch": epoch, **metrics}), flush=True)
+        return metrics
+
+    return eval_fn
 
 
 def run_dirs(train_cfg: TrainConfig, data_cfg: DataConfig) -> tuple[str, str]:
@@ -100,9 +132,8 @@ def train_loop(model_cfg: ModelConfig, data_cfg: DataConfig,
     ``mask_mode="sample"`` its gumbel noise comes from a generator on that
     device seeded likewise. ``on_start(state)``, if given, is called once
     before the first step (after a resume), ``on_step(state, loss)`` after
-    each step (the loss a device scalar)."""
-    if eval_fn is not None:
-        make_eval_fn()
+    each step (the loss a device scalar). ``eval_fn(state, epoch)``, if
+    given (``make_eval_fn``), runs after each checkpoint."""
     if log_dir is not None:
         raise NotImplementedError(
             "TensorBoard scalars are not ported; the loop writes its JSONL "
@@ -149,4 +180,6 @@ def train_loop(model_cfg: ModelConfig, data_cfg: DataConfig,
             f.write(json.dumps(msg) + "\n")
         if (epoch + 1) % train_cfg.val_interval == 0:
             save_checkpoint(ckpt_dir, state, generator)
+            if eval_fn is not None:
+                eval_fn(state, epoch + 1)
     return state

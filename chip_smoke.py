@@ -25,8 +25,8 @@ CUDA device the script exits non-zero before printing any result):
    272x480 and at 3 neighbours of 2 centres of 18x34; EGLA's eg1 and eg2
    at (4, 272, 480, 64) and at (2, 20, 40, 64) and (2, 24, 40, 64) (eg2
    must refuse H = 20); the int8 ``Block_`` at the trunk's two shapes (an
-   odd extent must be refused), its clipped values counted alike by kernel
-   and plain version, timed in turns with the exact ``Block_`` (exact,
+   odd extent must be refused), its values past the lagged scale counted
+   alike by kernel and plain version, timed in turns with the exact ``Block_`` (exact,
    int8, int8, exact), both with their weights packed once; the alignment
    tail, the head, the group tail, both MDTA passes and dual-MSA stage 2
    also with their packs kept (the group tail beside cuDNN's ``F.conv2d``
@@ -85,8 +85,8 @@ CUDA device the script exits non-zero before printing any result):
    one, with ``block_warp`` 1 warp kernel, and that the fused frames are
    within 40 dB PSNR of the unfused ones (30 dB with ``trunk_int8``, whose
    PSNR against the exact four-flag frames says what int8 costs under
-   these weights; the share of clipped y1 / y2 values of one trunk call is
-   printed beside it); then times each stage of one engine step alone
+   these weights; the share of y1 / y2 values past the lagged scale of one
+   trunk call is printed beside it); then times each stage of one engine step alone
    (``compensate_frames``, ``embed``, EGLA, ``align_reconstruct``, its
    neighbour warp and ``DualAttAlignment``, tsa, trunk, head); path AB
    also runs the served (untimed) mode, whose fps by wall time it prints
@@ -119,6 +119,30 @@ CUDA device the script exits non-zero before printing any result):
    its next step; then the same run unfused (with its breakdown), whose first-step loss (same
    weights, batch and gumbel noise) must be within 1e-2 relative of the
    fused one.
+8. evaluation: (a) every model-path kernel (#1-#12) against its plain
+   version in bfloat16, phase 3's slices and tolerances, at the JCT-VC
+   geometries 400x640 and 184x320, at the engine's k = 4 shapes and at the
+   per-window ones (1 frame; 6 neighbours of 1 centre; EGLA over 6
+   frames), untimed; (b) ``StreamingInferencer`` on 8 synthetic 272x480
+   frames (full width, bf16, the seeded weights) unfused, with the four
+   flags and with path A: forward-only fps by the JAX protocol, each
+   window's launches (the forward keeps the plain dual MSA and alignment
+   tail, as cdfo_tpu's ``__call__`` does), the fused frames >= 40 dB from
+   the unfused ones (30 with ``trunk_int8``) and each run >= 40 dB from
+   the engine's frames for the same flags; (c) ``tools/eval_jctvc``'s
+   ``evaluate_jctvc`` on a synthetic eval tree (3 frames each of 400x640
+   and 184x320) with the seeded weights as a reference-style ``.pth``,
+   unfused and path A: its JSON lines, path A >= 30 dB from unfused;
+   (d) the engine with the sampled mask (``fused_trunk``, bf16, 8 frames
+   of 272x480): two seeds give other frames, one seed the same frames
+   timed and untimed; (e) ``tools/int8_delta`` at its defaults (a CVSR_V8
+   of nf 64 and 2 groups trained 300 steps on 32x32 structured video):
+   the plain, exact and int8 trunks' PSNRs on the same weights and the
+   int8 trunk's values past the lagged scale, |int8 - plain| <= 0.05 dB
+   (``BASELINE.md``), and beside them, on the same weights, the TPU's int8
+   scheme (its kernel's steps, clipping; the plain version, on the CPU) and
+   the bfloat16 trunks' PSNRs;
+   (f) ``tools/gumbel_variance`` at 4 seeds: the sampled PSNRs differ.
 
 Every model gets the same seeded weights with its EGLA residual mask made
 one-hot (``kernel_cases.excite_egla_mask``; under random weights it is all
@@ -127,19 +151,21 @@ prints the mask's set bits per frame of one ``compensate_frames`` call.
 
 After phase 6 one line orders every kernel on a model path by launches x
 (time - bound) per 12-frame run, its launches from the run of its own path:
-the order in which a redesign gains most. Phase 7 follows it.
+the order in which a redesign gains most. Phases 7 and 8 follow it.
 
 The line before the last is a JSON object with one entry per kernel
 wrapper (launches from the four-flag run; the int8 ``Block_``'s from path
 A's, the warp's from path B's, and those of the body pair and the probes,
 which no model path runs, from phase 6's run of the tools; the five
 trained wrappers also with ``train_launches_per_step``, their launches in
-one LD training step's forward); the last line is ``{"ok": true,
+one LD training step's forward, and the kernels the inferencer runs with
+``window_launches_per_frame``, from phase 8(b)); the last line is ``{"ok": true,
 "device": {...}}``.
 
     python3 chip_smoke.py --train
+    python3 chip_smoke.py --eval
 
-builds the kernels and runs phase 7 alone.
+build the kernels and run phase 7, or phase 8, alone.
 
     python3 chip_smoke.py --profile
 
@@ -188,7 +214,8 @@ import torch.nn.functional as F
 from cdfo_tpu_torch import ModelConfig
 from cdfo_tpu_torch.config import DataConfig, TrainConfig
 from cdfo_tpu_torch.data import io as data_io
-from cdfo_tpu_torch.infer import BatchedStreamingEngine, synthetic_sequence
+from cdfo_tpu_torch.infer import (BatchedStreamingEngine, StreamingInferencer,
+                                  synthetic_sequence)
 from cdfo_tpu_torch.models import CVSRV8
 from cdfo_tpu_torch.models.layers import lrelu
 from cdfo_tpu_torch.ops import cuda_build
@@ -208,6 +235,7 @@ from cdfo_tpu_torch.ops import probe_dots as pd
 from cdfo_tpu_torch.ops import warp_block as wb
 from cdfo_tpu_torch.ops.warp import flow_warp_ring
 from cdfo_tpu_torch.tools import captured, event_ms, microbench_dma
+from cdfo_tpu_torch.tools import eval_jctvc, gumbel_variance, int8_delta
 from cdfo_tpu_torch.tools import microbench_dots, microbench_trunk
 from cdfo_tpu_torch.train.loop import train_loop
 from cdfo_tpu_torch.losses import charbonnier_loss
@@ -439,10 +467,11 @@ def reset_launches():
 
 @torch.no_grad()
 def check_kernel_table(card: str, table: dict, cases, seed: int,
-                       plain_reps: int = 15) -> dict:
+                       plain_reps: int = 15,
+                       dtypes=(torch.float32, torch.bfloat16)) -> dict:
     """Phase 3 for the kernels of ``table`` ({kind: (JSON name, wrapper,
     plain version, source, replaces)}): each against its plain version in
-    float32 and bfloat16 on every case ``(label, main, args_of)``, where
+    each of ``dtypes`` on every case ``(label, main, args_of)``, where
     ``args_of(kind, dtype, g)`` draws the inputs; at the main case also
     kernel, plain and bound times. Returns the JSON fields of each kernel,
     measured at the main case in bfloat16 (the full slice's dtype). TF32 is
@@ -451,7 +480,7 @@ def check_kernel_table(card: str, table: dict, cases, seed: int,
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(seed)
     fields = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         for label, main, args_of in cases:
             for kind, (name, kernel, plain, _, _) in table.items():
                 args = args_of(kind, dtype, g)
@@ -599,7 +628,8 @@ def check_egla_kernels(card: str) -> dict:
 def check_int8_kernel(card: str) -> dict:
     """Phase 3, int8 ``Block_``: ``check_kernel_table`` at the trunk
     shapes (the plain version walks the kernel's step geometry), then the
-    clipped values as kernel and plain version count them, the outputs'
+    values past the lagged scale as kernel and plain version count them
+    (the steps that hold them run again at their own amax), the outputs'
     correlation, and an odd extent that must be refused. The table's
     kernel time includes the wrapper's weight quantization and packing,
     which the trunk does once per model; the JSON line's ``ms`` is the
@@ -622,14 +652,15 @@ def check_int8_kernel(card: str) -> dict:
             exact = fb.scale_block(*args)
             err, scale = kc.worst_error(out, exact, "blockq")
             n = out.numel()
-            print(f"int8 Block_ {shape} bf16: clipped y1 {clips[0]:.0f} of "
-                  f"{4 * n} (plain {want[0]:.0f}), y2 {clips[1]:.0f} of "
-                  f"{16 * n} (plain {want[1]:.0f}); against the exact kernel "
+            print(f"int8 Block_ {shape} bf16: past the lagged scale y1 "
+                  f"{clips[0]:.0f} of {4 * n} (plain {want[0]:.0f}), y2 "
+                  f"{clips[1]:.0f} of {16 * n} (plain {want[1]:.0f}); "
+                  f"against the exact kernel "
                   f"rel {err / scale:.3e} (cdfo_tpu's own bound: 5e-2)",
                   flush=True)
             if (clips - want).abs().max().item() > 2 + 0.01 * want.max().item():
                 raise AssertionError("kernel and plain version count other "
-                                     "clipped values")
+                                     "values past the lagged scale")
             if not err <= 0.05 * scale:
                 raise AssertionError("int8 Block_ is far from the exact one")
             if shape == TRUNK_MAIN:
@@ -1132,8 +1163,8 @@ def run_full_slice(card: str, **flags):
           + ", ".join(f"{n} {v:.3f}" for n, v in times.items())
           + f" [{card}]", flush=True)
     if clipped is not None:
-        print(f"full slice {flags}: clipped share of one trunk call's "
-              f"quantized values: y1 {clipped[0]:.3e}, y2 {clipped[1]:.3e}",
+        print(f"full slice {flags}: share of one trunk call's y values past "
+              f"the lagged scale: y1 {clipped[0]:.3e}, y2 {clipped[1]:.3e}",
               flush=True)
     del model, eng
     torch.cuda.empty_cache()
@@ -1146,7 +1177,7 @@ def stage_times(eng, data, reps: int = 10):
     the staged sequence, each stage called alone through the model's own
     methods on that step's inputs, the rings as the step finds them; and,
     under ``trunk_int8``, the share of that step's trunk call's y1 and y2
-    values that clipped (else None)."""
+    values past the lagged scale (else None)."""
     model = eng.model
     boot, steps = eng.stage_sequence(data)
     (ring_l1, ring_fi, ring_uf), _ = eng.run_staged(boot, [])
@@ -1180,8 +1211,9 @@ def stage_times(eng, data, reps: int = 10):
 
 def int8_clipped_share(trunk, x):
     """One call of the int8 trunk on ``x``, block by block with the
-    kernel's clip counters on: (clipped y1 values / all y1 values, the
-    same for y2)."""
+    kernel's clip counters on: (y1 values past the lagged scale / all y1
+    values, the same for y2; the steps that hold them run again at their
+    own amax)."""
     total = torch.zeros(2, dtype=torch.float64, device=x.device)
     blocks = 0
     skip = x.contiguous()
@@ -1253,7 +1285,7 @@ INT8_PHASES = ("prologue: x window, z, amaxes, lagged scales, xq and us",
                "conv1 quantizing epilogue (4 chunks)",
                "fold and conv2 s8 products (4 chunks)",
                "epilogue: fold + b2, kd, up2(e), output",
-               "the step's amax reduction",
+               "the step's amax reduction, listing a step past its scale",
                "waits at the chunks' two barriers")
 # the PHASE marks of csrc/fused_tail.cu's bf16 walk, per step, in order
 TAIL_PHASES = ("xm = x * gate (and a warm-up's zeroed windows)",
@@ -1410,11 +1442,13 @@ def run_phase_clocks(card: str, kinds=PHASE_KINDS):
         res = torch.empty_like(x)
         b, h, w, c = x.shape
         e = torch.empty(b, h // 2, w // 2, c, dtype=x.dtype, device="cuda")
+        redo = torch.empty(1 + 5 * b * -(-h // 8) * -(-w // 8),
+                           dtype=torch.int32, device="cuda")
         phase_clocks(
             card, f"int8 Block_ {tuple(x.shape)} (the walk)", "fused_block2_q",
-            "cdfo_fused_block2_q", 19,
+            "cdfo_fused_block2_q", 20,
             [x.data_ptr(), *fb.pointers(packed), res.data_ptr(), None,
-             e.data_ptr(), 1, b, h, w], res,
+             e.data_ptr(), redo.data_ptr(), 1, b, h, w], res,
             lambda r: kc.assert_outputs_close(
                 r, fq.scale_block_q_plain(x, *params), torch.bfloat16,
                 "blockq"),
@@ -1960,6 +1994,232 @@ def check_training(card: str) -> dict:
     return launches
 
 
+# -- phase 8: evaluation ------------------------------------------------------
+
+# the JCT-VC LR geometries that no other phase runs (`tools/eval_jctvc.py:
+# 20-31`), and one eval sequence of each
+EVAL_GEOMETRIES = ((400, 640), (184, 320))
+EVAL_SEQUENCES = ("Traffic_640x400_300F.yuv", "Johnny_320x184_600F.yuv")
+EVAL_FRAMES = 8
+# the model-path kernels (#1-#12 of PERF.md; the attention apart)
+MODEL_PATH_KERNELS = {k: v for k, v in ALL_KERNELS.items() if k != "warp"}
+
+
+def window_launches(flags: dict) -> dict:
+    """Kernel launches of one per-window ``CVSRV8.forward`` (1 new frame
+    embedded, or the first window's 7 in one call; EGLA over the 6
+    neighbours; the trunk and head of 1 centre) at 7 trunk groups. As in
+    cdfo_tpu's ``__call__``, the forward keeps the plain dual MSA and
+    alignment tail: those kernels run in the engine's
+    ``align_reconstruct`` only."""
+    want = {k: 0 for k in launch_counts()}
+    if flags.get("fused_egla"):
+        want.update(column=1, **EGLA_LAUNCHES)
+    else:
+        want.update(token=1, column=1)
+    if flags.get("fused_embed"):
+        want.update(EMBED_LAUNCHES)
+    if flags.get("fused_trunk"):
+        want.update(block=21, group=7, head=1)
+    if flags.get("trunk_int8"):
+        want.update(block=0, blockq=21)
+    return want
+
+
+@torch.no_grad()
+def check_eval_kernels(card: str) -> None:
+    """Phase 8(a): every model-path kernel against its plain version in
+    bfloat16, phase 3's slices and tolerances, at the two JCT-VC
+    geometries, at the engine's k = 4 shapes (4 frames embedded and
+    through the trunk, 6 neighbours of 4 centres, EGLA over 4 frames) and
+    at the per-window ones (1 frame, 6 neighbours of 1 centre, EGLA over 6
+    frames). No timing."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for h, w in EVAL_GEOMETRIES:
+        for label, m, e in (("k=4", 4, 4), ("one window", 1, 6)):
+            def args_of(kind, dtype, g, m=m, e=e):
+                if kind in ("block", "blockq", "group", "head", "tail"):
+                    return kc.trunk_args(kind, dtype, g, (m, h, w, 64), nbr=6)
+                if kind in ("eg1", "eg2"):
+                    return kc.egla_args(kind, dtype, g, (e, h, w, 64))
+                return kc.align_embed_args(kind, dtype, g, (m, h, w), 6)
+            check_kernel_table(card, MODEL_PATH_KERNELS,
+                               [(f"{label} at {h}x{w}", False, args_of)],
+                               seed=8, dtypes=(torch.bfloat16,))
+            for kind, shape in (("token", (e * h, w, 64)),
+                                ("column", (e, h, w, 64))):
+                kernel, plain = WRAPPERS[kind]
+                q, v = kc.attention_args(torch.bfloat16, g, shape)
+                out, ref = kernel(q, v), plain(q, v)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                scale = ref.float().abs().max().item()
+                tol = kc.TOLERANCE[torch.bfloat16]
+                line = (f"kernel {kind} {label} at {h}x{w} {shape} bfloat16: "
+                        f"max_abs_err {err:.3e} (max |plain| {scale:.3f}, "
+                        f"rel {err / scale:.3e}, tolerance rel {tol:.1e})")
+                print(line, flush=True)
+                if not err <= tol * scale:
+                    raise AssertionError(f"kernel disagrees with plain: "
+                                         f"{line}")
+            torch.cuda.empty_cache()
+
+
+def check_inferencer(card: str) -> dict:
+    """Phase 8(b): ``StreamingInferencer`` on 8 synthetic 272x480 frames
+    (full width, bf16, the seeded weights) unfused, with the four flags and
+    with path A: forward-only fps by the JAX protocol, each window's
+    launches, the fused frames against the unfused ones (>= 40 dB, 30 with
+    ``trunk_int8``) and each run against the engine's frames for the same
+    flags and weights (>= 40 dB: the two compute the same windows).
+    Returns the launches per window of the four-flag run, and the int8
+    ``Block_``'s of path A's."""
+    data = synthetic_sequence(t=EVAL_FRAMES, h=272, w=480, seed=0)
+    frames, per_window = {}, {}
+    for label, flags in (("unfused", {}), ("four flags", ALL_FLAGS),
+                         ("path A", PATH_A)):
+        model = seeded_model(ModelConfig(compute_dtype=torch.bfloat16,
+                                         **flags))
+        inf = StreamingInferencer(model)
+        inf.run_sequence(data)   # warm-up: cuDNN/cuBLAS plans, allocator
+        reset_launches()
+        out, fps = inf.run_sequence(data, collect_timing=True)
+        launches = launch_counts()
+        engine, _ = BatchedStreamingEngine(model, k=4).run_sequence(data)
+        against_engine = psnr(out, engine)
+        print(f"inferencer (CVSR_V8 nf=64, 7 groups, bf16, 272x480 -> "
+              f"1080x1920, {EVAL_FRAMES} frames, {label} {flags}): "
+              f"{fps:.3f} fps forward-only by the JAX protocol ((T - 1) / "
+              f"the forwards' time, frame 0 left out); against the engine's "
+              f"frames PSNR {against_engine:.3f} dB (max diff "
+              f"{np.abs(out.astype(np.int32) - engine).max()} LSB); "
+              f"launches {launches} [{card}]", flush=True)
+        want = {k: n * EVAL_FRAMES for k, n in window_launches(flags).items()}
+        if launches != want:
+            raise AssertionError(f"inferencer {label}: expected launches "
+                                 f"{want}, got {launches}")
+        if out.shape != (EVAL_FRAMES, 1080, 1920) or out.std() == 0:
+            raise AssertionError(f"inferencer {label}: frames {out.shape}")
+        if not against_engine >= 40.0:
+            raise AssertionError(f"inferencer {label} is {against_engine:.2f}"
+                                 " dB from the engine (limit 40 dB)")
+        frames[label] = out
+        per_window[label] = {k: n / EVAL_FRAMES for k, n in launches.items()}
+        del model, inf
+        torch.cuda.empty_cache()
+    for label in ("four flags", "path A"):
+        quality = psnr(frames[label], frames["unfused"])
+        limit = 30.0 if label == "path A" else 40.0
+        print(f"inferencer {label}: against the unfused frames PSNR "
+              f"{quality:.3f} dB (limit {limit})", flush=True)
+        if not quality >= limit:
+            raise AssertionError(f"inferencer {label} is {quality:.2f} dB "
+                                 f"from the unfused frames")
+    return {**per_window["four flags"], "blockq": per_window["path A"]
+            ["blockq"]}
+
+
+def check_eval_tool(card: str) -> None:
+    """Phase 8(c): ``eval_jctvc.evaluate_jctvc`` on a synthetic eval tree
+    (3 frames each of 400x640 and 184x320) with the seeded weights (given
+    as a reference-style float32 ``.pth``), unfused and with the four
+    flags and ``trunk_int8`` (bf16): its JSON lines, the path-A frames
+    >= 30 dB from the unfused ones, and path A's kernels launched."""
+    with tempfile.TemporaryDirectory(prefix="cdfo_eval_") as tmp:
+        eval_jctvc.write_synthetic_tree(tmp, EVAL_SEQUENCES, 3)
+        ckpt = os.path.join(tmp, "seeded.pth")
+        torch.save({k: v.float().cpu() for k, v in seeded_model(
+            ModelConfig(), device="cpu").state_dict().items()}, ckpt)
+        frames = {}
+        for label, flags in (("unfused", {}), ("path A", PATH_A)):
+            reset_launches()
+            eval_jctvc.evaluate_jctvc(
+                ModelConfig(compute_dtype=torch.bfloat16, **flags), tmp,
+                "cuda", ckpt=ckpt, out=os.path.join(tmp, label),
+                log=os.path.join(tmp, label + ".txt"),
+                sequences=EVAL_SEQUENCES,
+                echo=lambda line, label=label: print(
+                    f"eval_jctvc {label}: {line} [{card}]", flush=True))
+            launches = launch_counts()
+            for seq in EVAL_SEQUENCES:
+                d = os.path.join(tmp, label, "LD_QP37", seq)
+                frames[label, seq] = np.stack([
+                    data_io.read_gray(os.path.join(d, f))
+                    for f in sorted(os.listdir(d))])
+        missing = [k for k, n in window_launches(PATH_A).items()
+                   if n and not launches[k]]
+        if missing:
+            raise AssertionError(f"eval_jctvc path A launched none of "
+                                 f"{missing}: {launches}")
+    for seq in EVAL_SEQUENCES:
+        a, ref = frames["path A", seq], frames["unfused", seq]
+        quality = psnr(a, ref)
+        print(f"eval_jctvc {seq} {a.shape}: path A against unfused PSNR "
+              f"{quality:.3f} dB (limit 30)", flush=True)
+        if not quality >= 30.0:
+            raise AssertionError(f"eval_jctvc {seq}: path A is "
+                                 f"{quality:.2f} dB from unfused")
+
+
+def check_sampled_engine(card: str) -> None:
+    """Phase 8(d): ``BatchedStreamingEngine`` with the sampled mask on the
+    card (full width, bf16, ``fused_trunk``, 8 frames of 272x480, two EGLA
+    mask channels put on alike so that the noise decides between them):
+    frames not constant, two seeds give other frames, one seed the same
+    frames timed and untimed."""
+    model = CVSRV8(ModelConfig(compute_dtype=torch.bfloat16,
+                               mask_mode="sample", fused_trunk=True),
+                   generator=torch.Generator().manual_seed(0))
+    kc.excite_egla_mask(model, 3)
+    kc.excite_egla_mask(model, 5)
+    data = synthetic_sequence(t=EVAL_FRAMES, h=272, w=480, seed=0)
+
+    def run(seed, timed=False):
+        return BatchedStreamingEngine(
+            model, k=4, generator=torch.Generator(device="cuda").manual_seed(
+                seed)).run_sequence(data, collect_timing=timed)
+
+    a, _ = run(1)
+    timed, fps = run(1, timed=True)
+    b, _ = run(2)
+    moved = np.abs(a.astype(np.int32) - b)
+    print(f"sampled-mask engine (fused_trunk, bf16, 272x480, k=4, "
+          f"{EVAL_FRAMES} frames): {fps:.3f} fps timed; seeds 1 and 2 differ "
+          f"in {np.count_nonzero(moved)} pixels (max {moved.max()} LSB, "
+          f"PSNR {psnr(a, b):.3f} dB); seed 1 timed equals untimed "
+          f"{np.array_equal(a, timed)} [{card}]", flush=True)
+    if a.shape != (EVAL_FRAMES, 1080, 1920) or a.std() == 0:
+        raise AssertionError("sampled-mask engine frames")
+    if not np.array_equal(a, timed) or np.array_equal(a, b):
+        raise AssertionError("sampled-mask engine: seeds do not decide the "
+                             "frames")
+
+
+def check_eval(card: str) -> dict:
+    """Phase 8; returns the per-window launches of the inferencer's
+    four-flag run (the int8 ``Block_``'s from path A's)."""
+    check_eval_kernels(card)
+    per_window = check_inferencer(card)
+    check_eval_tool(card)
+    check_sampled_engine(card)
+
+    def log(line):
+        print(f"int8_delta: {line} [{card}]", flush=True)
+    out = int8_delta.run(ModelConfig(scn_groups=2), 300, "cuda", log=log)
+    if not abs(out["int8_delta"]) <= int8_delta.BUDGET_DB:
+        raise AssertionError(f"the int8 trunk is {out['int8_delta']:+.4f} dB "
+                             f"from the plain one (budget "
+                             f"{int8_delta.BUDGET_DB} dB)")
+
+    def log(line):
+        print(f"gumbel_variance: {line} [{card}]", flush=True)
+    out = gumbel_variance.run(ModelConfig(scn_groups=2, mask_mode="sample"),
+                              300, 4, "cuda", log=log)
+    if len(set(out["samples"])) == 1:
+        raise AssertionError("gumbel_variance: every seed gave one PSNR")
+    return per_window
+
+
 def ptxas_fault(line: str) -> bool:
     """A ptxas line that reports a spill (a non-zero spill store or load)
     or a C75xx warning (``wgmma`` serialized, or a wait or arrive
@@ -2048,6 +2308,9 @@ def main():
     if sys.argv[1:2] == ["--train"]:
         check_training(card)
         return
+    if sys.argv[1:2] == ["--eval"]:
+        check_eval(card)
+        return
 
     fields = check_kernels(card)
     fields.update(check_trunk_kernels(card))
@@ -2098,6 +2361,7 @@ def main():
     launches.update(run_tools(card))
     redesign_order(card, fields, launches)
     train_launches = check_training(card)
+    window_launches_per_frame = check_eval(card)
 
     # launches: the four-flag run's; the int8 Block_'s from path A's run and
     # the warp's from path B's
@@ -2116,6 +2380,10 @@ def main():
                                      *TOOL_KERNELS)):
         if kind in TRAIN_LAUNCHES:
             entry["train_launches_per_step"] = train_launches[kind]
+        # the inferencer's launches per frame (phase 8(b)), where it runs
+        # the kernel
+        if window_launches_per_frame.get(kind):
+            entry["window_launches_per_frame"] = window_launches_per_frame[kind]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

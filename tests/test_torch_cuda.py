@@ -4,6 +4,7 @@ no CUDA device exists. On a GPU machine (no JAX needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import dataclasses
 import functools
 
 import pytest
@@ -665,6 +666,41 @@ def test_int8_block_counts_clipped_values(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,bright", [((1, 8, 8, 64), "pixel"),
+                                          ((2, 40, 20, 64), "last"),
+                                          ((1, 64, 16, 64), "lower")])
+def test_int8_block_runs_a_step_again_past_the_lagged_scale(cuda, shape,
+                                                            bright, dtype):
+    """A step whose y values pass the lagged scale runs its chunks again at
+    their own amax: one pixel 40x brighter in a one-step strip (past the
+    step-0 bound, in the walk's last step), the last step's rows 34-39 40x
+    brighter (out of the windows of the steps above), the lower half (a
+    middle step, then steps within the new running max). The kernel matches
+    the plain version, which requantizes, where the clipping one would fail
+    the check, and counts the values past the lagged scale alike."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x, *ws = kc.trunk_args("blockq", dtype, g, shape, device=cuda)
+    rows = {"pixel": slice(3, 4), "last": slice(34, None),
+            "lower": slice(shape[1] // 2, None)}[bright]
+    cols = slice(4, 5) if bright == "pixel" else slice(None)
+    x[:, rows, cols] *= 40.0
+    clip = dataclasses.replace(fq.KERNEL_GEOMETRY, requantize=False)
+    with torch.no_grad():
+        out, clips = fq.scale_block_q(x, *ws, clip_counts=True)
+        ref, want = fq.scale_block_q_plain(x, *ws, clip_counts=True)
+        clipped = fq.scale_block_q_plain(x, *ws, geometry=clip)
+    torch.cuda.synchronize()
+    assert want.min().item() > 0
+    kc.assert_outputs_close(out, ref, dtype, "blockq")
+    err, scale = kc.worst_error(clipped, ref, "blockq")
+    assert err > kc.tolerance(dtype, "blockq") * scale
+    assert (clips - want).abs().max().item() <= 2 + 0.01 * want.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_block_keeps_the_running_max(cuda, dtype):
     """The first step's rows 40x brighter than the rest, out of every later
     step's windows: the lagged scales of the third and later steps come
@@ -1042,3 +1078,46 @@ def test_dma_probe_matches_plain(cuda, mode, shift):
         kind = "gather"
     torch.cuda.synchronize()
     kc.assert_outputs_close(out, ref, torch.bfloat16, kind)
+
+
+# every model-path kernel at the JCT-VC geometries that the eval tools feed
+# it (400x640 and 184x320, `tools/eval_jctvc.py:20-31`), at the engine's
+# k = 4 shapes (4 frames, 6 neighbours of 4 centres, EGLA over 4 frames) and
+# at the per-window forward's (1 frame, 6 neighbours of 1 centre, EGLA over
+# 6 frames)
+MODEL_PATH = {
+    "block": (fb.scale_block, fb.scale_block_plain),
+    "blockq": (fq.scale_block_q, fq.scale_block_q_plain),
+    "group": (fg.grouptail, fg.grouptail_plain),
+    "head": (fh.fused_head, fh.fused_head_plain),
+    "tail": (ft.resblock_pair, ft.resblock_pair_plain),
+    **ALIGN_EMBED, **EGLA,
+    "token": (fa.token_self_attention, fa.token_attention_plain),
+    "column": (fa.column_self_attention, fa.column_attention_plain),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,e", [(4, 4), (1, 6)], ids=["k4", "window"])
+@pytest.mark.parametrize("h,w", [(400, 640), (184, 320)])
+@pytest.mark.parametrize("kind", list(MODEL_PATH))
+def test_model_path_kernel_at_eval_geometries(cuda, kind, h, w, m, e):
+    kernel, plain = MODEL_PATH[kind]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    dt = torch.bfloat16
+    if kind in ("token", "column"):
+        shape = (e * h, w, 64) if kind == "token" else (e, h, w, 64)
+        args = kc.attention_args(dt, g, shape, device=cuda)
+    elif kind in EGLA:
+        args = kc.egla_args(kind, dt, g, (e, h, w, 64), device=cuda)
+    elif kind in ALIGN_EMBED:
+        args = kc.align_embed_args(kind, dt, g, (m, h, w), 6, device=cuda)
+    else:
+        args = kc.trunk_args(kind, dt, g, (m, h, w, 64), nbr=6, device=cuda)
+    before = kernel.launches
+    with torch.no_grad():
+        out = kernel(*args)
+        ref = plain(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    kc.assert_outputs_close(out, ref, dt, kind)

@@ -132,11 +132,9 @@ def _files(root):
                   for d, _, fs in os.walk(root) for f in fs)
 
 
-def test_synthetic_tree_equals_cdfo_tpus(trees):
-    (jroot, jnames), (troot, tnames) = trees["LD"]
-    assert jnames == tnames
+def assert_same_trees(jroot, troot, min_files):
     files = _files(jroot)
-    assert files == _files(troot) and len(files) > 100
+    assert files == _files(troot) and len(files) > min_files
     for f in files:
         a, b = os.path.join(jroot, f), os.path.join(troot, f)
         if f.endswith(".png"):
@@ -145,8 +143,18 @@ def test_synthetic_tree_equals_cdfo_tpus(trees):
             np.testing.assert_array_equal(np.load(a), np.load(b))
         else:
             assert open(a).read() == open(b).read()
-    with pytest.raises(NotImplementedError, match="1.5"):
-        tio.make_synthetic_cvcp_tree(jroot, structured=True)
+
+
+def test_synthetic_tree_equals_cdfo_tpus(trees, tmp_path):
+    """The noise tree, and the structured one (MATLAB-bicubic LR of
+    textured HR, through the port's copy of ``imresize``)."""
+    (jroot, jnames), (troot, tnames) = trees["LD"]
+    assert jnames == tnames
+    assert_same_trees(jroot, troot, 100)
+    kw = dict(num_seqs=1, frames=3, h=16, w=24, seed=5, structured=True)
+    jnames = j_tree(str(tmp_path / "j"), **kw)
+    assert jnames == tio.make_synthetic_cvcp_tree(str(tmp_path / "t"), **kw)
+    assert_same_trees(str(tmp_path / "j"), str(tmp_path / "t"), 20)
 
 
 def _configs(cfg):

@@ -1,7 +1,8 @@
 """The cdfo_tpu_torch streaming engine against cdfo_tpu's, on one set of
 weights: uint8 frames within 1 LSB (float32 pipelines on both sides), for
 k = 1 and k = 4, on a sequence whose ends exercise the clamped windows and
-the max(1, i) prior rule."""
+the max(1, i) prior rule; and under the sampled EGLA mask with the same
+gumbel draws injected into both."""
 import jax
 import numpy as np
 import pytest
@@ -17,6 +18,17 @@ from cdfo_tpu_torch.infer import BatchedStreamingEngine, synthetic_sequence
 from cdfo_tpu_torch.models import CVSRV8
 
 NF, T, H, W = 32, 9, 16, 24
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's spinning thread pools in each of them
+    oversubscribe the cores the other workers need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -97,3 +109,67 @@ def test_untimed_mode_stages_the_next_step_before_reading_back(setup,
     eng.run_sequence(synthetic_sequence(t=T, h=H, w=W, seed=3))
     assert log == [("stage", 0), ("stage", 4), ("read", 0), ("stage", 8),
                    ("read", 4), ("read", 8)]
+
+
+def test_sampled_mask_engine_matches_jax_engine(setup):
+    """The JAX engine's two jitted functions each read one gumbel draw,
+    fixed when they trace (``jax.random.uniform`` patched): the bootstrap's
+    of shape (k + 6, H, W, nf), every step's of (k, H, W, nf). The port's
+    engine is fed the same two through ``compensate_frames(gumbel_u=)``.
+    Two channels of the EGLA mask are put on alike (channel 3's, as in
+    ``setup``, and channel 5's), so that the noise decides pixel by pixel
+    which one passes 0.5. Under random weights the frames move by 1 LSB at
+    most when the draws change, so the bootstrap's compensated features
+    are also held against the JAX engine's (its quad-packed ring entries):
+    within 1e-5 of their largest value, where other draws move them by
+    more than 1e-2."""
+    _, params, _ = setup
+    params = jax.tree.map(np.copy, params)
+    params["params"]["RDAB"]["conv_du_re2_0"]["conv"]["bias"][5] += 10.0
+    k, t = 2, 5
+    r = np.random.RandomState(11)
+    draws = {m: np.maximum(r.rand(m, H, W, NF), np.finfo(np.float32).tiny)
+             .astype(np.float32) for m in (k + 6, k)}
+    real_uniform = jax.random.uniform
+
+    def uniform(key, shape=(), *args, **kwargs):
+        if tuple(shape[1:]) == (H, W, NF) and shape[0] in draws:
+            return jax.numpy.asarray(draws[shape[0]])
+        return real_uniform(key, shape, *args, **kwargs)
+
+    cfg = dict(nf=NF, scn_groups=2, mask_mode="sample")
+    jeng = JEngine(JCVSRV8(JModelConfig(**cfg)), params, k=k)
+    jdata = j_synthetic(t=t, h=H, w=W, seed=3)
+    boot = jeng._frame_inputs(jdata, [0, 0, 0, 0, 0, 0, 1, 2])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "uniform", uniform)
+        ref, _ = jeng.run_sequence(jdata)
+        ref_fi = np.asarray(jeng._boot(params, *boot,
+                                       jax.random.PRNGKey(0))[1])
+    ref_fi = ref_fi[:, 4:4 + H, 4:4 + W, :NF]   # quad_pack's first tap
+    tmodel = CVSRV8(ModelConfig(**cfg),
+                    generator=torch.Generator().manual_seed(0), device="cpu")
+    tmodel.load_state_dict(from_flax(params))
+    data = synthetic_sequence(t=t, h=H, w=W, seed=3)
+
+    def run(draw):
+        eng = BatchedStreamingEngine(tmodel, k=k)
+        eng._compensate = lambda lrs, *rest: tmodel.compensate_frames(
+            lrs, *rest, gumbel_u=torch.from_numpy(draw(lrs.shape[0])))
+        return eng.run_sequence(data)[0]
+
+    frames = run(lambda m: draws[m])
+    diff = np.abs(frames.astype(np.int32) - ref.astype(np.int32))
+    assert diff.max() <= 1, (diff.max(), (diff > 1).sum())
+    scale = np.abs(ref_fi).max()
+    with torch.no_grad():
+        for u, near in ((draws[k + 6], True), (draws[k + 6][::-1], False)):
+            fi = tmodel.compensate_frames(
+                *(torch.from_numpy(a) for a in boot),
+                gumbel_u=torch.from_numpy(u.copy()))[1].numpy()
+            err = np.abs(fi - ref_fi).max() / scale
+            assert (err <= 1e-5) if near else (err > 1e-2), (near, err)
+    seeded = BatchedStreamingEngine(
+        tmodel, k=k, generator=torch.Generator().manual_seed(4))
+    a, b = seeded.run_sequence(data)[0], seeded.run_sequence(data)[0]
+    np.testing.assert_array_equal(a, b)

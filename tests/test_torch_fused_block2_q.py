@@ -11,6 +11,8 @@ cdfo_tpu's, in float32 on the CPU.
   scale would move whole windows by a quantization step (1e-2).
 * The plain version at the CUDA kernel's geometry within the JAX test's
   bound of the exact ``Block_`` (rel < 0.05, corr > 0.999).
+* A step past the lagged scale: clipped by the TPU's scheme, quantized
+  again at its own amax by the port's; elsewhere the two are equal.
 * The clip counter, ``SCNetFast(use_int8)`` under ``from_flax(strict)``
   weights, the configuration's refusals.
 * The five-flag port engine (the plain version at the TPU geometry) against
@@ -18,6 +20,8 @@ cdfo_tpu's, in float32 on the CPU.
 
 Inputs come from numpy seeds.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -107,6 +111,7 @@ def test_tpu_geometry_follows_the_jax_trunk():
         geo = fq.tpu_geometry(w)
         assert (geo.rows, geo.cols) == (16, _pick_tiles(w)[0])
         assert (geo.z_extra, geo.y2_extra, geo.edge) == (1, 1, 6)
+        assert not geo.requantize   # the TPU kernel clips
 
 
 @pytest.mark.parametrize("geometry", [fq.KERNEL_GEOMETRY,
@@ -146,6 +151,35 @@ def test_clip_counts():
     # y1 has 4C values per pixel, y2 16C
     assert grown[0].item() <= 4 * out.numel()
     assert grown[1].item() <= 16 * out.numel()
+
+
+def test_a_step_past_the_lagged_scale_is_quantized_again():
+    """Where rows grow down the image past the lagged scale, the TPU's
+    scheme clips them; the port's quantizes those steps again at their own
+    amax. Steps that stay within it are the TPU scheme's to the bit (all of
+    a calm image, the steps above the bright rows), the same values are
+    counted, and the requantized block is far nearer the exact one."""
+    _, targs = _case(5, (1, 32, 16, 8))
+    clip = dataclasses.replace(fq.KERNEL_GEOMETRY, requantize=False)
+    assert fq.KERNEL_GEOMETRY.requantize and not fq.tpu_geometry(16).requantize
+    x = targs[0].clone()
+    x[:, 16:] *= 40.0
+    with torch.no_grad():
+        calm, n_calm = fq.scale_block_q_plain(*targs, clip_counts=True)
+        calm_clip = fq.scale_block_q_plain(*targs, geometry=clip)
+        exact = scale_block_plain(x, *targs[1:])
+        req, n_req = fq.scale_block_q(x, *targs[1:], clip_counts=True)
+        clp, n_clp = fq.scale_block_q_plain(x, *targs[1:], geometry=clip,
+                                            clip_counts=True)
+    assert n_calm.sum().item() == 0 and torch.equal(calm, calm_clip)
+    assert n_req[0].item() > 0 and n_req[1].item() > 0
+    assert torch.equal(n_req, n_clp)
+    assert torch.equal(req[:, :8], clp[:, :8])   # step 0: above the rows
+    assert not torch.equal(req[:, 8:16], clp[:, 8:16])
+    err_req = (req - exact).abs().max().item()
+    err_clp = (clp - exact).abs().max().item()
+    assert err_req < 0.1 * err_clp, (err_req, err_clp)
+    assert err_req < 0.05 * exact.abs().max().item()
 
 
 def test_wrapper_refusals():

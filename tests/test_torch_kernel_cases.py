@@ -2,6 +2,8 @@
 (``cdfo_tpu_torch/ops/kernel_cases.py``): each slice of one scale against
 its own largest value, so that a wrong small gram beside a large one is
 caught."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -102,9 +104,11 @@ def test_a_wrong_egla_output_is_caught(fault):
         kc.assert_outputs_close(out, ref, torch.bfloat16, kind)
 
 
-def _blockq_outputs(margin=None):
+def _blockq_outputs(margin=None, geometry=None):
     """The int8 Block_'s plain output at a small seeded case of five
-    serial steps; with ``margin``, under another LAG_MARGIN."""
+    serial steps and its counts of values past the lagged scale; with
+    ``margin``, under another LAG_MARGIN, with ``geometry`` at other steps
+    (None: the kernel's)."""
     from cdfo_tpu_torch.ops import fused_block2_q as fq
     g = torch.Generator().manual_seed(2)
     args = kc.trunk_args("blockq", torch.float32, g, (1, 40, 8, 16),
@@ -114,7 +118,9 @@ def _blockq_outputs(margin=None):
         if margin is not None:
             fq.LAG_MARGIN = margin
         with torch.no_grad():
-            return fq.scale_block_q_plain(*args)
+            return fq.scale_block_q_plain(
+                *args, geometry=geometry or fq.KERNEL_GEOMETRY,
+                clip_counts=True)
     finally:
         fq.LAG_MARGIN = old
 
@@ -128,24 +134,34 @@ def test_int8_block_tolerance(dtype):
                                              torch.bfloat16: 1.6e-2}[dtype]
     assert kc.tolerance(dtype, "block") == kc.TOLERANCE[dtype]
     assert kc.tolerance(dtype) == kc.TOLERANCE[dtype]
-    ref = _blockq_outputs()
+    ref, _ = _blockq_outputs()
     kc.assert_outputs_close(ref, ref, dtype, "blockq")
 
 
 @pytest.mark.parametrize("fault", ["zeroed_lag", "no_margin_is_fine"])
 def test_a_zeroed_lag_scale_is_caught(fault):
     """A kernel that lost its running amax (a zero lagged scale: every y
-    of the steps after the first clips to +-127 times 1e-8 / 127) fails in
-    both dtypes; the margin alone (1.0 for 1.25) moves a few values by a
-    quantization step and stays inside the bfloat16 limit."""
-    ref = _blockq_outputs()
+    of the steps after the first passes it) runs each of those steps
+    again at its own amax, so its output stays right; its count of values
+    past the lagged scale, which the card checks hold to the plain
+    version's within 2 + 1%, gives it away. Under the TPU's scheme, which
+    clips them to +-127 times 1e-8 / 127, the output fails in both dtypes.
+    The margin alone (1.0 for 1.25) moves a few values by a quantization
+    step and stays inside the bfloat16 limit."""
+    from cdfo_tpu_torch.ops import fused_block2_q as fq
+    ref, n_ref = _blockq_outputs()
     if fault == "zeroed_lag":
-        out = _blockq_outputs(margin=0.0)
+        out, n = _blockq_outputs(margin=0.0)
+        kc.assert_outputs_close(out, ref, torch.bfloat16, "blockq")
+        assert (n - n_ref).abs().max().item() > 2 + 0.01 * n_ref.max().item()
+        clip = dataclasses.replace(fq.KERNEL_GEOMETRY, requantize=False)
+        ref, _ = _blockq_outputs(geometry=clip)
+        out, _ = _blockq_outputs(margin=0.0, geometry=clip)
         for dtype in (torch.float32, torch.bfloat16):
             with pytest.raises(AssertionError):
                 kc.assert_outputs_close(out, ref, dtype, "blockq")
     else:
-        out = _blockq_outputs(margin=1.0)
+        out, _ = _blockq_outputs(margin=1.0)
         assert (out != ref).any()
         kc.assert_outputs_close(out, ref, torch.bfloat16, "blockq")
 

@@ -4,7 +4,8 @@ A CUDA kernel has no interpret mode, so this test compiles each
 ``cdfo_tpu_torch/csrc/*.cu`` built on ``conv3x3_tile.cuh`` (Block_, its
 body pair, group tail, head, alignment tail, the two MDTA passes, the two
 dual-MSA passes with their reduction launch, EGLA's eg1 with its two
-launches and eg2, the int8 Block_, the block warp, EGLA's long-range
+launches and eg2, the int8 Block_ with its second launch, the block
+warp, EGLA's long-range
 attention, and the trunk probes:
 the dot probes with their partial-sum launch and the DMA probes) with the
 host C++ compiler against a small emulation of the CUDA
@@ -29,6 +30,7 @@ tiling and fragment layouts; speed and the real compiler are the card's
 """
 import concurrent.futures
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 
@@ -64,6 +66,8 @@ KERNELS = {
     "body": (fbody, fbody.block_body, fbody.block_body_plain, "fused_block"),
     "block": (fb, fb.scale_block, fb.scale_block_plain, "fused_block2"),
     "blockq": (fq, fq.scale_block_q, fq.scale_block_q_plain, "fused_block2_q"),
+    "blockq_again": (fq, fq.scale_block_q, fq.scale_block_q_plain,
+                     "fused_block2_q"),
     "group": (fg, fg.grouptail, fg.grouptail_plain, "fused_groupconv"),
     "head": (fh, fh.fused_head, fh.fused_head_plain, "fused_head"),
     "tail": (ft, ft.resblock_pair, ft.resblock_pair_plain, "fused_tail"),
@@ -171,6 +175,10 @@ template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int by
   return bytes <= 232448 ? 0 : 1;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  memset(p, v, n);
+  return 0;
+}
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 // a card of 2 SMs, so that a block sums several tiles and the reduction
@@ -533,6 +541,7 @@ inline void stsm_x2_trans(void* row, uint32_t r0, uint32_t r1) {
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline float atomicAdd(float* p, float v) {
   static std::mutex m;
   std::lock_guard<std::mutex> lock(m);
@@ -769,13 +778,19 @@ WARP_SHAPE = (3, 5, 20, 36)
 # the int8 Block_'s bright rows: the top step's own, out of every later
 # step's windows (their xm, z and y windows start at row 6 and below)
 BRIGHT_ROWS, BRIGHT = 6, 40.0
+# steps past their lagged scale, which the walk lists and its second launch
+# runs again (``blockq_again``): a lone bright pixel in the first strip's
+# top step (past the step-0 bound), the last step's rows 18-23 (out of the
+# windows of the steps above) in both strips; three listed steps over the
+# emulated card's 2 SMs
+AGAIN_PIXEL, AGAIN_ROWS = (3, 4), 18
 EGLA_SHAPES = {"eg1": (3, 5, 140, 64), "eg2": (3, 8, 16, 64),
                "eg2_odd": (5, 8, 8, 64)}
 ALIGN_EMBED_SHAPES = {"mdta1": (1, 5, 129), "mdta2": (1, 7, 129),
                       "msa2": (3, 10, 19)}
 # the kinds whose inputs and tolerances are another kind's, at shapes of
 # their own
-SAME_AS = {"msa1_groups": "msa1", "eg2_odd": "eg2"}
+SAME_AS = {"msa1_groups": "msa1", "eg2_odd": "eg2", "blockq_again": "blockq"}
 # (neighbours a centre, (centres, H, W)) of an MSA case with other than 3
 ALIGN_NBR = {"msa1_groups": (1, (3, 10, 19))}
 # the attention (bfloat16: its three routes): columns of a ragged H read in
@@ -797,6 +812,12 @@ def _case(kind, dtype):
         x, *params = kc.trunk_args(kind, dtype, g, SHAPES[kind],
                                    device="cpu")
         x[:, :BRIGHT_ROWS] *= BRIGHT
+        return (x, *params)
+    if kind == "blockq_again":
+        x, *params = kc.trunk_args("blockq", dtype, g, SHAPES["blockq"],
+                                   device="cpu")
+        x[:, AGAIN_ROWS:] *= BRIGHT
+        x[:, AGAIN_PIXEL[0], AGAIN_PIXEL[1]] *= BRIGHT
         return (x, *params)
     if kind in SHAPES:
         return kc.trunk_args(kind, dtype, g, SHAPES[kind],
@@ -820,7 +841,11 @@ def _case(kind, dtype):
 
 def _route_through(monkeypatch, lib):
     """The wrappers' kernel route on CPU tensors, through the emulated
-    library."""
+    library. Every wrapper's launch count is put back after the test, so
+    that tests run after it in the same process find the counts that the
+    CPU route leaves (it launches nothing)."""
+    for _, wrapper, _, _ in (*KERNELS.values(), *PROBES.values()):
+        monkeypatch.setattr(wrapper, "launches", wrapper.launches)
 
     def kernel_function(name, symbol, argtypes):
         fn = getattr(lib, symbol)
@@ -859,6 +884,13 @@ def test_emulated_kernel_matches_plain(emulated, monkeypatch, kind, dtype):
         # the third step on its own scale: its lagged y scales come from the
         # bright first step (the running max), not from the dim second one
         kc.assert_outputs_close(out[:, 16:], ref[:, 16:], dtype, kind)
+    if kind == "blockq_again":
+        # the listed steps ran again: their clipped output would fail
+        clip = dataclasses.replace(fq.KERNEL_GEOMETRY, requantize=False)
+        with torch.no_grad():
+            err, scale = kc.worst_error(plain(*args, geometry=clip), ref,
+                                        "blockq")
+        assert err > kc.tolerance(dtype, "blockq") * scale
 
 
 def _unnormalised_rounding(q, v):

@@ -197,6 +197,9 @@ def test_attention_wrappers_refuse_grad_on_the_card(monkeypatch, kind):
     fn, ref_fn = ((tfa.token_self_attention, jfa.token_self_attention)
                   if kind == "token" else
                   (tfa.column_self_attention, jfa.column_self_attention))
+    # the stand-in's count is put back after the test, so that tests run
+    # after it in the same process find the CPU route's counts
+    monkeypatch.setattr(fn, "launches", fn.launches)
     shape = (2, 8, 64) if kind == "token" else (1, 8, 4, 64)
     r = np.random.RandomState(2)
     qn, vn, gn = ((r.randn(*shape) * s).astype(np.float32)
