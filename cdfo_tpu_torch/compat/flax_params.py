@@ -3,14 +3,21 @@
 The port's parameter names are the reference torch ``state_dict`` keys, the
 names ``cdfo_tpu.compat.torch_convert.flax_to_torch_key`` emits. That module
 cannot be imported without JAX, so its key mapping is copied here (the part
-the CVSR_V8 slice reaches) and each array transform is inverted:
+the model zoo reaches) and each array transform is inverted:
 
   conv kernel (kh, kw, in, out)            -> weight (out, in, kh, kw)
   conv-transpose kernel (kh, kw, in, out)  -> weight (in, out, kh, kw)
   LayerNorm {weight, bias}                 -> body.{weight, bias}
+  raw DCN weight (kh, kw, in, out)         -> weight (out, in, kh, kw)
   EGLA 9-tap directW1/directH1 vectors     -> (1, 1, 1, 9) / (1, 1, 9, 1)
+  EGLA1 9-tap directW/directH vectors      -> (1, 1, 9, 1) / (1, 1, 1, 9)
                                               weights and (1,) biases
   flax ``name_N`` Sequential names         -> torch ``name.N``
+
+A variant wrapper's leading ``body`` scope (CVSR_V9's) has no torch
+counterpart and is dropped; a scan trunk's stacked ``groups/g`` tree is
+unstacked into the unrolled ``body_{i}`` groups first
+(``scan_params.from_scan_trunk``).
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ from typing import Any, Callable, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from .scan_params import from_scan_trunk
 
 # flax module names whose trailing _N maps to a torch Sequential index
 _SEQUENTIAL = {
@@ -33,7 +42,10 @@ _RENAMES = {
     "transformer_feature_extraction": "transformer_feature_extraction.path1",
 }
 
-_DIRECT_SHAPES = {"directW1": (1, 1, 1, 9), "directH1": (1, 1, 9, 1)}
+# EGLA's (1, 9) / (9, 1) convs; EGLA1 swaps them: its directW_conv is (9, 1)
+# along positions, its directH_conv (1, 9) along channels
+_DIRECT_SHAPES = {"directW1": (1, 1, 1, 9), "directH1": (1, 1, 9, 1),
+                  "directW": (1, 1, 9, 1), "directH": (1, 1, 1, 9)}
 
 
 def _segment_to_torch(seg: str) -> str:
@@ -53,8 +65,11 @@ def flax_to_torch(path: Tuple[str, ...], norm: bool = False
                   ) -> Tuple[str, Callable]:
     """Map a flax param path to (torch state_dict key, flax -> torch array
     transform). ``norm``: the leaf belongs to a ChannelLayerNorm (whose
-    params are a ``weight`` and a ``bias``)."""
+    params are a ``weight`` and a ``bias``); a ``weight`` leaf outside one
+    is a deformable conv's raw weight."""
     segs = [s for s in path if s != "msa"]  # _GateMSA params live flat
+    if segs[0] == "body":   # a variant wrapper's scope (CVSR_V9)
+        segs = segs[1:]
     leaf = segs[-1]
 
     def t_conv(a):  # (kh, kw, in/g, out) -> (out, in/g, kh, kw)
@@ -80,9 +95,11 @@ def flax_to_torch(path: Tuple[str, ...], norm: bool = False
         return key(_join(segs[:-1]), "weight"), t_conv_t
     if norm and leaf in ("weight", "bias"):
         return key(_join(segs[:-1]), f"body.{leaf}"), identity
-    if leaf == "bias":  # ConvTranspose2d bias
+    if leaf == "weight":  # a deformable conv's raw (kh, kw, in, out)
+        return key(_join(segs[:-1]), "weight"), t_conv
+    if leaf == "bias":  # ConvTranspose2d or deformable conv bias
         return key(_join(segs[:-1]), "bias"), identity
-    m = re.fullmatch(r"(direct[WH]1)_(kernel|bias)", leaf)
+    m = re.fullmatch(r"(direct[WH]1?)_(kernel|bias)", leaf)
     if m:
         name, kind = m.groups()
         base = _join(segs[:-1])
@@ -93,10 +110,19 @@ def flax_to_torch(path: Tuple[str, ...], norm: bool = False
     raise KeyError(f"no rule for flax path {path}")
 
 
+def _is_dcn(prefix) -> bool:
+    """A deformable conv's scope: its ``weight`` is a raw conv weight
+    (``cdfo_tpu``'s converter's rule: ``mdc`` / ``dc`` packs and the
+    ``*deform_align`` aligners)."""
+    return bool(prefix) and (prefix[-1] in ("mdc", "dc")
+                             or prefix[-1].endswith("deform_align"))
+
+
 def _flatten(tree: Mapping[str, Any], prefix=()):
     """Yields (path, leaf, norm); a dict holding a ``weight`` leaf is a
-    LayerNorm (convolutions hold a ``kernel``)."""
-    norm = "weight" in tree
+    LayerNorm (convolutions hold a ``kernel``), unless it is a deformable
+    conv's."""
+    norm = "weight" in tree and not _is_dcn(prefix)
     for k, v in tree.items():
         if isinstance(v, Mapping):
             yield from _flatten(v, prefix + (k,))
@@ -110,6 +136,7 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     float32 CPU tensors, for ``module.load_state_dict``."""
     if set(params) == {"params"}:
         params = params["params"]
+    params = from_scan_trunk(params)
     sd = {}
     for path, leaf, norm in _flatten(params):
         tkey, transform = flax_to_torch(path, norm)

@@ -1,6 +1,7 @@
 """Released CDFO checkpoints (``.pth`` ``state_dict``s of the reference's
 `arch/SIDECVSR_our.py` models, e.g. ``LD_QP37_J_epoch-9500.pth``,
-`test_LD_37.py:123`) into the port's ``CVSRV8``.
+`test_LD_37.py:123`) into the port's models (``CVSRV8`` and its
+ablations, ``CVSRV9``, ``CVSRV7``, ``SIDECVSRModel``).
 
 The port's parameters carry the reference's ``state_dict`` names and
 layouts, so a checkpoint loads by name. Keys of reference submodules that

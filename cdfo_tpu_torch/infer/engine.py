@@ -40,10 +40,18 @@ class BatchedStreamingEngine:
     and every step's) draws its gumbel noise from ``generator`` (on that
     device; seeded with 0 if not given), which every ``run_sequence``
     restarts from the state it had here, as the JAX engine restarts from
-    its ``mask_rng``: timed and untimed runs draw the same noise."""
+    its ``mask_rng``: timed and untimed runs draw the same noise. It runs
+    the CVSR_V8 family (V8 and its ablations), whose ``compensate_frames``
+    and ``align_reconstruct`` it calls; the other models run per window
+    (``StreamingInferencer``)."""
 
     def __init__(self, model, k: int = 4, nframes: int = 7,
                  generator: torch.Generator | None = None):
+        if not model.cfg.v8_family:
+            raise ValueError(
+                f"BatchedStreamingEngine runs the CVSR_V8 family; "
+                f"{model.cfg.name} runs per window through "
+                "infer.pipeline.StreamingInferencer")
         self.model = model
         self.k = k
         self.n = nframes

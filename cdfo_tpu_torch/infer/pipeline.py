@@ -67,16 +67,23 @@ class SequenceData:
 
 
 class StreamingInferencer:
-    """The per-window driver: one ``CVSRV8.forward`` per output frame, the
-    first on the full window, every later one with the previous window's
-    L1 features as ``pre_l1``. Runs on the device of ``model``'s
-    parameters. Under ``mask_mode="sample"`` the EGLA mask's gumbel noise
-    is drawn per window from ``generator`` (on that device; seeded with 0
-    if not given), which every ``run_sequence`` restarts from the state it
-    had here, as the JAX driver restarts from its ``mask_rng``."""
+    """The per-window loop: one ``forward`` per output frame, the first
+    on the full window, every later one with the previous window's L1
+    features as ``pre_l1``, for the models whose forward takes (lrs, mvs0,
+    mvs1, pms, rms, ufs): the CVSR_V8 family, CVSR_V9 and CVSR_V7. Runs on
+    the device of ``model``'s parameters. Under ``mask_mode="sample"`` the
+    EGLA mask's gumbel noise is drawn per window from ``generator`` (on
+    that device; seeded with 0 if not given), which every ``run_sequence``
+    restarts from the state it had here, as the JAX loop restarts from its
+    ``mask_rng``."""
 
     def __init__(self, model, nframes: int = 7,
                  generator: Optional[torch.Generator] = None):
+        if not getattr(model, "takes_mv_pair", False):
+            raise ValueError(
+                "StreamingInferencer drives forward(lrs, mvs0, mvs1, pms, "
+                f"rms, ufs); {type(model).__name__} does not take that "
+                "signature: call its forward directly")
         self.model = model
         self.nframes = nframes
         self.device = next(model.parameters()).device

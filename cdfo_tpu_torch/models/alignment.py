@@ -10,6 +10,10 @@ residual blocks. The MSA's parameters live flat on the module
 (``conv_du``, ``temperature``, ``project_out``), as in the reference
 ``state_dict``.
 
+The wo-MV ablation (``use_mv=False``) keeps only the prediction-feature
+MSA (k = pred, unfused), the wo-Pd one (``use_pd=False``) only the warped
+MSA (k = warped); both then run the same aggregation and tail.
+
 With ``center`` given (the ``fused_trunk`` path), the tail after the
 CALayer gate is one ``ops/fused_tail.resblock_pair`` call, which applies the
 gate and adds ``center[b // nbr]`` itself (JAX ``_fast_tail``); its
@@ -41,9 +45,11 @@ class DualAttAlignment(nn.Module):
     frames that ``x`` repeats."""
 
     def __init__(self, dim: int = 64, num_heads: int = 4,
+                 use_mv: bool = True, use_pd: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
+        self.use_mv, self.use_pd = use_mv, use_pd
         self.fusion_out = nn.Sequential(
             Conv2d(dim * 2, dim, 1, bias=False, dtype=dtype))
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
@@ -113,11 +119,17 @@ class DualAttAlignment(nn.Module):
 
     def forward(self, x, extra_feat, pred_feat, flow, warped_feat=None,
                 center=None):
-        if warped_feat is None:
-            warped_feat = flow_warp(extra_feat, flow)
-        fused = torch.relu(self.fusion_out(
-            torch.cat([warped_feat, pred_feat], dim=-1)))
-        out = self._gate_msa(x, fused, (warped_feat, pred_feat))
+        if not self.use_mv:       # woMV: extra_feat and flow unread
+            out = self._gate_msa(x, pred_feat, (pred_feat,))
+        else:
+            if warped_feat is None:
+                warped_feat = flow_warp(extra_feat, flow)
+            if not self.use_pd:   # woPd: pred_feat unread
+                out = self._gate_msa(x, warped_feat, (warped_feat,))
+            else:
+                fused = torch.relu(self.fusion_out(
+                    torch.cat([warped_feat, pred_feat], dim=-1)))
+                out = self._gate_msa(x, fused, (warped_feat, pred_feat))
         out = torch.relu(self.fusion_out(torch.cat([out, x], dim=-1)))
         if center is not None:
             gate = self.CALayer.conv_du(out.mean(dim=(1, 2), keepdim=True))

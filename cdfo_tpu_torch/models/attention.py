@@ -48,7 +48,8 @@ def _channel_attention(q, k, v, temperature, num_heads):
 
 
 class MDTA(nn.Module):
-    """Multi-DConv-Head Transposed Attention over channels (bias-free)."""
+    """Multi-DConv-Head Transposed Attention over channels, bias-free (JAX
+    ``use_bias=False``, which every model of the zoo builds)."""
 
     def __init__(self, dim: int, num_heads: int = 8,
                  dtype: torch.dtype = torch.float32):
@@ -92,6 +93,8 @@ def _conv9_along(x, kernel, bias, axis):
         out = torch.matmul(x, m)
     elif axis == 1 and x.ndim == 4:
         out = torch.einsum("bhwc,hg->bgwc", x, m)
+    elif axis == 1 and x.ndim == 3:
+        out = torch.einsum("thc,hg->tgc", x, m)
     else:
         raise NotImplementedError(axis)
     return out.float() + bias

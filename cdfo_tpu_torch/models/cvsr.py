@@ -34,7 +34,18 @@ EGLA (``RDAB``, in ``compensate_frames`` and ``forward``) as the two
 attention then runs in the model's dtype (the unfused EGLA's promotes to
 float32). ``cfg.trunk_int8`` (under ``fused_trunk``) runs the trunk's
 ``Block_`` as the int8 kernel of ``ops/fused_block2_q`` (approximate), and
-``cfg.block_warp`` the neighbour warp as ``ops/warp_block``.
+``cfg.block_warp`` the neighbour warp as ``ops/warp_block``;
+``cfg.scan_trunk`` recomputes each trunk group in the backward pass.
+
+The paper's ablations drop a branch each, as ``cdfo_tpu``'s CVSRV8 does,
+with the modules of the dropped branch left out: ``use_pab=False`` (woPAB)
+embeds without the partition branch (``PartitionTransformerSAWoPAB``, no
+``conv_second``); ``use_la=False`` (woLA) compensates with ``EGLAwoLA`` on
+the bare feature (no ``conv_expand_rms``); ``use_ga=False`` (woGA) with
+``EGLAwoGA``; ``use_egla=False`` adds the residual prior with no attention;
+``use_mv=False`` (woMV) aligns with no warp; ``use_pd=False`` (woPd) with no
+prediction branch (no ``conv_expand_ufs``; ``compensate_frames`` returns
+zeros for its prior, as ``cdfo_tpu``'s does).
 
 The model is built on the card unless the caller asks for another device.
 """
@@ -54,45 +65,55 @@ from ..ops.warp import flow_warp_ring
 from ..ops.warp_block import flow_warp_ring_block
 from .alignment import DualAttAlignment
 from .attention import EGLA
-from .layers import Conv2d, init_weights, lrelu
+from .attention_variants import EGLAwoGA, EGLAwoLA
+from .layers import Conv2d, check_device, init_weights, lrelu
 from .prior_encoder import (PartitionTransformerSA2,
-                            PartitionTransformerSA2Fast)
-from .trunk import SCNetS
+                            PartitionTransformerSA2Fast,
+                            PartitionTransformerSAWoPAB)
+from .trunk import SCNetS, SCNetSScan
 from .trunk_fast import SCNetFast
 
 
 class CVSRV8(nn.Module):
-    """CVSR_V8 built on ``device`` (the card by default; ``"cpu"`` runs
-    every kernel's plain version) with weights drawn from ``generator`` (a
+    """CVSR_V8 (or one of its ablations, by ``cfg``) built on ``device``
+    (the card by default; ``"cpu"`` runs every kernel's plain version)
+    with weights drawn from ``generator`` (a
     CPU ``torch.Generator``; load trained or converted weights with
     ``load_state_dict``, a released checkpoint with
     ``compat.load_reference_checkpoint``). With ``capture_features`` each
     ``forward`` keeps its aligned features (B, N, H, W, nf) in
     ``intermediates["aligned_fea"]`` (the reference's featuremap_visual)."""
 
+    # forward(lrs, mvs0, mvs1, pms, rms, ufs, pre_l1): the per-window
+    # signature that StreamingInferencer drives
+    takes_mv_pair = True
+
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  device: torch.device | str = "cuda",
                  capture_features: bool = False):
         super().__init__()
-        if torch.device(device).type == "cuda" and \
-                not torch.cuda.is_available():
-            raise RuntimeError(
-                "CVSRV8 runs on the card by default and no CUDA device is "
-                "available; pass device='cpu' to run the plain versions of "
-                "the kernels on the CPU")
+        check_device(device, type(self).__name__)
         self.cfg = cfg
         self.capture_features = capture_features
         self.intermediates = {}
+        if not cfg.v8_family and type(self) is CVSRV8:
+            raise ValueError(f"CVSRV8 builds the CVSR_V8 family, not "
+                             f"{cfg.name!r} (models.build_model does)")
         nf, dt = cfg.nf, cfg.compute_dtype
         self.conv_first = Conv2d(1, nf, 3, 1, 1, dtype=dt)
-        self.conv_second = Conv2d(1, nf, 3, 1, 1, dtype=dt)
-        gcpi = (PartitionTransformerSA2Fast if cfg.fused_embed
-                else PartitionTransformerSA2)
+        if cfg.use_pab:
+            self.conv_second = Conv2d(1, nf, 3, 1, 1, dtype=dt)
+            gcpi = (PartitionTransformerSA2Fast if cfg.fused_embed
+                    else PartitionTransformerSA2)
+        else:
+            gcpi = PartitionTransformerSAWoPAB
         self.transformer_feature_extraction = nn.ModuleDict({
             "path1": gcpi(nf, cfg.mdta_heads, dtype=dt)})
         self.conv_expand_fea_r = Conv2d(2 * nf, nf, 3, 1, 1, dtype=dt)
-        self.conv_expand_ufs = Conv2d(1, nf, 3, 1, 1, dtype=dt)
-        self.conv_expand_rms = Conv2d(1, nf, 3, 1, 1, dtype=dt)
+        if cfg.use_pd:
+            self.conv_expand_ufs = Conv2d(1, nf, 3, 1, 1, dtype=dt)
+        if cfg.use_la or not cfg.use_egla:
+            self.conv_expand_rms = Conv2d(1, nf, 3, 1, 1, dtype=dt)
         # tsa_fusion is a 1x1 conv over the frame-major (N*nf) channel
         # concat; it is applied as a frame contraction (see _tsa)
         self.tsa_fusion = Conv2d(cfg.nframes * nf, nf, 1, dtype=dt)
@@ -100,19 +121,35 @@ class CVSRV8(nn.Module):
             self.recon_trunk = SCNetFast(nf, cfg.scn_groups, dtype=dt,
                                          use_int8=cfg.trunk_int8)
         else:
-            self.recon_trunk = SCNetS(nf, cfg.scn_groups, dtype=dt)
+            trunk = SCNetSScan if cfg.scan_trunk else SCNetS
+            self.recon_trunk = trunk(nf, cfg.scn_groups, dtype=dt)
         self.upconv1 = Conv2d(nf, nf * 4, 1, dtype=dt)
         self.upconv2 = Conv2d(nf, nf * 4, 1, dtype=dt)
         self.conv_last = Conv2d(nf, 1, 3, 1, 1, dtype=dt)
-        self.MV_deform_align = DualAttAlignment(nf, cfg.align_heads, dtype=dt)
-        self.RDAB = EGLA(nf, fused=cfg.fused_egla, dtype=dt,
-                         mask_mode=cfg.mask_mode)
+        self.MV_deform_align = DualAttAlignment(
+            nf, cfg.align_heads, use_mv=cfg.use_mv, use_pd=cfg.use_pd,
+            dtype=dt)
+        if cfg.use_egla:
+            self.RDAB = self._make_rdab()
         init_weights(self, generator)
         self.to(device)
 
+    def _make_rdab(self) -> nn.Module:
+        """The module in the RDAB slot (CVSR_V9 overrides it)."""
+        cfg = self.cfg
+        if not cfg.use_la:
+            return EGLAwoLA(cfg.nf, dtype=cfg.compute_dtype)
+        if not cfg.use_ga:
+            return EGLAwoGA(cfg.nf, dtype=cfg.compute_dtype)
+        return EGLA(cfg.nf, fused=cfg.fused_egla, dtype=cfg.compute_dtype,
+                    mask_mode=cfg.mask_mode)
+
     def embed(self, frames, pms):
-        """Shared-weight feature extraction: (M, H, W, 1) x2 -> (M, H, W, nf)."""
+        """Shared-weight feature extraction: (M, H, W, 1) x2 -> (M, H, W, nf)
+        (woPAB reads no partition map)."""
         l1 = lrelu(self.conv_first(frames))
+        if not self.cfg.use_pab:
+            return self.transformer_feature_extraction["path1"](l1)
         return self.transformer_feature_extraction["path1"](
             l1, self.conv_second(pms))
 
@@ -120,8 +157,14 @@ class CVSRV8(nn.Module):
         """Spatial-compensate block -> aligner input ``fea_i``; depends on
         the neighbour frame only. fea (M, H, W, nf), rms (M, H, W, 1);
         ``generator`` / ``gumbel_u``: the sampled EGLA mask's noise."""
-        rms_prior = self.conv_expand_rms(rms)
-        x_n = self.RDAB(rms_prior, fea + rms_prior, generator, gumbel_u)
+        cfg = self.cfg
+        if not cfg.use_egla:
+            x_n = fea + self.conv_expand_rms(rms)
+        elif not cfg.use_la:      # woLA: no residual branch at all
+            x_n = self.RDAB(fea)
+        else:
+            rms_prior = self.conv_expand_rms(rms)
+            x_n = self.RDAB(rms_prior, fea + rms_prior, generator, gumbel_u)
         return self.conv_expand_fea_r(torch.cat([fea, x_n], dim=-1))
 
     def _tsa(self, nbr, center=None):
@@ -175,14 +218,16 @@ class CVSRV8(nn.Module):
         lrs/pms/rms/ufs (M, H, W, 1), priors already max(1, i)-indexed by
         the caller. Returns (l1 (M, H, W, nf), fea_i (M, H, W, nf), the
         compensated feature the neighbour warp samples, and ufs_prior
-        (M, H, W, nf)). Under ``mask_mode="sample"`` the EGLA mask's
-        gumbel noise comes from ``generator`` or is the uniform draw
-        ``gumbel_u`` (M, H, W, nf), as in ``forward``.
+        (M, H, W, nf), zeros under woPd). Under ``mask_mode="sample"`` the
+        EGLA mask's gumbel noise comes from ``generator`` or is the uniform
+        draw ``gumbel_u`` (M, H, W, nf), as in ``forward``.
         """
         dt = self.cfg.compute_dtype
         l1 = self.embed(lrs.to(dt), pms.to(dt))
         fea_i = self._compensate(l1, rms.to(dt), generator, gumbel_u)
-        return l1, fea_i, self.conv_expand_ufs(ufs.to(dt))
+        ufs_p = (self.conv_expand_ufs(ufs.to(dt)) if self.cfg.use_pd
+                 else torch.zeros_like(l1))
+        return l1, fea_i, ufs_p
 
     def align_reconstruct(self, center_l1, center_lr, ring_fi, nbr_ufs_p,
                           nbr_mv, nbr_idx):
@@ -205,14 +250,18 @@ class CVSRV8(nn.Module):
         """``align_reconstruct``'s neighbour warp, with the neighbours
         folded into the batch: (warped (k*(N-1), H, W, nf), ufs prior
         (k*(N-1), H, W, nf), flows (k*(N-1), H, W, 2)), in the compute
-        dtype. With ``cfg.block_warp`` the warp is ``ops/warp_block``'s (one
+        dtype; woMV warps nothing (None) and woPd reads no prior (None).
+        With ``cfg.block_warp`` the warp is ``ops/warp_block``'s (one
         kernel launch on the card, its path chosen per 4x4 block on the
         device)."""
         dt, nf = self.cfg.compute_dtype, self.cfg.nf
         k, nm1 = nbr_idx.shape
         _, h, w, _ = ring_fi.shape
-        ufs_p = nbr_ufs_p.to(dt).reshape(k * nm1, h, w, nf)
+        ufs_p = (nbr_ufs_p.to(dt).reshape(k * nm1, h, w, nf)
+                 if self.cfg.use_pd else None)
         mv = nbr_mv.to(dt).reshape(k * nm1, h, w, 2)
+        if not self.cfg.use_mv:
+            return None, ufs_p, mv
         warp = flow_warp_ring_block if self.cfg.block_warp else flow_warp_ring
         warped = warp(ring_fi.to(dt).contiguous(), nbr_idx.reshape(k * nm1),
                       mv.contiguous())
@@ -225,7 +274,7 @@ class CVSRV8(nn.Module):
         ``fused_align`` the centres are read without broadcasting them."""
         cfg = self.cfg
         k, h, w, nf = center_l1.shape
-        nm1 = warped.shape[0] // k
+        nm1 = mv.shape[0] // k
         if cfg.fused_align:
             aligned = self.MV_deform_align.fused_msa(warped, ufs_p, center_l1)
         else:
@@ -264,9 +313,11 @@ class CVSRV8(nn.Module):
         def nbrs(t):
             return t[:, nbr_idx].reshape(b * (n - 1), h, w, t.shape[-1])
 
-        ufs_prior = self.conv_expand_ufs(nbrs(ufs))
-        fea_i = self._compensate(nbrs(l1_fea), nbrs(rms), generator,
-                                 gumbel_u)
+        ufs_prior = self.conv_expand_ufs(nbrs(ufs)) if cfg.use_pd else None
+        # woMV's alignment never reads the compensated feature (cdfo_tpu's
+        # XLA drops its computation likewise)
+        fea_i = (self._compensate(nbrs(l1_fea), nbrs(rms), generator,
+                                  gumbel_u) if cfg.use_mv else None)
         center_rep = center_fea[:, None].expand(b, n - 1, h, w, cfg.nf) \
             .reshape(b * (n - 1), h, w, cfg.nf)
         aligned = self.MV_deform_align(center_rep, fea_i, ufs_prior,

@@ -39,6 +39,16 @@ def _fill_normal(p: torch.Tensor, std: float, generator: torch.Generator):
         p.copy_(torch.empty(p.shape).normal_(0.0, std, generator=generator))
 
 
+def check_device(device, what: str) -> None:
+    """Raises if ``device`` is the card and there is none: the models build
+    on the card unless the caller asks for the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} runs on the card by default and no CUDA device is "
+            "available; pass device='cpu' to run the plain versions of the "
+            "kernels on the CPU")
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter of ``module`` from ``generator`` (a CPU
     generator; the draws happen on the CPU and are copied into place)."""

@@ -1,5 +1,9 @@
 """Coding-prior (partition-map) feature extraction, the "GCPI" stage
-(counterparts of ``cdfo_tpu/models/prior_encoder.py``)."""
+(counterparts of ``cdfo_tpu/models/prior_encoder.py``): the partition
+branch's U-shaped side encoder, the three shared-weight rounds of
+CVSR_V8 (``PartitionTransformerSA2``, eager or fused), their woPAB ablation
+without the partition branch, and SIDECVSR's four-conv side encoder
+``SideToFea``."""
 from __future__ import annotations
 
 import torch
@@ -34,6 +38,22 @@ class SideToFeaUDSA2(nn.Module):
             ConvTranspose2d(nf, nf, 3, 2, 2, 0, dtype=dtype), act(),
             ConvTranspose2d(nf, nf, 3, 2, 2, 1, dtype=dtype), act(),
             Conv2d(nf, in_f, 3, 1, 1, dtype=dtype), act())
+
+    def forward(self, side):
+        return self.body(side)
+
+
+class SideToFea(nn.Module):
+    """Four 3x3 convs, each followed by lrelu(0.1), from 3 side channels to
+    ``nf`` (`arch/SIDECVSR_our.py:1696-1712`; ``body.0`` ... ``body.6``)."""
+
+    def __init__(self, nf: int = 32, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        layers = []
+        for i in range(4):
+            layers += [Conv2d(3 if i == 0 else nf, nf, 3, 1, 1, dtype=dtype),
+                       nn.LeakyReLU(0.1)]
+        self.body = nn.Sequential(*layers)
 
     def forward(self, side):
         return self.body(side)
@@ -93,4 +113,24 @@ class PartitionTransformerSA2Fast(PartitionTransformerSA2):
             x1 = mdta_stage2(x1, v, x2n.contiguous(), amat.to(x1.dtype), wp,
                              n2["weight"], n2["bias"], wc, self.conv.bias,
                              packed=packed2)
+        return x1
+
+
+class PartitionTransformerSAWoPAB(nn.Module):
+    """The woPAB ablation's feature extractor (`arch/SIDECVSR_our.py:
+    1480-1514`): three shared-weight rounds of x1 + attn(norm1(x1)), then
+    x1 + conv(norm2(x1)), with no partition branch. forward(x1)."""
+
+    def __init__(self, dim: int = 64, num_heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm1 = ChannelLayerNorm(dim)
+        self.norm2 = ChannelLayerNorm(dim)
+        self.attn = MDTA(dim, num_heads, dtype=dtype)
+        self.conv = Conv2d(dim, dim, 3, 1, 1, dtype=dtype)
+
+    def forward(self, x1):
+        for _ in range(3):
+            x1 = x1 + self.attn(self.norm1(x1))
+            x1 = x1 + self.conv(self.norm2(x1))
         return x1

@@ -14,7 +14,10 @@ output, the int8 ``Block_``'s output and the block warp's.
 ``excite_egla_mask`` sets the weights of a model so that its EGLA residual
 mask is one-hot in every frame (under seeded random weights no channel's
 probability reaches the 0.5 threshold, and an all-zero mask zeroes the
-composed q projection of the fused EGLA).
+composed q projection of the fused EGLA). ``zoo_model`` builds a registry
+model so for the card checks, its zero-initialised weights (the deformable
+offset heads) refilled; ``admitted_flags`` lists the kernel flags a CVSR_V8
+ablation's config takes.
 """
 from __future__ import annotations
 
@@ -285,3 +288,47 @@ def excite_egla_mask(model, channel: int = 3) -> None:
     ``CVSRV8``): that channel's softmax probability then passes 0.5 in
     every frame, so the mask is one-hot."""
     model.RDAB.conv_du_re2[0].bias[channel] += 10.0
+
+
+# the CVSR_V8 ablations: the registry's five and the model without EGLA
+ABLATIONS = {"woPAB": dict(use_pab=False), "woLA": dict(use_la=False),
+             "woGA": dict(use_ga=False), "woMV": dict(use_mv=False),
+             "woPd": dict(use_pd=False), "noEGLA": dict(use_egla=False)}
+KERNEL_FLAGS = ("fused_trunk", "fused_embed", "fused_align", "fused_egla",
+                "block_warp")
+
+
+def admitted_flags(ablation: dict) -> dict:
+    """Every kernel flag of ``KERNEL_FLAGS`` that a ``ModelConfig`` with
+    the ``ablation``'s fields takes, added in order (``fused_align`` after
+    ``fused_trunk``, which it needs)."""
+    from ..config import ModelConfig
+    flags = {}
+    for f in KERNEL_FLAGS:
+        try:
+            ModelConfig(**ablation, **flags, **{f: True})
+        except ValueError:
+            continue
+        flags[f] = True
+    return flags
+
+
+@torch.no_grad()
+def zoo_model(cfg, device="cuda"):
+    """The registry's model for ``cfg`` with the seeded weights
+    (``torch.Generator().manual_seed(0)``), the EGLA mask one-hot where the
+    model has the full EGLA, and every all-zero weight of more than one
+    entry (the deformable offset and mask heads, the norms' biases)
+    refilled with seeded values of std 0.05, so that a deformable conv's
+    offsets are more than its flow."""
+    from ..models import build_model
+    from ..models.attention import EGLA
+    model = build_model(cfg.name, cfg, torch.Generator().manual_seed(0),
+                        device=device)
+    if isinstance(getattr(model, "RDAB", None), EGLA):
+        excite_egla_mask(model)
+    g = torch.Generator().manual_seed(1)
+    for p in model.parameters():
+        if p.numel() > 1 and not p.any():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    return model

@@ -13,8 +13,8 @@ to the log. On the card unless ``--cpu`` is given:
 
 ``--test-root`` holds ``<cfg>/qp<QP>/lr_grey/<seq>``,
 ``<cfg>/qp<QP>/sideInfo_QP<QP>/<seq without .yuv>`` and ``gt_Y/<gt seq>``;
-``write_synthetic_tree`` writes such a tree. ``--ckpt``, ``--bf16`` and
-``--fused`` as in ``test_sr``.
+``write_synthetic_tree`` writes such a tree. ``--ckpt``, ``--bf16``,
+``--fused`` and ``--scan-trunk`` as in ``test_sr``.
 """
 from __future__ import annotations
 

@@ -12,7 +12,8 @@ PSNR/SSIM (Y, crop_border=4). On the card unless ``--cpu`` is given:
 (``compat.load_reference_checkpoint``). ``--bf16`` and ``--fused`` (any of
 the ``ModelConfig`` kernel flags) choose the path on the card.
 ``--synthetic`` runs a seeded 9-frame 64x96 sequence through a one-group
-model. ``--scan-trunk`` raises: the scan trunk is not ported.
+model. ``--scan-trunk`` runs the trunk's groups as the scan trunk (the same
+outputs; it cannot be combined with ``--fused fused_trunk``).
 """
 from __future__ import annotations
 
@@ -46,22 +47,20 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fused", nargs="*", default=[], choices=KERNEL_FLAGS,
                    help="ModelConfig kernel flags to switch on")
     p.add_argument("--scan-trunk", action="store_true",
-                   help="scan-over-groups trunk (not ported)")
+                   help="scan trunk: each group recomputed in a backward "
+                        "pass (same outputs)")
 
 
 def model_config(args, **kw) -> ModelConfig:
     """The ``ModelConfig`` that ``add_model_flags``' flags ask for, with
     ``kw``; exits without a card unless ``--cpu`` is given."""
-    if args.scan_trunk:
-        raise NotImplementedError("--scan-trunk waits for the scan trunk "
-                                  "(ROADMAP Queue 1, item 1.6)")
     if not args.cpu and not torch.cuda.is_available():
         sys.exit("the eval tools run on the card and "
                  "torch.cuda.is_available() is False; pass --cpu to run on "
                  "the CPU")
     return ModelConfig(
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        **{f: True for f in args.fused}, **kw)
+        scan_trunk=args.scan_trunk, **{f: True for f in args.fused}, **kw)
 
 
 def load_weights(model: CVSRV8, path: str) -> None:

@@ -16,8 +16,10 @@ sequences of 10 frames at 64x64) and trains a one-group model on batches
 of 2, as the JAX tool does. The model trains with the sampled EGLA mask.
 ``--eval-lr-dir``, ``--eval-side-dir`` and ``--eval-gt-dir`` name one eval
 sequence (``data/io.py``'s eval layout and its GT PNGs) that is scored after
-every checkpoint (``train/loop.py::make_eval_fn``). ``--scan-trunk`` and
-``--distributed`` raise: their work is not ported.
+every checkpoint (``train/loop.py::make_eval_fn``). ``--scan-trunk``
+recomputes each trunk group in the backward pass (not with
+``--fused-trunk``). ``--distributed`` raises: data-parallel training is not
+ported.
 """
 from __future__ import annotations
 
@@ -53,7 +55,8 @@ def parse_args(argv=None):
                    help="train through the hand-written trunk and head "
                         "kernels (recompute backwards, ops/fused_vjp.py)")
     p.add_argument("--scan-trunk", action="store_true",
-                   help="scan-over-groups trunk (not ported)")
+                   help="scan trunk: each group recomputed in the backward "
+                        "pass (less memory, the same math)")
     p.add_argument("--bf16", action="store_true",
                    help="bfloat16 compute, float32 master weights and loss")
     p.add_argument("--eval-lr-dir", default="",
@@ -65,9 +68,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.scan_trunk:
-        raise NotImplementedError("--scan-trunk waits for the scan trunk "
-                                  "(ROADMAP Queue 1, item 1.6)")
     if args.distributed:
         raise NotImplementedError("--distributed waits for data-parallel "
                                   "training (ROADMAP Queue 1, item 1.8)")
@@ -90,6 +90,7 @@ def main(argv=None):
         val_interval=args.val_itv or (400 if is_ra else 200),
         seed=args.seed, ckpt_dir=args.ckpt_dir)
     mkw = dict(mask_mode="sample", fused_trunk=args.fused_trunk,
+               scan_trunk=args.scan_trunk,
                compute_dtype=torch.bfloat16 if args.bf16 else torch.float32)
     model_cfg = ModelConfig(**mkw)
     data_root, spe, synthetic_root = args.data_root, args.steps_per_epoch, None

@@ -125,15 +125,16 @@ def train_loop(model_cfg: ModelConfig, data_cfg: DataConfig,
                on_start: Optional[Callable] = None,
                on_step: Optional[Callable] = None,
                host_id: int = 0, num_hosts: int = 1) -> TrainState:
-    """Trains CVSR_V8 on the CVCP tree at ``data_root`` and returns the
-    final ``TrainState``; resumes from the newest checkpoint of the run's
-    directory. The model is built on ``device`` (the card unless the
-    caller asks for the CPU) from ``train_cfg.seed``; under
-    ``mask_mode="sample"`` its gumbel noise comes from a generator on that
-    device seeded likewise. ``on_start(state)``, if given, is called once
-    before the first step (after a resume), ``on_step(state, loss)`` after
-    each step (the loss a device scalar). ``eval_fn(state, epoch)``, if
-    given (``make_eval_fn``), runs after each checkpoint."""
+    """Trains CVSR_V8 (or an ablation of it: ``model_cfg``) on the CVCP
+    tree at ``data_root`` and returns the final ``TrainState``; resumes
+    from the newest checkpoint of the run's directory. The model is built
+    on ``device`` (the card unless the caller asks for the CPU) from
+    ``train_cfg.seed``; under ``mask_mode="sample"`` its gumbel noise comes
+    from a generator on that device seeded likewise. ``on_start(state)``,
+    if given, is called once before the first step (after a resume),
+    ``on_step(state, loss)`` after each step (the loss a device scalar).
+    ``eval_fn(state, epoch)``, if given (``make_eval_fn``), runs after each
+    checkpoint."""
     if log_dir is not None:
         raise NotImplementedError(
             "TensorBoard scalars are not ported; the loop writes its JSONL "

@@ -142,7 +142,26 @@ CUDA device the script exits non-zero before printing any result):
    (``BASELINE.md``), and beside them, on the same weights, the TPU's int8
    scheme (its kernel's steps, clipping; the plain version, on the CPU) and
    the bfloat16 trunks' PSNRs;
-   (f) ``tools/gumbel_variance`` at 4 seeds: the sampled PSNRs differ.
+   (f) ``tools/gumbel_variance`` at 4 seeds: the sampled PSNRs differ;
+9. the model zoo: (a) card against CPU (float32, TF32 off, phase 4's size,
+   the same weights): each CVSR_V8 ablation (woPAB, woLA, woGA, woMV, woPd,
+   no EGLA) through the engine unfused and with every kernel flag it
+   admits (woPd also with ``trunk_int8``), CVSR_V9 (``fused_trunk``) and
+   CVSR_V7 through the inferencer, uint8 within 1 LSB; SIDECVSR's forward
+   with and without ``pre_l1`` within 1e-4; (b) each ablation at full
+   width (nf 64, 7 groups, bf16, ``BatchedStreamingEngine(k=4)``, 12
+   frames of 272x480) unfused and with its flags and ``trunk_int8``: fps,
+   peak memory, each kernel's launches against the table of the modules
+   it keeps, the fused frames >= 30 dB from the unfused; (c) CVSR_V9
+   (``fused_trunk`` + ``fused_embed``, then with ``trunk_int8``) and
+   CVSR_V7 through ``StreamingInferencer`` on 8 frames of 272x480, bf16:
+   fps by the JAX protocol, peak memory, launches per window; SIDECVSR
+   over 8 windows: ms per window, peak memory; (d) two LD-preset train
+   steps unrolled against ``scan_trunk`` (same weights, batch and gumbel
+   draw, deterministic algorithms): losses within 1e-4, parameters within
+   1e-3 relative L2, both peaks. Zoo models get the seeded weights with
+   every all-zero weight (CVSR_V7's offset heads, the norms' biases)
+   refilled with seeded values.
 
 Every model gets the same seeded weights with its EGLA residual mask made
 one-hot (``kernel_cases.excite_egla_mask``; under random weights it is all
@@ -164,8 +183,9 @@ one LD training step's forward, and the kernels the inferencer runs with
 
     python3 chip_smoke.py --train
     python3 chip_smoke.py --eval
+    python3 chip_smoke.py --zoo
 
-build the kernels and run phase 7, or phase 8, alone.
+build the kernels and run phase 7, phase 8 or phase 9 alone.
 
     python3 chip_smoke.py --profile
 
@@ -197,6 +217,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import dataclasses
 import ctypes
 import json
 import math
@@ -2220,6 +2241,305 @@ def check_eval(card: str) -> dict:
     return per_window
 
 
+# -- phase 9: the model zoo --------------------------------------------------------
+
+# the ablation whose small slice also runs the int8 trunk on the card
+ZOO_INT8_SMALL = "woPd"
+ZOO_FRAMES = 8
+
+
+def zoo_launches(cfg: ModelConfig, calls: int, steps: int) -> dict:
+    """Kernel launches of an engine run of ``cfg`` with ``calls``
+    ``compensate_frames`` and ``steps`` ``align_reconstruct`` calls: the
+    table of phase 5, less the kernels of the modules an ablation drops."""
+    want = {k: 0 for k in launch_counts()}
+    if cfg.use_la and cfg.use_ga and cfg.use_egla:
+        if cfg.fused_egla:
+            want.update(column=calls, eg1=calls, eg2=calls)
+        else:
+            want.update(token=calls, column=calls)
+    if cfg.fused_embed:
+        want.update({k: n * calls for k, n in EMBED_LAUNCHES.items()})
+    if cfg.fused_trunk:
+        want.update({k: n * steps for k, n in TRUNK_LAUNCHES.items()})
+        if cfg.trunk_int8:
+            want.update(block=0, blockq=TRUNK_LAUNCHES["block"] * steps)
+    if cfg.fused_align:
+        want.update({k: n * steps for k, n in ALIGN_LAUNCHES.items()})
+    if cfg.block_warp:
+        want["warp"] = steps
+    return want
+
+
+def check_zoo_small() -> None:
+    """Phase 9(a): card (kernels) against CPU (plain versions) on the same
+    weights, float32, TF32 off, phase 4's size: each CVSR_V8 ablation
+    through the engine unfused and with every kernel flag it admits (woPd
+    also with ``trunk_int8``), uint8 within 1 LSB; CVSR_V9 with
+    ``fused_trunk`` and CVSR_V7 through the inferencer, within 1 LSB;
+    SIDECVSR's forward with and without ``pre_l1`` within 1e-4 of the
+    CPU's largest value."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = synthetic_sequence(t=9, h=16, w=24, seed=3)
+
+    def compare(label, run, limit=1):
+        out = {dev: run(dev) for dev in ("cpu", "cuda")}
+        diff = np.abs(out["cuda"].astype(np.int32) - out["cpu"])
+        print(f"zoo small ({label}, nf=64, 2 groups, 16x24, fp32): card vs "
+              f"CPU max diff {diff.max()} LSB over {diff.size} pixels",
+              flush=True)
+        if diff.max() > limit or out["cuda"].std() == 0:
+            raise AssertionError(f"zoo small {label}: card disagrees")
+
+    for name, ablation in kc.ABLATIONS.items():
+        settings = [{}, kc.admitted_flags(ablation)]
+        if name == ZOO_INT8_SMALL:
+            settings.append(dict(settings[1], trunk_int8=True))
+        for flags in settings:
+            cfg = ModelConfig(scn_groups=2, **ablation, **flags)
+            compare(f"{name} engine k=4 {flags}", lambda dev, cfg=cfg:
+                    BatchedStreamingEngine(kc.zoo_model(cfg, dev), k=4)
+                    .run_sequence(data)[0])
+    short = synthetic_sequence(t=5, h=16, w=24, seed=3)
+    for name, flags in (("cvsr_v9", dict(fused_trunk=True)), ("cvsr_v7", {})):
+        cfg = ModelConfig(name=name, scn_groups=2, **flags)
+        compare(f"{name} inferencer {flags}", lambda dev, cfg=cfg:
+                StreamingInferencer(kc.zoo_model(cfg, dev)).run_sequence(
+                    short)[0])
+    cfg = ModelConfig(name="sidecvsr", scn_groups=2)
+    r = np.random.RandomState(4)
+    x, pms, rms, ufs = (torch.from_numpy(r.rand(1, 7, 16, 24, 1)
+                                         .astype(np.float32))
+                        for _ in range(4))
+    mvs = torch.from_numpy((r.randn(1, 7, 16, 24, 2) * 2).astype(np.float32))
+    pre = torch.from_numpy(r.rand(1, 7, 16, 24, 64).astype(np.float32))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        model = kc.zoo_model(cfg, dev)
+        with torch.no_grad():
+            outs[dev] = [model(*(t.to(dev) for t in (x, mvs, pms, rms, ufs)),
+                               pre_l1=p)[0].cpu()
+                         for p in (None, pre.to(dev))]
+    for label, a, b in zip(("no pre_l1", "pre_l1"), outs["cuda"], outs["cpu"]):
+        err = (a - b).abs().max().item() / b.abs().max().item()
+        print(f"zoo small (sidecvsr forward, {label}, nf=64, 2 groups, "
+              f"16x24, fp32): card vs CPU rel err {err:.3e}", flush=True)
+        if not err <= 1e-4:
+            raise AssertionError(f"sidecvsr {label}: card disagrees")
+
+
+def run_zoo_slice(card: str, name: str, flags: dict):
+    """Phase 9(b) for one ablation and one setting of the flags: CVSR_V8
+    nf 64, 7 groups, bf16, ``BatchedStreamingEngine(k=4)`` on 12 frames of
+    272x480, timed; returns (frames, launches, fps, peak GiB)."""
+    t, k = 12, 4
+    cfg = ModelConfig(compute_dtype=torch.bfloat16, **kc.ABLATIONS[name],
+                      **flags)
+    eng = BatchedStreamingEngine(kc.zoo_model(cfg), k=k)
+    data = synthetic_sequence(t=t, h=272, w=480, seed=0)
+    eng.run_sequence(data)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    frames, fps = eng.run_sequence(data, collect_timing=True)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(range(0, t, k))
+    want = zoo_launches(cfg, 1 + steps, steps)
+    print(f"zoo {name} (CVSR_V8 nf=64, 7 groups, bf16, 272x480 -> "
+          f"1080x1920, k={k}, {t} frames, {flags}): {fps:.3f} fps by the "
+          f"reference protocol, peak memory {peak:.2f} GiB; "
+          f"compensate_frames calls {1 + steps}, align_reconstruct calls "
+          f"{steps}, kernel launches {launches} [{card}]", flush=True)
+    if frames.shape != (t, 1080, 1920) or frames.std() == 0:
+        raise AssertionError(f"zoo {name}: frames {frames.shape}")
+    if launches != want:
+        raise AssertionError(f"zoo {name} {flags}: expected launches {want}, "
+                             f"got {launches}")
+    del eng
+    torch.cuda.empty_cache()
+    return frames, launches, fps, peak
+
+
+def check_zoo_full(card: str) -> dict:
+    """Phase 9(b): each ablation unfused and with every flag it admits plus
+    ``trunk_int8``; the fused frames >= 30 dB from the unfused ones.
+    Returns {ablation: the fused run's launches}."""
+    out = {}
+    for name, ablation in kc.ABLATIONS.items():
+        plain = run_zoo_slice(card, name, {})[0]
+        flags = dict(kc.admitted_flags(ablation), trunk_int8=True)
+        frames, launches, _, _ = run_zoo_slice(card, name, flags)
+        quality = psnr(frames, plain)
+        print(f"zoo {name} {flags}: fused vs unfused uint8 frames PSNR "
+              f"{quality:.3f} dB (limit 30 with trunk_int8)", flush=True)
+        if not quality >= 30.0:
+            raise AssertionError(f"zoo {name}: fused frames are "
+                                 f"{quality:.2f} dB from the unfused ones")
+        out[name] = launches
+    return out
+
+
+def variant_window_launches(cfg: ModelConfig) -> dict:
+    """Launches of one per-window forward of CVSR_V9 / CVSR_V7: CVSR_V8's
+    for the same flags, less EGLA's (their attention variants run no
+    kernel)."""
+    want = window_launches(dataclasses.asdict(cfg))
+    want.update(token=0, column=0)
+    return want
+
+
+def check_zoo_variants(card: str) -> None:
+    """Phase 9(c): CVSR_V9 (``fused_trunk`` + ``fused_embed``, then with
+    ``trunk_int8``) and CVSR_V7 through ``StreamingInferencer`` on 8
+    frames of 272x480 (nf 64, 7 groups, bf16): fps by the JAX protocol,
+    peak memory, launches per window; the int8 V9 >= 30 dB from the exact
+    one. SIDECVSR (4 groups) over 8 windows of 272x480 (the first full,
+    then with ``pre_l1``): ms per window and peak memory."""
+    data = synthetic_sequence(t=ZOO_FRAMES, h=272, w=480, seed=0)
+    frames = {}
+    for name, flags in (("cvsr_v9", dict(fused_trunk=True,
+                                         fused_embed=True)),
+                        ("cvsr_v9", dict(fused_trunk=True, fused_embed=True,
+                                         trunk_int8=True)),
+                        ("cvsr_v7", {})):
+        cfg = ModelConfig(name=name, compute_dtype=torch.bfloat16, **flags)
+        inf = StreamingInferencer(kc.zoo_model(cfg))
+        inf.run_sequence(data)   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out, fps = inf.run_sequence(data, collect_timing=True)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_window = {k: n / ZOO_FRAMES for k, n in launches.items() if n}
+        print(f"zoo {name} inferencer (nf=64, {cfg.scn_groups} groups, "
+              f"bf16, 272x480 -> 1080x1920, {ZOO_FRAMES} frames, {flags}): "
+              f"{fps:.3f} fps forward-only by the JAX protocol, "
+              f"{1e3 / fps:.1f} ms per window, peak memory {peak:.2f} GiB, "
+              f"launches per window {per_window} [{card}]", flush=True)
+        want = {k: n * ZOO_FRAMES
+                for k, n in variant_window_launches(cfg).items()}
+        if launches != want:
+            raise AssertionError(f"zoo {name} {flags}: expected launches "
+                                 f"{want}, got {launches}")
+        if out.shape != (ZOO_FRAMES, 1080, 1920) or out.std() == 0:
+            raise AssertionError(f"zoo {name}: frames {out.shape}")
+        frames[(name, cfg.trunk_int8)] = out
+        del inf
+        torch.cuda.empty_cache()
+    quality = psnr(frames[("cvsr_v9", True)], frames[("cvsr_v9", False)])
+    print(f"zoo cvsr_v9: int8 trunk vs exact trunk PSNR {quality:.3f} dB "
+          "(limit 30)", flush=True)
+    if not quality >= 30.0:
+        raise AssertionError("zoo cvsr_v9: the int8 trunk is "
+                             f"{quality:.2f} dB from the exact one")
+    cfg = ModelConfig(name="sidecvsr", compute_dtype=torch.bfloat16)
+    model = kc.zoo_model(cfg)
+    r = np.random.RandomState(0)
+    x, pms, rms, ufs = (torch.from_numpy(r.rand(1, 7, 272, 480, 1).astype(
+        np.float32)).cuda() for _ in range(4))
+    mvs = torch.from_numpy((r.randn(1, 7, 272, 480, 2) * 4).astype(
+        np.float32)).cuda()
+    times = []
+    with torch.inference_mode():
+        for rep in range(2):   # the first pass warms up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            l1, times = None, []
+            for _ in range(ZOO_FRAMES):
+                t0 = time.perf_counter()
+                sr, l1 = model(x, mvs, pms, rms, ufs, pre_l1=l1)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    later = float(np.mean(times[1:]))
+    print(f"zoo sidecvsr forward (nf=64, 4 groups, bf16, 272x480 -> "
+          f"1080x1920, {ZOO_FRAMES} windows): first window (7 frames "
+          f"embedded) {1e3 * times[0]:.1f} ms, then {1e3 * later:.1f} ms per "
+          f"window with pre_l1 ({1 / later:.3f} windows/s), peak memory "
+          f"{peak:.2f} GiB, kernel launches {sum(launches.values())} "
+          f"[{card}]", flush=True)
+    if any(launches.values()):   # its modules run no kernel of the port
+        raise AssertionError(f"zoo sidecvsr: launches {launches}")
+    if sr.shape != (1, 1088, 1920, 1) or not torch.isfinite(sr).all():
+        raise AssertionError(f"zoo sidecvsr: output {tuple(sr.shape)}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def scan_train_run(scan: bool, batch: dict, u: torch.Tensor):
+    """Two LD-preset train steps (nf 64, 7 groups, the sampled mask, bf16
+    with float32 masters) from the seeded weights: (losses, parameters
+    after, peak GiB)."""
+    cfg = ModelConfig(mask_mode="sample", scan_trunk=scan,
+                      compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = CVSRV8(cfg, torch.Generator().manual_seed(0))
+    state = TrainState(model, TrainConfig())
+    losses = [train_step(state, batch, gumbel_u=u).item() for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    params = {n: p.detach().float().cpu()
+              for n, p in model.state_dict().items()}
+    del state, model
+    return losses, params, peak
+
+
+def check_scan_trunk(card: str) -> None:
+    """Phase 9(d): two LD-preset train steps (batch 20, 7 frames of 64x64)
+    unrolled and with ``scan_trunk``, on the same weights, batch and gumbel
+    draw, with PyTorch's deterministic algorithms (the warp's and the
+    resizes' backward scatter-adds otherwise move the weights whose
+    gradients are at the rounding's size): the losses within 1e-4
+    relative, the parameters after the second step within 1e-3 relative
+    L2; both runs' peak memory."""
+    r = np.random.RandomState(3)
+    b, n, h, w = 20, 7, 64, 64
+    lrs, pms, rms, ufs = (r.rand(b, n, h, w, 1).astype(np.float32)
+                          for _ in range(4))
+    mvs = (r.randn(b, n, h, w, 2) * 0.05).astype(np.float32)
+    batch = {"lrs": lrs, "mvs0": mvs, "mvs1": np.zeros_like(mvs), "pms": pms,
+             "rms": rms, "ufs": ufs,
+             "hr": r.rand(b, 4 * h, 4 * w, 1).astype(np.float32)}
+    u = torch.rand((b * (n - 1), h, w, 64),
+                   generator=torch.Generator().manual_seed(5)).clamp_min(
+        torch.finfo(torch.float32).tiny).cuda()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {scan: scan_train_run(scan, batch, u) for scan in (False, True)}
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = deterministic
+    (l0, p0, m0), (l1, p1, m1) = runs[False], runs[True]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l1, l0))
+    param_err = max((rel_l2(p1[k], p), k) for k, p in p0.items())
+    print(f"scan trunk (LD preset: CVSR_V8 nf=64, 7 groups, batch 20 of 7 "
+          f"64x64 frames, sampled mask, bf16 + fp32 masters, 2 steps, "
+          f"deterministic algorithms): losses unrolled {l0} / scan {l1} "
+          f"(rel {loss_err:.3e}); worst parameter after 2 steps rel L2 "
+          f"{param_err[0]:.3e} ({param_err[1]}); peak memory unrolled "
+          f"{m0:.2f} GiB, scan {m1:.2f} GiB [{card}]", flush=True)
+    if not (loss_err <= 1e-4 and param_err[0] <= 1e-3):
+        raise AssertionError("the scan trunk's training disagrees with the "
+                             "unrolled trunk's")
+
+
+def check_zoo(card: str) -> dict:
+    """Phase 9; returns each ablation's fused-run launches."""
+    check_zoo_small()
+    launches = check_zoo_full(card)
+    check_zoo_variants(card)
+    check_scan_trunk(card)
+    return launches
+
+
 def ptxas_fault(line: str) -> bool:
     """A ptxas line that reports a spill (a non-zero spill store or load)
     or a C75xx warning (``wgmma`` serialized, or a wait or arrive
@@ -2311,6 +2631,9 @@ def main():
     if sys.argv[1:2] == ["--eval"]:
         check_eval(card)
         return
+    if sys.argv[1:2] == ["--zoo"]:
+        check_zoo(card)
+        return
 
     fields = check_kernels(card)
     fields.update(check_trunk_kernels(card))
@@ -2362,6 +2685,7 @@ def main():
     redesign_order(card, fields, launches)
     train_launches = check_training(card)
     window_launches_per_frame = check_eval(card)
+    zoo_launches_per_run = check_zoo(card)
 
     # launches: the four-flag run's; the int8 Block_'s from path A's run and
     # the warp's from path B's
@@ -2384,6 +2708,12 @@ def main():
         # the kernel
         if window_launches_per_frame.get(kind):
             entry["window_launches_per_frame"] = window_launches_per_frame[kind]
+        # each ablation's launches in its full-width run with every flag it
+        # admits and trunk_int8 (phase 9(b))
+        zoo = {name: counts[kind] for name, counts in
+               zoo_launches_per_run.items() if counts.get(kind)}
+        if zoo:
+            entry["zoo_launches_per_run"] = zoo
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

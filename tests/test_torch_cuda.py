@@ -1121,3 +1121,45 @@ def test_model_path_kernel_at_eval_geometries(cuda, kind, h, w, m, e):
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     kc.assert_outputs_close(out, ref, dt, kind)
+
+
+# -- the model zoo: card against CPU ----------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(kc.ABLATIONS))
+def test_ablation_engine_card_matches_cpu(cuda, name):
+    """Each CVSR_V8 ablation with every kernel flag it admits, through the
+    engine at phase 4's size (nf 64, 2 groups, 9 frames of 16x24, k = 4,
+    float32, TF32 off): the card's uint8 frames within 1 LSB of the CPU's
+    (plain versions) on the same weights."""
+    from cdfo_tpu_torch import ModelConfig
+    from cdfo_tpu_torch.infer import BatchedStreamingEngine, synthetic_sequence
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ablation = kc.ABLATIONS[name]
+    cfg = ModelConfig(scn_groups=2, **ablation, **kc.admitted_flags(ablation))
+    data = synthetic_sequence(t=9, h=16, w=24, seed=3)
+    out = {dev: BatchedStreamingEngine(kc.zoo_model(cfg, dev), k=4)
+           .run_sequence(data)[0] for dev in ("cpu", cuda)}
+    diff = abs(out[cuda].astype("int32") - out["cpu"].astype("int32"))
+    assert diff.max() <= 1 and out[cuda].std() > 0, diff.max()
+
+
+@pytest.mark.cuda
+def test_v7_dcn_card_matches_cpu(cuda):
+    """CVSR_V7's deformable alignment (16 deformable groups, the offset
+    heads refilled so the offsets are more than the flow) on the card
+    against the CPU, float32: within 1e-4 of the CPU's largest value."""
+    from cdfo_tpu_torch import ModelConfig
+    torch.backends.cudnn.allow_tf32 = False
+    model = kc.zoo_model(ModelConfig(name="cvsr_v7", scn_groups=1), "cpu")
+    align = model.MV_deform_align
+    g = torch.Generator().manual_seed(2)
+    x, extra, pred = (torch.randn(12, 32, 48, 64, generator=g)
+                      for _ in range(3))
+    flow = torch.randn(12, 32, 48, 2, generator=g) * 3
+    with torch.no_grad():
+        ref = align(x, extra, pred, flow)
+        out = align.to(cuda)(*(t.to(cuda) for t in (x, extra, pred, flow)))
+    err = (out.cpu() - ref).abs().max().item()
+    assert err <= 1e-4 * ref.abs().max().item(), err

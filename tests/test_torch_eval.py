@@ -279,8 +279,10 @@ def test_test_sr_runs_in_process(eval_tree, tmp_path, jax_run):
     out = test_sr.main(["--lr-dir", lr_dir, "--side-dir", side, "--gt-dir",
                         gt_dir, "--cpu", "--save-dir", str(tmp_path / "cli")])
     assert 0 < out["psnr"] < 100 and 0 <= out["ssim"] <= 1
-    with pytest.raises(NotImplementedError, match="1.6"):
-        test_sr.main(["--synthetic", "--cpu", "--scan-trunk"])
+    # the scan trunk is ported; with the fused trunk cdfo_tpu ignores it
+    with pytest.raises(ValueError, match="scan_trunk"):
+        test_sr.main(["--synthetic", "--cpu", "--scan-trunk", "--fused",
+                      "fused_trunk"])
 
 
 def test_eval_jctvc_runs_in_process(eval_tree, tmp_path, capsys):

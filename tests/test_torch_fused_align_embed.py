@@ -280,7 +280,8 @@ def test_config_takes_the_fused_flags_and_refuses_align_alone():
     with pytest.raises(ValueError, match="fused_trunk"):
         ModelConfig(fused_align=True)
     assert ModelConfig(block_warp=True, **FUSED).block_warp
-    with pytest.raises(NotImplementedError, match="scan_trunk"):
+    # cdfo_tpu ignores the scan trunk under the fused trunk
+    with pytest.raises(ValueError, match="scan_trunk"):
         ModelConfig(scan_trunk=True, **FUSED)
 
 

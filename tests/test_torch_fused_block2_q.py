@@ -288,5 +288,6 @@ def test_config_takes_trunk_int8_under_fused_trunk_only():
     assert ModelConfig(trunk_int8=True, fused_trunk=True).trunk_int8
     with pytest.raises(ValueError, match="fused_trunk"):
         ModelConfig(trunk_int8=True)
-    with pytest.raises(NotImplementedError, match="scan trunk"):
+    # cdfo_tpu ignores the scan trunk under the fused trunk
+    with pytest.raises(ValueError, match="scan trunk under the fused trunk"):
         ModelConfig(scan_trunk=True, **FIVE)

@@ -239,5 +239,6 @@ def test_config_takes_four_flags_and_refuses_the_rest():
     assert ModelConfig(fused_egla=True).fused_egla
     for flag in ("trunk_int8", "block_warp"):
         assert getattr(ModelConfig(**{flag: True}, **FOUR), flag)
-    with pytest.raises(NotImplementedError, match="scan trunk"):
+    # cdfo_tpu ignores the scan trunk under the fused trunk
+    with pytest.raises(ValueError, match="scan trunk under the fused trunk"):
         ModelConfig(scan_trunk=True, **FOUR)

@@ -386,7 +386,8 @@ def test_config_takes_fused_trunk_and_refuses_int8():
     assert ModelConfig(fused_trunk=True, trunk_int8=True).trunk_int8
     with pytest.raises(ValueError, match="fused_trunk"):
         ModelConfig(trunk_int8=True)
-    with pytest.raises(NotImplementedError, match="scan trunk"):
+    # cdfo_tpu ignores the scan trunk under the fused trunk
+    with pytest.raises(ValueError, match="scan trunk under the fused trunk"):
         ModelConfig(fused_trunk=True, scan_trunk=True)
 
 

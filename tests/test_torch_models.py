@@ -113,12 +113,18 @@ def test_compensate_frames(models):
 
 
 def test_config_rejects_settings_outside_the_slice():
-    for kw in ({"scan_trunk": True, "fused_egla": True},
-               {"scan_trunk": True, "fused_trunk": True},
-               {"scan_trunk": True},
-               {"use_mv": False}, {"name": "cvsr_v9"},
-               {"compute_dtype": torch.float16}):
-        with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):
+        ModelConfig(compute_dtype=torch.float16)
+    # the model zoo is ported: every registry name, the ablation flags and
+    # the scan trunk build; the settings cdfo_tpu would ignore raise
+    for kw in ({"scan_trunk": True}, {"scan_trunk": True, "fused_egla": True},
+               {"use_mv": False}, {"name": "cvsr_v9"}):
+        ModelConfig(**kw)
+    for kw, why in (({"scan_trunk": True, "fused_trunk": True}, "scan_trunk"),
+                    ({"use_mv": False, "block_warp": True}, "block_warp"),
+                    ({"name": "cvsr_v9", "fused_egla": True}, "fused_egla"),
+                    ({"name": "cvsr_v10"}, "cvsr_v10")):
+        with pytest.raises(ValueError, match=why):
             ModelConfig(**kw)
     # the sampled EGLA mask is ported; the fused EGLA takes the expected one
     # only (cdfo_tpu ignores fused_egla under the sampled mask)

@@ -241,5 +241,8 @@ def test_train_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
     lines = [json.loads(x) for x in open(log)]
     assert [x["epoch"] for x in lines] == [1, 2]
     assert all(np.isfinite(x["loss"]) for x in lines)
-    with pytest.raises(NotImplementedError, match="1.6"):
-        cli.main(args + ["--scan-trunk"])
+    # the scan trunk keeps the unrolled trunk's parameter names, so a third
+    # epoch under --scan-trunk resumes from the same checkpoints
+    args[3] = "3"
+    state = cli.main(args + ["--scan-trunk"])
+    assert state.step == 3 and state.model.cfg.scan_trunk
