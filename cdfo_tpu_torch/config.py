@@ -190,8 +190,9 @@ class TrainConfig:
     `train_LD_37.py:37-47,323-325,377,419`). The compute dtype is the
     model's (``ModelConfig.compute_dtype``; a bfloat16 model trains with
     float32 master weights, ``train/state.py``). The JAX config's mesh
-    fields (data parallelism, ROADMAP Queue 1, item 1.8) and its unread
-    ``warm_start_epoch`` and ``bf16_compute`` are left out."""
+    fields are left out: a data-parallel run spans the process group's
+    ranks (``parallel/mesh.py``, ``train/loop.py``); so are its unread
+    ``warm_start_epoch`` and ``bf16_compute``."""
 
     lr: float = 1e-4
     weight_decay: float = 1e-5

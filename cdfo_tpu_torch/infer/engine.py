@@ -137,11 +137,24 @@ class BatchedStreamingEngine:
         keep = [p for p in range(self.n) if p != self.n // 2]
         return mvs1[keep]  # (N-1, H, W, 2)
 
+    def _own(self, centers: list) -> list:
+        """Hook: the centres of a step that this engine computes and whose
+        new frames it compensates (here all k; a rank's share in
+        ``parallel.serving.ShardedServingEngine``)."""
+        return centers
+
+    def _gather(self, feats):
+        """Hook between a step's compensation and its ring write: the new
+        frames' (l1, fea_i, ufs prior) for all k centres (here as they are;
+        every rank's in rank order in the sharded engine)."""
+        return feats
+
     def _stage(self, data: SequenceData, j: int):
-        """Host prep + device upload of step j's inputs."""
-        k, half, t = self.k, self.n // 2, data.num_frames
+        """Host prep + device upload of step j's inputs for the centres
+        this engine computes (``_own``)."""
+        half, t = self.n // 2, data.num_frames
         L, S = self._L, self._S
-        centers = list(range(j, j + k))
+        centers = self._own(list(range(j, j + self.k)))
         new_frames = [min(max(c + half, 0), t - 1) for c in centers]
         ninp = self._frame_inputs(data, new_frames)
         mvs = np.stack([self._center_mvs(data, c) for c in centers])
@@ -177,7 +190,7 @@ class BatchedStreamingEngine:
     def _step(self, rings, staged, slot0):
         lrs, pms, rms, ufs, mvs, center_lr, idx, cidx = staged
         ring_l1, ring_fi, ring_uf = rings
-        new = self._compensate(lrs, pms, rms, ufs)
+        new = self._gather(self._compensate(lrs, pms, rms, ufs))
         # in-place slot writes: the JAX engine donates the ring buffers to
         # the step, so its dynamic_update_slice also updates in place
         for ring, feat in zip(rings, new):

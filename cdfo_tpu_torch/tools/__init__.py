@@ -1,5 +1,8 @@
 """The port's command-line tools, each run as ``python -m
-cdfo_tpu_torch.tools.<name>``: ``train``, the trainer, and ``test_sr``,
+cdfo_tpu_torch.tools.<name>``: ``train``, the trainer (data-parallel under
+``torchrun`` with ``--distributed``), ``serve``, the streaming server
+(sharded over ``torchrun``'s ranks), ``dryrun``, the multi-card dry run,
+and ``test_sr``,
 ``eval_jctvc``, ``int8_delta`` and ``gumbel_variance``, the evaluation
 tools (ports of the repository's ``tools/`` scripts of those names, with
 their flags; on the card, or on the CPU with ``--cpu``; the last two on

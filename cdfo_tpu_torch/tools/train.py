@@ -18,8 +18,18 @@ of 2, as the JAX tool does. The model trains with the sampled EGLA mask.
 sequence (``data/io.py``'s eval layout and its GT PNGs) that is scored after
 every checkpoint (``train/loop.py::make_eval_fn``). ``--scan-trunk``
 recomputes each trunk group in the backward pass (not with
-``--fused-trunk``). ``--distributed`` raises: data-parallel training is not
-ported.
+``--fused-trunk``).
+
+``--distributed`` trains data-parallel over the ranks that ``torchrun``
+starts, one card each (NCCL), or CPU processes with ``--cpu`` (gloo):
+
+    torchrun --nproc-per-node 2 -m cdfo_tpu_torch.tools.train \\
+        --distributed --synthetic --epochs 1 --steps-per-epoch 2
+    torchrun --nproc-per-node 2 -m cdfo_tpu_torch.tools.train \\
+        --distributed --synthetic --cpu --epochs 1 --steps-per-epoch 1
+
+Rank r reads every world-th sequence and samples ``--batch-size`` rows a
+step (``train/loop.py``); rank 0 writes the checkpoints and the log.
 """
 from __future__ import annotations
 
@@ -48,7 +58,7 @@ def parse_args(argv=None):
     p.add_argument("--synthetic", action="store_true",
                    help="generate + train on a tiny synthetic CVCP tree")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host data parallelism (not ported)")
+                   help="data parallelism over torchrun's ranks")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the kernels' plain versions)")
     p.add_argument("--fused-trunk", action="store_true",
@@ -68,9 +78,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.distributed:
-        raise NotImplementedError("--distributed waits for data-parallel "
-                                  "training (ROADMAP Queue 1, item 1.8)")
     if not args.cpu and not torch.cuda.is_available():
         sys.exit("cdfo_tpu_torch.tools.train runs on the card and "
                  "torch.cuda.is_available() is False; pass --cpu to train "
@@ -78,7 +85,13 @@ def main(argv=None):
 
     from ..config import DataConfig, ModelConfig, TrainConfig
     from ..data.io import make_synthetic_cvcp_tree
+    from ..parallel import initialize_distributed, rank_device
     from ..train.loop import make_eval_fn, train_loop
+
+    device_type = "cpu" if args.cpu else "cuda"
+    host_id, num_hosts = 0, 1
+    if args.distributed:
+        host_id, num_hosts = initialize_distributed(device_type)
 
     is_ra = args.cfg == "RA"
     data_cfg = DataConfig(coding_cfg=args.cfg, qp=args.qp,
@@ -105,9 +118,9 @@ def main(argv=None):
                                 ckpt_dir=args.ckpt_dir, seed=args.seed)
         model_cfg = ModelConfig(scn_groups=1, **mkw)
         spe = spe or 2
-    device = "cpu" if args.cpu else "cuda"
+    device = rank_device(device_type)
     eval_fn = None
-    if args.eval_lr_dir:
+    if args.eval_lr_dir and host_id == 0:
         eval_fn = make_eval_fn(model_cfg, args.eval_lr_dir,
                                args.eval_side_dir, args.eval_gt_dir,
                                device=device)
@@ -115,10 +128,13 @@ def main(argv=None):
         return train_loop(model_cfg, data_cfg, train_cfg, data_root,
                           steps_per_epoch=spe or None,
                           cache_path=args.cache or None, eval_fn=eval_fn,
-                          device=device)
+                          device=device, host_id=host_id,
+                          num_hosts=num_hosts)
     finally:
         if synthetic_root:
             shutil.rmtree(synthetic_root, ignore_errors=True)
+        if args.distributed:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

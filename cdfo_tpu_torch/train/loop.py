@@ -7,9 +7,17 @@ A checkpoint (``step_%08d.pt``, ``torch.save``) holds the model's and the
 float32 masters' values, the optimizer state, the step and the state of
 the generator that draws the EGLA mask's gumbel noise. After each
 checkpoint the loop calls the periodic eval hook, if given
-(``make_eval_fn``). Not ported yet, each raising where it is asked for:
-data-parallel training and per-host sharding (ROADMAP Queue 1, item 1.8)
-and TensorBoard scalars.
+(``make_eval_fn``). TensorBoard scalars are not ported yet (``log_dir``
+raises).
+
+Data-parallel (a default process group exists,
+``parallel.initialize_distributed``): rank ``host_id`` of ``num_hosts``
+reads every ``num_hosts``-th sequence and samples ``batch_size`` rows a
+step, so a step covers ``num_hosts * batch_size`` rows, as ``cdfo_tpu``'s
+multi-host run does; the ranks' gradients are summed in each step
+(``train/state.py``). Rank 0 writes the checkpoints, a barrier follows
+each, and every rank resumes from the newest; the JSONL log, the prints and
+the eval hook are rank 0's.
 """
 from __future__ import annotations
 
@@ -22,6 +30,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import DataConfig, ModelConfig, TrainConfig
 from ..data.dataset import CVCPDataset, TrainBatcher
@@ -134,32 +143,44 @@ def train_loop(model_cfg: ModelConfig, data_cfg: DataConfig,
     if given, is called once before the first step (after a resume),
     ``on_step(state, loss)`` after each step (the loss a device scalar).
     ``eval_fn(state, epoch)``, if given (``make_eval_fn``), runs after each
-    checkpoint."""
+    checkpoint. ``host_id`` / ``num_hosts``: this rank and the world size
+    of the process group, which a data-parallel run must pass
+    (``parallel.initialize_distributed`` returns them)."""
     if log_dir is not None:
         raise NotImplementedError(
             "TensorBoard scalars are not ported; the loop writes its JSONL "
             "log (run_dirs) instead")
-    if num_hosts != 1 or host_id != 0:
-        raise NotImplementedError(
-            "per-host sharding and data-parallel training wait for ROADMAP "
-            "Queue 1, item 1.8")
+    group = ((dist.get_rank(), dist.get_world_size())
+             if dist.is_initialized() else (0, 1))
+    if (host_id, num_hosts) != group:
+        raise ValueError(f"host_id={host_id}, num_hosts={num_hosts}: the "
+                         f"process group has rank {group[0]} of {group[1]}")
+    lead = host_id == 0
     device = torch.device(device)
     model = CVSRV8(model_cfg, torch.Generator().manual_seed(train_cfg.seed),
                    device=device)
-    ds = CVCPDataset(data_root, data_cfg, cache_path=cache_path)
+    ds = CVCPDataset(data_root, data_cfg, cache_path=cache_path,
+                     host_id=host_id, num_hosts=num_hosts)
     batcher = TrainBatcher(ds, train_cfg.batch_size, data_cfg.crop_size,
                            seed=train_cfg.seed)
     spe = steps_per_epoch or max(1, len(ds) // train_cfg.batch_size)
-    epochs = num_epochs or train_cfg.epochs
+    if dist.is_initialized():
+        # every rank takes the same steps: the smallest shard's count
+        count = torch.tensor([spe], device=device)
+        dist.all_reduce(count, op=dist.ReduceOp.MIN)
+        spe = int(count.item())
     state = TrainState(model, train_cfg, steps_per_epoch=spe)
+    epochs = num_epochs or train_cfg.epochs
     generator = torch.Generator(device=device).manual_seed(train_cfg.seed)
 
     ckpt_dir, log_path = run_dirs(train_cfg, data_cfg)
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
     latest = latest_checkpoint(ckpt_dir)
     if latest:
         restore_checkpoint(latest, state, generator)
-        print(f"resumed from {latest} at step {state.step}", flush=True)
+        if lead:
+            print(f"resumed from {latest} at step {state.step}", flush=True)
 
     if on_start is not None:
         on_start(state)
@@ -176,11 +197,15 @@ def train_loop(model_cfg: ModelConfig, data_cfg: DataConfig,
         avg = float(np.mean([float(v) for v in losses]))
         msg = {"epoch": epoch + 1, "loss": round(avg, 5),
                "sec_per_epoch": round(time.time() - t0, 2)}
-        print(json.dumps(msg), flush=True)
-        with open(log_path, "a") as f:
-            f.write(json.dumps(msg) + "\n")
+        if lead:
+            print(json.dumps(msg), flush=True)
+            with open(log_path, "a") as f:
+                f.write(json.dumps(msg) + "\n")
         if (epoch + 1) % train_cfg.val_interval == 0:
-            save_checkpoint(ckpt_dir, state, generator)
-            if eval_fn is not None:
+            if lead:
+                save_checkpoint(ckpt_dir, state, generator)
+            if state.data_parallel:
+                dist.barrier()
+            if lead and eval_fn is not None:
                 eval_fn(state, epoch + 1)
     return state

@@ -12,6 +12,16 @@ them at every use: Adam on bfloat16 weights would lose every update below
 bfloat16's resolution. After each step the model's bfloat16 weights are
 refreshed from the masters in place, which also bumps their versions, so
 the fused trunk's kept weight packs are remade (``cuda_build.cached_pack``).
+
+Data parallelism (``cdfo_tpu``'s multi-host run: one process per card
+plays one JAX host): a ``TrainState`` built while a default process group
+exists (``parallel.initialize_distributed``) starts from rank 0's
+parameters, and each ``train_step`` runs on the rank's own rows. The loss is
+a sum over rows, so the global batch's gradient is the sum of the ranks':
+the float32 gradients that Adam reads, and the loss beside them, are summed
+over the ranks in one flat all-reduce a step, and every rank then holds the
+global loss, so the non-finite guard decides alike everywhere. Two ranks
+equal one process on the concatenated batch.
 """
 from __future__ import annotations
 
@@ -19,9 +29,11 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..config import TrainConfig
 from ..losses import charbonnier_loss
+from ..parallel.mesh import broadcast_module, shard_rows
 
 MODEL_INPUTS = ("lrs", "mvs0", "mvs1", "pms", "rms", "ufs")
 
@@ -44,10 +56,15 @@ class TrainState:
     them, the schedule and the update count ``step``.
 
     ``masters[i]`` is the model's i-th parameter itself where that is
-    float32, else a float32 copy of it."""
+    float32, else a float32 copy of it. Built on a rank of a process group,
+    the state is data-parallel (``data_parallel``): the model first takes
+    rank 0's parameters and buffers."""
 
     def __init__(self, model: torch.nn.Module, cfg: TrainConfig,
                  steps_per_epoch: int = 1):
+        self.data_parallel = dist.is_available() and dist.is_initialized()
+        if self.data_parallel:
+            broadcast_module(model)
         self.model = model
         self.cfg = cfg
         self.params = list(model.parameters())
@@ -70,17 +87,38 @@ class TrainState:
                                          non_blocking=True)
                 for k, v in batch.items()}
 
-    def apply_gradients(self) -> None:
-        """One Adam update of the masters from the model's gradients (a
-        parameter without one takes zeros, as JAX's gradient of an unused
-        parameter is zero, so its decay and moments still move), then the
-        model's copies refreshed from the masters."""
+    def _master_grads(self) -> list:
+        """The masters' float32 gradients, moved there from the model's
+        (a parameter without one takes zeros, as JAX's gradient of an unused
+        parameter is zero, so its decay and moments still move); a master
+        that holds its gradient already keeps it."""
         for p, m in zip(self.params, self.masters):
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
-            if m is not p:
-                p.grad = None
-                g = g.float()
-            m.grad = g
+            if p.grad is not None:
+                m.grad = p.grad if m is p else p.grad.float()
+                if m is not p:
+                    p.grad = None
+            elif m.grad is None:
+                m.grad = torch.zeros_like(m)
+        return [m.grad for m in self.masters]
+
+    def reduce_gradients(self, loss: torch.Tensor) -> torch.Tensor:
+        """Sums the masters' float32 gradients and ``loss`` over the ranks
+        in one flat all-reduce; returns the global loss."""
+        grads = self._master_grads()
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [loss.detach().float().reshape(1)])
+        dist.all_reduce(flat)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return flat[-1]
+
+    def apply_gradients(self) -> None:
+        """One Adam update of the masters from the model's gradients
+        (``_master_grads``), then the model's copies refreshed from the
+        masters."""
+        self._master_grads()
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.step)
         self.optimizer.step()
@@ -112,6 +150,32 @@ def model_inputs(batch: dict) -> tuple:
     return tuple(batch[k] for k in MODEL_INPUTS)
 
 
+def _draws_noise(model: torch.nn.Module) -> bool:
+    """Whether the model's forward draws gumbel noise: the sampled EGLA
+    mask on the compensated neighbours (woMV compensates none; woLA, woGA
+    and no-EGLA mask nothing)."""
+    egla = getattr(model, "RDAB", None)
+    return model.cfg.use_mv and getattr(egla, "mask_mode", "") == "sample"
+
+
+def _rank_noise(state: TrainState, batch: dict,
+                generator: Optional[torch.Generator],
+                gumbel_u: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A data-parallel rank's rows of the global batch's gumbel draw: the
+    neighbours of the rank's B samples, (B * (N - 1), H, W, nf), out of
+    ``gumbel_u`` (the global draw, rank-major) or of a global draw from
+    ``generator``, which every rank advances alike."""
+    if not _draws_noise(state.model) or (gumbel_u is None and generator is None):
+        return gumbel_u
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if gumbel_u is None:
+        b, n, h, w, _ = batch["lrs"].shape
+        gumbel_u = torch.rand((world * b * (n - 1), h, w, state.model.cfg.nf),
+                              generator=generator, device=state.device)
+        gumbel_u.clamp_min_(torch.finfo(torch.float32).tiny)
+    return shard_rows(gumbel_u, rank, world)
+
+
 def train_step(state: TrainState, batch: dict,
                generator: Optional[torch.Generator] = None,
                gumbel_u: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -120,6 +184,11 @@ def train_step(state: TrainState, batch: dict,
     scalar tensor. ``generator`` / ``gumbel_u``: the sampled EGLA mask's
     noise.
 
+    Data-parallel (``state.data_parallel``): ``batch`` holds the rank's
+    rows, ``gumbel_u`` (or the draw from ``generator``) covers the global
+    batch, the ranks' rows in rank order, and the loss returned is the
+    global one (``reduce_gradients``).
+
     Failure containment (`state.py:69-87` of ``cdfo_tpu``): a non-finite
     loss skips the update, so the parameters, the optimizer state and the
     step stay as they were."""
@@ -127,13 +196,18 @@ def train_step(state: TrainState, batch: dict,
     state.model.train()
     for p in state.params:
         p.grad = None
+    if state.data_parallel:
+        gumbel_u = _rank_noise(state, batch, generator, gumbel_u)
     sr, _ = state.model(*model_inputs(batch), generator=generator,
                         gumbel_u=gumbel_u)
     loss = charbonnier_loss(sr, batch["hr"])
     loss.backward()
+    if state.data_parallel:
+        loss = state.reduce_gradients(loss)
     if math.isfinite(loss.item()):
         state.apply_gradients()
     else:
         for p in state.params:
             p.grad = None
+        state.optimizer.zero_grad(set_to_none=True)
     return loss.detach()

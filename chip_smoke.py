@@ -162,6 +162,19 @@ CUDA device the script exits non-zero before printing any result):
    1e-3 relative L2, both peaks. Zoo models get the seeded weights with
    every all-zero weight (CVSR_V7's offset heads, the norms' biases)
    refilled with seeded values.
+10. the multi-card paths, over a process group that the phase makes and
+   destroys: (a) path AB at full width (bf16, 12 frames of 272x480, k = 4)
+   through ``ShardedServingEngine`` over one card (NCCL) and through the
+   plain engine, timed in turns (plain, sharded, sharded, plain), each
+   run's launches against path AB's table: frames equal bit for bit, both
+   fps, both peaks and the ``all_gather``'s bytes and ms a step; (b) two
+   LD-preset steps through ``train_loop`` (fused trunk, bf16, deterministic
+   algorithms) without a process group and data-parallel over the one-card
+   group: losses, parameters and masters equal; (c) with two or more
+   cards, the sharded engine over 2 .. all cards (a spawned process each)
+   on 12 frames a card against the plain engine on one: frames within
+   rounding (>= 50 dB; the bootstrap's batch is k + 6 frames), fps by card
+   count; on one card a line says that (c) did not run.
 
 Every model gets the same seeded weights with its EGLA residual mask made
 one-hot (``kernel_cases.excite_egla_mask``; under random weights it is all
@@ -170,7 +183,7 @@ prints the mask's set bits per frame of one ``compensate_frames`` call.
 
 After phase 6 one line orders every kernel on a model path by launches x
 (time - bound) per 12-frame run, its launches from the run of its own path:
-the order in which a redesign gains most. Phases 7 and 8 follow it.
+the order in which a redesign gains most. Phases 7-10 follow it.
 
 The line before the last is a JSON object with one entry per kernel
 wrapper (launches from the four-flag run; the int8 ``Block_``'s from path
@@ -184,8 +197,9 @@ one LD training step's forward, and the kernels the inferencer runs with
     python3 chip_smoke.py --train
     python3 chip_smoke.py --eval
     python3 chip_smoke.py --zoo
+    python3 chip_smoke.py --parallel
 
-build the kernels and run phase 7, phase 8 or phase 9 alone.
+build the kernels and run phase 7, phase 8, phase 9 or phase 10 alone.
 
     python3 chip_smoke.py --profile
 
@@ -230,6 +244,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from cdfo_tpu_torch import ModelConfig
@@ -255,6 +270,8 @@ from cdfo_tpu_torch.ops import probe_dma as pm
 from cdfo_tpu_torch.ops import probe_dots as pd
 from cdfo_tpu_torch.ops import warp_block as wb
 from cdfo_tpu_torch.ops.warp import flow_warp_ring
+from cdfo_tpu_torch.parallel import initialize_distributed
+from cdfo_tpu_torch.parallel.serving import ShardedServingEngine
 from cdfo_tpu_torch.tools import captured, event_ms, microbench_dma
 from cdfo_tpu_torch.tools import eval_jctvc, gumbel_variance, int8_delta
 from cdfo_tpu_torch.tools import microbench_dots, microbench_trunk
@@ -1134,10 +1151,7 @@ def run_full_slice(card: str, **flags):
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     frames, fps = eng.run_sequence(data, collect_timing=True)
-    launches = {"token": fa.token_self_attention.launches,
-                "column": fa.column_self_attention.launches}
-    launches.update({kind: wrapper.launches
-                     for kind, (_, wrapper, *_) in ALL_KERNELS.items()})
+    launches = path_launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     steps = len(range(0, t, k))
     calls = 1 + steps   # compensate_frames: bootstrap + one per step
@@ -1150,21 +1164,7 @@ def run_full_slice(card: str, **flags):
         raise AssertionError(f"frames {frames.shape} {frames.dtype}")
     if frames.std() == 0:
         raise AssertionError("full-slice output is constant")
-    egla = flags.get("fused_egla", False)
-    want = {"token": 0 if egla else calls, "column": calls}
-    want.update({kind: n * calls if egla else 0
-                 for kind, n in EGLA_LAUNCHES.items()})
-    fused = flags.get("fused_trunk", False)
-    int8 = flags.get("trunk_int8", False)
-    want.update({kind: n * steps if fused else 0
-                 for kind, n in TRUNK_LAUNCHES.items()})
-    want["blockq"] = TRUNK_LAUNCHES["block"] * steps if int8 else 0
-    want["block"] = 0 if int8 else want["block"]
-    want["warp"] = steps if flags.get("block_warp") else 0
-    want.update({kind: n * calls if flags.get("fused_embed") else 0
-                 for kind, n in EMBED_LAUNCHES.items()})
-    want.update({kind: n * steps if flags.get("fused_align") else 0
-                 for kind, n in ALIGN_LAUNCHES.items()})
+    want = path_launches(flags, calls, steps)
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     if flags == PATH_AB:
@@ -1190,6 +1190,37 @@ def run_full_slice(card: str, **flags):
     del model, eng
     torch.cuda.empty_cache()
     return frames, launches
+
+
+def path_launch_counts() -> dict:
+    """The model-path wrappers' launch counts."""
+    launches = {"token": fa.token_self_attention.launches,
+                "column": fa.column_self_attention.launches}
+    launches.update({kind: wrapper.launches
+                     for kind, (_, wrapper, *_) in ALL_KERNELS.items()})
+    return launches
+
+
+def path_launches(flags: dict, calls: int, steps: int) -> dict:
+    """The launches of each model-path wrapper in an engine run with the
+    fused ``flags``, ``calls`` ``compensate_frames`` and ``steps``
+    ``align_reconstruct`` calls."""
+    egla = flags.get("fused_egla", False)
+    want = {"token": 0 if egla else calls, "column": calls}
+    want.update({kind: n * calls if egla else 0
+                 for kind, n in EGLA_LAUNCHES.items()})
+    fused = flags.get("fused_trunk", False)
+    int8 = flags.get("trunk_int8", False)
+    want.update({kind: n * steps if fused else 0
+                 for kind, n in TRUNK_LAUNCHES.items()})
+    want["blockq"] = TRUNK_LAUNCHES["block"] * steps if int8 else 0
+    want["block"] = 0 if int8 else want["block"]
+    want["warp"] = steps if flags.get("block_warp") else 0
+    want.update({kind: n * calls if flags.get("fused_embed") else 0
+                 for kind, n in EMBED_LAUNCHES.items()})
+    want.update({kind: n * steps if flags.get("fused_align") else 0
+                 for kind, n in ALIGN_LAUNCHES.items()})
+    return want
 
 
 @torch.inference_mode()
@@ -2540,6 +2571,233 @@ def check_zoo(card: str) -> dict:
     return launches
 
 
+# -- phase 10: the multi-card paths ---------------------------------------------
+
+PARALLEL_T, PARALLEL_KPD = 12, 4
+
+
+@torch.inference_mode()
+def gather_cost(eng, data) -> tuple[int, float]:
+    """The bytes of one step's ``all_gather`` (the three compensated
+    features of the k new frames) and its ms (CUDA events, median of 15),
+    on the first staged step's features."""
+    _, steps = eng.stage_sequence(data)
+    feats = eng._compensate(*steps[0][0][:4])
+    nbytes = sum(f.numel() * f.element_size() for f in eng._gather(feats))
+    return nbytes, median_ms(lambda: eng._gather(feats))
+
+
+def check_sharded_engine(card: str):
+    """Phase 10(a): path AB at full width through ``ShardedServingEngine``
+    over a process group of one card (NCCL) and through the plain engine,
+    timed in turns (plain, sharded, sharded, plain), each run's launches
+    against path AB's table; the frames equal bit for bit."""
+    cfg = ModelConfig(compute_dtype=torch.bfloat16, **PATH_AB)
+    model = seeded_model(cfg)
+    data = synthetic_sequence(t=PARALLEL_T, h=272, w=480, seed=0)
+    engines = {"plain": BatchedStreamingEngine(model, k=PARALLEL_KPD),
+               "sharded": ShardedServingEngine(model,
+                                               k_per_device=PARALLEL_KPD)}
+    for eng in engines.values():
+        eng.run_sequence(data)   # warm-up
+    steps = len(range(0, PARALLEL_T, PARALLEL_KPD))
+    want = path_launches(PATH_AB, 1 + steps, steps)
+    runs = collections.defaultdict(list)
+    for name in ("plain", "sharded", "sharded", "plain"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        frames, fps = engines[name].run_sequence(data, collect_timing=True)
+        launches = path_launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if launches != want:
+            raise AssertionError(f"{name} engine: expected launches {want}, "
+                                 f"got {launches}")
+        runs[name].append((frames, fps, peak))
+    plain = runs["plain"][0][0]
+    same = all(np.array_equal(f, plain) for r in runs.values()
+               for f, *_ in r)
+    # the plain engine's own frames at twice the k: on the card a step's
+    # batch size can change its library convolutions' rounding (phase 10(c))
+    wide = BatchedStreamingEngine(model, k=2 * PARALLEL_KPD)
+    wide.run_sequence(data)
+    wide_frames, _ = wide.run_sequence(data, collect_timing=True)
+    del wide
+    nbytes, ms = gather_cost(engines["sharded"], data)
+    barrier = []
+    for _ in range(15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.barrier()
+        barrier.append(1e3 * (time.perf_counter() - t0))
+    fps = {n: [round(r[1], 3) for r in v] for n, v in runs.items()}
+    peaks = {n: round(max(r[2] for r in v), 2) for n, v in runs.items()}
+    ratio = np.mean(fps["sharded"]) / np.mean(fps["plain"])
+    print(f"phase 10(a) sharded engine over 1 card (NCCL, k_per_device="
+          f"{PARALLEL_KPD}), path AB, CVSR_V8 nf=64, 7 groups, bf16, "
+          f"{PARALLEL_T} frames of 272x480: fps plain {fps['plain']} / "
+          f"sharded {fps['sharded']} (in turns; sharded / plain "
+          f"{ratio:.4f}); peak memory plain {peaks['plain']:.2f} / sharded "
+          f"{peaks['sharded']:.2f} GiB; all_gather {nbytes} bytes a step, "
+          f"{ms:.4f} ms (with its byte packing); barrier "
+          f"{np.median(barrier):.4f} ms (host clock, median of 15); the plain "
+          f"engine at k={2 * PARALLEL_KPD} against k={PARALLEL_KPD}: PSNR "
+          f"{psnr(wide_frames, plain):.3f} dB, max diff "
+          f"{np.abs(wide_frames.astype(np.int32) - plain).max()} LSB; frames equal to the plain engine's: {same}; "
+          f"launches per run {want} [{card}]", flush=True)
+    if not same or plain.shape != (PARALLEL_T, 1080, 1920):
+        raise AssertionError("the sharded engine's frames differ from the "
+                             "plain engine's")
+    del engines, model
+    torch.cuda.empty_cache()
+
+
+def dp_train_run(root: str, ckpt: str) -> tuple:
+    """Two LD-preset steps through ``train_loop`` (fused trunk, bf16 with
+    float32 masters, the sampled mask), data-parallel when a process group
+    exists: (losses, model state, masters, the second step's s)."""
+    model_cfg = ModelConfig(mask_mode="sample", fused_trunk=True,
+                            compute_dtype=torch.bfloat16)
+    rank, world = ((dist.get_rank(), dist.get_world_size())
+                   if dist.is_initialized() else (0, 1))
+    losses, times = [], []
+
+    def on_step(state, loss):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+        losses.append(loss.item())
+
+    state = train_loop(
+        model_cfg, DataConfig(coding_cfg="LD", qp=37, frames_per_seq=10),
+        TrainConfig(ckpt_dir=ckpt, val_interval=1), root, num_epochs=1,
+        steps_per_epoch=2, device="cuda", on_step=on_step,
+        on_start=lambda s: times.append(time.perf_counter()),
+        host_id=rank, num_hosts=world)
+    model = {k: v.detach().clone() for k, v in
+             state.model.state_dict().items()}
+    masters = [m.detach().clone() for m in state.masters]
+    return losses, model, masters, times[2] - times[1], state.data_parallel
+
+
+def check_parallel(card: str) -> None:
+    """Phase 10: (b)'s non-distributed run first, then a process group of
+    one card (NCCL) for (a) and (b)'s distributed run, destroyed after;
+    then (c) over every card, when there are two or more."""
+    deterministic = torch.backends.cudnn.deterministic
+    with tempfile.TemporaryDirectory(prefix="cdfo_parallel_") as tmp:
+        root = os.path.join(tmp, "cvcp")
+        data_io.make_synthetic_cvcp_tree(root, num_seqs=2, frames=10, h=64,
+                                         w=96)
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            single = dp_train_run(root, os.path.join(tmp, "single"))
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = deterministic
+        initialize_distributed("cuda")
+        try:
+            check_sharded_engine(card)
+            torch.backends.cudnn.deterministic = True
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                spread = dp_train_run(root, os.path.join(tmp, "dp"))
+            finally:
+                torch.use_deterministic_algorithms(False)
+                torch.backends.cudnn.deterministic = deterministic
+        finally:
+            dist.destroy_process_group()
+    same = (single[0] == spread[0]
+            and all(torch.equal(v, spread[1][k]) for k, v in single[1].items())
+            and all(map(torch.equal, single[2], spread[2])))
+    print(f"phase 10(b) data-parallel trainer over 1 card (NCCL), LD preset "
+          f"(CVSR_V8 nf=64, 7 groups, batch 20 of 7 64x64 crops, sampled "
+          f"mask, fused_trunk, bf16 + fp32 masters), 2 steps through "
+          f"train_loop, deterministic algorithms: losses {spread[0]} "
+          f"against the non-distributed trainer's {single[0]}; parameters "
+          f"and masters equal: {same}; data-parallel {spread[4]} / "
+          f"{single[4]}; second step {spread[3]:.4f} / {single[3]:.4f} s "
+          f"[{card}]", flush=True)
+    if not same or not spread[4] or single[4]:
+        raise AssertionError("the data-parallel trainer at one rank differs "
+                             "from the non-distributed trainer")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"phase 10(c) did not run: {cards} card on this machine; the "
+              f"sharded engine over several cards needs two or more",
+              flush=True)
+        return
+    check_multi_card(card, cards)
+
+
+def parallel_rank(rank: int, world: int, port: int, out: str) -> None:
+    """Phase 10(c)'s rank: path AB through ``ShardedServingEngine`` over
+    ``world`` cards on ``PARALLEL_T * world`` frames; rank 0 saves the
+    frames and the fps of its timed run (after a warm-up)."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    initialize_distributed("cuda")
+    try:
+        model = seeded_model(ModelConfig(compute_dtype=torch.bfloat16,
+                                         **PATH_AB))
+        eng = ShardedServingEngine(model, k_per_device=PARALLEL_KPD)
+        data = synthetic_sequence(t=PARALLEL_T * world, h=272, w=480, seed=0)
+        eng.run_sequence(data)
+        frames, fps = eng.run_sequence(data, collect_timing=True)
+        if rank == 0:
+            np.save(os.path.join(out, "frames.npy"), frames)
+            with open(os.path.join(out, "fps.json"), "w") as f:
+                json.dump(fps, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_multi_card(card: str, cards: int) -> None:
+    """Phase 10(c): the sharded engine over 2 .. ``cards`` cards (one
+    spawned process each), ``PARALLEL_T`` frames a card, against the plain
+    engine on one card over the same frames, fps by card count. Each rank's
+    steps compensate and reconstruct 4 frames a call, as the plain engine's
+    do, but the bootstrap compensates k + 6 frames in one call, and the
+    library convolutions of the plain modules may choose another algorithm
+    at another batch size: the frames are held to rounding (>= 50 dB, as
+    phase 5 holds the block warp), and whether they are equal bit for bit
+    is printed."""
+    import socket
+
+    import torch.multiprocessing as mp
+    model = seeded_model(ModelConfig(compute_dtype=torch.bfloat16, **PATH_AB))
+    for n in range(2, cards + 1):
+        data = synthetic_sequence(t=PARALLEL_T * n, h=272, w=480, seed=0)
+        eng = BatchedStreamingEngine(model, k=PARALLEL_KPD)
+        eng.run_sequence(data)
+        plain, plain_fps = eng.run_sequence(data, collect_timing=True)
+        del eng
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        with tempfile.TemporaryDirectory(prefix="cdfo_cards_") as out:
+            mp.start_processes(parallel_rank, args=(n, port, out), nprocs=n,
+                               start_method="spawn", join=True)
+            frames = np.load(os.path.join(out, "frames.npy"))
+            with open(os.path.join(out, "fps.json")) as f:
+                fps = json.load(f)
+        quality = psnr(frames, plain)
+        diff = np.abs(frames.astype(np.int32) - plain).max()
+        print(f"phase 10(c) sharded engine over {n} cards (NCCL, "
+              f"k_per_device={PARALLEL_KPD}, k={PARALLEL_KPD * n}), path AB, "
+              f"{PARALLEL_T * n} frames of 272x480: fps by card count 1 "
+              f"(plain engine, k={PARALLEL_KPD}) {plain_fps:.3f}, {n} "
+              f"{fps:.3f} ({fps / plain_fps:.3f}x); against the plain "
+              f"engine's frames PSNR {quality:.3f} dB, max diff {diff} LSB, "
+              f"equal bit for bit: {diff == 0} [{card}]", flush=True)
+        if frames.shape != plain.shape or not quality >= 50.0:
+            raise AssertionError("the multi-card frames differ from the "
+                                 f"plain engine's by more than rounding: "
+                                 f"{quality:.2f} dB")
+
+
 def ptxas_fault(line: str) -> bool:
     """A ptxas line that reports a spill (a non-zero spill store or load)
     or a C75xx warning (``wgmma`` serialized, or a wait or arrive
@@ -2634,6 +2892,9 @@ def main():
     if sys.argv[1:2] == ["--zoo"]:
         check_zoo(card)
         return
+    if sys.argv[1:2] == ["--parallel"]:
+        check_parallel(card)
+        return
 
     fields = check_kernels(card)
     fields.update(check_trunk_kernels(card))
@@ -2686,6 +2947,7 @@ def main():
     train_launches = check_training(card)
     window_launches_per_frame = check_eval(card)
     zoo_launches_per_run = check_zoo(card)
+    check_parallel(card)
 
     # launches: the four-flag run's; the int8 Block_'s from path A's run and
     # the warp's from path B's

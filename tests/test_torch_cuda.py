@@ -1163,3 +1163,34 @@ def test_v7_dcn_card_matches_cpu(cuda):
         out = align.to(cuda)(*(t.to(cuda) for t in (x, extra, pred, flow)))
     err = (out.cpu() - ref).abs().max().item()
     assert err <= 1e-4 * ref.abs().max().item(), err
+
+
+# -- the multi-card paths ----------------------------------------------------------
+
+@pytest.mark.cuda
+def test_sharded_engine_over_one_card_equals_the_plain_engine(cuda):
+    """``ShardedServingEngine`` over a process group of one card (NCCL,
+    k_per_device = 4) against the plain engine (k = 4) on one model: every
+    kernel flag, bf16, phase 4's size, uint8 frames bit for bit, timed and
+    untimed."""
+    import torch.distributed as dist
+    from cdfo_tpu_torch import ModelConfig
+    from cdfo_tpu_torch.infer import BatchedStreamingEngine, synthetic_sequence
+    from cdfo_tpu_torch.parallel import initialize_distributed
+    from cdfo_tpu_torch.parallel.serving import ShardedServingEngine
+    cfg = ModelConfig(scn_groups=2, compute_dtype=torch.bfloat16,
+                      fused_trunk=True, fused_embed=True, fused_align=True,
+                      fused_egla=True, trunk_int8=True, block_warp=True)
+    model = kc.zoo_model(cfg, cuda)
+    data = synthetic_sequence(t=9, h=16, w=24, seed=3)
+    plain = BatchedStreamingEngine(model, k=4).run_sequence(data)[0]
+    assert initialize_distributed("cuda") == (0, 1)
+    try:
+        assert dist.get_backend() == "nccl"
+        eng = ShardedServingEngine(model, k_per_device=4)
+        frames = eng.run_sequence(data)[0]
+        timed, fps = eng.run_sequence(data, collect_timing=True)
+    finally:
+        dist.destroy_process_group()
+    assert (frames == plain).all() and (timed == plain).all()
+    assert plain.std() > 0 and fps > 0

@@ -43,6 +43,18 @@ from cdfo_tpu_torch.models.prior_encoder import PartitionTransformerSA2Fast
 from cdfo_tpu_torch.ops import fused_align as fal
 from cdfo_tpu_torch.ops import fused_mdta as fm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's spinning thread pools in each of them
+    oversubscribe the cores the other workers need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 C, ROWS = 16, 8
 
 

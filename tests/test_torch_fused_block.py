@@ -14,6 +14,18 @@ from cdfo_tpu.ops.fused_block import fused_block_body
 from cdfo_tpu_torch.ops import fused_block as fbody
 from cdfo_tpu_torch.ops import kernel_cases as kc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's spinning thread pools in each of them
+    oversubscribe the cores the other workers need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHAPE = (1, 12, 40, 64)   # rows 8, wt 128: a ragged row step and W tile
 
 

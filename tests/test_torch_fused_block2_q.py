@@ -43,6 +43,17 @@ from cdfo_tpu_torch.ops import fused_block2_q as fq
 from cdfo_tpu_torch.ops.fused_block2 import scale_block_plain
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's spinning thread pools in each of them
+    oversubscribe the cores the other workers need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def t_(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 

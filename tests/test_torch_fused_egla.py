@@ -39,6 +39,18 @@ from cdfo_tpu_torch.models.attention import EGLA
 from cdfo_tpu_torch.ops import fused_egla as fe
 from cdfo_tpu_torch.ops import kernel_cases as kc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's spinning thread pools in each of them
+    oversubscribe the cores the other workers need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 C = 16
 
 

@@ -47,6 +47,17 @@ from cdfo_tpu_torch.ops.fused_head import fused_head, fused_head_plain
 from cdfo_tpu_torch.ops.fused_tail import resblock_pair, resblock_pair_plain
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's spinning thread pools in each of them
+    oversubscribe the cores the other workers need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_close(port, ref, rel=1e-4):
     port = port.detach().float().numpy()
     ref = np.asarray(ref, np.float32)

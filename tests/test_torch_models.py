@@ -20,6 +20,17 @@ from cdfo_tpu_torch.compat import from_flax
 from cdfo_tpu_torch.models import CVSRV8
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's spinning thread pools in each of them
+    oversubscribe the cores the other workers need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def assert_close(port, ref, rel=1e-4):
     port = port.detach().float().numpy()
     ref = np.asarray(ref, np.float32)

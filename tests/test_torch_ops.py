@@ -28,6 +28,18 @@ from cdfo_tpu_torch.ops import mv as tmv
 from cdfo_tpu_torch.ops import resize as tresize
 from cdfo_tpu_torch.ops import warp as twarp
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's spinning thread pools in each of them
+    oversubscribe the cores the other workers need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -23,6 +23,18 @@ from cdfo_tpu_torch.ops import kernel_cases as kc
 from cdfo_tpu_torch.ops import probe_dma as pm
 from cdfo_tpu_torch.ops import probe_dots as pd
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's spinning thread pools in each of them
+    oversubscribe the cores the other workers need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOOLS = pathlib.Path(__file__).resolve().parents[1] / "tools"
 VMEM = pl.BlockSpec(memory_space=pltpu.VMEM)
 # m, k, c of 16-32 and a ragged n; kstack needs reps > nrows

@@ -37,6 +37,18 @@ from cdfo_tpu_torch.ops import kernel_cases as kc
 from cdfo_tpu_torch.ops import warp_block as wb
 from cdfo_tpu_torch.ops.warp import _taps, flow_warp_ring
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the suite runs in
+    parallel workers, and torch's spinning thread pools in each of them
+    oversubscribe the cores the other workers need."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CASES = ("blocky", "mixed_bottom", "arbitrary")
 
 
