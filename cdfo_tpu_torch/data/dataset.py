@@ -1,8 +1,7 @@
 """Training dataset + batcher for the CVCP coding-prior layout (a copy of
 ``cdfo_tpu/data/dataset.py``, which imports JAX through its package; the
-tests hold the two equal). The native C++ batcher of ``cdfo_tpu/data/
-native.py`` is not ported (ROADMAP Queue 1, item 1.4): the trainer uses
-``TrainBatcher``.
+tests hold the two equal). The native C++ batcher is ``data/native.py``:
+the trainer draws LD batches from it and RA batches from ``TrainBatcher``.
 
 Reimplements the reference pipeline (`opt/data_LD_bi.py`):
 

@@ -3,8 +3,7 @@
 
 The trainer's loss is Charbonnier with **sum** reduction and eps=1e-4
 added *inside* the sqrt (`opt/loss.py:20-31`, used `train_LD_37.py:377`).
-The wavelet loss (``cdfo_tpu/losses/wavelet.py``) needs LPIPS and is not
-ported (ROADMAP Queue 1, item 1.7).
+The multi-wavelet contrastive loss is ``losses/wavelet.py``.
 """
 from __future__ import annotations
 

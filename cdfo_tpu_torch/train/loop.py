@@ -7,8 +7,17 @@ A checkpoint (``step_%08d.pt``, ``torch.save``) holds the model's and the
 float32 masters' values, the optimizer state, the step and the state of
 the generator that draws the EGLA mask's gumbel noise. After each
 checkpoint the loop calls the periodic eval hook, if given
-(``make_eval_fn``). TensorBoard scalars are not ported yet (``log_dir``
-raises).
+(``make_eval_fn``). With ``log_dir`` rank 0 also writes TensorBoard
+scalars: ``Train/Loss`` each epoch and ``Eval/<metric>`` after each eval.
+
+Batches: an LD run draws them from the native C++ sampler
+(``data/native.py``, as ``cdfo_tpu``'s loop does where its library is
+built), built at first use; where it cannot be built the loop raises, and
+``use_native_batcher=False`` asks for ``TrainBatcher``. An RA run takes
+``TrainBatcher``, whose RA expansion is the reference's (the native sampler
+has none). Like ``cdfo_tpu``'s loop, which draws a batch to initialise its
+state, the loop draws one batch before the first step and does not train
+on it, so the same call trains on the same batches in both packages.
 
 Data-parallel (a default process group exists,
 ``parallel.initialize_distributed``): rank ``host_id`` of ``num_hosts``
@@ -21,6 +30,7 @@ the eval hook are rank 0's.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -33,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import DataConfig, ModelConfig, TrainConfig
+from ..data import native
 from ..data.dataset import CVCPDataset, TrainBatcher
 from ..models import CVSRV8
 from .state import TrainState, train_step
@@ -133,6 +144,7 @@ def train_loop(model_cfg: ModelConfig, data_cfg: DataConfig,
                device: torch.device | str = "cuda",
                on_start: Optional[Callable] = None,
                on_step: Optional[Callable] = None,
+               use_native_batcher: bool = True,
                host_id: int = 0, num_hosts: int = 1) -> TrainState:
     """Trains CVSR_V8 (or an ablation of it: ``model_cfg``) on the CVCP
     tree at ``data_root`` and returns the final ``TrainState``; resumes
@@ -143,13 +155,13 @@ def train_loop(model_cfg: ModelConfig, data_cfg: DataConfig,
     if given, is called once before the first step (after a resume),
     ``on_step(state, loss)`` after each step (the loss a device scalar).
     ``eval_fn(state, epoch)``, if given (``make_eval_fn``), runs after each
-    checkpoint. ``host_id`` / ``num_hosts``: this rank and the world size
-    of the process group, which a data-parallel run must pass
+    checkpoint. ``log_dir``: where rank 0 writes TensorBoard scalars
+    (needs the ``tensorboard`` package). ``use_native_batcher``: an LD run
+    draws from ``NativeBatcher`` (raises where its library cannot be
+    built), else from ``TrainBatcher``; an RA run always from
+    ``TrainBatcher``. ``host_id`` / ``num_hosts``: this rank and the world
+    size of the process group, which a data-parallel run must pass
     (``parallel.initialize_distributed`` returns them)."""
-    if log_dir is not None:
-        raise NotImplementedError(
-            "TensorBoard scalars are not ported; the loop writes its JSONL "
-            "log (run_dirs) instead")
     group = ((dist.get_rank(), dist.get_world_size())
              if dist.is_initialized() else (0, 1))
     if (host_id, num_hosts) != group:
@@ -161,8 +173,16 @@ def train_loop(model_cfg: ModelConfig, data_cfg: DataConfig,
                    device=device)
     ds = CVCPDataset(data_root, data_cfg, cache_path=cache_path,
                      host_id=host_id, num_hosts=num_hosts)
-    batcher = TrainBatcher(ds, train_cfg.batch_size, data_cfg.crop_size,
-                           seed=train_cfg.seed)
+    if use_native_batcher and data_cfg.coding_cfg != "RA":
+        batcher = native.NativeBatcher(ds, train_cfg.batch_size,
+                                       data_cfg.crop_size,
+                                       seed=train_cfg.seed,
+                                       nframes=data_cfg.nframes)
+    else:
+        batcher = TrainBatcher(ds, train_cfg.batch_size, data_cfg.crop_size,
+                               seed=train_cfg.seed)
+    # cdfo_tpu's loop initialises its state from this draw
+    batcher.sample_batch()
     spe = steps_per_epoch or max(1, len(ds) // train_cfg.batch_size)
     if dist.is_initialized():
         # every rank takes the same steps: the smallest shard's count
@@ -186,26 +206,45 @@ def train_loop(model_cfg: ModelConfig, data_cfg: DataConfig,
         on_start(state)
     it = batcher.prefetch()
     start_epoch = state.step // spe
-    for epoch in range(start_epoch, epochs):
-        losses = []
-        t0 = time.time()
-        for _ in range(spe):
-            loss = train_step(state, next(it), generator)
-            losses.append(loss)
-            if on_step is not None:
-                on_step(state, loss)
-        avg = float(np.mean([float(v) for v in losses]))
-        msg = {"epoch": epoch + 1, "loss": round(avg, 5),
-               "sec_per_epoch": round(time.time() - t0, 2)}
-        if lead:
-            print(json.dumps(msg), flush=True)
-            with open(log_path, "a") as f:
-                f.write(json.dumps(msg) + "\n")
-        if (epoch + 1) % train_cfg.val_interval == 0:
+    with (summary_writer(log_dir) if log_dir and lead
+          else contextlib.nullcontext()) as writer:
+        for epoch in range(start_epoch, epochs):
+            losses = []
+            t0 = time.time()
+            for _ in range(spe):
+                loss = train_step(state, next(it), generator)
+                losses.append(loss)
+                if on_step is not None:
+                    on_step(state, loss)
+            avg = float(np.mean([float(v) for v in losses]))
+            msg = {"epoch": epoch + 1, "loss": round(avg, 5),
+                   "sec_per_epoch": round(time.time() - t0, 2)}
             if lead:
-                save_checkpoint(ckpt_dir, state, generator)
-            if state.data_parallel:
-                dist.barrier()
-            if lead and eval_fn is not None:
-                eval_fn(state, epoch + 1)
+                print(json.dumps(msg), flush=True)
+                with open(log_path, "a") as f:
+                    f.write(json.dumps(msg) + "\n")
+                if writer is not None:
+                    writer.add_scalar("Train/Loss", avg, epoch)
+            if (epoch + 1) % train_cfg.val_interval == 0:
+                if lead:
+                    save_checkpoint(ckpt_dir, state, generator)
+                if state.data_parallel:
+                    dist.barrier()
+                if lead and eval_fn is not None:
+                    metrics = eval_fn(state, epoch + 1)
+                    if writer is not None and metrics:
+                        for k, v in metrics.items():
+                            writer.add_scalar(f"Eval/{k}", v, epoch)
     return state
+
+
+def summary_writer(log_dir: str):
+    """A TensorBoard ``SummaryWriter`` on ``log_dir``; raises
+    ``ImportError`` naming the ``tensorboard`` package where it is missing."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:
+        raise ImportError("train_loop(log_dir=...) writes TensorBoard "
+                          "scalars and needs the 'tensorboard' package, "
+                          f"which is not installed ({e})") from e
+    return SummaryWriter(log_dir)

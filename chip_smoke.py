@@ -175,6 +175,21 @@ CUDA device the script exits non-zero before printing any result):
    on 12 frames a card against the plain engine on one: frames within
    rounding (>= 50 dB; the bootstrap's batch is k + 6 frames), fps by card
    count; on one card a line says that (c) did not run.
+11. the rest of training and the perceptual metrics: (a) the native C++
+   batcher's build (its command and seconds), one batch at augment off
+   against ``TrainBatcher``'s (1 ulp), both batchers' batches/s at the LD
+   preset (20 x 7 x 64 x 64, 200 batches), and phase 7(c)'s fused LD
+   preset through ``train_loop`` with ``TrainBatcher`` and with the native
+   batcher in turns (TrainBatcher, native, native, TrainBatcher): s/step,
+   samples/s, peak memory; (b) ``python -m cdfo_tpu_torch.tools.soak`` at
+   ``SOAK_STEPS``, its first run SIGKILLed halfway between its first
+   checkpoint and its end by (a)'s s/step: killed mid-run, resumed from a
+   checkpoint, the newest one restored twice bit for bit, its PSNR over
+   bicubic by 0.5 dB (the tool's own assertion); (c) LPIPS (vgg, alex,
+   squeeze; seeded weights) at (20, 3, 256, 256), ``charbonnier_fcl_loss``
+   at the LD preset's centre frames (20, 256, 256, 1) (card against CPU at
+   batch 2) and three ``LPIPSHeadTrainer`` steps at (8, 3, 64, 64), card
+   against CPU in float32 with TF32 off, with the ms a call on the card.
 
 Every model gets the same seeded weights with its EGLA residual mask made
 one-hot (``kernel_cases.excite_egla_mask``; under random weights it is all
@@ -183,7 +198,7 @@ prints the mask's set bits per frame of one ``compensate_frames`` call.
 
 After phase 6 one line orders every kernel on a model path by launches x
 (time - bound) per 12-frame run, its launches from the run of its own path:
-the order in which a redesign gains most. Phases 7-10 follow it.
+the order in which a redesign gains most. Phases 7-11 follow it.
 
 The line before the last is a JSON object with one entry per kernel
 wrapper (launches from the four-flag run; the int8 ``Block_``'s from path
@@ -198,8 +213,10 @@ one LD training step's forward, and the kernels the inferencer runs with
     python3 chip_smoke.py --eval
     python3 chip_smoke.py --zoo
     python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --train-extras
 
-build the kernels and run phase 7, phase 8, phase 9 or phase 10 alone.
+build the kernels and run phase 7, phase 8, phase 9, phase 10 or phase 11
+alone.
 
     python3 chip_smoke.py --profile
 
@@ -1895,15 +1912,19 @@ def _same_tree(a, b) -> bool:
     return a == b
 
 
-def run_training(card: str, root: str, ckpt: str, fused: bool):
+def run_training(card: str, root: str, ckpt: str, fused: bool,
+                 native: bool = False, setup: list | None = None):
     """Phase 7(c): the LD preset through ``train_loop`` (nf 64, 7 trunk
     groups, 7 frames, batch 20, 64x64 crops, the sampled mask, bf16 with
     float32 masters), 2 warm-up and 5 timed steps, one epoch, a checkpoint
-    at its end. Checks each step's launches (forward ``TRAIN_LAUNCHES``
-    with ``fused_trunk``, backward none) and finite losses; returns (the
-    final state, the first loss, s/step, peak GiB, forward launches per
-    step)."""
+    at its end, its batches from ``TrainBatcher`` (phase 11(a): from the
+    native batcher, ``native``). Checks each step's launches (forward
+    ``TRAIN_LAUNCHES`` with ``fused_trunk``, backward none) and finite
+    losses; returns (the final state, the first loss, s/step, peak GiB,
+    forward launches per step); appends to ``setup``, if given, the seconds
+    from the call to the first step."""
     warm, timed = TRAIN_STEPS
+    t_call = time.perf_counter()
     model_cfg = ModelConfig(mask_mode="sample", fused_trunk=fused,
                             compute_dtype=torch.bfloat16)
     data_cfg = DataConfig(coding_cfg="LD", qp=37, frames_per_seq=10)
@@ -1916,6 +1937,8 @@ def run_training(card: str, root: str, ckpt: str, fused: bool):
             lambda m, a, out: forward.append(launch_counts()))
         torch.cuda.synchronize()
         times.append(time.perf_counter())
+        if setup is not None:
+            setup.append(times[0] - t_call)
 
     def on_step(state, loss):
         torch.cuda.synchronize()
@@ -1928,12 +1951,14 @@ def run_training(card: str, root: str, ckpt: str, fused: bool):
 
     state = train_loop(model_cfg, data_cfg, train_cfg, root, num_epochs=1,
                        steps_per_epoch=warm + timed, device="cuda",
-                       on_start=on_start, on_step=on_step)
+                       on_start=on_start, on_step=on_step,
+                       use_native_batcher=native)
     peak = torch.cuda.max_memory_allocated() / 2**30
     per_step = (times[-1] - times[warm]) / timed
     label = (f"LD training (CVSR_V8 nf=64, 7 groups, 7 frames, batch 20, "
              f"64x64 crops, sampled mask, bf16 + fp32 masters, "
-             f"fused_trunk={fused})")
+             f"fused_trunk={fused}, "
+             f"{'native' if native else 'TrainBatcher'} batches)")
     want = {k: 0 for k in steps[0][0]}
     if fused:
         want.update(TRAIN_LAUNCHES)
@@ -2798,6 +2823,231 @@ def check_multi_card(card: str, cards: int) -> None:
                                  f"{quality:.2f} dB")
 
 
+# -- phase 11: the native batcher, the soak, LPIPS and the wavelet loss -------
+
+# the LD preset's batch (batch, frames, crop) and the batches each batcher
+# draws for its rate
+LD_BATCH = (20, 7, 64)
+BATCHER_BATCHES = 200
+# the soak at the fewest steps (a multiple of its 250-step checkpoint
+# interval, at most 1000) at which its PSNR-over-bicubic assertion holds on
+# the card and its first run can die between a checkpoint and its end: the
+# full 2400-step soak's eval log (PERF.md section 5) beats bicubic by 3.7
+# dB at 250 steps, but there the first checkpoint is the end
+SOAK_STEPS = 500
+SOAK_CHECKPOINT = 250
+# seconds from the soak's command to its first training step beyond the
+# trainer's own setup: the interpreter, its imports and the dataset cache
+SOAK_START_S = 20.0
+LPIPS_SHAPE = (20, 3, 256, 256)
+FCL_SHAPE = (20, 256, 256, 1)   # the LD preset's centre frames, NHWC
+TRAINER_SHAPE = (8, 3, 64, 64)
+
+
+def close_to(a: torch.Tensor, b: torch.Tensor, rel: float = 1e-4) -> float:
+    """max |a - b| over max |b| (a and b moved to the CPU); raises past
+    ``rel``."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    err = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+    if not err <= rel:
+        raise AssertionError(f"card against CPU: {err:.3e} > {rel}")
+    return err
+
+
+def check_native_batcher(card: str, tmp: str) -> tuple[float, float]:
+    """Phase 11(a): the native batcher's build; one batch at augment off
+    equal to ``TrainBatcher``'s to one float32 ulp where nothing is drawn;
+    both batchers' batches/s at the LD preset; the fused LD preset through
+    ``train_loop`` with ``TrainBatcher`` and with the native batcher, in
+    that order. Returns (the native run's s/step, its setup s)."""
+    from cdfo_tpu_torch.data import native
+    from cdfo_tpu_torch.data.dataset import CVCPDataset, TrainBatcher
+    # timed on a build of its own: train_loop has built and loaded the
+    # library under build/native/ earlier in the default run
+    cmd = native.compile_command(os.path.join(tmp, "batcher.so"))
+    t0 = time.perf_counter()
+    subprocess.run(cmd, check=True, capture_output=True, text=True)
+    print(f"phase 11(a) native batcher build: {' '.join(cmd)} in "
+          f"{time.perf_counter() - t0:.2f} s (train_loop's: "
+          f"{native.library_path()})", flush=True)
+    native.load()
+    one = os.path.join(tmp, "one")
+    data_io.make_synthetic_cvcp_tree(one, num_seqs=1, frames=7, h=64, w=64)
+    ds = CVCPDataset(one, DataConfig(frames_per_seq=7))
+    nat = native.NativeBatcher(ds, 2, crop=64, augment=False).sample_batch()
+    ref = TrainBatcher(ds, 2, crop=64, augment=False).sample_batch()
+    for k in nat:
+        np.testing.assert_array_max_ulp(nat[k], ref[k], maxulp=1)
+    print("phase 11(a) native batch at augment off equals TrainBatcher's "
+          "within 1 ulp (1 sequence of 7 64x64 frames, crop 64)", flush=True)
+
+    root = os.path.join(tmp, "cvcp")
+    data_io.make_synthetic_cvcp_tree(root, num_seqs=2, frames=10, h=64, w=96)
+    ds = CVCPDataset(root, DataConfig(coding_cfg="LD", qp=37,
+                                      frames_per_seq=10))
+    b, n, crop = LD_BATCH
+    rates = {}
+    for name, batcher in (("native", native.NativeBatcher(ds, b, crop)),
+                          ("TrainBatcher", TrainBatcher(ds, b, crop))):
+        batcher.sample_batch()
+        t0 = time.perf_counter()
+        for _ in range(BATCHER_BATCHES):
+            batcher.sample_batch()
+        rates[name] = BATCHER_BATCHES / (time.perf_counter() - t0)
+    print(f"phase 11(a) batches/s at the LD preset ({b} x {n} x {crop} x "
+          f"{crop}, {BATCHER_BATCHES} batches, {os.cpu_count()} host cores): "
+          f"native {rates['native']:.1f}, TrainBatcher "
+          f"{rates['TrainBatcher']:.1f} ({rates['native'] / rates['TrainBatcher']:.2f}x)",
+          flush=True)
+    runs = {False: [], True: []}
+    setups = {False: [], True: []}
+    for i, native_run in enumerate((False, True, True, False)):
+        state, _, per_step, peak, _ = run_training(
+            card, root, os.path.join(tmp, f"run{i}"), fused=True,
+            native=native_run, setup=setups[native_run])
+        runs[native_run].append((per_step, peak))
+        del state
+        torch.cuda.empty_cache()
+    step = {k: float(np.mean([r[0] for r in v])) for k, v in runs.items()}
+    print(f"phase 11(a) LD training fused, in turns (TrainBatcher, native, "
+          f"native, TrainBatcher): native {[round(r[0], 4) for r in runs[True]]}"
+          f", TrainBatcher {[round(r[0], 4) for r in runs[False]]} s/step; "
+          f"means {step[True]:.4f} / {step[False]:.4f} s/step, "
+          f"{20 / step[True]:.2f} / {20 / step[False]:.2f} samples/s "
+          f"({step[False] / step[True]:.3f}x), peak {runs[True][0][1]:.2f} / "
+          f"{runs[False][0][1]:.2f} GiB; setup {setups[True]} / "
+          f"{setups[False]} s [{card}]", flush=True)
+    return step[True], max(setups[True])
+
+
+def check_soak(card: str, tmp: str, per_step: float, setup_s: float) -> None:
+    """Phase 11(b): ``python -m cdfo_tpu_torch.tools.soak`` at
+    ``SOAK_STEPS``, its first run killed halfway between its first
+    checkpoint and its end by the LD preset's s/step: killed mid-run,
+    resumed from a checkpoint, the final one restored bit for bit, and the
+    tool's own PSNR-over-bicubic assertion."""
+    kill_after = SOAK_START_S + setup_s + per_step * (
+        SOAK_CHECKPOINT + (SOAK_STEPS - SOAK_CHECKPOINT) / 2)
+    cmd = [sys.executable, "-m", "cdfo_tpu_torch.tools.soak", "--out",
+           os.path.join(tmp, "soak"), "--root", os.path.join(tmp, "soak_tree"),
+           "--steps", str(SOAK_STEPS), "--kill-after", f"{kill_after:.1f}"]
+    print(f"phase 11(b) {' '.join(cmd[1:])}", flush=True)
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    lines = out.stdout.strip().splitlines()
+    for line in lines:
+        if line.startswith(("{\"eval\"", "phase 1", "resumed")):
+            print(f"  soak: {line}", flush=True)
+    if out.returncode != 0:
+        raise AssertionError(f"the soak exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    summary = json.loads(lines[-1])
+    print(f"phase 11(b) soak summary {json.dumps(summary)} in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    resumed = summary["resumed_from_step"]
+    if not (summary["killed_mid_run"] and summary["resume_bit_consistent"]
+            and resumed is not None
+            and SOAK_CHECKPOINT <= resumed < SOAK_STEPS
+            and summary["steps"] == SOAK_STEPS):
+        raise AssertionError(f"the soak was not killed mid-run and resumed "
+                             f"bit-consistently: {summary}")
+
+
+def check_perceptual(card: str) -> None:
+    """Phase 11(c): LPIPS (vgg, alex, squeeze; seeded weights) at
+    ``LPIPS_SHAPE``, card against CPU in float32 with TF32 off, and its ms
+    a call on the card; ``charbonnier_fcl_loss`` (vgg LPIPS) at the LD
+    preset's centre frames, card against CPU at batch 2 and ms on the card
+    at batch 20; three ``LPIPSHeadTrainer`` steps at ``TRAINER_SHAPE``,
+    card against CPU."""
+    from cdfo_tpu_torch.losses import charbonnier_fcl_loss
+    from cdfo_tpu_torch.metrics.lpips import LPIPS
+    from cdfo_tpu_torch.metrics.lpips_train import LPIPSHeadTrainer
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"phase 11(c) torch.backends.cudnn.allow_tf32 = "
+          f"{torch.backends.cudnn.allow_tf32} (was {tf32[0]}), "
+          f"cuda.matmul.allow_tf32 = False", flush=True)
+    try:
+        g = torch.Generator().manual_seed(11)
+        x = torch.rand(LPIPS_SHAPE, generator=g) * 2 - 1
+        y = (x + torch.randn(LPIPS_SHAPE, generator=g) * 0.2).clamp(-1, 1)
+        xc, yc = x.cuda(), y.cuda()
+        nets = {}
+        for net in ("vgg", "alex", "squeeze"):
+            cpu = LPIPS(net, device="cpu")
+            card_model = LPIPS(net, device="cuda")
+            with torch.no_grad():
+                want = cpu(x, y)
+                got = card_model(xc, yc)
+                err = close_to(got, want)
+                ms = median_ms(lambda: card_model(xc, yc), reps=10)
+            nets[net] = card_model
+            print(f"phase 11(c) LPIPS {net} {tuple(LPIPS_SHAPE)} float32: "
+                  f"card vs CPU {err:.2e} of the largest distance, {ms:.3f} "
+                  f"ms a call [{card}]", flush=True)
+        del xc, yc
+        vgg = nets["vgg"]
+        hr = torch.rand(FCL_SHAPE, generator=g)
+        sr = (hr + torch.randn(FCL_SHAPE, generator=g) * 0.05).clamp(0, 1)
+        lr_up = (hr + torch.randn(FCL_SHAPE, generator=g) * 0.2).clamp(0, 1)
+        cpu_vgg = LPIPS("vgg", device="cpu")
+        want = charbonnier_fcl_loss(sr[:2], hr[:2], lr_up[:2], cpu_vgg,
+                                    generator=torch.Generator().manual_seed(1))
+        got = charbonnier_fcl_loss(sr[:2].cuda(), hr[:2].cuda(),
+                                   lr_up[:2].cuda(), vgg,
+                                   generator=torch.Generator().manual_seed(1))
+        err = close_to(got, want)
+        args = [t.cuda() for t in (sr, hr, lr_up)]
+        ms = median_ms(lambda: charbonnier_fcl_loss(*args, vgg), reps=5)
+        print(f"phase 11(c) charbonnier_fcl_loss (vgg LPIPS) card vs CPU at "
+              f"{(2,) + FCL_SHAPE[1:]}: {got.item():.4f} / {want.item():.4f} "
+              f"(rel {err:.2e}); {ms:.3f} ms a call at {FCL_SHAPE} [{card}]",
+              flush=True)
+        del args, nets, vgg
+        torch.cuda.empty_cache()
+        r = np.random.RandomState(12)
+        ref, p0, p1 = (r.rand(*TRAINER_SHAPE).astype(np.float32) * 2 - 1
+                       for _ in range(3))
+        judge = r.uniform(-1, 1, TRAINER_SHAPE[0]).astype(np.float32)
+        trainers = {dev: LPIPSHeadTrainer(LPIPS("vgg", device=dev), lr=1e-3,
+                                          seed=3)
+                    for dev in ("cpu", "cuda")}
+        losses = {dev: [t.train_step(ref, p0, p1, judge) for _ in range(3)]
+                  for dev, t in trainers.items()}
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses["cuda"], losses["cpu"]))
+        heads = max(close_to(a.weight, b.weight)
+                    for a, b in zip(*(
+                        [lin.model[1] for lin in t.model.lins()]
+                        for t in (trainers["cuda"], trainers["cpu"]))))
+        print(f"phase 11(c) LPIPSHeadTrainer (vgg) 3 steps at "
+              f"{TRAINER_SHAPE}: losses card {losses['cuda']} / CPU "
+              f"{losses['cpu']} (rel {rel:.2e}), heads {heads:.2e} of the "
+              f"largest [{card}]", flush=True)
+        if not rel <= 1e-4:
+            raise AssertionError("the head trainer's losses differ")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+def check_train_extras(card: str) -> None:
+    """Phase 11."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cdfo_extras_") as tmp:
+        per_step, setup_s = check_native_batcher(card, tmp)
+        t1 = time.perf_counter()
+        check_soak(card, tmp, per_step, setup_s)
+    t2 = time.perf_counter()
+    check_perceptual(card)
+    t3 = time.perf_counter()
+    print(f"phase 11 wall time {t3 - t0:.1f} s: (a) {t1 - t0:.1f}, (b) "
+          f"{t2 - t1:.1f}, (c) {t3 - t2:.1f}", flush=True)
+
+
 def ptxas_fault(line: str) -> bool:
     """A ptxas line that reports a spill (a non-zero spill store or load)
     or a C75xx warning (``wgmma`` serialized, or a wait or arrive
@@ -2895,6 +3145,9 @@ def main():
     if sys.argv[1:2] == ["--parallel"]:
         check_parallel(card)
         return
+    if sys.argv[1:2] == ["--train-extras"]:
+        check_train_extras(card)
+        return
 
     fields = check_kernels(card)
     fields.update(check_trunk_kernels(card))
@@ -2948,6 +3201,7 @@ def main():
     window_launches_per_frame = check_eval(card)
     zoo_launches_per_run = check_zoo(card)
     check_parallel(card)
+    check_train_extras(card)
 
     # launches: the four-flag run's; the int8 Block_'s from path A's run and
     # the warp's from path B's

@@ -1194,3 +1194,106 @@ def test_sharded_engine_over_one_card_equals_the_plain_engine(cuda):
         dist.destroy_process_group()
     assert (frames == plain).all() and (timed == plain).all()
     assert plain.std() > 0 and fps > 0
+
+
+# -- the native batcher, LPIPS and the wavelet loss --------------------------------
+
+@pytest.mark.cuda
+def test_native_batcher_feeds_a_card_train_step(cuda, tmp_path):
+    """Two fused-trunk train steps (bf16 with float32 masters, the sampled
+    mask, phase 4's widths) on the card on batches of the native C++
+    batcher: finite losses, and each step's forward launches the trained
+    kernels (3 Block_ and a group tail a trunk group, the head once)."""
+    from cdfo_tpu_torch import ModelConfig
+    from cdfo_tpu_torch.config import DataConfig, TrainConfig
+    from cdfo_tpu_torch.data import native
+    from cdfo_tpu_torch.data.dataset import CVCPDataset
+    from cdfo_tpu_torch.data.io import make_synthetic_cvcp_tree
+    from cdfo_tpu_torch.models import CVSRV8
+    from cdfo_tpu_torch.train.state import TrainState, train_step
+    make_synthetic_cvcp_tree(str(tmp_path), num_seqs=2, frames=9, h=32, w=48)
+    ds = CVCPDataset(str(tmp_path), DataConfig(frames_per_seq=9))
+    batcher = native.NativeBatcher(ds, 2, crop=16)
+    model = CVSRV8(ModelConfig(scn_groups=2, mask_mode="sample",
+                               fused_trunk=True, compute_dtype=torch.bfloat16),
+                   torch.Generator().manual_seed(0), device=cuda)
+    state = TrainState(model, TrainConfig())
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    before = (fb.scale_block.launches, fg.grouptail.launches,
+              fh.fused_head.launches)
+    losses = [train_step(state, batcher.sample_batch(), gen).item()
+              for _ in range(2)]
+    after = (fb.scale_block.launches, fg.grouptail.launches,
+             fh.fused_head.launches)
+    assert all(torch.isfinite(torch.tensor(losses))) and state.step == 2
+    assert [a - b for a, b in zip(after, before)] == [12, 4, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["vgg", "alex", "squeeze"])
+def test_lpips_card_matches_cpu(cuda, net):
+    """LPIPS (seeded weights, averaged and spatial) on the card against the
+    CPU, float32, TF32 off: within 1e-4 of the largest value."""
+    from cdfo_tpu_torch.metrics.lpips import LPIPS
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand(2, 3, 64, 64, generator=g) * 2 - 1
+    y = (x + torch.randn(2, 3, 64, 64, generator=g) * 0.3).clamp(-1, 1)
+    for spatial in (False, True):
+        cpu = LPIPS(net, spatial=spatial, device="cpu")
+        card = LPIPS(net, spatial=spatial, device=cuda)
+        with torch.no_grad():
+            ref, out = cpu(x, y), card(x.to(cuda), y.to(cuda)).cpu()
+        assert out.shape == ref.shape
+        err = (out - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item(), (spatial, err)
+
+
+@pytest.mark.cuda
+def test_fcl_loss_card_matches_cpu(cuda):
+    """``charbonnier_fcl_loss`` (vgg LPIPS, the same shuffles) on the card
+    against the CPU, float32, TF32 off, within 1e-4 relative; its gradient
+    is the Charbonnier loss's."""
+    from cdfo_tpu_torch.losses import charbonnier_fcl_loss, charbonnier_loss
+    from cdfo_tpu_torch.metrics.lpips import LPIPS
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(5)
+    hr = torch.rand(2, 64, 64, 1, generator=g)
+    sr = (hr + torch.randn(2, 64, 64, 1, generator=g) * 0.05).clamp(0, 1)
+    lr_up = (hr + torch.randn(2, 64, 64, 1, generator=g) * 0.2).clamp(0, 1)
+    ref = charbonnier_fcl_loss(sr, hr, lr_up, LPIPS("vgg", device="cpu"),
+                               generator=torch.Generator().manual_seed(1))
+    a = sr.to(cuda).requires_grad_()
+    out = charbonnier_fcl_loss(a, hr.to(cuda), lr_up.to(cuda),
+                               LPIPS("vgg", device=cuda),
+                               generator=torch.Generator().manual_seed(1))
+    assert abs(out.item() - ref.item()) <= 1e-4 * abs(ref.item())
+    out.backward()
+    b = sr.to(cuda).requires_grad_()
+    charbonnier_loss(b, hr.to(cuda)).backward()
+    assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.cuda
+def test_lpips_head_trainer_step_card_matches_cpu(cuda):
+    """One ``LPIPSHeadTrainer`` step (alex, the same seeded heads and
+    ranking net) on the card against the CPU, float32, TF32 off: loss and
+    heads within 1e-4, heads >= 0."""
+    from cdfo_tpu_torch.metrics.lpips import LPIPS
+    from cdfo_tpu_torch.metrics.lpips_train import LPIPSHeadTrainer
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(6)
+    ref, p0, p1 = (torch.rand(4, 3, 64, 64, generator=g) * 2 - 1
+                   for _ in range(3))
+    judge = torch.rand(4, generator=g) * 2 - 1
+    trainers = [LPIPSHeadTrainer(LPIPS("alex", device=d), lr=1e-3, seed=2)
+                for d in ("cpu", cuda)]
+    losses = [t.train_step(ref, p0, p1, judge) for t in trainers]
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    for a, b in zip(trainers[0].heads, trainers[1].heads):
+        assert (b >= 0).all()
+        err = (b.detach().cpu() - a.detach()).abs().max().item()
+        assert err <= 1e-4 * a.abs().max().item()
