@@ -2,17 +2,29 @@
 
 The port's parameter names are the reference torch ``state_dict`` keys, the
 names ``cdfo_tpu.compat.torch_convert.flax_to_torch_key`` emits. That module
-cannot be imported without JAX, so its key mapping is copied here (the part
-the model zoo reaches) and each array transform is inverted:
+cannot be imported without JAX, so its key mapping is copied here and each
+array transform is inverted. A leaf is told by what it is (its name and its
+number of dimensions), never by the name of the module instance that holds
+it:
 
-  conv kernel (kh, kw, in, out)            -> weight (out, in, kh, kw)
-  conv-transpose kernel (kh, kw, in, out)  -> weight (in, out, kh, kw)
-  LayerNorm {weight, bias}                 -> body.{weight, bias}
-  raw DCN weight (kh, kw, in, out)         -> weight (out, in, kh, kw)
-  EGLA 9-tap directW1/directH1 vectors     -> (1, 1, 1, 9) / (1, 1, 9, 1)
-  EGLA1 9-tap directW/directH vectors      -> (1, 1, 9, 1) / (1, 1, 1, 9)
-                                              weights and (1,) biases
-  flax ``name_N`` Sequential names         -> torch ``name.N``
+  conv kernel (kh, kw, in, out)              -> weight (out, in, kh, kw)
+  conv-transpose kernel (kh, kw, in, out)    -> weight (in, out, kh, kw)
+  3-D conv kernel (kd, kh, kw, in, out)      -> weight (out, in, kd, kh, kw)
+  dense kernel (in, out)                     -> Linear weight (out, in)
+  flax LayerNorm {scale, bias}               -> {weight, bias}
+  ChannelLayerNorm {weight, bias} (1-D)      -> body.{weight, bias}
+  raw DCN weight ``*weight*`` (kh, kw, in, out)
+                                             -> (out, in, kh, kw)
+  raw DCN bias ``*bias*``, temperatures, ``gamma`` (1,), ``beta``, PReLU
+  ``*_alpha``, ``relative_position_bias_table``
+                                             -> the same array, same name
+  GDN ``gamma`` (ch, ch), sum over its first axis
+                                             -> the reference's 1x1 conv
+                                                weight (out, in): transposed
+  EGLA 9-tap directW1/directH1 vectors       -> (1, 1, 1, 9) / (1, 1, 9, 1)
+  EGLA1 9-tap directW/directH vectors        -> (1, 1, 9, 1) / (1, 1, 1, 9)
+                                                weights and (1,) biases
+  flax ``name_N`` Sequential names           -> torch ``name.N``
 
 A variant wrapper's leading ``body`` scope (CVSR_V9's) has no torch
 counterpart and is dropped; a scan trunk's stacked ``groups/g`` tree is
@@ -36,6 +48,7 @@ _SEQUENTIAL = {
     "offset_mask", "input_conv", "kernel_pred_module", "channel_add_conv",
     "conv_offset", "fcs", "conv_match1", "conv_match2", "conv_assembly",
     "scaleing", "off2flow", "offset_oc", "out_conv", "spatial",
+    "blocks",   # swin's BasicLayer (Swin-IR's ``blocks.{i}``)
 }
 
 _RENAMES = {
@@ -61,12 +74,12 @@ def _join(segs) -> str:
     return ".".join(_segment_to_torch(s) for s in segs)
 
 
-def flax_to_torch(path: Tuple[str, ...], norm: bool = False
+def flax_to_torch(path: Tuple[str, ...], ndim: int, norm: bool = False
                   ) -> Tuple[str, Callable]:
     """Map a flax param path to (torch state_dict key, flax -> torch array
-    transform). ``norm``: the leaf belongs to a ChannelLayerNorm (whose
-    params are a ``weight`` and a ``bias``); a ``weight`` leaf outside one
-    is a deformable conv's raw weight."""
+    transform). ``ndim``: the leaf's number of dimensions. ``norm``: the
+    leaf belongs to a ChannelLayerNorm (a scope holding a 1-D ``weight``
+    beside its ``bias``)."""
     segs = [s for s in path if s != "msa"]  # _GateMSA params live flat
     if segs[0] == "body":   # a variant wrapper's scope (CVSR_V9)
         segs = segs[1:]
@@ -78,51 +91,61 @@ def flax_to_torch(path: Tuple[str, ...], norm: bool = False
     def t_conv_t(a):  # (kh, kw, in, out) -> (in, out, kh, kw)
         return np.transpose(a, (2, 3, 0, 1))
 
+    def t_conv3(a):  # (kd, kh, kw, in, out) -> (out, in, kd, kh, kw)
+        return np.transpose(a, (4, 3, 0, 1, 2))
+
+    def t_dense(a):  # (in, out) -> (out, in)
+        return a.T
+
     def identity(a):
         return a
 
     def key(base, name):
         return f"{base}.{name}" if base else name
 
+    base = _join(segs[:-1])
     if leaf == "temperature":
-        return key(_join(segs[:-1]), "temperature"), identity
+        return key(base, "temperature"), identity
     if len(segs) >= 2 and segs[-2] == "conv" and leaf in ("kernel", "bias"):
         base = _join(segs[:-2])
         if leaf == "kernel":
             return key(base, "weight"), t_conv
         return key(base, "bias"), identity
-    if leaf == "kernel":  # ConvTranspose2d stores a bare kernel
-        return key(_join(segs[:-1]), "weight"), t_conv_t
-    if norm and leaf in ("weight", "bias"):
-        return key(_join(segs[:-1]), f"body.{leaf}"), identity
-    if leaf == "weight":  # a deformable conv's raw (kh, kw, in, out)
-        return key(_join(segs[:-1]), "weight"), t_conv
-    if leaf == "bias":  # ConvTranspose2d or deformable conv bias
-        return key(_join(segs[:-1]), "bias"), identity
+    if leaf == "kernel":  # a bare kernel: dense, conv-transpose or 3-D conv
+        transform = {2: t_dense, 4: t_conv_t, 5: t_conv3}.get(ndim)
+        if transform is None:
+            raise KeyError(f"no rule for a {ndim}-D kernel at {path}")
+        return key(base, "weight"), transform
     m = re.fullmatch(r"(direct[WH]1?)_(kernel|bias)", leaf)
     if m:
         name, kind = m.groups()
-        base = _join(segs[:-1])
         if kind == "kernel":
             shape = _DIRECT_SHAPES[name]
             return key(base, f"{name}_conv.weight"), lambda a: a.reshape(shape)
         return key(base, f"{name}_conv.bias"), lambda a: a.reshape(1)
-    raise KeyError(f"no rule for flax path {path}")
-
-
-def _is_dcn(prefix) -> bool:
-    """A deformable conv's scope: its ``weight`` is a raw conv weight
-    (``cdfo_tpu``'s converter's rule: ``mdc`` / ``dc`` packs and the
-    ``*deform_align`` aligners)."""
-    return bool(prefix) and (prefix[-1] in ("mdc", "dc")
-                             or prefix[-1].endswith("deform_align"))
+    if leaf == "scale":  # flax LayerNorm
+        return key(base, "weight"), identity
+    if norm and leaf in ("weight", "bias"):
+        return key(base, f"body.{leaf}"), identity
+    if "weight" in leaf and ndim == 4:  # a deformable conv's raw weight
+        return key(base, leaf), t_conv
+    if "bias" in leaf and ndim == 1:  # conv-transpose or deformable bias
+        return key(base, leaf), identity
+    if leaf == "gamma" and ndim == 2:  # GDN: cdfo_tpu sums over axis 0
+        return key(base, leaf), lambda a: a.T
+    if (leaf in ("gamma", "beta", "relative_position_bias_table")
+            or leaf.endswith("_alpha")):
+        return key(base, leaf), identity
+    raise KeyError(f"no rule for flax path {path} ({ndim}-D)")
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
-    """Yields (path, leaf, norm); a dict holding a ``weight`` leaf is a
-    LayerNorm (convolutions hold a ``kernel``), unless it is a deformable
-    conv's."""
-    norm = "weight" in tree and not _is_dcn(prefix)
+    """Yields (path, leaf, norm); ``norm``: the scope is a ChannelLayerNorm,
+    whose ``weight`` is 1-D (a deformable conv's raw ``weight`` is 4-D,
+    convolutions hold a ``kernel``)."""
+    w = tree.get("weight")
+    norm = w is not None and not isinstance(w, Mapping) \
+        and np.ndim(w) == 1
     for k, v in tree.items():
         if isinstance(v, Mapping):
             yield from _flatten(v, prefix + (k,))
@@ -139,7 +162,7 @@ def from_flax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     params = from_scan_trunk(params)
     sd = {}
     for path, leaf, norm in _flatten(params):
-        tkey, transform = flax_to_torch(path, norm)
+        tkey, transform = flax_to_torch(path, np.ndim(leaf), norm)
         if tkey in sd:
             raise KeyError(f"two flax params map to {tkey}")
         arr = transform(np.asarray(leaf, np.float32))

@@ -11,6 +11,10 @@ reference's ``flow.flip(1).repeat(GK)`` bias is a (dy, dx) tile here.
   ``state_dict`` (the DCN's raw ``weight`` and ``bias`` too).
 * ``STN``, ``MVLocalAttn`` and ``FeaFusion`` (SIDECVSR's patch alignment
   and temporal attention, `:200-320`).
+* The library members no registry model builds: ``MVDeformableAlignment``,
+  ``MVSelfAttDeformableAlignment``, ``MVIterativeDeformableAlignment``
+  (offsets from a conv head over the warped neighbour), and the STDF-era
+  ``DeformableSKConv`` and ``STDF``.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from ..ops.deform_conv import deform_conv2d
 from ..ops.warp import flow_warp
 from .attention import _channel_attention
 from .dcn import ZeroConv2d, _ref_weight_init
-from .layers import Conv2d
+from .layers import Conv2d, DPConv, lrelu
 
 
 def _tile_flow_bias(flow: torch.Tensor, gk: int) -> torch.Tensor:
@@ -185,3 +189,207 @@ class FeaFusion(nn.Module):
         prob = torch.sigmoid((emb * emb_ref[:, None]).sum(dim=-1))
         prob = prob.permute(0, 2, 3, 1)[..., None].expand(b, h, w, n, nf)
         return feas * prob.reshape(b, h, w, nc)
+
+
+def _offset_head(in_ch: int, dim: int, out_ch: int, dtype) -> nn.Sequential:
+    """``conv_offset``: three 3x3 convs, each followed by lrelu(0.1), then
+    a zero-initialised 3x3 conv to ``out_ch`` (``conv_offset.0`` ...
+    ``conv_offset.6``)."""
+    return nn.Sequential(
+        Conv2d(in_ch, dim, 3, 1, 1, dtype=dtype), nn.LeakyReLU(0.1),
+        Conv2d(dim, dim, 3, 1, 1, dtype=dtype), nn.LeakyReLU(0.1),
+        Conv2d(dim, dim, 3, 1, 1, dtype=dtype), nn.LeakyReLU(0.1),
+        ZeroConv2d(dim, out_ch, 3, 1, 1, dtype=dtype))
+
+
+class _MVDeformable(nn.Module):
+    """The three MV deformable aligners' shared part: the offset head, the
+    modulated DCN's raw ``weight`` and ``bias`` flat on the module, and
+    ``_align``, which turns the head's output into offsets (10 tanh plus
+    the tiled flow) and a sigmoid mask and samples ``x``."""
+
+    def __init__(self, dim: int, head_in: int, kernel_size: int,
+                 padding: int, deformable_groups: int,
+                 max_residue_magnitude: float, dtype: torch.dtype):
+        super().__init__()
+        self.dim, self.kernel_size, self.padding = dim, kernel_size, padding
+        self.deformable_groups = deformable_groups
+        self.max_residue_magnitude = max_residue_magnitude
+        k, g = kernel_size, deformable_groups
+        self.conv_offset = _offset_head(head_in, dim, 3 * g * k * k, dtype)
+        self.weight = nn.Parameter(torch.empty(dim, dim, k, k, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(dim, dtype=dtype))
+
+    def init_parameters(self, generator: torch.Generator):
+        _ref_weight_init(self.weight, self.dim, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def _offsets(self, out):
+        """(10 tanh of the head's offsets, its sigmoid mask)."""
+        gk = self.deformable_groups * self.kernel_size ** 2
+        return (self.max_residue_magnitude * torch.tanh(out[..., :2 * gk]),
+                torch.sigmoid(out[..., 2 * gk:]))
+
+    def _align(self, x, residue, mask, flow):
+        gk = self.deformable_groups * self.kernel_size ** 2
+        return deform_conv2d(x, residue + _tile_flow_bias(flow, gk),
+                             self.weight, self.bias, mask,
+                             padding=self.padding)
+
+
+class MVDeformableAlignment(_MVDeformable):
+    """`:3103-3165`: offsets from ``conv_offset`` over the warped neighbour
+    and the flow (twice), 10 tanh plus the tiled flow; the mask a sigmoid
+    (the reference's ``nn.Sigmoid(mask)`` constructs a module and would
+    crash; ``cdfo_tpu`` applies the function, and so does the port).
+    forward(x, extra_feat, flow)."""
+
+    def __init__(self, dim: int = 64, kernel_size: int = 3, padding: int = 1,
+                 deformable_groups: int = 16,
+                 max_residue_magnitude: float = 10.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(dim, dim + 4, kernel_size, padding,
+                         deformable_groups, max_residue_magnitude, dtype)
+
+    def forward(self, x, extra_feat, flow):
+        warped = flow_warp(extra_feat, flow)
+        residue, mask = self._offsets(
+            self.conv_offset(torch.cat([warped, flow, flow], dim=-1)))
+        return self._align(x, residue, mask, flow)
+
+
+class MVSelfAttDeformableAlignment(_MVDeformable):
+    """`:3169-3261`: the reference computes a channel MSA of (warped,
+    extra_feat, pred_feat) and then overwrites its result (`:3246`); the
+    offsets come from ``conv_offset(extra_feat)``. The MSA's parameters
+    (``temperature``, ``project_out``) are kept, so checkpoints load; its
+    discarded output is not computed. forward(x, extra_feat, pred_feat,
+    flow)."""
+
+    def __init__(self, dim: int = 64, kernel_size: int = 3, padding: int = 1,
+                 deformable_groups: int = 16,
+                 max_residue_magnitude: float = 10.0, num_heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(dim, dim, kernel_size, padding, deformable_groups,
+                         max_residue_magnitude, dtype)
+        self.num_heads = num_heads
+        self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
+        self.project_out = Conv2d(dim, dim, 1, bias=False, dtype=dtype)
+
+    def forward(self, x, extra_feat, pred_feat, flow):
+        residue, mask = self._offsets(self.conv_offset(extra_feat))
+        return self._align(x, residue, mask, flow)
+
+
+class MVIterativeDeformableAlignment(_MVDeformable):
+    """`:3653-3736`: iterative offset refinement. Without a carried offset
+    feature the head reads (warped, flow, flow); with one, (warped,
+    sigmoid(off2flow(pre * sigmoid(scaleing(warped, pre))))). Returns
+    (aligned, offset feature = sigmoid(offset_oc(the tanh offsets))).
+    forward(x, extra_feat, flow, pre_offset_fea=None)."""
+
+    def __init__(self, dim: int = 64, kernel_size: int = 3, padding: int = 1,
+                 deformable_groups: int = 16,
+                 max_residue_magnitude: float = 10.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(dim, dim + 4, kernel_size, padding,
+                         deformable_groups, max_residue_magnitude, dtype)
+        gk = deformable_groups * kernel_size ** 2
+        self.scaleing = nn.Sequential(
+            Conv2d(2 * dim, dim, 3, 1, 1, dtype=dtype))
+        self.off2flow = nn.Sequential(Conv2d(dim, 4, 3, 1, 1, dtype=dtype))
+        self.offset_oc = nn.Sequential(
+            Conv2d(2 * gk, dim, 3, 1, 1, dtype=dtype))
+
+    def forward(self, x, extra_feat, flow, pre_offset_fea=None):
+        warped = flow_warp(extra_feat, flow)
+        if pre_offset_fea is None:
+            feat = torch.cat([warped, flow, flow], dim=-1)
+        else:
+            scale = torch.sigmoid(self.scaleing(
+                torch.cat([warped, pre_offset_fea], dim=-1)))
+            pre = torch.sigmoid(self.off2flow(pre_offset_fea * scale))
+            feat = torch.cat([warped, pre], dim=-1)
+        residue, mask = self._offsets(self.conv_offset(feat))
+        offset_out = torch.sigmoid(self.offset_oc(residue))
+        return self._align(x, residue, mask, flow), offset_out
+
+
+class DeformableSKConv(nn.Module):
+    """deformable_SKConv (`:62-128`): branches of kernel 1, 3 and 5, each
+    a modulated DCN with one deformable group per channel whose offsets
+    (from a ``DPConv`` head) start at the tiled motion vector; the shared
+    ``conv_attention`` / ``fc`` give each branch a GAP gate; the gated
+    branches, concatenated branch-major, go through a 1x1 conv. The DCNs'
+    raw weights are ``deform_weight_{i}`` / ``deform_bias_{i}``.
+    forward(fea, inputs, mv)."""
+
+    def __init__(self, in_fea: int = 64, out_fea: int = 64, in_nc: int = 32,
+                 branches: int = 3, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        nc = in_nc
+        self.in_nc, self.branches = nc, branches
+        self.input_conv = nn.Sequential(Conv2d(in_fea, nc, 1, dtype=dtype))
+        self.conv_attention = nn.Sequential(Conv2d(nc, nc, 1, dtype=dtype))
+        self.fc = nn.Sequential(Conv2d(nc, nc, 1, dtype=dtype))
+        self.offset_mask = nn.ModuleList(
+            [DPConv(nc, nc * 3 * (2 * i + 1) ** 2, 2 * i + 1, dtype=dtype)
+             for i in range(branches)])
+        for i in range(branches):
+            k = 2 * i + 1
+            self.register_parameter(f"deform_weight_{i}", nn.Parameter(
+                torch.empty(nc, nc, k, k, dtype=dtype)))
+            self.register_parameter(f"deform_bias_{i}", nn.Parameter(
+                torch.zeros(nc, dtype=dtype)))
+        self.conv_0 = Conv2d(branches * nc, out_fea, 1, dtype=dtype)
+
+    def init_parameters(self, generator: torch.Generator):
+        for i in range(self.branches):
+            _ref_weight_init(getattr(self, f"deform_weight_{i}"), self.in_nc,
+                             generator)
+            with torch.no_grad():
+                getattr(self, f"deform_bias_{i}").zero_()
+
+    def forward(self, fea, inputs, mv):
+        nc = self.in_nc
+        head_in = lrelu(self.input_conv(fea))
+        dcn_in = lrelu(self.input_conv(inputs))
+        outs = []
+        for i in range(self.branches):
+            k = 2 * i + 1
+            d = k * k
+            om = self.offset_mask[i](head_in)
+            offset = om[..., :nc * 2 * d] + _tile_flow_bias(mv, nc * d)
+            fused = torch.relu(deform_conv2d(
+                dcn_in, offset, getattr(self, f"deform_weight_{i}"),
+                getattr(self, f"deform_bias_{i}"),
+                torch.sigmoid(om[..., nc * 2 * d:]), padding=k // 2))
+            att = lrelu(self.conv_attention(fused)).mean(dim=(1, 2),
+                                                         keepdim=True)
+            outs.append(fused * lrelu(self.fc(att)))
+        return lrelu(self.conv_0(torch.cat(outs, dim=-1)))
+
+
+class STDF(_ChannelMSA):
+    """Spatio-temporal deformable fusion (`:134-188`): the channel MSA of
+    (warped neighbour, neighbour, prediction), its 1x1 and 3x3
+    projections feeding ``DeformableSKConv`` (``d_SKConv``) with the
+    motion vector. ``project_out_5`` is built but its output unused, as in
+    the reference; the port keeps its parameters and skips the conv.
+    forward(inputs, extra_feat, pred_feat, mv); ``inputs`` is not read."""
+
+    def __init__(self, in_nc: int = 32, out_nc: int = 64, nf: int = 64,
+                 num_heads: int = 8, dtype: torch.dtype = torch.float32):
+        super().__init__(nf, num_heads, dtype)
+        self.project_out_1 = Conv2d(nf, nf, 1, dtype=dtype)
+        self.project_out_3 = Conv2d(nf, nf, 3, 1, 1, dtype=dtype)
+        self.project_out_5 = Conv2d(nf, nf, 5, 1, 2, dtype=dtype)
+        self.out_conv = nn.Sequential(Conv2d(nf, nf, 3, 1, 1, dtype=dtype))
+        self.d_SKConv = DeformableSKConv(nf, out_nc, in_nc, dtype=dtype)
+
+    def forward(self, inputs, extra_feat, pred_feat, mv):
+        out = self.msa(flow_warp(extra_feat, mv), extra_feat, pred_feat)
+        init1 = self.project_out_1(out)
+        out = lrelu(self.out_conv(self.project_out_3(out)))
+        return self.d_SKConv(out, init1, mv)

@@ -170,3 +170,20 @@ class SpatialAttention(nn.Module):
         pooled = torch.cat([x.amax(dim=-1, keepdim=True),
                             x.mean(dim=-1, keepdim=True)], dim=-1)
         return x * torch.sigmoid(self.spatial(pooled))
+
+
+class DPConv(nn.Module):
+    """Depthwise (k, stride, groups = C) then pointwise 1x1
+    (`arch/SIDECVSR_our.py:37-59`); ``depth_conv`` and ``point_conv`` as
+    the reference names them."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.depth_conv = Conv2d(in_ch, in_ch, kernel_size, stride,
+                                 (kernel_size - 1) // 2, groups=in_ch,
+                                 dtype=dtype)
+        self.point_conv = Conv2d(in_ch, out_ch, 1, dtype=dtype)
+
+    def forward(self, x):
+        return self.point_conv(self.depth_conv(x))

@@ -3,7 +3,11 @@
 branch's U-shaped side encoder, the three shared-weight rounds of
 CVSR_V8 (``PartitionTransformerSA2``, eager or fused), their woPAB ablation
 without the partition branch, and SIDECVSR's four-conv side encoder
-``SideToFea``."""
+``SideToFea``; and the family's members that no registry model builds: the
+side encoders ``SideToFeaOne``, ``SideToFeaUD`` and ``SideToFeaUDK``,
+``TransformerBlockSimple``, and the four- and three-round
+``PartitionTransformerSA`` / ``PartitionTransformerSA1``, which run the
+plain ``MDTA`` as ``cdfo_tpu`` does."""
 from __future__ import annotations
 
 import torch
@@ -134,3 +138,99 @@ class PartitionTransformerSAWoPAB(nn.Module):
             x1 = x1 + self.attn(self.norm1(x1))
             x1 = x1 + self.conv(self.norm2(x1))
         return x1
+
+
+class SideToFeaOne(nn.Module):
+    """Two 3x3 convs, each followed by lrelu(0.1)
+    (`arch/SIDECVSR_our.py:1716-1732`; ``body.0``, ``body.2``)."""
+
+    def __init__(self, in_ch: int = 1, nf: int = 32,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.body = nn.Sequential(
+            Conv2d(in_ch, nf, 3, 1, 1, dtype=dtype), nn.LeakyReLU(0.1),
+            Conv2d(nf, nf, 3, 1, 1, dtype=dtype), nn.LeakyReLU(0.1))
+
+    def forward(self, side):
+        return self.body(side)
+
+
+class SideToFeaUDK(nn.Module):
+    """The stride-2 U encoder without spatial attention, ``in_f`` channels
+    in and out (`:1760-1780`): conv s2p2, conv s2p2, conv, convT s2p2,
+    convT s2p2 (output_padding 1), conv, each followed by lrelu(0.1)
+    (``body.0`` ... ``body.10``)."""
+
+    def __init__(self, in_f: int, nf: int = 32,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+
+        def act():
+            return nn.LeakyReLU(0.1)
+
+        self.body = nn.Sequential(
+            Conv2d(in_f, nf, 3, 2, 2, dtype=dtype), act(),
+            Conv2d(nf, nf, 3, 2, 2, dtype=dtype), act(),
+            Conv2d(nf, nf, 3, 1, 1, dtype=dtype), act(),
+            ConvTranspose2d(nf, nf, 3, 2, 2, 0, dtype=dtype), act(),
+            ConvTranspose2d(nf, nf, 3, 2, 2, 1, dtype=dtype), act(),
+            Conv2d(nf, in_f, 3, 1, 1, dtype=dtype), act())
+
+    def forward(self, side):
+        return self.body(side)
+
+
+class SideToFeaUD(SideToFeaUDK):
+    """``SideToFeaUDK`` with one channel in and out
+    (`arch/SIDECVSR_our.py:1736-1756`)."""
+
+    def __init__(self, nf: int = 32, dtype: torch.dtype = torch.float32):
+        super().__init__(1, nf, dtype)
+
+
+class TransformerBlockSimple(nn.Module):
+    """TransformerBlock (`:1317-1336`): one ``x + attn(norm1(x))``; the
+    reference's ffn and conv branches are commented out."""
+
+    def __init__(self, dim: int = 64, num_heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm1 = ChannelLayerNorm(dim)
+        self.attn = MDTA(dim, num_heads, dtype=dtype)
+
+    def forward(self, x):
+        return x + self.attn(self.norm1(x))
+
+
+class PartitionTransformerSA(nn.Module):
+    """`:1371-1398`: four rounds, sharing one set of weights, of
+
+        x2 = side(x2)                      (a fresh encode, not accumulated)
+        x1 = x1 + attn(norm1(x1)) + x2
+        x1 = x1 + conv(norm2(x1))
+
+    forward(x1=image features, x2=partition features)."""
+
+    rounds = 4
+
+    def __init__(self, dim: int = 64, num_heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm1 = ChannelLayerNorm(dim)
+        self.norm2 = ChannelLayerNorm(dim)
+        self.attn = MDTA(dim, num_heads, dtype=dtype)
+        self.conv = Conv2d(dim, dim, 3, 1, 1, dtype=dtype)
+        self.side_to_feaoneUDSA = SideToFeaUDSA2(dim, nf=16, dtype=dtype)
+
+    def forward(self, x1, x2):
+        for _ in range(self.rounds):
+            x2 = self.side_to_feaoneUDSA(x2)
+            x1 = x1 + self.attn(self.norm1(x1)) + x2
+            x1 = x1 + self.conv(self.norm2(x1))
+        return x1
+
+
+class PartitionTransformerSA1(PartitionTransformerSA):
+    """`:1403-1436`: ``PartitionTransformerSA`` in three rounds."""
+
+    rounds = 3

@@ -78,3 +78,25 @@ def flow_warp_ring(ring: torch.Tensor, frame_idx: torch.Tensor,
         raise ValueError(f"bad shapes ring={tuple(ring.shape)} "
                          f"flow={tuple(flow.shape)}")
     return _taps(ring, frame_idx, flow).to(ring.dtype)
+
+
+def flow_warp_nearest(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, H, W, C) sampled at the nearest pixel to ``grid + flow``
+    (flow (B, H, W, 2), (dx, dy)), the coordinate rounded half to even as
+    ``F.grid_sample``'s nearest mode does; zero outside the image."""
+    if x.ndim != 4 or flow.ndim != 4 or flow.shape[-1] != 2:
+        raise ValueError(f"bad shapes x={tuple(x.shape)} "
+                         f"flow={tuple(flow.shape)}")
+    b, h, w, c = x.shape
+    f = flow.float()
+    dev = x.device
+    ix = torch.round(torch.arange(w, dtype=torch.float32, device=dev)
+                     [None, None, :] + f[..., 0]).long()
+    iy = torch.round(torch.arange(h, dtype=torch.float32, device=dev)
+                     [None, :, None] + f[..., 1]).long()
+    valid = (ix >= 0) & (ix <= w - 1) & (iy >= 0) & (iy <= h - 1)
+    base = torch.arange(b, device=dev).reshape(b, 1, 1) * (h * w)
+    idx = base + iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)
+    out = x.reshape(b * h * w, c).index_select(0, idx.reshape(-1))
+    return torch.where(valid[..., None], out.reshape(b, h, w, c),
+                       torch.zeros((), dtype=x.dtype, device=dev))

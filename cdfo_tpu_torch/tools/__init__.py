@@ -6,7 +6,9 @@ and ``test_sr``,
 ``eval_jctvc``, ``int8_delta`` and ``gumbel_variance``, the evaluation
 tools (ports of the repository's ``tools/`` scripts of those names, with
 their flags; on the card, or on the CPU with ``--cpu``; the last two on
-``structured``'s small trained model); the trunk's microbenchmarks on the
+``structured``'s small trained model); ``flops`` (parameters and forward
+FLOPs of a registry model) and ``convert_ckpt`` (a released ``.pth`` to a
+training checkpoint and back); the trunk's microbenchmarks on the
 GPU, ports of the TPU tools ``microbench_trunk``, ``microbench_dots`` and
 ``microbench_dma`` (with their arguments and defaults); and
 ``compare_block``, a kernel (the

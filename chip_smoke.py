@@ -190,6 +190,27 @@ CUDA device the script exits non-zero before printing any result):
    at the LD preset's centre frames (20, 256, 256, 1) (card against CPU at
    batch 2) and three ``LPIPSHeadTrainer`` steps at (8, 3, 64, 64), card
    against CPU in float32 with TF32 off, with the ms a call on the card.
+12. the model library that no registry model builds, in float32 with TF32
+   off, on seeded weights with every all-zero weight refilled: every class
+   of ``layers.DPConv``, ``models/alignment_dcn.py`` (the three MV
+   deformable alignments, ``DeformableSKConv``, ``STDF``),
+   ``models/attention_variants.py`` (``RDABS`` and ``RSNLAttention`` on a
+   sampled mask, ``RDABUnderscore``, ``PAM``, ``RPAB``, ``CAMSelf``,
+   ``CAM``, ``RCAB``, ``NonLocalAttention`` at 128 channels,
+   ``CrissCrossAttention``, ``SKFF``, ``ContextBlock``, the 3-D blocks),
+   ``models/prior_encoder.py`` (the side encoders,
+   ``TransformerBlockSimple``, ``PartitionTransformerSA`` / ``SA1``),
+   ``models/extras.py`` and ``models/swin.py`` (dim 64, 8 heads, windows
+   of 8, depth 6) at its default widths (nf 64; the AGG and RiR nets at one
+   group) on the LD preset's batch (20, 64, 64, C), then those whose cost
+   is linear in pixels at the engine's k = 4 frame (4, 272, 480, C): the
+   ms a call (CUDA events, median of 10) and the peak memory of one call
+   on the card, and the card's first images (2 of the LD batch, 1 of the
+   frame) within 1e-4 of the CPU output's largest value on the same
+   images, weights and draws (the CPU runs in a host thread beside the
+   card's work); ``lower_bound``'s gradient (bit for bit) and GDN's (x,
+   beta, gamma), card against CPU; ``tools.flops`` on every registry name
+   at 272x480 (params and GFLOP of one forward).
 
 Every model gets the same seeded weights with its EGLA residual mask made
 one-hot (``kernel_cases.excite_egla_mask``; under random weights it is all
@@ -198,7 +219,7 @@ prints the mask's set bits per frame of one ``compensate_frames`` call.
 
 After phase 6 one line orders every kernel on a model path by launches x
 (time - bound) per 12-frame run, its launches from the run of its own path:
-the order in which a redesign gains most. Phases 7-11 follow it.
+the order in which a redesign gains most. Phases 7-12 follow it.
 
 The line before the last is a JSON object with one entry per kernel
 wrapper (launches from the four-flag run; the int8 ``Block_``'s from path
@@ -214,9 +235,10 @@ one LD training step's forward, and the kernels the inferencer runs with
     python3 chip_smoke.py --zoo
     python3 chip_smoke.py --parallel
     python3 chip_smoke.py --train-extras
+    python3 chip_smoke.py --library
 
-build the kernels and run phase 7, phase 8, phase 9, phase 10 or phase 11
-alone.
+build the kernels and run phase 7, phase 8, phase 9, phase 10, phase 11 or
+phase 12 alone.
 
     python3 chip_smoke.py --profile
 
@@ -247,6 +269,7 @@ gives its device time.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import copy
 import dataclasses
 import ctypes
@@ -3048,6 +3071,328 @@ def check_train_extras(card: str) -> None:
           f"{t2 - t1:.1f}, (c) {t3 - t2:.1f}", flush=True)
 
 
+# phase 12: the model library no registry model builds, at its default
+# widths: (label, module factory, inputs factory (b, h, w, generator) ->
+# (args, kwargs), linear in pixels). The LD preset's batch (20, 64, 64, C),
+# then the linear ones at the engine's k = 4 frame (4, 272, 480, C)
+LIBRARY_LD = (20, 64, 64)
+LIBRARY_FRAME = (4, 272, 480)
+# images of each batch that the CPU runs again (every class treats the
+# images of a batch apart, so the card's first images are compared)
+LIBRARY_CPU_IMAGES = {LIBRARY_LD: 2, LIBRARY_FRAME: 1}
+
+
+def library_cases():
+    from cdfo_tpu_torch.models import alignment_dcn as lad
+    from cdfo_tpu_torch.models import attention_variants as lav
+    from cdfo_tpu_torch.models import extras as lex
+    from cdfo_tpu_torch.models import prior_encoder as lpe
+    from cdfo_tpu_torch.models import swin as lsw
+    from cdfo_tpu_torch.models.layers import DPConv
+
+    def feats(*cs, scale=1.0):
+        def make(b, h, w, g):
+            return tuple(torch.randn(b, h, w, c, generator=g) * scale
+                         for c in cs), {}
+        return make
+
+    def with_flow(*cs, pre=False):
+        def make(b, h, w, g):
+            xs = [torch.randn(b, h, w, c, generator=g) for c in cs]
+            flow = torch.randn(b, h, w, 2, generator=g) * 3.0
+            xs.insert(len(cs) if not pre else len(cs) - 1, flow)
+            return tuple(xs), {}
+        return make
+
+    def gumbel(b, h, w, g):
+        res, x = (torch.randn(b, h, w, 64, generator=g) for _ in range(2))
+        u = torch.rand(b, h, w, 64, generator=g).clamp_min(
+            torch.finfo(torch.float32).tiny)
+        return (res, x), {"u": u}
+
+    def pyramid(b, h, w, g):
+        return ([torch.randn(b, h >> i, w >> i, 64, generator=g)
+                 for i in range(3)],), {}
+
+    def frames7(b, h, w, g):
+        xs = [torch.randn(b, h, w, 64, generator=g) for _ in range(7)]
+        return (xs[:6], xs[6]), {}
+
+    def tokens(b, h, w, g):
+        return (torch.randn(b, h * w, 64, generator=g), (h, w)), {}
+
+    def windows(b, h, w, g):
+        x = torch.randn(b * (h // 8) * (w // 8), 64, 64, generator=g)
+        return (x, lsw._shift_attn_mask(h, w, 8, 4)), {}
+
+    def mlp_tokens(b, h, w, g):
+        return (torch.randn(b, h * w, 64, generator=g),), {}
+
+    sample = dict(mask_mode="sample")
+    return [
+        ("DPConv", lambda: DPConv(64, 64, 3), feats(64), True),
+        ("MVDeformableAlignment", lambda: lad.MVDeformableAlignment(64),
+         with_flow(64, 64), True),
+        ("MVSelfAttDeformableAlignment",
+         lambda: lad.MVSelfAttDeformableAlignment(64),
+         with_flow(64, 64, 64), True),
+        ("MVIterativeDeformableAlignment",
+         lambda: lad.MVIterativeDeformableAlignment(64),
+         with_flow(64, 64, 64, pre=True), True),
+        ("DeformableSKConv", lambda: lad.DeformableSKConv(64, 64, 32),
+         with_flow(64, 64), True),
+        ("STDF", lambda: lad.STDF(32, 64, 64), with_flow(64, 64, 64), True),
+        ("RDABS (sampled)", lambda: lav.RDABS(64, **sample), gumbel, True),
+        ("RDABUnderscore", lambda: lav.RDABUnderscore(64),
+         feats(64, 64, 64), True),
+        ("RSNLAttention (sampled)", lambda: lav.RSNLAttention(64, **sample),
+         gumbel, False),
+        ("PAM", lambda: lav.PAM(64), feats(64, 64), False),
+        ("RPAB", lambda: lav.RPAB(64), feats(64, 64, 64), False),
+        ("CAMSelf", lambda: lav.CAMSelf(), feats(64, scale=0.05), True),
+        ("CAM", lambda: lav.CAM(), feats(64, 64, 64, scale=0.05), True),
+        ("RCAB", lambda: lav.RCAB(64), feats(64), True),
+        ("NonLocalAttention", lambda: lav.NonLocalAttention(128),
+         feats(128), False),
+        ("CrissCrossAttention", lambda: lav.CrissCrossAttention(64),
+         feats(64, 64), False),
+        ("SKFF", lambda: lav.SKFF(64), feats(64, 64), True),
+        ("ContextBlock", lambda: lav.ContextBlock(64), feats(64), True),
+        ("CalibResBlock3D", lambda: lav.CalibResBlock3D(64), feats(64), True),
+        ("ResBlock3D", lambda: lav.ResBlock3D(64), feats(64), True),
+        ("SideToFeaOne", lambda: lpe.SideToFeaOne(1, 32), feats(1), True),
+        ("SideToFeaUD", lambda: lpe.SideToFeaUD(32), feats(1), True),
+        ("SideToFeaUDK", lambda: lpe.SideToFeaUDK(64, 32), feats(64), True),
+        ("TransformerBlockSimple", lambda: lpe.TransformerBlockSimple(64, 8),
+         feats(64), True),
+        ("PartitionTransformerSA", lambda: lpe.PartitionTransformerSA(64, 8),
+         feats(64, 64), True),
+        ("PartitionTransformerSA1",
+         lambda: lpe.PartitionTransformerSA1(64, 8), feats(64, 64), True),
+        ("AGGSCGroup", lambda: lex.AGGSCGroup(64), pyramid, True),
+        ("AGGSCNet (1 group)", lambda: lex.AGGSCNet(64, 1), pyramid, True),
+        ("RiRGroup", lambda: lex.RiRGroup(64), feats(64), True),
+        ("RinRNet (1 group)", lambda: lex.RinRNet(64, 1), feats(64), True),
+        ("FGSWMSA", lambda: lex.FGSWMSA(64), with_flow(64, 64, 64), True),
+        ("GDN", lambda: lex.GDN(64), feats(64), True),
+        ("GDN (inverse)", lambda: lex.GDN(64, inverse=True), feats(64), True),
+        ("EMVNet", lambda: lex.EMVNet(64), feats(2, scale=3.0), True),
+        ("LocalCorr (7 frames)", lambda: lex.LocalCorr(64), frames7, True),
+        ("MotionFeaFusion", lambda: lex.MotionFeaFusion(64), feats(64, 64),
+         True),
+        ("ConvUnit", lambda: lex.ConvUnit(64, 64, 3, 1, 1), feats(64), True),
+        ("GhostModuleMul", lambda: lex.GhostModuleMul(64, 64, 3), feats(64),
+         True),
+        ("DSTA", lambda: lex.DSTA(64), feats(64), True),
+        ("WindowAttention (shifted mask)",
+         lambda: lsw.WindowAttention(64, (8, 8), 8), windows, True),
+        ("Mlp", lambda: lsw.Mlp(64, 256, 64), mlp_tokens, True),
+        ("SwinTransformerBlock (shift 0)",
+         lambda: lsw.SwinTransformerBlock(64, 8, 8, 0), tokens, True),
+        ("SwinTransformerBlock (shift 4)",
+         lambda: lsw.SwinTransformerBlock(64, 8, 8, 4), tokens, True),
+        ("BasicLayer", lambda: lsw.BasicLayer(64, 6, 8, 8), tokens, True),
+        ("RSTB", lambda: lsw.RSTB(64, 6, 8, 8), tokens, True),
+        ("PatchEmbed (norm)", lambda: lsw.PatchEmbed(64, use_norm=True),
+         feats(64), True),
+    ]
+
+
+def seeded_library_module(factory, seed: int):
+    """``factory()``'s module on the CPU with seeded weights, every all-zero
+    one (offset heads, DCN biases, ``gamma``s) refilled with seeded
+    values."""
+    from cdfo_tpu_torch.models.layers import init_weights
+    module = init_weights(factory(), torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in module.parameters():
+            if not p.any():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05
+                        if p.numel() > 1 else torch.full(p.shape, 0.5))
+    return module.eval()
+
+
+def _images(obj, n):
+    """The first ``n`` images of every tensor in ``obj`` (the batch axis;
+    a swin window batch holds its images' windows in order)."""
+    if isinstance(obj, torch.Tensor):
+        return obj[:n]
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_images(o, n) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _images(v, n) for k, v in obj.items()}
+    return obj
+
+
+def _to(obj, device):
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to(o, device) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _to(v, device) for k, v in obj.items()}
+    return obj
+
+
+def _flat(out):
+    return out if isinstance(out, (list, tuple)) else (out,)
+
+
+def _clone(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_clone(o) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _clone(v) for k, v in obj.items()}
+    return obj
+
+
+def run_library_case(card: str, label: str, factory, make, shape, seed: int,
+                     cpu_pool):
+    """One class at ``shape`` on the card (the full batch): its ms a call
+    and peak memory printed, its output's first images kept. The same
+    module and weights run on the CPU on those images in ``cpu_pool`` (one
+    host thread, beside the card's work); returns (the CPU's future, the
+    card's first images)."""
+    b, h, w = shape
+    n = LIBRARY_CPU_IMAGES[shape]
+    cpu = seeded_library_module(factory, seed)
+    card_module = copy.deepcopy(cpu).cuda()
+    args, kwargs = make(b, h, w, torch.Generator().manual_seed(seed + 2))
+    if label.startswith("WindowAttention"):
+        # a window batch: the first images' windows
+        cpu_args = (args[0][:n * (h // 8) * (w // 8)].clone(), args[1])
+    else:
+        cpu_args = _clone(_images(args, n))
+    cpu_kwargs = _clone(_images(kwargs, n))
+
+    def on_cpu():
+        with torch.no_grad():
+            return _flat(cpu(*cpu_args, **cpu_kwargs))
+
+    future = cpu_pool.submit(on_cpu)
+    gargs, gkwargs = _to(args, "cuda"), _to(kwargs, "cuda")
+    del args, kwargs
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = _flat(card_module(*gargs, **gkwargs))
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        if not all(torch.isfinite(o).all() for o in got):
+            raise AssertionError(f"phase 12 {label}: non-finite output")
+        first = [o[:n * (o.shape[0] // b)].float().cpu() for o in got]
+        del got
+        ms = median_ms(lambda: card_module(*gargs, **gkwargs), reps=10)
+    print(f"phase 12 {label} at {'x'.join(map(str, shape))} float32: "
+          f"{ms:.3f} ms a call, peak {peak:.1f} MiB above the inputs "
+          f"[{card}]", flush=True)
+    return future, first
+
+
+def compare_library_case(card: str, label: str, shape, future,
+                         first) -> None:
+    """The card's first images against the CPU's: within 1e-4 of the CPU
+    output's largest value."""
+    err = 0.0
+    for g_out, w_out in zip(first, future.result()):
+        if g_out.shape != w_out.shape:
+            raise AssertionError(f"phase 12 {label}: card {tuple(g_out.shape)}"
+                                 f", CPU {tuple(w_out.shape)}")
+        err = max(err, (g_out - w_out).abs().max().item()
+                  / w_out.abs().max().item())
+    shape_s = "x".join(map(str, shape))
+    print(f"phase 12 {label} at {shape_s}: card vs CPU {err:.2e} of the "
+          f"largest (first {LIBRARY_CPU_IMAGES[shape]} image(s)) [{card}]",
+          flush=True)
+    if not err <= 1e-4:
+        raise AssertionError(f"phase 12 {label} at {shape_s}: the card is "
+                             f"{err:.2e} of the largest value from the CPU")
+
+
+def check_library_gradients(card: str) -> None:
+    """``lower_bound``'s and GDN's gradients, card against CPU."""
+    from cdfo_tpu_torch.models import extras as lex
+    g = torch.Generator().manual_seed(41)
+    x = torch.randn(4096, generator=g)
+    cot = torch.randn(4096, generator=g)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev, copy=True).requires_grad_()
+        (lex.lower_bound(xd, 0.25) * cot.to(dev)).sum().backward()
+        grads.append(xd.grad.cpu())
+    if not torch.equal(grads[0], grads[1]):
+        raise AssertionError("phase 12 lower_bound: the gradients differ")
+    print(f"phase 12 lower_bound gradient (4096 values, {int((grads[0] == 0).sum())} "
+          f"held at zero): card equal to CPU [{card}]", flush=True)
+    cpu = seeded_library_module(lambda: lex.GDN(64), 42)
+    with torch.no_grad():
+        cpu.gamma.add_(torch.rand(64, 64, generator=g) * 0.05)
+    card_module = copy.deepcopy(cpu).cuda()
+    x = torch.randn(2, 64, 64, 64, generator=g)
+    cot = torch.randn(2, 64, 64, 64, generator=g)
+    out = {}
+    for dev, m in (("cpu", cpu), ("cuda", card_module)):
+        xd = x.to(dev, copy=True).requires_grad_()
+        (m(xd) * cot.to(dev)).sum().backward()
+        out[dev] = (xd.grad.cpu(), m.beta.grad.cpu(), m.gamma.grad.cpu())
+    err = max(close_to(a, b) for a, b in zip(out["cuda"], out["cpu"]))
+    print(f"phase 12 GDN gradients (x, beta, gamma) at (2, 64, 64, 64): card "
+          f"vs CPU {err:.2e} relative [{card}]", flush=True)
+    if not err <= 1e-4:
+        raise AssertionError("phase 12 GDN: the gradients differ")
+
+
+def check_library(card: str) -> None:
+    """Phase 12: the model library that no registry model builds (the
+    classes of ``models/{alignment_dcn,attention_variants,prior_encoder,
+    extras,swin}.py`` and ``layers.DPConv``) at its default widths on the
+    card, float32 with TF32 off, against the same modules and weights on
+    the CPU; the gradients of ``lower_bound`` and GDN; ``tools.flops`` on
+    every registry name at 272x480."""
+    from cdfo_tpu_torch.config import MODEL_NAMES
+    from cdfo_tpu_torch.tools import flops as flops_tool
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cases = library_cases()
+        runs = [(label, factory, make, shape, 100 + i)
+                for shape in (LIBRARY_LD, LIBRARY_FRAME)
+                for i, (label, factory, make, linear) in enumerate(cases)
+                if linear or shape == LIBRARY_LD]
+        pending = []
+        with concurrent.futures.ThreadPoolExecutor(1) as cpu_pool:
+            for label, factory, make, shape, seed in runs:
+                pending.append((label, shape, *run_library_case(
+                    card, label, factory, make, shape, seed, cpu_pool)))
+                torch.cuda.empty_cache()
+            check_library_gradients(card)
+            t1 = time.perf_counter()
+            for name in MODEL_NAMES:
+                out = flops_tool.count(name, 272, 480, "cuda")
+                print(f"phase 12 tools.flops {name} at 272x480 (7 frames, "
+                      f"float32, no kernel flags): {out['params']} params, "
+                      f"{out['gflop']:.3f} GFLOP a forward (FlopCounterMode: "
+                      f"products and convolutions) [{card}]", flush=True)
+                torch.cuda.empty_cache()
+            t2 = time.perf_counter()
+            for label, shape, future, first in pending:
+                compare_library_case(card, label, shape, future, first)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    t3 = time.perf_counter()
+    print(f"phase 12 wall time {t3 - t0:.1f} s: the classes on the card and "
+          f"the gradients {t1 - t0:.1f}, tools.flops {t2 - t1:.1f}, waiting "
+          f"for the CPU's runs {t3 - t2:.1f}", flush=True)
+
+
 def ptxas_fault(line: str) -> bool:
     """A ptxas line that reports a spill (a non-zero spill store or load)
     or a C75xx warning (``wgmma`` serialized, or a wait or arrive
@@ -3148,6 +3493,9 @@ def main():
     if sys.argv[1:2] == ["--train-extras"]:
         check_train_extras(card)
         return
+    if sys.argv[1:2] == ["--library"]:
+        check_library(card)
+        return
 
     fields = check_kernels(card)
     fields.update(check_trunk_kernels(card))
@@ -3202,6 +3550,7 @@ def main():
     zoo_launches_per_run = check_zoo(card)
     check_parallel(card)
     check_train_extras(card)
+    check_library(card)
 
     # launches: the four-flag run's; the int8 Block_'s from path A's run and
     # the warp's from path B's

@@ -97,16 +97,19 @@ PROBES = {
 
 _SHIM = r"""
 #pragma once
+#undef _FORTIFY_SOURCE
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <math.h>
 #include <memory>
 #include <mutex>
-#include <optional>
-#include <thread>
+#include <setjmp.h>
+#include <sys/mman.h>
+#include <ucontext.h>
 #include <vector>
 using std::max;
 using std::min;
@@ -125,8 +128,6 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct emu_uint3 { unsigned x, y, z; };
-inline thread_local emu_uint3 threadIdx;
-inline thread_local emu_uint3 blockIdx;
 inline dim3 blockDim(256);
 inline dim3 gridDim;
 struct alignas(8) float2 { float x, y; };
@@ -186,60 +187,146 @@ inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 2; return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated launch refused"; }
 struct EmuWarp { uint32_t a[32][4]; uint32_t b[32][2]; const void* rows[32]; float f[32]; };
+// The emulated threads are fibers that one host thread runs in turn: a
+// thread runs until it waits (at a barrier, or on an mbarrier's phase) and
+// then hands over to the next one of its CTA (or cluster) that has not
+// ended. A wait that no other thread can end (a deadlock on the card)
+// aborts the process.
+void emu_yield();
+// a barrier of `expected` arrivals, counted by phase; a thread may arrive
+// without waiting (named_arrive, cluster_arrive)
+struct EmuBarrier {
+  unsigned expected = 0, count = 0;
+  uint64_t phase = 0;
+  uint64_t arrive() {
+    const uint64_t p = phase;
+    if (++count == expected) {
+      count = 0;
+      ++phase;
+    }
+    return p;
+  }
+  void wait(uint64_t p) { while (phase == p) emu_yield(); }
+  void arrive_and_wait() { wait(arrive()); }
+};
 // one emulated CTA: its barriers (the block's, each warp's and each
-// warpgroup's, up to 384 threads), its warps' and warpgroups' exchange
-// memory and its shared memory; each of its threads points at them
+// warpgroup's, up to 384 threads, and named barriers 3 .. 7), its warps'
+// and warpgroups' exchange memory and its shared memory
 struct EmuCta {
-  std::barrier<> block;
-  std::unique_ptr<std::barrier<>> warp_bars[12], wg_bars[3];
-  std::barrier<>* warp[12];
-  std::barrier<>* wg[3];
+  EmuBarrier block, warp[12], wg[3], named[8];
   EmuWarp warps[12];
   uint32_t wg_a[3][128][4];
   unsigned char* smem;
-  std::unique_ptr<std::barrier<>> named_bars[8];
-  std::barrier<>* named[8];
-  EmuCta(unsigned threads, unsigned char* shared) : block(threads), smem(shared) {
-    for (int i = 3; i < 8; ++i) {
-      named_bars[i] = std::make_unique<std::barrier<>>(threads);
-      named[i] = named_bars[i].get();
-    }
-    for (int i = 0; i < 12; ++i) {
-      warp_bars[i] = std::make_unique<std::barrier<>>(32);
-      warp[i] = warp_bars[i].get();
-    }
-    for (int i = 0; i < 3; ++i) {
-      wg_bars[i] = std::make_unique<std::barrier<>>(128);
-      wg[i] = wg_bars[i].get();
-    }
+  EmuCta(unsigned threads, unsigned char* shared) : smem(shared) {
+    block.expected = threads;
+    for (int i = 3; i < 8; ++i) named[i].expected = threads;
+    for (auto& b : warp) b.expected = 32;
+    for (auto& b : wg) b.expected = 128;
   }
 };
 // a cluster's CTAs' shared memory (by rank) and its barrier
 struct EmuCluster {
   unsigned char* smem[8];
-  std::unique_ptr<std::barrier<>> bar;
+  EmuBarrier bar;
 };
-inline thread_local std::barrier<>* emu_block_bar;
-inline thread_local std::barrier<>** emu_warp_bar;
-inline thread_local std::barrier<>** emu_wg_bar;
-inline thread_local EmuWarp* emu_warp;
-inline thread_local uint32_t (*emu_wg_a)[128][4];
-inline thread_local unsigned char* emu_smem;   // this CTA's shared memory
-inline thread_local std::barrier<>** emu_named;
-inline thread_local EmuCluster* emu_cluster;
-inline thread_local int emu_rank;
-inline void emu_enter(EmuCta& cta, emu_uint3 block, unsigned thread) {
-  threadIdx = {thread, 0, 0};
-  blockIdx = block;
-  emu_block_bar = &cta.block;
-  emu_warp_bar = cta.warp;
-  emu_wg_bar = cta.wg;
-  emu_warp = cta.warps;
-  emu_wg_a = cta.wg_a;
-  emu_smem = cta.smem;
-  emu_named = cta.named;
+// one emulated thread: its indices, its CTA (and cluster), its pending
+// cluster-barrier arrival and its fiber
+struct EmuThread {
+  emu_uint3 tid, bid;
+  EmuCta* cta;
+  EmuCluster* cluster = nullptr;
+  int rank = 0;
+  uint64_t token = 0;
+  ucontext_t start;
+  jmp_buf at;
+  bool started = false, done = false;
+};
+inline EmuThread* emu_self;   // the thread that runs
+#define threadIdx (emu_self->tid)
+#define blockIdx (emu_self->bid)
+#define emu_warp (emu_self->cta->warps)
+#define emu_wg_a (emu_self->cta->wg_a)
+#define emu_smem (emu_self->cta->smem)
+inline std::vector<EmuThread*> emu_run;   // the threads of the CTA or cluster
+inline size_t emu_at;                    // emu_run[emu_at] is emu_self
+inline jmp_buf emu_host;                 // where the launch waits
+inline void (*emu_body)(void*);
+inline void* emu_body_arg;
+constexpr size_t EMU_STACK = 1 << 20;
+inline std::vector<char*> emu_stacks;    // one a thread, kept across launches
+inline char* emu_stack(size_t i) {
+  while (emu_stacks.size() <= i) {
+    // a guard page below each stack: an overflow faults
+    void* p = mmap(nullptr, EMU_STACK + 4096, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (p == MAP_FAILED) {
+      perror("emulated thread stack");
+      abort();
+    }
+    mprotect(p, 4096, PROT_NONE);
+    emu_stacks.push_back(static_cast<char*>(p) + 4096);
+  }
+  return emu_stacks[i];
 }
-inline void __syncthreads() { emu_block_bar->arrive_and_wait(); }
+// from the running thread to thread i (at its entry the first time)
+inline void emu_switch(size_t i) {
+  EmuThread* from = emu_self;
+  if (_setjmp(from->at) == 0) {
+    emu_at = i;
+    emu_self = emu_run[i];
+    if (emu_self->started) _longjmp(emu_self->at, 1);
+    emu_self->started = true;
+    setcontext(&emu_self->start);
+  }
+}
+// the next thread after the running one that has not ended, or -1
+inline long emu_next() {
+  const size_t n = emu_run.size();
+  for (size_t k = 1; k < n; ++k) {
+    const size_t i = (emu_at + k) % n;
+    if (!emu_run[i]->done) return long(i);
+  }
+  return -1;
+}
+inline void emu_yield() {
+  const long i = emu_next();
+  if (i < 0) {
+    fprintf(stderr, "emulated kernel: thread %u of block %u waits, and no "
+            "other thread is left to end its wait\n", threadIdx.x, blockIdx.x);
+    abort();
+  }
+  emu_switch(size_t(i));
+}
+inline void emu_entry() {
+  emu_body(emu_body_arg);
+  emu_self->done = true;
+  const long i = emu_next();
+  if (i < 0) _longjmp(emu_host, 1);
+  emu_switch(size_t(i));   // an ended thread is never run again
+}
+// runs `body` in each of `threads` until all have ended
+template <class F> void emu_run_threads(std::vector<EmuThread>& threads, F& body) {
+  emu_body = [](void* f) { (*static_cast<F*>(f))(); };
+  emu_body_arg = &body;
+  emu_run.clear();
+  for (size_t i = 0; i < threads.size(); ++i) {
+    EmuThread& t = threads[i];
+    getcontext(&t.start);
+    t.start.uc_stack.ss_sp = emu_stack(i);
+    t.start.uc_stack.ss_size = EMU_STACK;
+    t.start.uc_link = nullptr;
+    makecontext(&t.start, emu_entry, 0);
+    emu_run.push_back(&t);
+  }
+  if (_setjmp(emu_host) == 0) {
+    emu_at = 0;
+    emu_self = emu_run[0];
+    emu_self->started = true;
+    setcontext(&emu_self->start);
+  }
+  emu_self = nullptr;
+}
+inline void __syncthreads() { emu_self->cta->block.arrive_and_wait(); }
 inline void cp_async16(void* dst, const void* src) { memcpy(dst, src, 16); }
 inline void cp_async_commit() {}
 inline void cp_async_wait() {}
@@ -253,7 +340,7 @@ inline void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint3
   EmuWarp& X = emu_warp[w];
   X.a[l][0] = a0; X.a[l][1] = a1; X.a[l][2] = a2; X.a[l][3] = a3;
   X.b[l][0] = b0; X.b[l][1] = b1;
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
   const int g = l >> 2, t = l & 3;
   auto A = [&](int r, int k) {
     return emu_half(X.a[(r % 8) * 4 + (k % 8) / 2][(r >= 8) + 2 * (k >= 8)], k & 1);
@@ -267,7 +354,7 @@ inline void mma16816(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint3
     d[3] += A(g + 8, k) * B(k, 2 * t + 1);
   }
   for (int i = 0; i < 4; ++i) c[i] += d[i];
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
 }
 // mma.sync.m16n8k32 row.col s8 -> s32: lane 4g + t holds A rows g, g + 8
 // (k 4t .. 4t+3 and 16+4t .. 16+4t+3, a byte each), B column g (same k)
@@ -278,7 +365,7 @@ inline void mma16832(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_
   EmuWarp& X = emu_warp[w];
   X.a[l][0] = a0; X.a[l][1] = a1; X.a[l][2] = a2; X.a[l][3] = a3;
   X.b[l][0] = b0; X.b[l][1] = b1;
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
   const int g = l >> 2, t = l & 3;
   auto byte = [](uint32_t v, int i) { return int(int8_t((v >> (8 * i)) & 0xffu)); };
   auto A = [&](int r, int k) {
@@ -293,39 +380,39 @@ inline void mma16832(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_
     d[3] += A(g + 8, k) * B(k, 2 * t + 1);
   }
   for (int i = 0; i < 4; ++i) c[i] += d[i];
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
 }
 // ldmatrix.x4: lane l gets bytes 4(l%4) .. 4(l%4)+3 of row l/4 of matrix j
 // in r[j]; lanes 8j .. 8j+7 give matrix j's row addresses
 inline void ldsm_x4(uint32_t (&r)[4], const void* row) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   emu_warp[w].rows[l] = row;
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
   for (int j = 0; j < 4; ++j) {
     memcpy(&r[j], static_cast<const char*>(emu_warp[w].rows[j * 8 + l / 4]) + 4 * (l % 4), 4);
   }
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
 }
 // ldmatrix.x4.trans: lane l gets elements (2(l%4), l/4) and (2(l%4)+1,
 // l/4) of matrix j in r[j], the first in the low half
 inline void ldsm_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* row) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   emu_warp[w].rows[l] = row;
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
   for (int j = 0; j < 4; ++j) {
     const auto* r0 = static_cast<const __nv_bfloat16*>(emu_warp[w].rows[j * 8 + 2 * (l % 4)]);
     const auto* r1 = static_cast<const __nv_bfloat16*>(emu_warp[w].rows[j * 8 + 2 * (l % 4) + 1]);
     r[j] = uint32_t(r0[l / 4].v) | (uint32_t(r1[l / 4].v) << 16);
   }
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
 }
 // warp shuffles: every lane of the warp takes part, as in the kernels
 inline float __shfl_sync(unsigned, float v, int src) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   emu_warp[w].f[l] = v;
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
   const float r = emu_warp[w].f[src & 31];
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
   return r;
 }
 inline float __shfl_xor_sync(unsigned m, float v, int lane_mask) {
@@ -339,11 +426,14 @@ template <class F> void emu_launch(dim3 grid, F&& body, unsigned threads = 256) 
   for (unsigned z = 0; z < grid.z; ++z)
     for (unsigned y = 0; y < grid.y; ++y)
       for (unsigned x = 0; x < grid.x; ++x) {
-        auto cta = std::make_unique<EmuCta>(threads, reinterpret_cast<unsigned char*>(cdfo_smem));
-        std::vector<std::thread> threads_;
-        for (unsigned i = 0; i < threads; ++i)
-          threads_.emplace_back([&, i] { emu_enter(*cta, {x, y, z}, i); body(); });
-        for (auto& t : threads_) t.join();
+        EmuCta cta(threads, reinterpret_cast<unsigned char*>(cdfo_smem));
+        std::vector<EmuThread> ts(threads);
+        for (unsigned i = 0; i < threads; ++i) {
+          ts[i].tid = {i, 0, 0};
+          ts[i].bid = {x, y, z};
+          ts[i].cta = &cta;
+        }
+        emu_run_threads(ts, body);
       }
   blockDim = dim3(256);
 }
@@ -356,7 +446,7 @@ template <class F> void emu_launch_cluster(dim3 grid, unsigned cluster, F&& body
   gridDim = grid;
   for (unsigned c = 0; c < grid.x / cluster; ++c) {
     EmuCluster cl;
-    cl.bar = std::make_unique<std::barrier<>>(cluster * threads);
+    cl.bar.expected = cluster * threads;
     std::vector<std::unique_ptr<uint4[]>> shared;
     std::vector<std::unique_ptr<EmuCta>> ctas;
     for (unsigned r = 0; r < cluster; ++r) {
@@ -364,16 +454,17 @@ template <class F> void emu_launch_cluster(dim3 grid, unsigned cluster, F&& body
       cl.smem[r] = reinterpret_cast<unsigned char*>(shared.back().get());
       ctas.push_back(std::make_unique<EmuCta>(threads, cl.smem[r]));
     }
-    std::vector<std::thread> threads_;
+    std::vector<EmuThread> ts(cluster * threads);
     for (unsigned r = 0; r < cluster; ++r)
-      for (unsigned i = 0; i < threads; ++i)
-        threads_.emplace_back([&, r, i] {
-          emu_enter(*ctas[r], {c * cluster + r, 0, 0}, i);
-          emu_cluster = &cl;
-          emu_rank = int(r);
-          body();
-        });
-    for (auto& t : threads_) t.join();
+      for (unsigned i = 0; i < threads; ++i) {
+        EmuThread& t = ts[r * threads + i];
+        t.tid = {i, 0, 0};
+        t.bid = {c * cluster + r, 0, 0};
+        t.cta = ctas[r].get();
+        t.cluster = &cl;
+        t.rank = int(r);
+      }
+    emu_run_threads(ts, body);
   }
   blockDim = dim3(256);
 }
@@ -424,7 +515,6 @@ inline void emu_complete_tx(uint64_t* bar, uint32_t bytes) {
   const uint64_t tx = uint64_t(bytes) << 32;
   if (((phases.fetch_sub(tx) - tx) >> 32) == 0) {
     phases.fetch_add(1);
-    phases.notify_all();
   }
 }
 // (bytes may land before they are expected: the count then passes below 0
@@ -434,12 +524,11 @@ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   const uint64_t tx = uint64_t(bytes) << 32;
   if (((phases.fetch_add(tx) + tx) >> 32) == 0) {
     phases.fetch_add(1);
-    phases.notify_all();
   }
 }
-inline void mbar_wait(uint64_t* bar, uint32_t parity) {   // sleeps until the copy lands
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {   // waits until the copy lands
   std::atomic_ref<uint64_t> phases(*bar);
-  for (uint64_t v = phases.load(); (v & 1) == parity; v = phases.load()) phases.wait(v);
+  while ((phases.load() & 1) == parity) emu_yield();
 }
 inline void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
   memcpy(dst, src, bytes);
@@ -488,13 +577,11 @@ template <int N = 0> void bulk_wait_read() {}
 // of all the cluster's threads, split into its arrival and its wait; an
 // asynchronous remote store as a copy into the other CTA's shared memory
 // at the same offset, completing its bytes on that CTA's mbarrier
-inline thread_local std::optional<std::barrier<>::arrival_token> emu_token;
-inline int cluster_rank() { return emu_rank; }
-inline void cluster_arrive() { emu_token.emplace(emu_cluster->bar->arrive()); }
+inline int cluster_rank() { return emu_self->rank; }
+inline void cluster_arrive() { emu_self->token = emu_self->cluster->bar.arrive(); }
 inline void cluster_arrive_relaxed() { cluster_arrive(); }
 inline void cluster_wait() {
-  emu_cluster->bar->wait(std::move(*emu_token));
-  emu_token.reset();
+  emu_self->cluster->bar.wait(emu_self->token);
 }
 inline void cluster_sync() {
   cluster_arrive();
@@ -503,24 +590,24 @@ inline void cluster_sync() {
 inline void st_async_remote4(const float* local, int rank, float a, float b, float c, float d,
                              const uint64_t* bar) {
   const float v[4] = {a, b, c, d};
-  memcpy(emu_cluster->smem[rank] + shared_address(local), v, 16);
-  emu_complete_tx(reinterpret_cast<uint64_t*>(emu_cluster->smem[rank] + shared_address(bar)), 16);
+  memcpy(emu_self->cluster->smem[rank] + shared_address(local), v, 16);
+  emu_complete_tx(reinterpret_cast<uint64_t*>(emu_self->cluster->smem[rank] + shared_address(bar)), 16);
 }
 inline float4 ld_remote4(const float* local, int rank) {
   float4 v;
-  memcpy(&v, emu_cluster->smem[rank] + shared_address(local), 16);
+  memcpy(&v, emu_self->cluster->smem[rank] + shared_address(local), 16);
   return v;
 }
 // named barriers 3 .. 7 of all the CTA's threads: the producers arrive, the
 // consumers arrive and wait
-inline void named_arrive(int id, int) { (void)emu_named[id]->arrive(); }
-inline void named_sync(int id, int) { emu_named[id]->arrive_and_wait(); }
+inline void named_arrive(int id, int) { (void)emu_self->cta->named[id].arrive(); }
+inline void named_sync(int id, int) { emu_self->cta->named[id].arrive_and_wait(); }
 // stmatrix.trans: matrix j stored transposed, lane 4g + t's pair to bytes
 // 2g .. 2g+1 of rows 2t and 2t + 1 (x2: matrices 0 and 1)
 inline void emu_stsm_trans(void* row, const uint32_t* r, int n) {
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
   emu_warp[w].rows[l] = row;
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
   const int g = l / 4, t = l % 4;
   for (int j = 0; j < n; ++j) {
     for (int e = 0; e < 2; ++e) {
@@ -528,7 +615,7 @@ inline void emu_stsm_trans(void* row, const uint32_t* r, int n) {
       memcpy(static_cast<char*>(const_cast<void*>(emu_warp[w].rows[j * 8 + 2 * t + e])) + 2 * g, &v, 2);
     }
   }
-  emu_warp_bar[w]->arrive_and_wait();
+  emu_self->cta->warp[w].arrive_and_wait();
 }
 inline void stsm_x4_trans(void* row, uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3) {
   const uint32_t r[4] = {r0, r1, r2, r3};
@@ -550,7 +637,7 @@ inline float atomicAdd(float* p, float v) {
   return old;
 }
 inline void async_fence() {}
-inline void warpgroup_sync(int wg) { emu_wg_bar[wg]->arrive_and_wait(); }
+inline void warpgroup_sync(int wg) { emu_self->cta->wg[wg].arrive_and_wait(); }
 inline void cp_async16_or_zero(void* dst, const void* src, bool valid) {
   if (valid) memcpy(dst, src, 16); else memset(dst, 0, 16);
 }
@@ -607,7 +694,7 @@ void emu_wgmma(float (&d)[N / 8][4], const uint32_t* a, uint64_t a_desc, uint64_
                bool trans_b, bool trans_a = false, int scale_d = 1) {
   const int tid = threadIdx.x, wg = tid / 128, r = tid % 128;
   if (a) memcpy(emu_wg_a[wg][r], a, 16);
-  emu_wg_bar[wg]->arrive_and_wait();
+  emu_self->cta->wg[wg].arrive_and_wait();
   const int l = r % 32, g = l >> 2, t = l & 3, w = r / 32;
   auto A = [&](int row, int k) {   // row of this warp's 16
     if (!a) return trans_a ? emu_tile_mn(a_desc, k, 16 * w + row) : emu_tile(a_desc, 16 * w + row, k);
@@ -623,7 +710,7 @@ void emu_wgmma(float (&d)[N / 8][4], const uint32_t* a, uint64_t a_desc, uint64_
       }
       d[j][i] = scale_d ? d[j][i] + sum : sum;
     }
-  emu_wg_bar[wg]->arrive_and_wait();
+  emu_self->cta->wg[wg].arrive_and_wait();
 }
 inline void wgmma_64x64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t desc,
                         int scale_d = 1) {
@@ -674,7 +761,7 @@ template <int N>
 void emu_wgmma_s8(int (&d)[N / 8][4], const uint32_t* a, uint64_t a_desc, uint64_t desc) {
   const int tid = threadIdx.x, wg = tid / 128, r = tid % 128;
   if (a) memcpy(emu_wg_a[wg][r], a, 16);
-  emu_wg_bar[wg]->arrive_and_wait();
+  emu_self->cta->wg[wg].arrive_and_wait();
   const int l = r % 32, g = l >> 2, t = l & 3, w = r / 32;
   auto A = [&](int row, int k) {   // row of this warp's 16
     if (!a) return emu_tile_s8(a_desc, 16 * w + row, k);
@@ -688,7 +775,7 @@ void emu_wgmma_s8(int (&d)[N / 8][4], const uint32_t* a, uint64_t a_desc, uint64
       for (int k = 0; k < 32; ++k) sum += A(row, k) * emu_tile_s8(desc, col, k);
       d[j][i] += sum;
     }
-  emu_wg_bar[wg]->arrive_and_wait();
+  emu_self->cta->wg[wg].arrive_and_wait();
 }
 inline void wgmma_ss_s8_64x64(int (&d)[8][4], uint64_t a, uint64_t b) {
   emu_wgmma_s8<64>(d, nullptr, a, b);
