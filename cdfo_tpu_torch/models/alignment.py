@@ -33,6 +33,7 @@ from ..ops.fused_align import msa_stage1, msa_stage2, pack_stage2_weights
 from ..ops.fused_mdta import attention_matrix
 from ..ops.fused_tail import pack_tail_weights, resblock_pair
 from ..ops.warp import flow_warp
+from ..parallel import spatial
 from .attention import _channel_attention
 from .layers import CALayer, Conv2d, ResidualBlockNoBN
 
@@ -68,7 +69,7 @@ class DualAttAlignment(nn.Module):
         attention on the sum of the gated values (JAX ``_GateMSA``)."""
         v_sum = None
         for v in vs:
-            gv = v * self.conv_du(v.mean(dim=(1, 2), keepdim=True))
+            gv = v * self.conv_du(spatial.spatial_mean(v, tag="gate_mean"))
             v_sum = gv if v_sum is None else v_sum + gv
         return self.project_out(_channel_attention(
             q_in, k_in, v_sum, self.temperature, self.num_heads))

@@ -19,6 +19,7 @@ from ..ops.fused_attention import (column_self_attention,
                                    token_attention_plain,
                                    token_self_attention)
 from ..ops.fused_egla import eg1_rows, eg2_local_fuse, unwindows, windows
+from ..parallel import spatial
 from .layers import Conv2d, _fill_normal
 
 
@@ -28,6 +29,9 @@ def _channel_attention(q, k, v, temperature, num_heads):
     q, k, v (b, h, w, c); channel index = head * ch + cc. The reference
     L2-normalises q and k over pixels before the gram product; the norms
     factor out of it, as in the JAX version. Grams and softmax in float32.
+    With H split over ranks the squared norms and the gram are partial sums,
+    all-reduced before the sqrt and the softmax; the product with v is
+    local.
     """
     b, h, w, c = q.shape
     ch = c // num_heads
@@ -38,9 +42,17 @@ def _channel_attention(q, k, v, temperature, num_heads):
     qf = to_x(q).float()
     kf = to_x(k).float()
     v = to_x(v)
-    nq = qf.square().sum(dim=1).sqrt().clamp_min(1e-12)   # (b, head, ch)
-    nk = kf.square().sum(dim=1).sqrt().clamp_min(1e-12)
+    sq = qf.square().sum(dim=1)                           # (b, head, ch)
+    sk = kf.square().sum(dim=1)
     g = torch.einsum("bxnc,bxnd->bncd", qf, kf)
+    shard = spatial.split()
+    if shard is not None:
+        total = spatial.all_reduce_sum(torch.cat(
+            [sq.reshape(-1), sk.reshape(-1), g.reshape(-1)]), shard, "gram")
+        sq, sk, g = (t.view_as(u) for t, u in zip(
+            total.split([sq.numel(), sk.numel(), g.numel()]), (sq, sk, g)))
+    nq = sq.sqrt().clamp_min(1e-12)
+    nk = sk.sqrt().clamp_min(1e-12)
     attn = g / (nq[..., :, None] * nk[..., None, :]) * temperature
     attn = torch.softmax(attn, dim=-1).to(v.dtype)
     out = torch.einsum("bncd,bxnd->bxnc", attn, v)
@@ -88,6 +100,16 @@ def _conv9_along(x, kernel, bias, axis):
     float32 under a bfloat16 model.
     """
     n = x.shape[axis]
+    shard = spatial.split() if axis == 1 else None
+    if shard is not None:
+        # H split over ranks: a 4-row zero halo and a valid contraction,
+        # m[s, d] = kernel[s - d] over the n + 8 rows
+        if x.ndim != 4:
+            raise NotImplementedError("a split conv along H takes (b, h, w, "
+                                      "c)")
+        ext = spatial.halo(x, 4, 4, "zeros", shard, "conv9_halo")
+        m = _band_matrix(kernel, n + 8)[:, 4:n + 4].to(x.dtype)
+        return torch.einsum("bhwc,hg->bgwc", ext, m).float() + bias
     m = _band_matrix(kernel, n).to(x.dtype)
     if axis == x.ndim - 1:
         out = torch.matmul(x, m)
@@ -154,8 +176,9 @@ class EGLA(nn.Module):
 
     def _mask_logits(self, res):
         """The mask generator's softmax input, (b, c) float32: it is
-        spatially constant (a 1x1 map bilinearly resized is a broadcast)."""
-        v = self.conv_du_re(res).mean(dim=(1, 2), keepdim=True)
+        spatially constant (a 1x1 map bilinearly resized is a broadcast).
+        Under a row split the mean runs over the global rows."""
+        v = spatial.spatial_mean(self.conv_du_re(res), tag="mask_mean")
         return self.conv_du_re2(v).float()[:, 0, 0]
 
     def residual_mask(self, res):
@@ -215,8 +238,7 @@ class EGLA(nn.Module):
         v_r = _conv9_along(v_full.reshape(b * h, w, c), w1_k, w1_b, axis=2)
         v_r = token_self_attention(sparse_q, v_r)
         q_c = _conv9_along(sparse_q.reshape(b, h, w, c), h1_k, h1_b, axis=1)
-        long_out = column_self_attention(q_c.contiguous(),
-                                         v_r.reshape(b, h, w, c))
+        long_out = self._columns(q_c, v_r.reshape(b, h, w, c))
 
         # local: inverse-masked window attention; 64-token windows take the
         # plain batched matmuls, as the JAX version does (use_pallas=False)
@@ -227,6 +249,20 @@ class EGLA(nn.Module):
 
         out = self.fuse(torch.cat([long_out, loc_out], dim=-1))
         return out + x
+
+    @staticmethod
+    def _columns(q_c, v_c):
+        """The column attention along H. Under a row split the columns are
+        gathered whole on every rank, attended (the kernel on the card),
+        and this rank keeps its rows."""
+        shard = spatial.split()
+        if shard is None:
+            return column_self_attention(q_c.contiguous(), v_c)
+        start, stop = shard.bounds_at(q_c.shape[1])
+        out = column_self_attention(
+            spatial.gather_rows(q_c, shard, "column_gather").contiguous(),
+            spatial.gather_rows(v_c, shard, "column_gather").contiguous())
+        return out[:, start:stop]
 
     def _fused_call(self, mask, x):
         """eg1 -> column attention -> eg2 (``ops/fused_egla``). The mask

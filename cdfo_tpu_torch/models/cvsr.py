@@ -48,6 +48,13 @@ prediction branch (no ``conv_expand_ufs``; ``compensate_frames`` returns
 zeros for its prior, as ``cdfo_tpu``'s does).
 
 The model is built on the card unless the caller asks for another device.
+
+Under a row split (``parallel.spatial.sharded``) ``forward`` takes this
+rank's rows of every input and returns its rows of the output: the plain
+modules exchange halos and sums themselves. The split runs the plain
+CVSR_V8 and the ablations whose modules it covers; the kernel flags,
+``scan_trunk``, woLA, the other families and the streaming stages raise
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -63,6 +70,7 @@ from ..ops.fused_vjp import head_fused
 from ..ops.resize import interpolate_bilinear, pixel_shuffle
 from ..ops.warp import flow_warp_ring
 from ..ops.warp_block import flow_warp_ring_block
+from ..parallel import spatial
 from .alignment import DualAttAlignment
 from .attention import EGLA
 from .attention_variants import EGLAwoGA, EGLAwoLA
@@ -133,6 +141,23 @@ class CVSRV8(nn.Module):
             self.RDAB = self._make_rdab()
         init_weights(self, generator)
         self.to(device)
+
+    def _check_split(self) -> None:
+        """Raises ``ValueError`` under a row split for what has none: the
+        kernel flags, the scan trunk, woLA's long-range attention and the
+        models outside the CVSR_V8 family."""
+        if spatial.current_shard() is None:
+            return
+        cfg = self.cfg
+        refused = [f for f in ("fused_trunk", "fused_embed", "fused_align",
+                               "fused_egla", "block_warp", "trunk_int8",
+                               "scan_trunk") if getattr(cfg, f)]
+        if not cfg.v8_family or type(self) is not CVSRV8:
+            refused.append(f"model {cfg.name!r}")
+        elif cfg.use_egla and not cfg.use_la:
+            refused.append("woLA's long-range attention")
+        if refused:
+            spatial.refuse_split(", ".join(refused))
 
     def _make_rdab(self) -> nn.Module:
         """The module in the RDAB slot (CVSR_V9 overrides it)."""
@@ -222,6 +247,7 @@ class CVSRV8(nn.Module):
         EGLA mask's gumbel noise comes from ``generator`` or is the uniform
         draw ``gumbel_u`` (M, H, W, nf), as in ``forward``.
         """
+        spatial.refuse_split("the streaming engine's compensate_frames")
         dt = self.cfg.compute_dtype
         l1 = self.embed(lrs.to(dt), pms.to(dt))
         fea_i = self._compensate(l1, rms.to(dt), generator, gumbel_u)
@@ -240,6 +266,7 @@ class CVSRV8(nn.Module):
         centre excluded. Returns SR (k, sH, sW, 1) float32. The neighbour
         warp gathers straight from the ring.
         """
+        spatial.refuse_split("the streaming engine's align_reconstruct")
         center_l1 = center_l1.to(self.cfg.compute_dtype)
         aligned = self.align_neighbours(
             center_l1, *self.warp_neighbours(ring_fi, nbr_ufs_p, nbr_mv,
@@ -289,6 +316,7 @@ class CVSRV8(nn.Module):
                 pre_l1: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 gumbel_u: Optional[torch.Tensor] = None):
+        self._check_split()
         cfg = self.cfg
         b, n, h, w, _ = lrs.shape
         center = cfg.center

@@ -28,6 +28,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.resize import interpolate_bilinear, pixel_shuffle
+from ..parallel import spatial
 from .alignment_dcn import FeaFusion, MVDualAttAlignment, MVLocalAttn
 from .attention import MDTA
 from .attention_variants import EGLA1, RDAB
@@ -149,6 +150,7 @@ class CVSRV7(_PyramidHead):
                 pre_l1: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 gumbel_u: Optional[Sequence[torch.Tensor]] = None):
+        spatial.refuse_split(f"model {self.cfg.name!r}")
         cfg = self.cfg
         dt, nf, c = cfg.compute_dtype, cfg.nf, cfg.center
         b, n, h, w, _ = x.shape
@@ -228,6 +230,7 @@ class SIDECVSRModel(_PyramidHead):
 
     def forward(self, x, mvs, pms, rms, ufs,
                 pre_l1: Optional[torch.Tensor] = None):
+        spatial.refuse_split(f"model {self.cfg.name!r}")
         cfg = self.cfg
         dt, nf, c = cfg.compute_dtype, cfg.nf, cfg.center
         b, n, h, w, _ = x.shape

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import spatial
+
 
 def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
@@ -95,8 +97,15 @@ class Conv2d(nn.Module):
             _fill_uniform(self.bias, bound, generator)
 
     def forward(self, x):
-        y = F.conv2d(x.to(self.dtype).permute(0, 3, 1, 2), self.weight,
-                     self.bias, self.stride, self.padding, 1, self.groups)
+        x, padding = x.to(self.dtype), self.padding
+        shard = spatial.split()
+        if shard is not None and self.weight.shape[2] > 1:
+            # H split over ranks: the rows the taps reach come as a halo
+            x = spatial.conv_halo(x, self.weight.shape[2], self.stride[0],
+                                  padding[0], shard)
+            padding = (0, padding[1])
+        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                     self.stride, padding, 1, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -124,6 +133,9 @@ class ConvTranspose2d(nn.Module):
         _fill_uniform(self.bias, bound, generator)
 
     def forward(self, x):
+        if spatial.split() is not None:
+            raise ValueError("ConvTranspose2d has no row split: run it whole "
+                             "(spatial.gather_rows, spatial.sharded(None))")
         y = F.conv_transpose2d(x.to(self.dtype).permute(0, 3, 1, 2),
                                self.weight, self.bias, self.stride,
                                self.padding, self.output_padding)
@@ -156,7 +168,7 @@ class CALayer(nn.Module):
             Conv2d(channel, channel, 1, dtype=dtype), nn.Sigmoid())
 
     def forward(self, x):
-        return x * self.conv_du(x.mean(dim=(1, 2), keepdim=True))
+        return x * self.conv_du(spatial.spatial_mean(x))
 
 
 class SpatialAttention(nn.Module):

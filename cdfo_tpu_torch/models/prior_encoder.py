@@ -16,6 +16,7 @@ from torch import nn
 from ..ops.cuda_build import cached_pack
 from ..ops.fused_mdta import (attention_matrix, mdta_stage1, mdta_stage2,
                               pack_stage1_weights, pack_stage2_weights)
+from ..parallel import spatial
 from .attention import MDTA
 from .layers import Conv2d, ConvTranspose2d, SpatialAttention
 from .norms import ChannelLayerNorm
@@ -25,7 +26,13 @@ class SideToFeaUDSA2(nn.Module):
     """conv s1 -> conv s2p2 -> conv s2p2 -> SpatialAttention ->
     convT s2p2 -> convT s2p2 (output_padding 1) -> conv -> in_f channels,
     each followed by lrelu(0.1). The Sequential indices are the reference
-    ``state_dict``'s (``body.0`` ... ``body.11``)."""
+    ``state_dict``'s (``body.0`` ... ``body.11``).
+
+    The stride-2 convs map 16 rows to 9 and 6, and the transposed ones back
+    to 9 and 16: no shard's rows map onto a shard's. So under a row split
+    ``body.0`` runs on this rank's rows (with its halo), its ``nf``-channel
+    output is gathered whole, every rank runs the rest on all of it and
+    keeps its own rows."""
 
     def __init__(self, in_f: int, nf: int = 32,
                  dtype: torch.dtype = torch.float32):
@@ -44,7 +51,15 @@ class SideToFeaUDSA2(nn.Module):
             Conv2d(nf, in_f, 3, 1, 1, dtype=dtype), act())
 
     def forward(self, side):
-        return self.body(side)
+        shard = spatial.split()
+        if shard is None:
+            return self.body(side)
+        head = self.body[1](self.body[0](side))
+        whole = spatial.gather_rows(head, shard, "side_gather")
+        with spatial.sharded(None):
+            out = self.body[2:](whole)
+        start, stop = shard.bounds_at(side.shape[1])
+        return out[:, start:stop]
 
 
 class SideToFea(nn.Module):

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial
+
 
 def interpolate_bilinear(x: torch.Tensor, scale_factor: float | None = None,
                          size: tuple[int, int] | None = None) -> torch.Tensor:
@@ -14,9 +16,29 @@ def interpolate_bilinear(x: torch.Tensor, scale_factor: float | None = None,
     Exactly one of ``scale_factor`` / ``size`` must be given. Output spatial
     dims are ``floor(in * scale_factor)``; with a scale factor the source
     step is ``1 / scale_factor`` (torch's ``recompute_scale_factor=False``).
+
+    With H split over ranks (``parallel.spatial``): 0.5x averages row pairs,
+    which stay on one rank (every shard starts on an even row); an integer
+    upscale reads one source row beyond each edge of the shard, taken as a
+    halo with the edge row repeated at the global edges (torch clamps
+    there), and the output is cropped by the scale times that row.
     """
     if (scale_factor is None) == (size is None):
         raise ValueError("give exactly one of scale_factor and size")
+    shard = spatial.split()
+    if shard is None or (scale_factor == 0.5 and x.shape[1] % 2 == 0):
+        return _interpolate(x, scale_factor, size)
+    if scale_factor is None or scale_factor < 2 \
+            or not float(scale_factor).is_integer():
+        raise ValueError(f"a resize by {scale_factor or size} of "
+                         f"{x.shape[1]} rows has no row split")
+    s = int(scale_factor)
+    y = _interpolate(spatial.halo(x, 1, 1, "replicate", shard,
+                                  "resize_halo"), scale_factor, None)
+    return y[:, s:y.shape[1] - s]
+
+
+def _interpolate(x, scale_factor, size):
     _, h, w, _ = x.shape
     if size is None:
         oh, ow = int(h * scale_factor), int(w * scale_factor)

@@ -16,19 +16,22 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import spatial
 
-def _taps(ring, frame_idx, flow):
+
+def _taps(ring, frame_idx, flow, row0: int = 0):
     """Bilinear zeros-padding sample of ring frames ``frame_idx`` (B,) at
-    ``grid + flow``; ring (L, H, W, C), flow (B, H, W, 2) (dx, dy).
-    Returns float32 (B, H, W, C)."""
+    ``grid + flow``; ring (L, H, W, C), flow (B, Ho, W, 2) (dx, dy) for the
+    ring's rows ``row0 .. row0 + Ho`` (all of them by default).
+    Returns float32 (B, Ho, W, C)."""
     l, h, w, c = ring.shape
-    b = flow.shape[0]
+    b, ho = flow.shape[:2]
     f = flow.float()
     dev = ring.device
     sx = torch.arange(w, dtype=torch.float32, device=dev)[None, None, :] \
         + f[..., 0]
-    sy = torch.arange(h, dtype=torch.float32, device=dev)[None, :, None] \
-        + f[..., 1]
+    sy = torch.arange(row0, row0 + ho, dtype=torch.float32,
+                      device=dev)[None, :, None] + f[..., 1]
     x0 = torch.floor(sx)
     y0 = torch.floor(sy)
     wx1 = sx - x0
@@ -48,7 +51,7 @@ def _taps(ring, frame_idx, flow):
         xx = x0i + dx
         inside = (yy >= 0) & (yy <= h - 1) & (xx >= 0) & (xx <= w - 1)
         idx = base + yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
-        v = flat.index_select(0, idx.reshape(-1)).reshape(b, h, w, c)
+        v = flat.index_select(0, idx.reshape(-1)).reshape(b, ho, w, c)
         term = v.float() * (wt * inside)[..., None]
         out = term if out is None else out + term
     return out
@@ -56,12 +59,21 @@ def _taps(ring, frame_idx, flow):
 
 def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Warp ``x`` (B, H, W, C) by pixel-unit ``flow`` (B, H, W, 2), last
-    dim (dx, dy): bilinear, zeros padding, align_corners=True."""
+    dim (dx, dy): bilinear, zeros padding, align_corners=True.
+
+    With H split over ranks (``parallel.spatial``) the taps follow the flow
+    anywhere in the frame: the source is gathered whole on every rank and
+    sampled at this rank's rows in global coordinates."""
     if x.ndim != 4 or flow.ndim != 4 or flow.shape[-1] != 2:
         raise ValueError(f"bad shapes x={tuple(x.shape)} "
                          f"flow={tuple(flow.shape)}")
     frames = torch.arange(x.shape[0], device=x.device)
-    return _taps(x, frames, flow).to(x.dtype)
+    shard = spatial.split()
+    if shard is None:
+        return _taps(x, frames, flow).to(x.dtype)
+    start, _ = shard.bounds_at(x.shape[1])
+    source = spatial.gather_rows(x, shard, "warp_gather")
+    return _taps(source, frames, flow, start).to(x.dtype)
 
 
 def flow_warp_ring(ring: torch.Tensor, frame_idx: torch.Tensor,

@@ -10,8 +10,8 @@ is ``replicate``'s counterpart (every rank starts from rank 0's values),
 ``shard_rows`` ``shard_batch``'s (a rank's share of a leading axis), and
 ``all_gather_rows`` the collective of the sharded engine's step.
 
-The JAX mesh's ``'spatial'`` axis (H sharded with halos that XLA inserts)
-has no counterpart yet.
+The JAX mesh's 2-D form, ``("data", "spatial")`` with H sharded over
+``'spatial'``, is ``spatial.make_mesh``.
 """
 from __future__ import annotations
 

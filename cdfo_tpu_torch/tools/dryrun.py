@@ -6,9 +6,13 @@ starts, one card each, or CPU ranks with ``--cpu``:
     torchrun --nproc-per-node 2 -m cdfo_tpu_torch.tools.dryrun --cpu
     python -m cdfo_tpu_torch.tools.dryrun --cpu      # a group of one
 
-It runs two data-parallel train steps of the full-depth CVSR_V8 (seven trunk
-groups, the sampled mask) on a global batch of 2 rows a rank of 7 16x16
-frames, each rank on its own rows, and requires finite losses; saves the
+It lays the ranks out as ``__graft_entry__.py``'s mesh: ``(world / 2, 2)``
+over ``("data", "spatial")`` when the world is even and at least 4, else
+``(world, 1)``. It runs two train steps of the full-depth CVSR_V8 (seven
+trunk groups, the sampled mask) on a global batch of 2 rows a data rank of
+7 16x16 frames, each rank on its rows of its data share and its rows of H
+(``Mesh.split_batch``, ``train_step(..., shard=)``), and requires finite
+losses; saves the
 state on rank 0 and restores it on every rank into a fresh state, whose
 parameters must equal the trained ones; then serves ``2 * world`` frames of
 16x24 through ``ShardedServingEngine`` at ``k_per_device=1`` (a one-group
@@ -48,14 +52,17 @@ def run(device: torch.device, rank: int, world: int) -> str:
     from ..config import ModelConfig, TrainConfig
     from ..infer import synthetic_sequence
     from ..models import CVSRV8
-    from ..parallel import shard_rows
+    from ..parallel import make_mesh
     from ..parallel.serving import ShardedServingEngine
     from ..train.loop import (latest_checkpoint, restore_checkpoint,
                               save_checkpoint)
     from ..train.state import TrainState, train_step
 
-    batch = {k: shard_rows(v, rank, world)
-             for k, v in global_batch(2 * world).items()}
+    shape = (world // 2, 2) if world % 2 == 0 and world >= 4 else (world, 1)
+    mesh = make_mesh(shape, ("data", "spatial"))
+    full = global_batch(2 * shape[0])
+    shard = mesh.shard(full["lrs"].shape[2])
+    batch = mesh.split_batch(full)
     cfg = ModelConfig(mask_mode="sample")
 
     def fresh_state():
@@ -64,7 +71,8 @@ def run(device: torch.device, rank: int, world: int) -> str:
 
     state = fresh_state()
     generator = torch.Generator(device=device).manual_seed(0)
-    losses = [train_step(state, batch, generator).item() for _ in range(2)]
+    losses = [train_step(state, batch, generator, shard=shard).item()
+              for _ in range(2)]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"non-finite losses {losses}")
 
@@ -91,7 +99,8 @@ def run(device: torch.device, rank: int, world: int) -> str:
         synthetic_sequence(t=2 * world, h=16, w=24, seed=7))
     if frames.shape != (2 * world, 64, 96) or frames.dtype != np.uint8:
         raise AssertionError(f"served frames {frames.shape} {frames.dtype}")
-    return (f"dryrun_multichip OK: world={world} ({device.type}) "
+    return (f"dryrun_multichip OK: world={world} ({device.type}) mesh "
+            f"{shape} ('data', 'spatial'), H rows {shard.rows} "
             f"loss0={losses[0]:.2f} loss1={losses[1]:.2f} ckpt-roundtrip ok "
             f"sharded-serving k={eng.k} ok")
 

@@ -22,6 +22,14 @@ the float32 gradients that Adam reads, and the loss beside them, are summed
 over the ranks in one flat all-reduce a step, and every rank then holds the
 global loss, so the non-finite guard decides alike everywhere. Two ranks
 equal one process on the concatenated batch.
+
+Under a ``(data, spatial)`` mesh (``parallel.spatial.make_mesh``) a step
+takes the rank's ``shard``: the batch holds the rank's rows of its data
+share (``Mesh.split_batch``; ``hr`` at four times the rows), the forward
+runs split (``sharded``), and the Charbonnier sum stays per rank. The
+flat all-reduce over the whole world then sums the partial gradients of
+both axes: every rank's gradient is that of its own rows' loss, through
+the split's collectives, so their sum is the global batch's.
 """
 from __future__ import annotations
 
@@ -34,6 +42,7 @@ import torch.distributed as dist
 from ..config import TrainConfig
 from ..losses import charbonnier_loss
 from ..parallel.mesh import broadcast_module, shard_rows
+from ..parallel.spatial import SpatialShard, sharded
 
 MODEL_INPUTS = ("lrs", "mvs0", "mvs1", "pms", "rms", "ufs")
 
@@ -160,25 +169,34 @@ def _draws_noise(model: torch.nn.Module) -> bool:
 
 def _rank_noise(state: TrainState, batch: dict,
                 generator: Optional[torch.Generator],
-                gumbel_u: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+                gumbel_u: Optional[torch.Tensor],
+                shard: Optional[SpatialShard] = None
+                ) -> Optional[torch.Tensor]:
     """A data-parallel rank's rows of the global batch's gumbel draw: the
     neighbours of the rank's B samples, (B * (N - 1), H, W, nf), out of
     ``gumbel_u`` (the global draw, rank-major) or of a global draw from
-    ``generator``, which every rank advances alike."""
+    ``generator``, which every rank advances alike. Under a ``shard`` the
+    rows follow its ``'data'`` index, and H its ``'spatial'`` one."""
     if not _draws_noise(state.model) or (gumbel_u is None and generator is None):
         return gumbel_u
-    rank, world = dist.get_rank(), dist.get_world_size()
+    if shard is None:
+        rank, world = dist.get_rank(), dist.get_world_size()
+    else:
+        rank, world = shard.data_index, shard.data_size
     if gumbel_u is None:
         b, n, h, w, _ = batch["lrs"].shape
+        h = h if shard is None else shard.height
         gumbel_u = torch.rand((world * b * (n - 1), h, w, state.model.cfg.nf),
                               generator=generator, device=state.device)
         gumbel_u.clamp_min_(torch.finfo(torch.float32).tiny)
-    return shard_rows(gumbel_u, rank, world)
+    u = shard_rows(gumbel_u, rank, world)
+    return u if shard is None else shard.take(u)
 
 
 def train_step(state: TrainState, batch: dict,
                generator: Optional[torch.Generator] = None,
-               gumbel_u: Optional[torch.Tensor] = None) -> torch.Tensor:
+               gumbel_u: Optional[torch.Tensor] = None,
+               shard: Optional[SpatialShard] = None) -> torch.Tensor:
     """One optimization step on ``batch`` (``batch['hr']`` the centre
     frame's ground truth (B, 4H, 4W, 1)); returns the loss, a float32
     scalar tensor. ``generator`` / ``gumbel_u``: the sampled EGLA mask's
@@ -187,7 +205,9 @@ def train_step(state: TrainState, batch: dict,
     Data-parallel (``state.data_parallel``): ``batch`` holds the rank's
     rows, ``gumbel_u`` (or the draw from ``generator``) covers the global
     batch, the ranks' rows in rank order, and the loss returned is the
-    global one (``reduce_gradients``).
+    global one (``reduce_gradients``). ``shard``: the rank's rows of a
+    ``(data, spatial)`` mesh (``Mesh.shard``); the batch then holds the
+    rank's rows of H too, and the global draw covers the global H.
 
     Failure containment (`state.py:69-87` of ``cdfo_tpu``): a non-finite
     loss skips the update, so the parameters, the optimizer state and the
@@ -196,10 +216,13 @@ def train_step(state: TrainState, batch: dict,
     state.model.train()
     for p in state.params:
         p.grad = None
+    if shard is not None and not state.data_parallel:
+        raise ValueError("a split train step needs the ranks' process group")
     if state.data_parallel:
-        gumbel_u = _rank_noise(state, batch, generator, gumbel_u)
-    sr, _ = state.model(*model_inputs(batch), generator=generator,
-                        gumbel_u=gumbel_u)
+        gumbel_u = _rank_noise(state, batch, generator, gumbel_u, shard)
+    with sharded(shard):
+        sr, _ = state.model(*model_inputs(batch), generator=generator,
+                            gumbel_u=gumbel_u)
     loss = charbonnier_loss(sr, batch["hr"])
     loss.backward()
     if state.data_parallel:

@@ -174,7 +174,19 @@ CUDA device the script exits non-zero before printing any result):
    cards, the sharded engine over 2 .. all cards (a spawned process each)
    on 12 frames a card against the plain engine on one: frames within
    rounding (>= 50 dB; the bootstrap's batch is k + 6 frames), fps by card
-   count; on one card a line says that (c) did not run.
+   count; on one card a line says that (c) did not run; (d) the
+   ``'spatial'`` axis (``parallel/spatial.py``): the full-width plain
+   CVSR_V8 (nf 64, 7 groups, float32, TF32 off) on one window of 7 frames
+   at 272x480, split over a ``'spatial'`` group of one ((1, 1) mesh) and
+   plain, equal bit for bit, with each forward's launches (the column
+   attention's among them); with two or more cards, spawned ranks over
+   NCCL on the meshes (1, 2) and, with four, (2, 2) and (1, 4) (one
+   window a data rank): each rank's rows within 2e-5 of one card's
+   forward, its ms a forward, peak memory and the bytes each collective
+   moves a forward, and on (1, 2) one LD train step (plain float32, the
+   sampled mask with an injected draw) against the one-card step (losses
+   within 1e-4, parameters within phase 7(b)'s 1e-3 relative L2); on one
+   card a line says that the split runs need two or more.
 11. the rest of training and the perceptual metrics: (a) the native C++
    batcher's build (its command and seconds), one batch at augment off
    against ``TrainBatcher``'s (1 ulp), both batchers' batches/s at the LD
@@ -226,19 +238,21 @@ wrapper (launches from the four-flag run; the int8 ``Block_``'s from path
 A's, the warp's from path B's, and those of the body pair and the probes,
 which no model path runs, from phase 6's run of the tools; the five
 trained wrappers also with ``train_launches_per_step``, their launches in
-one LD training step's forward, and the kernels the inferencer runs with
-``window_launches_per_frame``, from phase 8(b)); the last line is ``{"ok": true,
-"device": {...}}``.
+one LD training step's forward, the kernels the inferencer runs with
+``window_launches_per_frame``, from phase 8(b), and those of a split
+forward with ``spatial_launches_per_forward``, from phase 10(d)); the last
+line is ``{"ok": true, "device": {...}}``.
 
     python3 chip_smoke.py --train
     python3 chip_smoke.py --eval
     python3 chip_smoke.py --zoo
     python3 chip_smoke.py --parallel
+    python3 chip_smoke.py --spatial
     python3 chip_smoke.py --train-extras
     python3 chip_smoke.py --library
 
-build the kernels and run phase 7, phase 8, phase 9, phase 10, phase 11 or
-phase 12 alone.
+build the kernels and run phase 7, phase 8, phase 9, phase 10, phase
+10(d), phase 11 or phase 12 alone.
 
     python3 chip_smoke.py --profile
 
@@ -270,6 +284,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import ctypes
@@ -310,11 +325,13 @@ from cdfo_tpu_torch.ops import probe_dma as pm
 from cdfo_tpu_torch.ops import probe_dots as pd
 from cdfo_tpu_torch.ops import warp_block as wb
 from cdfo_tpu_torch.ops.warp import flow_warp_ring
-from cdfo_tpu_torch.parallel import initialize_distributed
+from cdfo_tpu_torch.parallel import initialize_distributed, make_mesh, sharded
+from cdfo_tpu_torch.parallel import spatial
 from cdfo_tpu_torch.parallel.serving import ShardedServingEngine
 from cdfo_tpu_torch.tools import captured, event_ms, microbench_dma
 from cdfo_tpu_torch.tools import eval_jctvc, gumbel_variance, int8_delta
 from cdfo_tpu_torch.tools import microbench_dots, microbench_trunk
+from cdfo_tpu_torch.tools.dryrun import global_batch
 from cdfo_tpu_torch.train.loop import train_loop
 from cdfo_tpu_torch.losses import charbonnier_loss
 from cdfo_tpu_torch.train.state import TrainState, model_inputs, train_step
@@ -2727,10 +2744,11 @@ def dp_train_run(root: str, ckpt: str) -> tuple:
     return losses, model, masters, times[2] - times[1], state.data_parallel
 
 
-def check_parallel(card: str) -> None:
+def check_parallel(card: str) -> dict:
     """Phase 10: (b)'s non-distributed run first, then a process group of
     one card (NCCL) for (a) and (b)'s distributed run, destroyed after;
-    then (c) over every card, when there are two or more."""
+    then (c) over every card, when there are two or more; then (d), the
+    'spatial' axis. Returns (d)'s launches a split forward."""
     deterministic = torch.backends.cudnn.deterministic
     with tempfile.TemporaryDirectory(prefix="cdfo_parallel_") as tmp:
         root = os.path.join(tmp, "cvcp")
@@ -2774,8 +2792,9 @@ def check_parallel(card: str) -> None:
         print(f"phase 10(c) did not run: {cards} card on this machine; the "
               f"sharded engine over several cards needs two or more",
               flush=True)
-        return
-    check_multi_card(card, cards)
+    else:
+        check_multi_card(card, cards)
+    return check_spatial(card)
 
 
 def parallel_rank(rank: int, world: int, port: int, out: str) -> None:
@@ -2844,6 +2863,259 @@ def check_multi_card(card: str, cards: int) -> None:
             raise AssertionError("the multi-card frames differ from the "
                                  f"plain engine's by more than rounding: "
                                  f"{quality:.2f} dB")
+
+
+# -- phase 10(d): the 'spatial' axis ---------------------------------------------
+
+SPATIAL_FRAME = (7, 272, 480)
+# the meshes (data, spatial) split over two and over four cards
+SPATIAL_MESHES = {2: [(1, 2)], 4: [(1, 2), (2, 2), (1, 4)]}
+SPATIAL_TOL = 2e-5
+SPATIAL_REPS = 3
+
+
+def spatial_window(b: int) -> dict:
+    """``b`` seeded windows of 7 frames at 272x480 (the dry run's draws)."""
+    n, h, w = SPATIAL_FRAME
+    batch = global_batch(b, n, h, w)
+    del batch["hr"]
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+@torch.inference_mode()
+def spatial_forward(model, inputs: dict, shard=None) -> tuple:
+    """One forward of ``inputs`` (split under ``shard``): (SR, ms by the
+    host clock around a synchronised run, the launches of the model-path
+    wrappers)."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sharded(shard):
+        sr, _ = model(*model_inputs(inputs))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return sr, ms, {k: v for k, v in path_launch_counts().items() if v}
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms (cuDNN's among them) inside the
+    block: on the card two runs of one float32 forward differ in the last
+    bits otherwise."""
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = cudnn
+
+
+def check_spatial_one_card(card: str) -> dict:
+    """Phase 10(d) on one card: the full-width plain CVSR_V8 (nf 64, seven
+    trunk groups, float32, TF32 off) on one window of 7 frames at 272x480,
+    plain and split over a ``'spatial'`` group of one ((1, 1) mesh), with
+    deterministic algorithms, which must agree bit for bit; the launches of
+    each forward."""
+    no_tf32()
+    model = seeded_model(ModelConfig())
+    inputs = spatial_window(1)
+    shard = make_mesh((1, 1), ("data", "spatial")).shard(SPATIAL_FRAME[1])
+    with deterministic_algorithms():
+        spatial_forward(model, inputs)                 # warm-up
+        plain, plain_ms, plain_launches = spatial_forward(model, inputs)
+        torch.cuda.reset_peak_memory_stats()
+        split, split_ms, split_launches = spatial_forward(model, inputs,
+                                                          shard)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    same = torch.equal(plain, split)
+    print(f"phase 10(d) 'spatial' axis, one card: CVSR_V8 nf=64, 7 groups, "
+          f"plain, fp32 (TF32 off), 1 window of 7 frames at "
+          f"{SPATIAL_FRAME[1]}x{SPATIAL_FRAME[2]} -> "
+          f"{tuple(split.shape)}, deterministic algorithms; a (1, 1) mesh "
+          f"(a 'spatial' group of one) against the plain forward: equal bit "
+          f"for bit {same} (max abs diff "
+          f"{(plain - split).abs().max().item():.3e}); ms a "
+          f"forward {split_ms:.1f} / plain {plain_ms:.1f}; peak memory "
+          f"{peak:.2f} GiB; launches a forward {split_launches} / plain "
+          f"{plain_launches} [{card}]", flush=True)
+    if not same or split_launches != plain_launches \
+            or not split_launches.get("column"):
+        raise AssertionError("the split over one card differs from the "
+                             "plain forward, or launched no column "
+                             "attention")
+    del model
+    torch.cuda.empty_cache()
+    return split_launches
+
+
+def spatial_train_batch() -> tuple:
+    """The LD preset's batch (20 windows of 7 64x64 crops, the dry run's
+    draws) and its global gumbel draw, on the CPU."""
+    batch = global_batch(*LD_BATCH[:2], LD_BATCH[2], LD_BATCH[2])
+    b, n = LD_BATCH[:2]
+    u = torch.rand((b * (n - 1), LD_BATCH[2], LD_BATCH[2], 64),
+                   generator=torch.Generator().manual_seed(5)) \
+        .clamp_min(torch.finfo(torch.float32).tiny)
+    return batch, u
+
+
+def spatial_train_step(batch, u, shard=None) -> tuple:
+    """One train step of the plain float32 CVSR_V8 (seven groups, the
+    sampled mask, the seeded weights) on ``batch`` with the draw ``u``:
+    (loss, the parameters after, on the CPU)."""
+    model = seeded_model(ModelConfig(mask_mode="sample"))
+    state = TrainState(model, TrainConfig())
+    loss = train_step(state, batch, gumbel_u=u.cuda(), shard=shard).item()
+    return loss, {n: p.detach().cpu() for n, p in model.state_dict().items()}
+
+
+def spatial_rank(rank: int, world: int, port: int, shape, out: str) -> None:
+    """Phase 10(d)'s rank on ``shape``'s mesh over NCCL: one card's forward
+    of the whole batch (one window a data rank) on this rank's card, then
+    the split forward (warm-up, then ``SPATIAL_REPS`` timed), this rank's
+    rows held against the whole one's; its peak memory and the bytes each
+    collective moves a forward. On (1, 2) also one LD train step, split."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    initialize_distributed("cuda")
+    try:
+        no_tf32()
+        model = seeded_model(ModelConfig())
+        inputs = spatial_window(shape[0])
+        spatial_forward(model, inputs)                  # warm-up
+        whole, whole_ms, _ = spatial_forward(model, inputs)
+        mesh = make_mesh(shape, ("data", "spatial"))
+        shard = mesh.shard(SPATIAL_FRAME[1])
+        mine = mesh.split_batch(inputs)
+        spatial_forward(model, mine, shard)             # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(SPATIAL_REPS):
+            spatial.collective_bytes.clear()
+            spatial.collective_calls.clear()
+            sr, ms, launches = spatial_forward(model, mine, shard)
+            times.append(ms)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        moved = dict(spatial.collective_bytes)
+        calls = dict(spatial.collective_calls)
+        per = whole.shape[0] // shape[0]
+        ref = shard.take(whole[mesh.data_index * per:
+                               (mesh.data_index + 1) * per])
+        err = (sr - ref).abs().max().item()
+        # the side encoder's gather alone: its 16 channels of every frame
+        side = torch.zeros((shape[0] * SPATIAL_FRAME[0],
+                            shard.rows[shard.index], SPATIAL_FRAME[2], 16),
+                           device=sr.device)
+        gather_ms = median_ms(lambda: spatial.gather_rows(side, shard))
+        result = {"rank": rank, "shape": list(shape), "rows": list(shard.rows),
+                  "index": shard.index, "err": err,
+                  "scale": whole.abs().max().item(), "ms": times,
+                  "whole_ms": whole_ms, "peak_gib": peak,
+                  "launches": launches,
+                  "bytes": moved, "calls": calls,
+                  "side_gather_ms": gather_ms}
+        del model, whole, sr
+        torch.cuda.empty_cache()
+        if shape == (1, 2):
+            batch, u = spatial_train_batch()
+            loss, params = spatial_train_step(
+                mesh.split_batch(batch), u, mesh.shard(LD_BATCH[2]))
+            result["loss"] = loss
+            if rank == 0:
+                torch.save(params, os.path.join(out, "params.pt"))
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_spatial_cards(card: str, cards: int) -> None:
+    """Phase 10(d) over 2 .. 4 cards: each mesh of ``SPATIAL_MESHES`` in
+    spawned ranks over NCCL, every rank's rows within ``SPATIAL_TOL`` of one
+    card's forward; on (1, 2) one LD train step against the one-card step
+    of this process (losses within 1e-4, parameters within phase 7(b)'s
+    1e-3 relative L2)."""
+    import socket
+
+    import torch.multiprocessing as mp
+    no_tf32()
+    batch, u = spatial_train_batch()
+    torch.cuda.reset_peak_memory_stats()
+    one_loss, one_params = spatial_train_step(batch, u)
+    one_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    meshes = SPATIAL_MESHES[4 if cards >= 4 else 2]
+    for shape in meshes:
+        n = shape[0] * shape[1]
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        with tempfile.TemporaryDirectory(prefix="cdfo_spatial_") as out:
+            mp.start_processes(spatial_rank, args=(n, port, shape, out),
+                               nprocs=n, start_method="spawn", join=True)
+            results = []
+            for r in range(n):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    results.append(json.load(f))
+            params = (torch.load(os.path.join(out, "params.pt"))
+                      if shape == (1, 2) else None)
+        for got in results:
+            print(f"phase 10(d) 'spatial' axis, mesh {tuple(shape)} over {n} "
+                  f"cards (NCCL), CVSR_V8 nf=64, 7 groups, plain, fp32 (TF32 "
+                  f"off), {shape[0]} window(s) of 7 frames at "
+                  f"{SPATIAL_FRAME[1]}x{SPATIAL_FRAME[2]}, rank "
+                  f"{got['rank']} (rows {got['rows']}, index {got['index']}):"
+                  f" max abs diff to one card's forward {got['err']:.3e} (max"
+                  f" |SR| {got['scale']:.3f}, tolerance {SPATIAL_TOL}); ms a "
+                  f"forward {[round(t, 1) for t in got['ms']]} (one card, "
+                  f"whole batch, {got['whole_ms']:.1f}); peak memory "
+                  f"{got['peak_gib']:.2f} GiB; launches a forward "
+                  f"{got['launches']}; collective bytes a forward "
+                  f"{got['bytes']} in calls {got['calls']}; the side "
+                  f"encoder's gather alone {got['side_gather_ms']:.3f} ms "
+                  f"[{card}]", flush=True)
+            if not got["err"] <= SPATIAL_TOL * max(1.0, got["scale"]) \
+                    or not got["launches"].get("column"):
+                raise AssertionError(f"mesh {shape} rank {got['rank']} "
+                                     f"differs from one card's forward")
+        if params is None:
+            continue
+        losses = [got["loss"] for got in results]
+        loss_err = max(abs(a - one_loss) / abs(one_loss) for a in losses)
+        param_err = max((rel_l2(params[k], p), k)
+                        for k, p in one_params.items())
+        print(f"phase 10(d) LD train step (batch {LD_BATCH[0]} of 7 "
+              f"{LD_BATCH[2]}x{LD_BATCH[2]} crops, "
+              f"sampled mask with an injected draw, plain fp32) on mesh "
+              f"{tuple(shape)}: losses {losses} against one card's "
+              f"{one_loss} (rel {loss_err:.3e}); worst parameter rel L2 "
+              f"{param_err[0]:.3e} ({param_err[1]}); one card's peak "
+              f"memory {one_peak:.2f} GiB [{card}]", flush=True)
+        if not (loss_err <= 1e-4 and param_err[0] <= 1e-3):
+            raise AssertionError("the split train step differs from one "
+                                 "card's")
+
+
+def check_spatial(card: str) -> dict:
+    """Phase 10(d): one card, then the meshes over two or more cards where
+    the machine has them."""
+    launches = check_spatial_one_card(card)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"phase 10(d) split runs did not run: {cards} card on this "
+              f"machine; a split over the 'spatial' axis needs two or more",
+              flush=True)
+    else:
+        check_spatial_cards(card, cards)
+    return launches
 
 
 # -- phase 11: the native batcher, the soak, LPIPS and the wavelet loss -------
@@ -3490,6 +3762,9 @@ def main():
     if sys.argv[1:2] == ["--parallel"]:
         check_parallel(card)
         return
+    if sys.argv[1:2] == ["--spatial"]:
+        check_spatial(card)
+        return
     if sys.argv[1:2] == ["--train-extras"]:
         check_train_extras(card)
         return
@@ -3548,7 +3823,7 @@ def main():
     train_launches = check_training(card)
     window_launches_per_frame = check_eval(card)
     zoo_launches_per_run = check_zoo(card)
-    check_parallel(card)
+    spatial_launches = check_parallel(card)
     check_train_extras(card)
     check_library(card)
 
@@ -3579,6 +3854,9 @@ def main():
                zoo_launches_per_run.items() if counts.get(kind)}
         if zoo:
             entry["zoo_launches_per_run"] = zoo
+        # a split forward's launches (phase 10(d), one card)
+        if spatial_launches.get(kind):
+            entry["spatial_launches_per_forward"] = spatial_launches[kind]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

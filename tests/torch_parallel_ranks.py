@@ -1,4 +1,5 @@
-"""The ranks of ``tests/test_torch_parallel.py``: functions that
+"""The ranks of ``tests/test_torch_parallel.py`` and
+``tests/test_torch_spatial.py``: functions that
 ``torch.multiprocessing`` starts in fresh processes, one per rank, joined
 into a gloo process group by ``cdfo_tpu_torch.parallel.initialize_distributed``
 through torchrun's environment. Each writes what it saw to
@@ -15,7 +16,8 @@ from cdfo_tpu_torch import ModelConfig
 from cdfo_tpu_torch.config import DataConfig, TrainConfig
 from cdfo_tpu_torch.infer import synthetic_sequence
 from cdfo_tpu_torch.models import CVSRV8
-from cdfo_tpu_torch.parallel import initialize_distributed, shard_rows
+from cdfo_tpu_torch.parallel import (initialize_distributed, make_mesh,
+                                     shard_rows, sharded)
 from cdfo_tpu_torch.parallel.serving import ShardedServingEngine
 from cdfo_tpu_torch.train import loop as tloop
 from cdfo_tpu_torch.train import state as tstate
@@ -167,3 +169,47 @@ def loop_runs(rank, world, root, out) -> dict:
             "files": sorted(os.listdir(ckpt_dir)),
             "final": {k: v.clone() for k, v in
                       second.model.state_dict().items()}}
+
+
+# -- the 'spatial' axis ----------------------------------------------------------
+
+def _tensors(arrays) -> dict:
+    return {k: torch.from_numpy(v) for k, v in arrays.items()}
+
+
+def split_forward(mesh, weights, cfg, inputs: dict) -> dict:
+    """The rank's rows of a forward split over ``mesh`` (no gradient):
+    its output rows, its data index and its rows' bounds at 4H."""
+    model = tiny_model(weights, cfg, 0)
+    mine = mesh.split_batch(_tensors(inputs))
+    shard = mesh.shard(inputs["lrs"].shape[2])
+    with torch.no_grad(), sharded(shard):
+        sr, l1 = model(*(mine[k] for k in tstate.MODEL_INPUTS))
+    return {"sr": sr, "l1": l1, "data_index": mesh.data_index,
+            "bounds": shard.bounds_at(4 * shard.rows[shard.index])}
+
+
+def spatial_rank(rank, world, port, jobs, out):
+    """``jobs``: (name, mesh shape, kind, weights, cfg, payload); kind
+    ``"forward"`` runs ``split_forward`` on the inputs ``payload``,
+    ``"train"`` two ``train_step``s on the rank's rows of the batches
+    ``payload[0]`` with the global gumbel draw ``payload[1]``, saving the
+    global losses and the parameters after them."""
+    _join(rank, world, port)
+    result = {}
+    for name, shape, kind, weights, cfg, payload in jobs:
+        mesh = make_mesh(shape, ("data", "spatial"))
+        if kind == "forward":
+            result[name] = split_forward(mesh, weights, cfg, payload)
+            continue
+        batches, u = payload
+        state = tstate.TrainState(tiny_model(weights if rank == 0 else None,
+                                             cfg, rank), TrainConfig())
+        shard = mesh.shard(batches[0]["lrs"].shape[2])
+        losses = [tstate.train_step(state, mesh.split_batch(b),
+                                    gumbel_u=torch.from_numpy(u),
+                                    shard=shard).item() for b in batches]
+        result[name] = {"losses": losses, "params": {
+            k: v.clone() for k, v in state.model.state_dict().items()}}
+    _save(out, "spatial", rank, result)
+    dist.destroy_process_group()
